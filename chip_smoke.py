@@ -33,8 +33,6 @@ import time
 from pathlib import Path
 
 ROUNDS = 2
-MAIN_TASK = dict(kind="dose", volume=(128, 128, 128), num_oars=9,
-                 base_filters=24, num_levels=4, sites=4, batch=1)
 FP32_TOL = dict(rtol=1e-6, atol=1e-6)    # FMA contraction and sum order differ
 BF16_TOL = dict(rtol=2e-2, atol=2e-2)    # one bf16 rounding of the output
 # Published peaks (NVIDIA data sheets, dense): memory bytes/s and fp32
@@ -109,11 +107,11 @@ def check_fedagg(torch, fedagg, ref, dev):
     return err32, timing
 
 
-def run_main_path(torch, FederatedJob, TaskConfig, build):
+def run_main_path(torch, FederatedJob, TaskConfig, build, task):
     torch.backends.cudnn.allow_tf32 = True         # PyTorch's default, stated
     torch.backends.cuda.matmul.allow_tf32 = False  # PyTorch's default, stated
     print("main path: cudnn.allow_tf32=True, matmul.allow_tf32=False")
-    job = FederatedJob(task=TaskConfig(**MAIN_TASK), strategy="fedavg",
+    job = FederatedJob(task=TaskConfig(**task), strategy="fedavg",
                        rounds=ROUNDS)
     torch.cuda.reset_peak_memory_stats()
     build.reset_launches()
@@ -123,10 +121,11 @@ def run_main_path(torch, FederatedJob, TaskConfig, build):
     launches = dict(build.LAUNCHES)
     for h in result.history:
         print(f"round {h['round']}: loss {h['loss']:.6f} per-site "
-              f"{[round(v, 6) for v in h['per_site_loss']]} step_s {h['step_s']:.3f}")
+              f"{[round(v, 6) for v in h['per_site_loss']]} batch_s "
+              f"{h['batch_s']:.4f} step_s {h['step_s']:.4f} wall_s {h['wall_s']:.4f}")
     n_params = sum(t.numel() for t in _leaves(result.global_params))
     peak = torch.cuda.max_memory_allocated()
-    print(f"main path: {ROUNDS} rounds in {wall:.1f} s, {n_params} parameters, "
+    print(f"main path: {ROUNDS} rounds in {wall:.1f} s with set-up, {n_params} parameters, "
           f"peak memory {peak / 2**30:.2f} GiB")
     print(f"kernels launched on the main path: {launches}")
     if not all(math.isfinite(v) for h in result.history for v in h["per_site_loss"]):
@@ -171,6 +170,7 @@ def main() -> int:
         return 2
     sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
     from repro_torch.api import FederatedJob, TaskConfig
+    from repro_torch.configs.sanet_openkbp import OPENKBP_TASK
     from repro_torch.kernels import build, fedagg, ops, ref
 
     smi = subprocess.run(["nvidia-smi", "-i", "0", "--query-gpu=name,power.limit",
@@ -186,7 +186,7 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     err32, timing = check_fedagg(torch, fedagg, ref, torch.device("cuda"))
-    launches = run_main_path(torch, FederatedJob, TaskConfig, build)
+    launches = run_main_path(torch, FederatedJob, TaskConfig, build, OPENKBP_TASK)
     check_small_job(torch, FederatedJob, TaskConfig)
 
     kernels = []

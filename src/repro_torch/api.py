@@ -222,12 +222,14 @@ class FederatedJob:
         return RoundRecorder(rounds, verbose=self.verbose,
                              log_every=self.log_every, num_sites=num_sites)
 
-    def run(self, rounds: Optional[int] = None, init_params=None) -> JobResult:
+    def run(self, rounds: Optional[int] = None, init_params=None,
+            on_round: Optional[Callable[[int], None]] = None) -> JobResult:
         """Execute the federation.  ``init_params`` (one unstacked
-        parameter tree) replaces the seeded initialization."""
+        parameter tree) replaces the seeded initialization; ``on_round(r)``
+        is called after each round, outside its timed span."""
         return resolve_transport(self.transport).execute(
             self, self.rounds if rounds is None else rounds,
-            init_params=init_params)
+            init_params=init_params, on_round=on_round)
 
 
 # ---------------------------------------------------------------------------
@@ -240,8 +242,8 @@ class Transport:
 
     name = "base"
 
-    def execute(self, job: FederatedJob, rounds: int,
-                init_params=None) -> JobResult:
+    def execute(self, job: FederatedJob, rounds: int, init_params=None,
+                on_round=None) -> JobResult:
         raise NotImplementedError
 
 
@@ -250,13 +252,13 @@ class StackedTransport(Transport):
 
     name = "stacked"
 
-    def execute(self, job: FederatedJob, rounds: int,
-                init_params=None) -> JobResult:
+    def execute(self, job: FederatedJob, rounds: int, init_params=None,
+                on_round=None) -> JobResult:
         scheduler = resolve_scheduler(job.scheduler)
         job.check_ported()
         from repro_torch.core import round_engine
         return round_engine.run_sync(job, job.task.build(), scheduler, rounds,
-                                     init_params=init_params)
+                                     init_params=init_params, on_round=on_round)
 
 
 def resolve_transport(spec) -> Transport:

@@ -17,32 +17,16 @@ from repro_torch import NotPorted
 from repro_torch.core.dropout import SiteAvailability
 
 
-class RoundScheduler:
-    """When do uploads become a new global model, and at what weight?"""
-
-    name: str = "base"
-
-    def discount(self, staleness: int) -> Optional[float]:
-        raise NotImplementedError
-
-    def ready(self, buffered: int, expected: int) -> bool:
-        raise NotImplementedError
-
-
 @dataclass
-class SyncScheduler(RoundScheduler):
-    """Barrier semantics: current-round uploads only, wait for all."""
+class SyncScheduler:
+    """Barrier semantics: current-round uploads only, wait for all.  The
+    port's round loop is that barrier, so the scheduler only names it;
+    the reference's ``discount``/``ready`` come with buffered scheduling."""
 
     name = "sync"
 
-    def discount(self, staleness: int) -> Optional[float]:
-        return 1.0 if staleness == 0 else None
 
-    def ready(self, buffered: int, expected: int) -> bool:
-        return buffered >= expected
-
-
-def resolve_scheduler(spec: Union[str, RoundScheduler, None]) -> RoundScheduler:
+def resolve_scheduler(spec: Union[str, SyncScheduler, None]) -> SyncScheduler:
     if spec is None or spec == "sync":
         return SyncScheduler()
     if isinstance(spec, SyncScheduler):

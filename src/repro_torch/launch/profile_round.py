@@ -1,14 +1,16 @@
 """Where one round of the main path spends its time on the card.
 
-    python -m repro_torch.launch.profile_round [--volume 128] [--sites 4]
+    python -m repro_torch.launch.profile_round [--trace DIR]
 
-(with ``src`` on ``PYTHONPATH``).  Builds the full-width SA-Net dose FedAvg
-job through the port's own pieces, runs ``--warmup`` rounds, then traces
-one round with ``torch.profiler`` and prints: the round's host wall time
-and host batch-generation time, the device busy time and idle share,
-the time of each CUDA kernel group, and the top kernels by device time.
-With ``--trace DIR`` the Chrome trace is written there.  Needs a card;
-it refuses to run on the CPU.
+(with ``src`` on ``PYTHONPATH``).  Runs the full-width SA-Net dose FedAvg
+job (``configs/sanet_openkbp.OPENKBP_TASK``) for 2 rounds through
+``FederatedJob.run`` and traces round 1 with ``torch.profiler`` (round 0
+carries the first-call set-up and is not traced).  Prints the round's
+own times from the job's history (``batch_s``, ``step_s``, ``wall_s``),
+the device busy time and idle share, and the device time of each kernel
+group and of the top kernels.  The idle share of the step leaves out the
+batches' host-to-device copy, which ``batch_s`` holds.  With ``--trace DIR`` the Chrome trace is
+written there.  Needs a card; it refuses to run on the CPU.
 """
 from __future__ import annotations
 
@@ -16,16 +18,16 @@ import argparse
 import json
 import re
 import subprocess
-import time
 from collections import defaultdict
 
 import torch
 
 from repro_torch.api import FederatedJob, TaskConfig
-from repro_torch.core import federation as F
+from repro_torch.configs.sanet_openkbp import OPENKBP_TASK
 
 GROUPS = [  # (group, regex over the kernel name), first match wins
     ("fedagg", r"fedagg"),
+    ("batch_h2d", r"Memcpy HtoD"),      # the round's host batches (in batch_s)
     ("conv", r"conv|cudnn|implicit|gemm|wgrad|dgrad|sm90|xmma|cutlass|winograd"),
     ("group_norm", r"group_norm|GroupNorm|RowwiseMoments|ComputeFused|Welford"),
     ("resize", r"upsample|interp|nearest"),
@@ -33,6 +35,7 @@ GROUPS = [  # (group, regex over the kernel name), first match wins
     ("copy", r"copy|Memcpy|Memset|cat|CatArray"),
     ("elementwise", r"elementwise|vectorized|unrolled"),
 ]
+TOP = 15
 
 
 def group_of(name: str) -> str:
@@ -44,10 +47,6 @@ def group_of(name: str) -> str:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--volume", type=int, default=128)
-    ap.add_argument("--sites", type=int, default=4)
-    ap.add_argument("--warmup", type=int, default=1)
-    ap.add_argument("--top", type=int, default=15)
     ap.add_argument("--trace", default=None, help="directory for the Chrome trace")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -56,42 +55,27 @@ def main(argv=None) -> int:
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip())
 
-    job = FederatedJob(task=TaskConfig(
-        kind="dose", volume=(args.volume,) * 3, num_oars=9, base_filters=24,
-        num_levels=4, sites=args.sites, batch=1), rounds=args.warmup + 1)
-    bundle = job.task.build()
-    ctx = job.context(bundle)
-    state = F.init_fl_state(ctx, bundle.init_fn(job.seed))
-    fl_round = F.build_fl_round(ctx)
-    masks = job.masks(job.rounds)
+    traced = []
 
-    def host_batches(r):
-        t0 = time.perf_counter()
-        b = {k: torch.from_numpy(v).to(ctx.device)
-             for k, v in bundle.stacked(r, job.local_steps).items()}
-        torch.cuda.synchronize()
-        return b, time.perf_counter() - t0
+    def on_trace_ready(prof):
+        traced.extend(prof.events())
+        if args.trace:
+            prof.export_chrome_trace(f"{args.trace}/round_trace.json")
 
-    for r in range(args.warmup):
-        b, _ = host_batches(r)
-        state, _ = fl_round(state, b, F.make_round_inputs(ctx, active=masks[r]))
-    torch.cuda.synchronize()
-
-    r = args.warmup
-    b, data_s = host_batches(r)
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        t0 = time.perf_counter()
-        state, metrics = fl_round(state, b, F.make_round_inputs(ctx, active=masks[r]))
-        torch.cuda.synchronize()
-        wall_s = time.perf_counter() - t0
-    if args.trace:
-        prof.export_chrome_trace(f"{args.trace}/round_trace.json")
+    job = FederatedJob(task=TaskConfig(**OPENKBP_TASK), strategy="fedavg", rounds=2)
+    with torch.profiler.profile(
+            activities=acts, on_trace_ready=on_trace_ready,
+            schedule=torch.profiler.schedule(wait=1, warmup=0, active=1,
+                                             repeat=1)) as prof:
+        result = job.run(on_round=lambda r: prof.step())
 
     groups = defaultdict(float)
     kernels = defaultdict(lambda: [0.0, 0])
-    for ev in prof.events():
-        if ev.device_type == torch.autograd.DeviceType.CUDA:
+    for ev in traced:
+        # the device track also holds the profiler's own step span
+        if (ev.device_type == torch.autograd.DeviceType.CUDA
+                and not ev.name.startswith("ProfilerStep")):
             us = ev.time_range.elapsed_us()
             groups[group_of(ev.name)] += us
             kernels[ev.name][0] += us
@@ -100,16 +84,20 @@ def main(argv=None) -> int:
         raise SystemExit("profile_round: torch.profiler recorded no device "
                          "kernels; time the round with CUDA events instead")
     busy_s = sum(groups.values()) / 1e6
+    h = result.history[1]
     report = {
-        "device": torch.cuda.get_device_name(0),
-        "sites": args.sites, "volume": args.volume,
-        "round_wall_s": wall_s, "host_batch_s": data_s,
-        "device_busy_s": busy_s,
-        "device_idle_share": 1.0 - busy_s / wall_s if wall_s else None,
+        "device": torch.cuda.get_device_name(0), "task": OPENKBP_TASK,
+        "round": 1, "batch_s": h["batch_s"], "step_s": h["step_s"],
+        "wall_s": h["wall_s"], "device_busy_s": busy_s,
+        "device_idle_share_of_round": 1.0 - busy_s / h["wall_s"],
+        "device_idle_share_of_step":
+            1.0 - (busy_s - groups["batch_h2d"] / 1e6) / h["step_s"],
         "groups_ms": {g: us / 1e3 for g, us in sorted(groups.items(), key=lambda kv: -kv[1])},
         "top_kernels": [{"name": n[:120], "ms": v[0] / 1e3, "calls": v[1]}
-                        for n, v in sorted(kernels.items(), key=lambda kv: -kv[1][0])[:args.top]],
-        "loss": metrics["loss"].tolist(),
+                        for n, v in sorted(kernels.items(), key=lambda kv: -kv[1][0])[:TOP]],
+        "untraced_round_0": {k: result.history[0][k]
+                             for k in ("batch_s", "step_s", "wall_s")},
+        "loss": result.losses,
         "peak_memory_gib": torch.cuda.max_memory_allocated() / 2**30,
     }
     print(json.dumps(report, indent=1))

@@ -54,6 +54,16 @@ def test_fedavg_trajectory_matches_jax_job(scenario):
     assert tres.comm == jres.comm
 
 
+def test_history_holds_each_rounds_times_and_on_round_sees_each_round():
+    seen = []
+    res = FederatedJob(task=TaskConfig(**TASK), rounds=2, device="cpu").run(
+        on_round=seen.append)
+    assert seen == [0, 1]
+    for h in res.history:
+        assert 0 < h["batch_s"] < h["wall_s"] and 0 < h["step_s"] < h["wall_s"]
+        assert h["wall_s"] == pytest.approx(h["batch_s"] + h["step_s"], rel=1e-3)
+
+
 def test_job_runs_on_cuda_by_default_and_raises_without_it(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):

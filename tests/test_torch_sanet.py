@@ -27,10 +27,16 @@ from repro_torch.tree import tree_leaves, tree_map, tree_unflatten  # noqa: E402
 CFG = dict(in_channels=4, out_channels=1, base_filters=8, num_levels=3)
 
 
+def _jax_init(seed, cfg):
+    """The reference's init, jitted: eager, each leaf's random op compiles
+    on its own, which takes most of this file's time on the CPU."""
+    return jax.jit(J.sanet_init, static_argnums=1)(jax.random.PRNGKey(seed), cfg)
+
+
 @pytest.fixture(scope="module")
 def setup():
     jcfg, tcfg = J.SANetConfig(**CFG), T.SANetConfig(**CFG)
-    jp = J.sanet_init(jax.random.PRNGKey(3), jcfg)
+    jp = _jax_init(3, jcfg)
     tp = convert.from_reference(jax.tree.map(np.asarray, jp))
     rng = np.random.default_rng(0)
     batch = {"volume": rng.normal(size=(2, 16, 16, 16, 4)).astype(np.float32),
@@ -70,14 +76,14 @@ def test_segmentation_loss_matches_reference():
     cfg = dict(in_channels=2, out_channels=3, base_filters=8, num_levels=2,
                task="segmentation")
     jcfg, tcfg = J.SANetConfig(**cfg), T.SANetConfig(**cfg)
-    jp = J.sanet_init(jax.random.PRNGKey(1), jcfg)
+    jp = _jax_init(1, jcfg)
     tp = convert.from_reference(jax.tree.map(np.asarray, jp))
     rng = np.random.default_rng(2)
     batch = {"volume": rng.normal(size=(1, 8, 8, 8, 2)).astype(np.float32),
              "labels": rng.integers(0, 3, (1, 8, 8, 8)).astype(np.int32)}
     for focal in (False, True):
-        jl, _ = J.segmentation_loss(jp, jax.tree.map(jnp.asarray, batch), jcfg,
-                                    use_focal=focal)
+        jl, _ = jax.jit(lambda p, b: J.segmentation_loss(p, b, jcfg, use_focal=focal))(
+            jp, batch)
         tl, _ = T.segmentation_loss(tp, _t(batch), tcfg, use_focal=focal)
         np.testing.assert_allclose(float(tl), float(jl), rtol=1e-5)
 
