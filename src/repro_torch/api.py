@@ -9,9 +9,10 @@ transport:
     result = job.replace(device="cpu").run()
 
 Ported so far: the SA-Net dose task, ``strategy="fedavg"`` (paper Eq. 1)
-with sync rounds on the stacked transport, uncompressed.  Every other
-seam of the reference raises :class:`repro_torch.NotPorted` naming it,
-and never runs something else.
+with sync rounds on the stacked transport, uncompressed or with int8
+uploads and/or downloads (``compression="int8"``,
+``down_compression="int8"``).  Every other seam of the reference raises
+:class:`repro_torch.NotPorted` naming it, and never runs something else.
 
 ``device`` picks where the job runs: ``None`` means ``"cuda"``, which
 raises when CUDA is absent.  Nothing falls back to the CPU: pass
@@ -21,12 +22,13 @@ from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass, field
-from typing import Any, Callable, Dict, Optional, Tuple
+from typing import Any, Callable, Dict, Optional, Tuple, Union
 
 import numpy as np
 import torch
 
 from repro_torch import NotPorted
+from repro_torch.comms.compression import Codec, resolve_codec
 from repro_torch.configs.base import FederationConfig
 from repro_torch.core import federation as F
 from repro_torch.core.session import (JobResult, RoundRecorder,
@@ -140,8 +142,9 @@ class FederatedJob:
     scheduler: Any = "sync"
     topology: str = "flat"
     pod_dropout: int = 0
-    compression: str = "none"
-    down_compression: str = "none"
+    compression: Union[str, Codec] = "none"      # upload codec
+    error_feedback: bool = True         # carry the quantization residual
+    down_compression: Union[str, Codec] = "none"  # download codec
     dp_clip: float = 0.0
     dp_noise_multiplier: float = 0.0
     secure_agg: bool = False
@@ -174,9 +177,6 @@ class FederatedJob:
             ("sample", self.sample != "none", self.sample, "'none'"),
             ("topology", self.topology != "flat" or self.pod_dropout,
              f"{self.topology!r}, pod_dropout={self.pod_dropout}", "'flat'"),
-            ("compression", self.compression != "none", self.compression, "'none'"),
-            ("down_compression", self.down_compression != "none",
-             self.down_compression, "'none'"),
             ("dp", self.dp_clip > 0 or self.dp_noise_multiplier > 0,
              f"dp_clip={self.dp_clip}, noise={self.dp_noise_multiplier}", "off"),
             ("secure_agg", self.secure_agg, "True", "False"),
@@ -190,26 +190,35 @@ class FederatedJob:
         for seam, bad, got, ok in unported:
             if bad:
                 raise NotPorted(seam, str(got), ok)
+        self.codecs()                   # raises for unported codecs
         if self.dropout_scenario not in ("disconnect", "shutdown"):
             raise ValueError(f"unknown dropout_scenario {self.dropout_scenario!r}")
         self.task.model_config()        # raises for unported task kinds
+
+    def codecs(self) -> Tuple[Codec, Codec]:
+        """The (upload, download) codecs; ``none`` or ``int8``."""
+        return (resolve_codec(self.compression, "compression"),
+                resolve_codec(self.down_compression, "down_compression"))
 
     def masks(self, rounds: int) -> np.ndarray:
         """The run's [rounds, S] Algorithm-2 participation schedule."""
         return availability_masks(self.task.sites, self.max_dropout,
                                   self.seed, rounds)
 
-    def federation(self) -> FederationConfig:
+    def federation(self, strategy: Optional[str] = None) -> FederationConfig:
         return FederationConfig(
-            num_sites=self.task.sites, strategy=self.strategy,
+            num_sites=self.task.sites, strategy=strategy or self.strategy,
             local_steps=self.local_steps, rounds=self.rounds,
             max_dropout_sites=self.max_dropout,
             dropout_scenario=self.dropout_scenario,
             site_case_counts=self.case_counts)
 
-    def context(self, bundle: Optional[TaskBundle] = None) -> F.FLContext:
+    def context(self, bundle: Optional[TaskBundle] = None,
+                strategy: Optional[str] = None) -> F.FLContext:
+        """The round loop's view of this job; ``strategy`` overrides the
+        job's (the compressed rounds train under ``individual``)."""
         bundle = bundle or self.task.build()
-        fed = self.federation()
+        fed = self.federation(strategy)
         device = self.torch_device
         return F.FLContext(
             fed=fed,
@@ -248,7 +257,8 @@ class Transport:
 
 
 class StackedTransport(Transport):
-    """Single-process simulator: every site's state in one [S, N] buffer."""
+    """Single-process simulator: every site's state in one [S, N] buffer.
+    A job with a codec in either direction takes the compressed rounds."""
 
     name = "stacked"
 
@@ -256,7 +266,12 @@ class StackedTransport(Transport):
                 on_round=None) -> JobResult:
         scheduler = resolve_scheduler(job.scheduler)
         job.check_ported()
+        codec, down_codec = job.codecs()
         from repro_torch.core import round_engine
+        if codec.name != "none" or down_codec.name != "none":
+            return round_engine.run_compressed(
+                job, job.task.build(), scheduler, rounds, codec,
+                down_codec=down_codec, init_params=init_params, on_round=on_round)
         return round_engine.run_sync(job, job.task.build(), scheduler, rounds,
                                      init_params=init_params, on_round=on_round)
 

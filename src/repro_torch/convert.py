@@ -20,6 +20,12 @@ _DHWIO_TO_OIDHW = (4, 3, 0, 1, 2)
 _OIDHW_TO_DHWIO = (2, 3, 4, 1, 0)
 
 
+def reference_order(shape):
+    """The axis order that views a port leaf of ``shape`` in the
+    reference's element order (``None`` when both orders agree)."""
+    return _OIDHW_TO_DHWIO if len(shape) == 5 else None
+
+
 def from_reference(params):
     """A reference parameter tree (numpy leaves) -> the port's CPU tensors."""
     def leaf(x):

@@ -31,6 +31,7 @@ from repro_torch.core.stacking import broadcast_to_sites
 from repro_torch.core.strategies import base as strat_base
 # strategy modules self-register on import
 from repro_torch.core.strategies import fedavg as _f  # noqa: F401
+from repro_torch.core.strategies import individual as _i  # noqa: F401
 from repro_torch.optim import Optimizer, apply_updates, clip_by_global_norm
 from repro_torch.tree import tree_unflatten
 

@@ -1,9 +1,19 @@
 """Sync rounds on the stacked transport, ported from ``repro/core/round_engine.py``.
 
 The reference compiles chunks of rounds into one donated ``lax.scan``
-(``_run_sync_scan``).  PyTorch runs eagerly, so the port's counterpart is
-a plain round loop: host numpy batches for the round are moved to the
-device, one ``fl_round`` runs, and the per-site losses come back.
+(``_run_sync_scan``, ``_run_compressed_scan``).  PyTorch runs eagerly, so
+the port's counterpart is a plain round loop: host numpy batches for the
+round are moved to the device, one round runs, and the per-site losses
+come back.
+
+- :func:`run_sync`: uncompressed FedAvg rounds.
+- :func:`run_compressed`: FedAvg with int8 uploads, downloads or both.
+  Sites train under the ``individual`` strategy and the loop does the
+  exchange: every site's upload ``u`` (its delta plus the carried
+  error-feedback residual) is quantized and folded by
+  :func:`compressed_fold`, and with downlink compression each site
+  installs its quantized delta against the model it holds
+  (:func:`down_install`).
 
 Each round's history holds its own times: ``batch_s`` (host batch
 generation and the copy to the device), ``step_s`` (the round on the
@@ -11,22 +21,56 @@ device) and ``wall_s`` (both: the end-to-end round).
 """
 from __future__ import annotations
 
+import dataclasses
 import time
-from typing import Callable, Optional
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
+from repro_torch import convert
+from repro_torch.comms.compression import (KEEP_GLOBALS_DEFAULT, Codec,
+                                           align_for, chunk_geom)
 from repro_torch.core import federation as F
-from repro_torch.core.agg_engine import per_site_nbytes
+from repro_torch.core.agg_engine import (RavelLayout, get_engine,
+                                         normalized_weights, per_site_nbytes)
 from repro_torch.core.session import JobResult
 from repro_torch.core.stacking import broadcast_to_sites
+from repro_torch.kernels import ops
 from repro_torch.tree import tree_map
 
 
 def _sync(device: torch.device) -> None:
     if device.type == "cuda":
         torch.cuda.synchronize(device)
+
+
+def _round_loop(job, bundle, ctx, masks: np.ndarray, recorder,
+                step: Callable[[int, Dict[str, torch.Tensor]], torch.Tensor],
+                on_round: Optional[Callable[[int], None]],
+                extra: Callable[[int], Dict] = lambda r: {}) -> None:
+    """Run ``step(r, batches) -> per-site losses`` for every round, timing
+    each one, and record it."""
+    for r in range(len(masks)):
+        _sync(ctx.device)
+        t0 = time.perf_counter()
+        b = {k: torch.from_numpy(v).to(ctx.device)
+             for k, v in bundle.stacked(r, job.local_steps).items()}
+        _sync(ctx.device)
+        t1 = time.perf_counter()
+        losses = step(r, b)
+        _sync(ctx.device)
+        t2 = time.perf_counter()
+        recorder.record(r, losses.cpu().numpy(), masks[r],
+                        extra={**extra(r), "batch_s": t1 - t0, "step_s": t2 - t1,
+                               "wall_s": t2 - t0})
+        if on_round is not None:
+            on_round(r)
+
+
+def _init_state(job, bundle, ctx, init_params):
+    params = init_params if init_params is not None else bundle.init_fn(job.seed)
+    return F.init_fl_state(ctx, tree_map(lambda t: t.to(ctx.device), params))
 
 
 def run_sync(job, bundle, scheduler, rounds: int, init_params=None,
@@ -37,27 +81,17 @@ def run_sync(job, bundle, scheduler, rounds: int, init_params=None,
     after round ``r`` is recorded, outside its timed span (a profiler's
     ``step``, for one)."""
     ctx = job.context(bundle)
-    params = init_params if init_params is not None else bundle.init_fn(job.seed)
-    state = F.init_fl_state(ctx, tree_map(lambda t: t.to(ctx.device), params))
+    state = _init_state(job, bundle, ctx, init_params)
     fl_round = F.build_fl_round(ctx)
     masks = job.masks(rounds)
     recorder = job.recorder(rounds, ctx.fed.num_sites)
-    for r in range(rounds):
-        _sync(ctx.device)
-        t0 = time.perf_counter()
-        b = {k: torch.from_numpy(v).to(ctx.device)
-             for k, v in bundle.stacked(r, job.local_steps).items()}
-        ri = F.make_round_inputs(ctx, active=masks[r])
-        _sync(ctx.device)
-        t1 = time.perf_counter()
-        state, metrics = fl_round(state, b, ri)
-        _sync(ctx.device)
-        t2 = time.perf_counter()
-        recorder.record(r, metrics["loss"].cpu().numpy(), masks[r],
-                        extra={"batch_s": t1 - t0, "step_s": t2 - t1,
-                               "wall_s": t2 - t0})
-        if on_round is not None:
-            on_round(r)
+
+    def step(r, batches):
+        nonlocal state
+        state, metrics = fl_round(state, batches, F.make_round_inputs(ctx, masks[r]))
+        return metrics["loss"]
+
+    _round_loop(job, bundle, ctx, masks, recorder, step, on_round)
     global_params = F.global_model(state, ctx)
     nbytes = per_site_nbytes(broadcast_to_sites(global_params, 1))
     uploads = int(np.asarray(masks).sum())
@@ -66,4 +100,246 @@ def run_sync(job, bundle, scheduler, rounds: int, init_params=None,
             "download_count": uploads, "compression": "none",
             "down_compression": "none", "simulated": True}
     return recorder.result(global_params, transport="stacked",
+                           scheduler=scheduler.name, state=state, comm=comm)
+
+
+# ---------------------------------------------------------------------------
+# On-device int8 codec: the wire codec's per-leaf chunk geometry
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class _Leaf:
+    offset: int                           # in the [.., N] buffer
+    shape: Tuple[int, ...]                # the port's leaf shape
+    order: Optional[Tuple[int, ...]]      # axes into the reference's order
+    row0: int                             # first chunk row in its group
+
+    @property
+    def n(self) -> int:
+        return int(np.prod(self.shape, dtype=np.int64))
+
+
+@dataclasses.dataclass(frozen=True)
+class ChunkPlan:
+    """Where every leaf of a ``[.., N]`` buffer sits in the quantization
+    chunk matrices, grouped by chunk width as the reference's
+    ``_qdq_tree`` groups them.
+
+    Each leaf is cut by :func:`chunk_geom` into whole rows of its own
+    (chunks never cross leaves, so grouping changes no value) and is read
+    in the reference's element order (:func:`repro_torch.convert.reference_order`:
+    conv weights are OIDHW here and DHWIO there), so every chunk holds
+    the elements the reference's chunk holds and the scales agree.
+    ``groups`` is ``((width, rows, leaves), ...)``."""
+
+    groups: Tuple[Tuple[int, int, Tuple[_Leaf, ...]], ...]
+    n: int
+
+    @classmethod
+    def of(cls, layout: RavelLayout, chunk: int, align: int) -> "ChunkPlan":
+        groups: Dict[int, List] = {}
+        for shape, offset in zip(layout.shapes, layout.offsets):
+            rows, width = chunk_geom(int(np.prod(shape, dtype=np.int64)), chunk, align)
+            g = groups.setdefault(width, [0, []])
+            g[1].append(_Leaf(offset, tuple(shape), convert.reference_order(shape), g[0]))
+            g[0] += rows
+        return cls(tuple((w, rows, tuple(leaves)) for w, (rows, leaves) in groups.items()),
+                   layout.n)
+
+    @staticmethod
+    def _views(flat_slice, mat_slice, leaf: _Leaf, lead: int):
+        """(the leaf in the buffer, the same leaf in its chunk rows), as
+        views of one shape in the reference's element order."""
+        src = flat_slice.unflatten(-1, leaf.shape or (1,))
+        if leaf.order is None:
+            return src, mat_slice.unflatten(-1, leaf.shape or (1,))
+        axes = tuple(range(lead)) + tuple(lead + a for a in leaf.order)
+        src = src.permute(axes)
+        return src, mat_slice.unflatten(-1, tuple(src.shape[lead:]))
+
+    def pack(self, flat: torch.Tensor) -> List[torch.Tensor]:
+        """``[.., N]`` -> one zero-padded ``[.., rows, width]`` fp32 matrix
+        per group."""
+        lead = flat.shape[:-1]
+        mats = []
+        for width, rows, leaves in self.groups:
+            mat = flat.new_zeros(lead + (rows * width,))
+            for leaf in leaves:
+                a = leaf.row0 * width
+                src, dst = self._views(flat[..., leaf.offset:leaf.offset + leaf.n],
+                                       mat[..., a:a + leaf.n], leaf, len(lead))
+                dst.copy_(src)
+            mats.append(mat.view(lead + (rows, width)))
+        return mats
+
+    def unpack(self, mats: Sequence[torch.Tensor]) -> torch.Tensor:
+        """Inverse of :meth:`pack` (the padding is dropped)."""
+        lead = mats[0].shape[:-2]
+        out = mats[0].new_empty(lead + (self.n,))
+        for (width, rows, leaves), mat in zip(self.groups, mats):
+            m = mat.reshape(lead + (rows * width,))
+            for leaf in leaves:
+                a = leaf.row0 * width
+                dst, src = self._views(out[..., leaf.offset:leaf.offset + leaf.n],
+                                       m[..., a:a + leaf.n], leaf, len(lead))
+                dst.copy_(src)
+        return out
+
+
+def compressed_fold(u: torch.Tensor, w: torch.Tensor,
+                    plan: ChunkPlan) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One round's server step on every site's upload ``u`` [S, N]:
+    quantize each site's chunks, dequantize them and fold Eq. 1 at weights
+    ``w`` [S].  Returns ``(g [N], residual [S, N])`` with ``g = sum_s w_s *
+    deQ(Q(u_s))`` and ``residual = u - deQ(Q(u))``.  Two launches per chunk
+    width (``quantize_int8``, ``fedagg_dequant``): the kernels on CUDA, the
+    plain versions on the CPU."""
+    g_mats, r_mats = [], []
+    for mat in plan.pack(u):
+        s, rows, width = mat.shape
+        q, sc = ops.quantize_int8(mat.view(s * rows, width))
+        g, r = ops.fedagg_dequant(q.view(s, rows, width), sc.view(s, rows), mat, w)
+        g_mats.append(g)
+        r_mats.append(r)
+    return plan.unpack(g_mats), plan.unpack(r_mats)
+
+
+def down_install(g: torch.Tensor, held: torch.Tensor, plan: ChunkPlan) -> torch.Tensor:
+    """Every site's compressed install: the model it holds (``held``
+    [S, N]) plus the quantized delta of the global ``g`` [N] against it.
+    Feeding the result back as the next round's ``held`` is the downlink
+    error-feedback recurrence ``held <- held + deQ(Q(g - held))``.  Two
+    launches per chunk width (``quantize_int8``, ``dequant_install``)."""
+    out = []
+    for d, h in zip(plan.pack(g[None] - held), plan.pack(held)):
+        s, rows, width = d.shape
+        q, sc = ops.quantize_int8(d.view(s * rows, width))
+        out.append(ops.dequant_install(q.view(s, rows, width), sc.view(s, rows), h))
+    return plan.unpack(out)
+
+
+def encoded_nbytes(shapes: Sequence[Tuple[int, ...]], chunk: int, align: int) -> int:
+    """Wire payload bytes of ONE quantized model with leaves of ``shapes``:
+    1-byte values plus an fp32 scale per chunk row."""
+    total = 0
+    for shape in shapes:
+        rows, width = chunk_geom(int(np.prod(shape, dtype=np.int64)), chunk, align)
+        total += rows * width + rows * 4
+    return total
+
+
+def bootstrap_masks(masks: np.ndarray, keep: int) -> np.ndarray:
+    """[rounds, S]: which (round, site) exchanges bootstrap dense under
+    bidirectional compression: the site's previous participation is
+    ``keep`` or more rounds back, or it never participated."""
+    rounds, s = masks.shape
+    last = np.full(s, -keep, np.int64)          # "never": forces bootstrap
+    boot = np.zeros((rounds, s), bool)
+    for r in range(rounds):
+        boot[r] = masks[r] & (r - last >= keep)
+        last[masks[r]] = r
+    return boot
+
+
+def run_compressed(job, bundle, scheduler, rounds: int, codec: Codec,
+                   down_codec: Optional[Codec] = None, init_params=None,
+                   on_round: Optional[Callable[[int], None]] = None) -> JobResult:
+    """``rounds`` sync FedAvg rounds with int8 uploads (``codec``), int8
+    downloads (``down_codec``) or both; arguments as :func:`run_sync`.
+
+    The chunk layout follows the job's device as the reference's follows
+    its backend: ``align=128`` and the CUDA kernels on a card, ``align=1``
+    and their plain versions on the CPU.  The values are the same under
+    both; the byte counts are each layout's own.
+
+    Up only: ``u = params - ref + residual``, and the server's reference
+    ``ref`` (the global model) advances by the fold.  With the downlink,
+    every site holds its own install ``held``: uploads anchor to it, the
+    global is ``g = sum_s w_s (anchor_s + deQ(u_s))``, and each active site
+    installs ``held + deQ(Q(g - held))``.  A site whose last exchange is
+    ``KEEP_GLOBALS_DEFAULT`` rounds old or more (round 0 for everyone)
+    bootstraps dense both ways.  Without the uplink, uploads are dense
+    and ``g`` is the plain Eq. 1 fold.  The error-feedback residual is
+    replaced on active rows only; inactive rows keep their weights."""
+    ctx = job.context(bundle, strategy="individual")        # local-only rounds
+    state = _init_state(job, bundle, ctx, init_params)
+    fl_round = F.build_fl_round(ctx)
+    layout = state["layout"]
+    masks = job.masks(rounds)
+    recorder = job.recorder(rounds, ctx.fed.num_sites)
+    engine = get_engine()
+    align = align_for(ctx.device)
+    up = codec.name != "none"
+    down = down_codec is not None and down_codec.name != "none"
+    plan = ChunkPlan.of(layout, codec.chunk, align) if up else None
+    d_plan = ChunkPlan.of(layout, down_codec.chunk, align) if down else None
+    error_feedback = bool(job.error_feedback)
+    s, n = state["params"].shape
+    dev = ctx.device
+    ref = torch.zeros((n,), dtype=torch.float32, device=dev)   # round 0: zeros
+    res = torch.zeros((s, n), dtype=torch.float32, device=dev)
+    held = torch.zeros((s, n), dtype=torch.float32, device=dev) if down else None
+    boot_mask = bootstrap_masks(masks, KEEP_GLOBALS_DEFAULT) if down else None
+
+    def step(r, batches):
+        nonlocal state, ref, res, held
+        active = np.asarray(masks[r], bool)
+        state, metrics = fl_round(state, batches, F.make_round_inputs(ctx, active))
+        params = state["params"]
+        w = normalized_weights(ctx.case_weights, active)
+        act = torch.as_tensor(active, device=dev)[:, None]
+        if down:
+            boot = torch.as_tensor(boot_mask[r], device=dev)[:, None]
+            # upload anchor: the site's own install; a bootstrap row is dense
+            anchor = torch.where(boot, torch.zeros_like(held), held)
+            if up:
+                gdelta, new_res = compressed_fold(params - anchor + res, w, plan)
+                if error_feedback:
+                    res = torch.where(act, new_res, res)
+                ref = engine.reduce_flat(anchor, w) + gdelta
+            else:
+                ref = engine.reduce_flat(params, w)
+            inst = torch.where(boot, ref[None], down_install(ref, held, d_plan))
+            held = torch.where(act, inst, held)
+            rows = inst
+        else:
+            gdelta, new_res = compressed_fold(params - ref[None] + res, w, plan)
+            if error_feedback:
+                res = torch.where(act, new_res, res)
+            ref = ref + gdelta
+            rows = ref[None].expand(s, n)
+        for i in np.flatnonzero(active):
+            params[i].copy_(rows[i])       # broadcast; AdamW moments are kept
+        return metrics["loss"]
+
+    # host-precomputed per-round wire bytes, as the reference counts them;
+    # a bootstrap download is the dense fp32 model
+    dense = 4 * n                          # init_fl_state holds fp32 rows
+    up_bytes = encoded_nbytes(layout.shapes, codec.chunk, align) if up else dense
+    round_up = masks.sum(axis=1).astype(np.int64) * up_bytes
+    if down:
+        down_bytes = encoded_nbytes(layout.shapes, down_codec.chunk, align)
+        round_down = np.where(masks, np.where(boot_mask, dense, down_bytes), 0).sum(axis=1)
+    else:
+        round_down = masks.sum(axis=1).astype(np.int64) * dense
+
+    def extra(r):
+        out = {"upload_bytes": int(round_up[r])}
+        if down:
+            out["download_bytes"] = int(round_down[r])
+        return out
+
+    _round_loop(job, bundle, ctx, masks, recorder, step, on_round, extra)
+    uploads = int(masks.sum())
+    comm = {"upload_bytes": int(round_up.sum()),
+            "upload_raw_bytes": uploads * dense,
+            "download_bytes": int(round_down.sum()),
+            "download_raw_bytes": uploads * dense,
+            "total_bytes": int(round_up.sum() + round_down.sum()),
+            "upload_count": uploads, "download_count": uploads,
+            "compression": codec.name,
+            "down_compression": down_codec.name if down else "none",
+            "simulated": True}
+    return recorder.result(engine.unflatten(ref, layout), transport="stacked",
                            scheduler=scheduler.name, state=state, comm=comm)

@@ -10,6 +10,10 @@ source and the flags, so an edited source is never served a stale build.
 Nothing here runs at import time: the CPU tests import every module on
 a machine without ``nvcc`` or a card.
 
+Wrappers dispatch by the device of the tensors they are given
+(:func:`dispatch`): CPU tensors take the plain version, CUDA tensors the
+kernel, and any other device raises.
+
 ``LAUNCHES`` counts, per kernel, how many times its wrapper launched it
 on the card.  Wrappers call :func:`count_launch` right where they launch
 and nowhere else, so a run can show that a path went through its kernels.
@@ -23,7 +27,9 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Dict, Iterable
+from typing import Callable, Dict, Iterable, Sequence, Tuple
+
+import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
@@ -33,6 +39,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 LAUNCHES: Dict[str, int] = {}
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
+_FNS: Dict[Tuple[str, str], Callable] = {}
 _LOCK = threading.Lock()
 
 
@@ -109,3 +116,48 @@ def load(name: str) -> ctypes.CDLL:
             lib = ctypes.CDLL(str(build([name])[name]))
             _LIBS[name] = lib
         return lib
+
+
+def entry(name: str, symbol: str, argtypes: Sequence) -> Callable:
+    """The C entry point ``symbol`` of ``csrc/<name>.cu``, with its
+    argument types declared and an ``int`` (CUDA error) result."""
+    key = (name, symbol)
+    fn = _FNS.get(key)
+    if fn is None:
+        fn = getattr(load(name), symbol)
+        fn.argtypes = list(argtypes)
+        fn.restype = ctypes.c_int
+        _FNS[key] = fn
+    return fn
+
+
+def launch(name: str, symbol: str, argtypes: Sequence, *args) -> None:
+    """Call one kernel's entry point (which launches on the stream passed
+    in ``args``), raise if the launch was refused, and count it."""
+    err = entry(name, symbol, argtypes)(*args)
+    if err != 0:
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
+    count_launch(name)
+
+
+def stream() -> int:
+    """PyTorch's current CUDA stream, as the pointer a kernel launches on."""
+    return torch.cuda.current_stream().cuda_stream
+
+
+def require_cuda(fn: str, *tensors: torch.Tensor) -> None:
+    """Raise unless every tensor is a contiguous CUDA tensor."""
+    if any(t.device.type != "cuda" for t in tensors):
+        raise ValueError(f"{fn}: tensors must be on CUDA, got "
+                         f"{[str(t.device) for t in tensors]}")
+    if any(not t.is_contiguous() for t in tensors):
+        raise ValueError(f"{fn}: tensors must be contiguous")
+
+
+def dispatch(fn: str, device: torch.device, plain: Callable, kernel: Callable, *args):
+    """``plain(*args)`` for a CPU tensor, ``kernel(*args)`` for a CUDA one."""
+    if device.type == "cpu":
+        return plain(*args)
+    if device.type == "cuda":
+        return kernel(*args)
+    raise ValueError(f"{fn}: no kernel for device {device}")

@@ -79,8 +79,8 @@ def test_job_runs_on_cuda_by_default_and_raises_without_it(monkeypatch):
     ("transport", dict(transport="tcp")),
     ("scheduler", dict(scheduler="buffered")),
     ("strategy", dict(strategy="fedprox")),
-    ("compression", dict(compression="int8")),
-    ("down_compression", dict(down_compression="int8")),
+    ("compression", dict(compression="fp8")),
+    ("down_compression", dict(down_compression="topk-fixed")),
     ("dp", dict(dp_clip=1.0)),
     ("secure_agg", dict(secure_agg=True)),
     ("aggregator", dict(aggregator="median")),
@@ -89,6 +89,7 @@ def test_job_runs_on_cuda_by_default_and_raises_without_it(monkeypatch):
     ("topology", dict(topology="pods:2")),
     ("shard_sites", dict(shard_sites=True)),
     ("task", dict(task=TaskConfig(kind="tokens"))),
+    ("strategy", dict(compression="int8", strategy="fedprox")),
 ])
 def test_unported_seams_raise_a_typed_error(seam, kw):
     job = FederatedJob(task=TaskConfig(**TASK), rounds=1, device="cpu").replace(**kw)

@@ -1,4 +1,6 @@
-"""The port's ``fedagg`` against the JAX reference kernel and its oracle.
+"""The port's ``fedagg`` against the JAX reference kernel and its oracle,
+and what every kernel wrapper refuses.  (The int8 kernels' plain versions
+are held to the reference in ``tests/test_torch_compression.py``.)
 
 On the CPU the port's wrapper takes its plain version; the JAX kernel
 runs under the Pallas interpreter, as the reference's own tests run it.
@@ -77,3 +79,44 @@ def test_fedagg_cuda_refuses_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         fedagg_mod.fedagg_cuda(torch.zeros(2, 4), torch.full((2,), 0.5))
 
+
+
+# -- the int8 kernels' wrappers -------------------------------------------------
+
+def _int8_args(s=2, rows=3, c=5):
+    q = torch.zeros(s, rows, c, dtype=torch.int8)
+    sc = torch.ones(s, rows)
+    return q, sc, torch.zeros(s, rows, c), torch.full((s,), 1 / s)
+
+
+@pytest.mark.parametrize("bad", ["x_dtype", "x_rank", "q_dtype", "scales_shape",
+                                 "dense_shape", "weights_shape"])
+def test_int8_wrappers_reject_what_the_kernels_do_not_take(bad):
+    q, sc, u, w = _int8_args()
+    with pytest.raises((TypeError, ValueError)):
+        if bad == "x_dtype":
+            ops.quantize_int8(u[0].double())
+        elif bad == "x_rank":
+            ops.quantize_int8(u)
+        elif bad == "q_dtype":
+            ops.dequantize_int8(q[0].int(), sc[0])
+        elif bad == "scales_shape":
+            ops.dequant_install(q, sc[:, :2], u)
+        elif bad == "dense_shape":
+            ops.fedagg_dequant(q, sc, u[:, :2], w)
+        else:
+            ops.fedagg_dequant(q, sc, u, w[:1])
+
+
+@pytest.mark.parametrize("name", ["quantize_int8_cuda", "dequantize_int8_cuda",
+                                  "fedagg_dequant_cuda", "dequant_install_cuda"])
+def test_int8_cuda_wrappers_refuse_cpu_tensors(name):
+    from repro_torch.kernels import quantize as quantize_mod
+    q, sc, u, w = _int8_args()
+    args = {"quantize_int8_cuda": (u[0],), "dequantize_int8_cuda": (q[0], sc[0]),
+            "fedagg_dequant_cuda": (q, sc, u, w), "dequant_install_cuda": (q, sc, u)}[name]
+    fn = getattr(quantize_mod, name, None) or getattr(fedagg_mod, name)
+    before = dict(build.LAUNCHES)
+    with pytest.raises(ValueError, match="CUDA"):
+        fn(*args)
+    assert build.LAUNCHES == before
