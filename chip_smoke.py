@@ -29,8 +29,9 @@ Phases, each of which fails the run (non-zero exit) if it goes wrong:
 5. the wire codec: the full-width global model encoded with ``Int8Codec``
    on the card and decoded there, against the plain encoder and decoder;
 6. small jobs run on the card and on the CPU (the plain versions):
-   uncompressed, int8 up only and int8 both ways; per-round losses must
-   agree, and each side's bytes must be its own layout's.
+   uncompressed, int8 up only, int8 both ways and int8 down only;
+   per-round losses must agree, and each side's bytes must be its own
+   layout's.
 
 Every kernel's launch count is zeroed just before each of phases 3-5 and
 read just after.  The second-to-last line is a JSON object with one entry
@@ -247,7 +248,8 @@ def check_int8_kernels(torch, plan, layout, dev) -> dict:
         torch, f"dequant_install x{len(xs)} groups [{elems} site-elements]",
         lambda: [fk.dequant_install_cuda(q, sc, b) for (q, sc), (_, _, b) in zip(q3s, mats)],
         lambda: [ref.dequant_install_ref(q, sc, b) for (q, sc), (_, _, b) in zip(q3s, mats)],
-        None, nbytes=elems * 9 + rows_all * 4, flops=2 * elems)
+        lambda: [torch.addcmul(b, q, sc[..., None]) for (q, sc), (_, _, b) in zip(q3s, mats)],
+        nbytes=elems * 9 + rows_all * 4, flops=2 * elems)
     # the codec decodes one model leaf by leaf, in the card's layout
     leaves = [qk.quantize_int8_cuda(_as_chunks(torch.randn(
         int(np.prod(sh)), device=dev, generator=gen) * 0.05, 1024, 128))
@@ -376,14 +378,14 @@ def check_small_jobs(torch, FederatedJob, TaskConfig) -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     base = FederatedJob(task=TaskConfig(kind="dose", sites=3, batch=2), rounds=3,
                         max_dropout=1)
-    for codecs in (("none", "none"), ("int8", "none"), ("int8", "int8")):
+    for codecs in (("none", "none"), ("int8", "none"), ("int8", "int8"), ("none", "int8")):
         job = base.replace(compression=codecs[0], down_compression=codecs[1])
         gpu, cpu = job.run(), job.replace(device="cpu").run()
         print(f"small job {codecs}: losses cuda {gpu.losses} cpu {cpu.losses}")
         for g, c in zip(gpu.losses, cpu.losses):
             _require(math.isclose(g, c, rel_tol=JOB_RTOL, abs_tol=1e-6),
                      f"small job {codecs}: cuda loss {g} != cpu loss {c}")
-        if codecs[0] == "none":
+        if codecs == ("none", "none"):
             continue
         masks = job.masks(job.rounds)
         boot = bootstrap_masks(masks, 16)
@@ -391,8 +393,9 @@ def check_small_jobs(torch, FederatedJob, TaskConfig) -> None:
         dense = 4 * sum(math.prod(sh) for sh in shapes)
         for res, align in ((gpu, 128), (cpu, 1)):
             enc = encoded_nbytes(shapes, 1024, align)
+            up = enc if codecs[0] == "int8" else dense
             for r, h in enumerate(res.history):
-                _require(h["upload_bytes"] == int(masks[r].sum()) * enc,
+                _require(h["upload_bytes"] == int(masks[r].sum()) * up,
                          f"small job {codecs} align {align}: round {r} upload bytes")
                 if codecs[1] == "int8":
                     want = sum(dense if b else enc for a, b in zip(masks[r], boot[r]) if a)
@@ -437,7 +440,7 @@ def main() -> int:
     dev = torch.device("cuda")
     layout = get_engine().layout_of(broadcast_to_sites(
         sanet_init(torch.Generator().manual_seed(0), SANET), 1))
-    plan = ChunkPlan.of(layout, 1024, 128)
+    plan = ChunkPlan.of(layout, 1024, 128, dev)
     print(f"full-width chunk groups (width, rows per site): "
           f"{[(w, rows) for w, rows, _ in plan.groups]}")
     entries = {"fedagg": check_fedagg(torch, fedagg, ref, dev),

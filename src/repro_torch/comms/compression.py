@@ -128,7 +128,7 @@ def _decode_int8(qt: QuantizedTensor, device) -> torch.Tensor:
     return flat[:size].reshape(qt.shape)
 
 
-def decode_array(leaf, device="cpu") -> torch.Tensor:
+def decode_array(leaf, *, device) -> torch.Tensor:
     """Dequantize one leaf onto ``device``: a CUDA device launches the
     ``dequantize_int8`` kernel, the CPU takes its plain version.  A plain
     array passes through (moved to ``device``)."""

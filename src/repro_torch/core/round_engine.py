@@ -109,21 +109,9 @@ def run_sync(job, bundle, scheduler, rounds: int, init_params=None,
 
 
 @dataclasses.dataclass(frozen=True)
-class _Leaf:
-    offset: int                           # in the [.., N] buffer
-    shape: Tuple[int, ...]                # the port's leaf shape
-    order: Optional[Tuple[int, ...]]      # axes into the reference's order
-    row0: int                             # first chunk row in its group
-
-    @property
-    def n(self) -> int:
-        return int(np.prod(self.shape, dtype=np.int64))
-
-
-@dataclasses.dataclass(frozen=True)
 class ChunkPlan:
-    """Where every leaf of a ``[.., N]`` buffer sits in the quantization
-    chunk matrices, grouped by chunk width as the reference's
+    """Where every element of a ``[.., N]`` buffer sits in the
+    quantization chunk matrices, grouped by chunk width as the reference's
     ``_qdq_tree`` groups them.
 
     Each leaf is cut by :func:`chunk_geom` into whole rows of its own
@@ -131,60 +119,47 @@ class ChunkPlan:
     in the reference's element order (:func:`repro_torch.convert.reference_order`:
     conv weights are OIDHW here and DHWIO there), so every chunk holds
     the elements the reference's chunk holds and the scales agree.
-    ``groups`` is ``((width, rows, leaves), ...)``."""
+    ``groups`` is ``((width, rows, gather), ...)``: ``gather`` [rows * width]
+    indexes the buffer with one zero appended (index N pads a leaf's last
+    row).  ``scatter`` [N] is each element's place in the groups' matrices
+    laid end to end.  Packing is one gather per group, unpacking one
+    gather in all."""
 
-    groups: Tuple[Tuple[int, int, Tuple[_Leaf, ...]], ...]
-    n: int
+    groups: Tuple[Tuple[int, int, torch.Tensor], ...]
+    scatter: torch.Tensor
 
     @classmethod
-    def of(cls, layout: RavelLayout, chunk: int, align: int) -> "ChunkPlan":
-        groups: Dict[int, List] = {}
+    def of(cls, layout: RavelLayout, chunk: int, align: int,
+           device: torch.device) -> "ChunkPlan":
+        by_width: Dict[int, List[np.ndarray]] = {}
         for shape, offset in zip(layout.shapes, layout.offsets):
-            rows, width = chunk_geom(int(np.prod(shape, dtype=np.int64)), chunk, align)
-            g = groups.setdefault(width, [0, []])
-            g[1].append(_Leaf(offset, tuple(shape), convert.reference_order(shape), g[0]))
-            g[0] += rows
-        return cls(tuple((w, rows, tuple(leaves)) for w, (rows, leaves) in groups.items()),
-                   layout.n)
-
-    @staticmethod
-    def _views(flat_slice, mat_slice, leaf: _Leaf, lead: int):
-        """(the leaf in the buffer, the same leaf in its chunk rows), as
-        views of one shape in the reference's element order."""
-        src = flat_slice.unflatten(-1, leaf.shape or (1,))
-        if leaf.order is None:
-            return src, mat_slice.unflatten(-1, leaf.shape or (1,))
-        axes = tuple(range(lead)) + tuple(lead + a for a in leaf.order)
-        src = src.permute(axes)
-        return src, mat_slice.unflatten(-1, tuple(src.shape[lead:]))
+            n = int(np.prod(shape, dtype=np.int64))
+            rows, width = chunk_geom(n, chunk, align)
+            idx = np.arange(offset, offset + n, dtype=np.int64)
+            order = convert.reference_order(shape)
+            if order is not None:
+                idx = idx.reshape(shape).transpose(order).reshape(-1)
+            by_width.setdefault(width, []).extend(
+                [idx, np.full(rows * width - n, layout.n, np.int64)])
+        groups, scatter, base = [], np.empty(layout.n, np.int64), 0
+        for width, parts in by_width.items():
+            gather = np.concatenate(parts)
+            real = gather < layout.n
+            scatter[gather[real]] = base + np.flatnonzero(real)
+            base += gather.size
+            groups.append((width, gather.size // width, torch.from_numpy(gather).to(device)))
+        return cls(tuple(groups), torch.from_numpy(scatter).to(device))
 
     def pack(self, flat: torch.Tensor) -> List[torch.Tensor]:
         """``[.., N]`` -> one zero-padded ``[.., rows, width]`` fp32 matrix
         per group."""
-        lead = flat.shape[:-1]
-        mats = []
-        for width, rows, leaves in self.groups:
-            mat = flat.new_zeros(lead + (rows * width,))
-            for leaf in leaves:
-                a = leaf.row0 * width
-                src, dst = self._views(flat[..., leaf.offset:leaf.offset + leaf.n],
-                                       mat[..., a:a + leaf.n], leaf, len(lead))
-                dst.copy_(src)
-            mats.append(mat.view(lead + (rows, width)))
-        return mats
+        padded = torch.nn.functional.pad(flat, (0, 1))
+        return [padded.index_select(-1, gather).unflatten(-1, (rows, width))
+                for width, rows, gather in self.groups]
 
     def unpack(self, mats: Sequence[torch.Tensor]) -> torch.Tensor:
         """Inverse of :meth:`pack` (the padding is dropped)."""
-        lead = mats[0].shape[:-2]
-        out = mats[0].new_empty(lead + (self.n,))
-        for (width, rows, leaves), mat in zip(self.groups, mats):
-            m = mat.reshape(lead + (rows * width,))
-            for leaf in leaves:
-                a = leaf.row0 * width
-                dst, src = self._views(out[..., leaf.offset:leaf.offset + leaf.n],
-                                       m[..., a:a + leaf.n], leaf, len(lead))
-                dst.copy_(src)
-        return out
+        return torch.cat([m.flatten(-2) for m in mats], -1).index_select(-1, self.scatter)
 
 
 def compressed_fold(u: torch.Tensor, w: torch.Tensor,
@@ -272,11 +247,14 @@ def run_compressed(job, bundle, scheduler, rounds: int, codec: Codec,
     align = align_for(ctx.device)
     up = codec.name != "none"
     down = down_codec is not None and down_codec.name != "none"
-    plan = ChunkPlan.of(layout, codec.chunk, align) if up else None
-    d_plan = ChunkPlan.of(layout, down_codec.chunk, align) if down else None
+    dev = ctx.device
+    plan = ChunkPlan.of(layout, codec.chunk, align, dev) if up else None
+    d_plan = None
+    if down:
+        d_plan = (plan if up and down_codec.chunk == codec.chunk
+                  else ChunkPlan.of(layout, down_codec.chunk, align, dev))
     error_feedback = bool(job.error_feedback)
     s, n = state["params"].shape
-    dev = ctx.device
     ref = torch.zeros((n,), dtype=torch.float32, device=dev)   # round 0: zeros
     res = torch.zeros((s, n), dtype=torch.float32, device=dev)
     held = torch.zeros((s, n), dtype=torch.float32, device=dev) if down else None

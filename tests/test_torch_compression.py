@@ -25,11 +25,16 @@ Tolerances, and why:
 - jobs: per-site losses within rtol 1e-4, atol 1e-5 (fp32 round-off
   through a few AdamW steps, as for uncompressed FedAvg), and bytes and
   ``comm`` equal.  The global model is within one int8 step of the
-  largest chunk scale plus ``lr * rounds``: a value of ``u`` within an ulp
-  of a rounding tie can flip one q between the frameworks (error feedback
-  absorbs it over the following rounds), and AdamW's first step is about
-  ``lr * sign(g)``, which flips where float noise flips the sign of a
-  near-zero gradient.
+  largest chunk scale plus ``lr * rounds`` everywhere: a value of ``u``
+  within an ulp of a rounding tie can flip one q between the frameworks
+  (error feedback absorbs it over the following rounds), and AdamW's
+  step is about ``lr * sign(g)``, which flips where float noise flips the
+  sign of a near-zero gradient (the conv biases ahead of a GroupNorm
+  have a zero gradient but for round-off; uncompressed FedAvg shows the
+  same spread after 3 rounds).  At least 90% of its elements agree
+  within ``lr / 100`` (about 97% do; a global one exchange stale, about
+  1%), and with uploads alone the last round's active sites hold it bit
+  for bit.
 """
 import numpy as np
 import pytest
@@ -169,7 +174,7 @@ def test_compressed_fold_and_down_install_match_jax(align):
     jg_full, _ = _tree(2, 1)
     w = np.asarray([0.5, 0.0, 0.5], np.float32)
     flat, layout = get_engine().flatten(tu)
-    plan = tre.ChunkPlan.of(layout, 1024, align)
+    plan = tre.ChunkPlan.of(layout, 1024, align, torch.device("cpu"))
     g, r = tre.compressed_fold(flat, torch.from_numpy(w), plan)
     jg, jr = jre._compressed_fold(jax.tree.map(jnp.asarray, ju), jnp.asarray(w), "int8",
                                   1024, align, accel, jax_engine())
@@ -212,7 +217,7 @@ def test_encoded_nbytes_and_chunk_geom_match_reference_at_full_width(full_width,
     want = FULL_WIDTH_NBYTES[align]
     assert jre._encoded_nbytes(jstacked, 1024, align) == want
     assert tre.encoded_nbytes(layout.shapes, 1024, align) == want
-    plan = tre.ChunkPlan.of(layout, 1024, align)
+    plan = tre.ChunkPlan.of(layout, 1024, align, torch.device("cpu"))
     assert sum(rows * w + 4 * rows for w, rows, _ in plan.groups) == want
     for sh, jx in zip(layout.shapes, jax.tree.leaves(shapes)):
         n = int(np.prod(sh))
@@ -244,18 +249,22 @@ def test_wire_codec_payload_equals_reference_codec():
         np.testing.assert_array_equal(tq.data["q"], jq.data["q"])
         np.testing.assert_array_equal(tq.data["scale"], jq.data["scale"])
     for t, j in zip(tree_leaves(tenc), jax.tree.leaves(jcomp.decode_tree(jenc))):
-        np.testing.assert_array_equal(tcomp.decode_array(t).numpy(), j)
+        np.testing.assert_array_equal(tcomp.decode_array(t, device="cpu").numpy(), j)
 
 
-@pytest.mark.parametrize("down", ["none", "int8"])
-def test_compressed_trajectory_matches_jax_job(down):
+# ids: the downlink codec under int8 uploads, and dense uploads with int8
+# downloads
+@pytest.mark.parametrize("compression,down", [
+    pytest.param("int8", "none", id="none"), pytest.param("int8", "int8", id="int8"),
+    pytest.param("none", "int8", id="down-only")])
+def test_compressed_trajectory_matches_jax_job(compression, down):
     job_kw = dict(strategy="fedavg", rounds=3, max_dropout=1, seed=0,
-                  compression="int8", down_compression=down)
+                  compression=compression, down_compression=down)
     jjob = JJob(task=JTask(**TASK), **job_kw)
     jres = jjob.run()
     init = jax.tree.map(np.asarray, jjob.task.build().init_fn(jax.random.PRNGKey(jjob.seed)))
-    tres = FederatedJob(task=TaskConfig(**TASK), device="cpu", **job_kw).run(
-        init_params=convert.from_reference(init))
+    tjob = FederatedJob(task=TaskConfig(**TASK), device="cpu", **job_kw)
+    tres = tjob.run(init_params=convert.from_reference(init))
     assert tres.comm == jres.comm
     assert min(h["active"] for h in jres.history) < 3      # a masked round ran
     for th, jh in zip(tres.history, jres.history):
@@ -264,12 +273,22 @@ def test_compressed_trajectory_matches_jax_job(down):
         assert th.get("download_bytes") == jh.get("download_bytes")
         np.testing.assert_allclose(th["per_site_loss"], jh["per_site_loss"],
                                    rtol=1e-4, atol=1e-5)
+    want = _port_order(jax.tree.map(lambda x: np.asarray(x)[None], jres.global_params))[0]
+    got = torch.cat([t.reshape(-1) for t in tree_leaves(tres.global_params)]).numpy()
+    diff = np.abs(got - want)
     # round 0 uploads the whole model against a zero reference: its largest
     # chunk scale is the largest |init| / 127
     step = max(float(np.abs(x).max()) for x in jax.tree.leaves(init)) / 127
-    want = _port_order(jax.tree.map(lambda x: np.asarray(x)[None], jres.global_params))[0]
-    got = torch.cat([t.reshape(-1) for t in tree_leaves(tres.global_params)]).numpy()
-    assert float(np.abs(got - want).max()) <= step + jjob.lr * jjob.rounds
+    assert float(diff.max()) <= step + jjob.lr * jjob.rounds
+    # the last round's exchange moves nearly every element by about lr, so
+    # a global that missed it agrees within lr / 100 on about 1% of the
+    # elements; this one must on 90% or more
+    assert float(np.mean(diff <= 1e-2 * jjob.lr)) >= 0.9
+    if down == "none":     # the last round's active sites hold the global itself
+        rows = tres.state["params"].numpy()
+        for i in np.flatnonzero(tjob.masks(tjob.rounds)[-1]):
+            np.testing.assert_array_equal(rows[i], got)
+
 
 
 def test_error_feedback_off_drops_the_residual():
