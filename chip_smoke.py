@@ -31,10 +31,22 @@ Phases, each of which fails the run (non-zero exit) if it goes wrong:
 6. small jobs run on the card and on the CPU (the plain versions):
    uncompressed, int8 up only, int8 both ways and int8 down only;
    per-round losses must agree, and each side's bytes must be its own
-   layout's.
+   layout's;
+7. the third slice's path: the full-width job under Byzantine-robust
+   aggregation (``aggregator="trimmed:1"``, one sign-flipping site,
+   ``max_dropout=1``), with ``trimmed_mean`` launched once per round,
+   ``fedagg`` once (the final global) and no int8 kernel.  Phase 2 holds
+   ``trimmed_mean`` bit for bit to its plain version (NaN where it has
+   NaN) over 9 site counts, 4 widths, up to 4 trim depths and 4 active patterns,
+   with non-finite values in active and inactive rows, and at full width;
+8. small robust jobs on the card and on the CPU (4 sites, ``max_dropout=1``,
+   3 rounds, TF32 off): trimmed:1 + sign_flip:1, median + label_flip:1,
+   krum:1 + scale:3:1 (the same rows picked on both sides), normclip with
+   a binding clip, median + uniform:3 sampling, and int8 uploads +
+   poisson:0.75 sampling; per-round losses and participants must agree.
 
 Every kernel's launch count is zeroed just before each of phases 3-5 and
-read just after.  The second-to-last line is a JSON object with one entry
+7 and read just after.  The second-to-last line is a JSON object with one entry
 per kernel; the last line is ``{"ok": true, "device": {...}}``.  Without
 CUDA, or outside a checkout of the repository, it exits non-zero and
 prints no result.
@@ -62,6 +74,11 @@ PEAKS = {"H100 80GB HBM3": (3.35e12, 67e12), "H100 PCIe": (2.0e12, 51e12),
 # ragged shapes for the int8 kernels: sites x chunk rows x chunk width
 RAGGED = [(s, rows, c) for s in (1, 3, 4) for rows in (1, 7, 6_797)
           for c in (1, 127, 640, 1024)]
+# the trimmed mean: site counts (every register width and the shared-memory
+# path) and widths (one column, odd, a multiple of 128, many blocks)
+TRIM_SITES = (1, 2, 3, 4, 5, 8, 17, 33, 64)
+TRIM_WIDTHS = (1, 127, 128, 65_537)
+INT8_KERNELS = ("quantize_int8", "dequantize_int8", "fedagg_dequant", "dequant_install")
 
 
 def peaks(name: str):
@@ -265,10 +282,89 @@ def check_int8_kernels(torch, plan, layout, dev) -> dict:
     return {name: {"max_abs_err": err[name], **out[name]} for name in out}
 
 
+def _bits_equal(torch, a, b) -> bool:
+    """Bit for bit, with NaN (of any payload) exactly where ``b`` has NaN."""
+    nan = b.isnan()
+    return (torch.equal(a.isnan(), nan)
+            and torch.equal(torch.where(nan, 0.0, a).view(torch.int32),
+                            torch.where(nan, 0.0, b).view(torch.int32)))
+
+
+def _trim_cases(torch, dev, s, n, gen):
+    """[S, N] fp32 with NaN and +-inf in active and inactive rows, and the
+    active patterns: all, one inactive, one active (k = 1), none (k = 0)."""
+    x = torch.randn(s, n, device=dev, generator=gen) * 3.0
+    if n >= 8:
+        x[0, 0] = float("nan")
+        x[s - 1, 1] = float("inf")
+        x[0, 2] = -float("inf")
+        x[s // 2, 3] = float("nan")        # inactive in the one-inactive pattern
+        x[:, 4] = float("inf")
+        if s > 1:
+            x[1, 5] = -float("inf")
+            x[1, 6] = float("nan")
+    one = torch.ones(s, device=dev)
+    one[s // 2] = 0.0
+    k1 = torch.zeros(s, device=dev)
+    k1[s - 1] = 1.0
+    return x, (torch.ones(s, device=dev), one, k1, torch.zeros(s, device=dev))
+
+
+def check_trimmed_mean(torch, dev) -> dict:
+    """trimmed_mean (and the median, f = S) vs its plain version, bit for
+    bit, at ragged shapes and at full width; returns its kernels-line entry."""
+    from repro_torch.kernels import ref, robust
+    gen = torch.Generator(device=dev).manual_seed(2)
+    err, cases = 0.0, 0
+    shapes = [(s, n) for s in TRIM_SITES for n in TRIM_WIDTHS] + [(4, FULL_N)]
+    for s, n in shapes:
+        x, patterns = _trim_cases(torch, dev, s, n, gen)
+        depths = sorted({0, 1, 2, s}) if n != FULL_N else [1, s]
+        for a in patterns if n != FULL_N else patterns[:2]:
+            for f in depths:
+                out = robust.trimmed_mean_cuda(x, a, f)
+                torch.cuda.synchronize()
+                want = ref.trimmed_mean_ref(x, a, f)
+                finite = want.isfinite() & out.isfinite()
+                err = max(err, float((out - want)[finite].abs().max()) if finite.any() else 0.0)
+                _require(_bits_equal(torch, out, want),
+                         f"trimmed_mean [{s}, {n}] f={f} active={a.tolist() if s < 9 else int(a.sum())}"
+                         " differs from its plain version")
+                cases += 1
+    print(f"trimmed_mean: {cases} cases ({len(TRIM_SITES)} site counts x {len(TRIM_WIDTHS)} "
+          f"widths x trim depths x active patterns, non-finite values, full width "
+          f"f=1 and median) bit-equal to the plain version")
+
+    x = torch.randn(4, FULL_N, device=dev, generator=gen)
+    a = torch.ones(4, device=dev)
+    nbytes = (x.numel() + FULL_N + 4) * 4
+
+    def ops_of(f):    # per column: the sort's compare-swaps, kept adds, a divide
+        fe = min(f, 3 // 2)
+        return FULL_N * (6 + (4 - 2 * fe) + 1)
+    timing = measure(torch, f"trimmed_mean [4, {FULL_N}] f=1",
+                     lambda: robust.trimmed_mean_cuda(x, a, 1),
+                     lambda: ref.trimmed_mean_ref(x, a, 1), None,
+                     nbytes=nbytes, flops=ops_of(1))
+    try:
+        torch.quantile(x, 0.5, dim=0, interpolation="midpoint")
+        library, why = (lambda: torch.quantile(x, 0.5, dim=0, interpolation="midpoint")), None
+    except RuntimeError as e:
+        library, why = None, str(e).splitlines()[0]
+        print(f"masked_median: no library time: torch.quantile refused [4, {FULL_N}]: {why}")
+    median = measure(torch, f"masked_median [4, {FULL_N}] (trimmed_mean f=4)",
+                     lambda: robust.trimmed_mean_cuda(x, a, 4),
+                     lambda: ref.masked_median_ref(x, a), library,
+                     nbytes=nbytes, flops=ops_of(4))
+    if why is not None:
+        median["library_refused"] = why
+    return {"max_abs_err": err, **timing, "median": median}
+
+
 def _history(result) -> None:
     for h in result.history:
         extra = "".join(f" {k} {h[k]}" for k in ("upload_bytes", "download_bytes") if k in h)
-        print(f"round {h['round']}: loss {h['loss']:.6f} per-site "
+        print(f"round {h['round']}: active {h['active']} loss {h['loss']:.6f} per-site "
               f"{[round(v, 6) for v in h['per_site_loss']]} batch_s "
               f"{h['batch_s']:.4f} step_s {h['step_s']:.4f} wall_s {h['wall_s']:.4f}{extra}")
 
@@ -406,6 +502,91 @@ def check_small_jobs(torch, FederatedJob, TaskConfig) -> None:
               f"{[(h['upload_bytes'], h.get('download_bytes')) for h in cpu.history]}")
 
 
+def run_robust_path(torch, FederatedJob, TaskConfig, build, task) -> dict:
+    """This slice's path: full-width FedAvg under trimmed:1 with one
+    sign-flipping site and Algorithm-2 churn; returns its launches."""
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = False
+    job = FederatedJob(task=TaskConfig(**task), strategy="fedavg", rounds=ROUNDS,
+                       aggregator="trimmed:1", adversary="sign_flip:1", max_dropout=1)
+    per_round = []
+    torch.cuda.reset_peak_memory_stats()
+    build.reset_launches()
+    t0 = time.perf_counter()
+    result = job.run(on_round=lambda r: per_round.append(dict(build.LAUNCHES)))
+    wall = time.perf_counter() - t0
+    launches = dict(build.LAUNCHES)
+    _history(result)
+    print(f"robust path: {ROUNDS} rounds in {wall:.1f} s with set-up, peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, malicious sites "
+          f"{job.adversary_plan.malicious_mask(task['sites']).nonzero()[0].tolist()}")
+    print(f"kernels launched on the robust path: {launches}; after each round: {per_round}")
+    _check_result(torch, result, "the robust path")
+    for r in range(ROUNDS):
+        _require(per_round[r].get("trimmed_mean", 0) == r + 1,
+                 f"trimmed_mean not launched once in round {r} of the robust path")
+        _require(per_round[r].get("fedagg", 0) == 0,
+                 f"fedagg launched in round {r} of the robust path")
+    _require(launches.get("fedagg", 0) == 1,
+             f"fedagg launched {launches.get('fedagg', 0)} times, not once (the final global)")
+    _require(not any(launches.get(k, 0) for k in INT8_KERNELS),
+             "an int8 kernel was launched on the robust path")
+    return launches
+
+
+def check_robust_small_jobs(torch, FederatedJob, TaskConfig, build) -> None:
+    """Small robust jobs on the card and on the CPU (plain versions), as
+    :func:`check_small_jobs`; the CPU path is held to the JAX reference by
+    tests/test_torch_robust.py.  Krum's picks are recorded on both sides."""
+    from repro_torch.core import agg_engine
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    print(f"robust small jobs: matmul.allow_tf32={torch.backends.cuda.matmul.allow_tf32}, "
+          f"cudnn.allow_tf32={torch.backends.cudnn.allow_tf32}; krum's x @ x.T runs in "
+          "full fp32 whatever the flag")
+    base = FederatedJob(task=TaskConfig(kind="dose", sites=4, batch=2), rounds=3,
+                        max_dropout=1)
+    picks = []
+    krum_index = agg_engine.krum_index
+
+    def recording(flat, active, f):
+        idx = krum_index(flat, active, f)
+        picks.append(int(idx))
+        return idx
+    variants = [dict(aggregator="trimmed:1", adversary="sign_flip:1"),
+                dict(aggregator="median", adversary="label_flip:1"),
+                dict(aggregator="krum:1", adversary="scale:3:1"),
+                dict(aggregator="normclip:15"),        # the init's norm is 21.5
+                dict(aggregator="median", sample="uniform:3"),
+                dict(compression="int8", sample="poisson:0.75")]
+    agg_engine.krum_index = recording
+    try:
+        for kw in variants:
+            job = base.replace(**kw)
+            picks.clear()
+            before = build.LAUNCHES.get("trimmed_mean", 0)
+            gpu = job.run()
+            launched = build.LAUNCHES.get("trimmed_mean", 0) - before
+            cpu = job.replace(device="cpu").run()
+            print(f"small robust job {kw}: active {[h['active'] for h in gpu.history]}, "
+                  f"losses cuda {gpu.losses} cpu {cpu.losses}"
+                  + (f", krum picks cuda {picks[:3]} cpu {picks[3:]}" if picks else ""))
+            _require([h["active"] for h in gpu.history] == [h["active"] for h in cpu.history],
+                     f"small robust job {kw}: participants differ")
+            for g, c in zip(gpu.losses, cpu.losses):
+                _require(math.isclose(g, c, rel_tol=JOB_RTOL, abs_tol=1e-6),
+                         f"small robust job {kw}: cuda loss {g} != cpu loss {c}")
+            rank = job.aggregator_spec.name in ("trimmed", "median")
+            _require(launched == (job.rounds if rank else 0),
+                     f"small robust job {kw}: trimmed_mean launched {launched} times")
+            if job.aggregator_spec.name == "krum":
+                _require(len(picks) == 2 * job.rounds and picks[:3] == picks[3:],
+                         f"small robust job {kw}: krum picked {picks[:3]} on the card, "
+                         f"{picks[3:]} on the CPU")
+    finally:
+        agg_engine.krum_index = krum_index
+
+
 def _leaves(tree):
     from repro_torch.tree import tree_leaves
     return tree_leaves(tree)
@@ -444,20 +625,23 @@ def main() -> int:
     print(f"full-width chunk groups (width, rows per site): "
           f"{[(w, rows) for w, rows, _ in plan.groups]}")
     entries = {"fedagg": check_fedagg(torch, fedagg, ref, dev),
-               **check_int8_kernels(torch, plan, layout, dev)}
+               **check_int8_kernels(torch, plan, layout, dev),
+               "trimmed_mean": check_trimmed_mean(torch, dev)}
 
     main_launches = run_main_path(torch, FederatedJob, TaskConfig, build, OPENKBP_TASK)
     int8_launches, int8_result = run_int8_path(torch, FederatedJob, TaskConfig, build,
                                                OPENKBP_TASK)
     codec_launches = check_codec(torch, build, int8_result.global_params)
     check_small_jobs(torch, FederatedJob, TaskConfig)
+    robust_launches = run_robust_path(torch, FederatedJob, TaskConfig, build, OPENKBP_TASK)
+    check_robust_small_jobs(torch, FederatedJob, TaskConfig, build)
 
     # each kernel's launches on the path that carries it: fedagg on the
-    # first slice's path, the int8 fold and install on this slice's, the
-    # decode in the codec phase
+    # first slice's path, the int8 fold and install on the second's, the
+    # decode in the codec phase, the trimmed mean on the robust path
     path_of = {"fedagg": main_launches, "quantize_int8": int8_launches,
                "fedagg_dequant": int8_launches, "dequant_install": int8_launches,
-               "dequantize_int8": codec_launches}
+               "dequantize_int8": codec_launches, "trimmed_mean": robust_launches}
     kernels = []
     for name, (route, source, replaces) in ops.KERNELS.items():
         kernels.append({"name": name, "route": route, "source": source,

@@ -11,8 +11,13 @@ transport:
 Ported so far: the SA-Net dose task, ``strategy="fedavg"`` (paper Eq. 1)
 with sync rounds on the stacked transport, uncompressed or with int8
 uploads and/or downloads (``compression="int8"``,
-``down_compression="int8"``).  Every other seam of the reference raises
-:class:`repro_torch.NotPorted` naming it, and never runs something else.
+``down_compression="int8"``); the Byzantine-robust combine rules
+(``aggregator="trimmed:f" | "median" | "krum:f" | "normclip:c"``), the
+seeded adversary (``adversary="sign_flip:f" | "scale:c:f" |
+"label_flip:f"``) and client sampling (``sample="uniform:K" |
+"poisson:q"``).  Every other seam of the reference raises
+:class:`repro_torch.NotPorted` naming it, and never runs something else;
+compositions the reference refuses raise its ``ValueError``.
 
 ``device`` picks where the job runs: ``None`` means ``"cuda"``, which
 raises when CUDA is absent.  Nothing falls back to the CPU: pass
@@ -31,6 +36,10 @@ from repro_torch import NotPorted
 from repro_torch.comms.compression import Codec, resolve_codec
 from repro_torch.configs.base import FederationConfig
 from repro_torch.core import federation as F
+from repro_torch.core.adversary import AdversaryPlan, parse_adversary
+from repro_torch.core.agg_engine import AggregatorSpec, parse_aggregator
+from repro_torch.core.sampling import (ClientSampler, compose_participation,
+                                       resolve_sampler)
 from repro_torch.core.session import (JobResult, RoundRecorder,
                                       availability_masks, resolve_scheduler)
 from repro_torch.optim import adamw
@@ -169,19 +178,41 @@ class FederatedJob:
     def replace(self, **kw) -> "FederatedJob":
         return dataclasses.replace(self, **kw)
 
+    @property
+    def sampler(self) -> ClientSampler:
+        """The job's resolved client sampler."""
+        return resolve_sampler(self.sample)
+
+    @property
+    def aggregator_spec(self) -> AggregatorSpec:
+        """The job's parsed combine rule."""
+        return parse_aggregator(self.aggregator)
+
+    @property
+    def adversary_plan(self) -> Optional[AdversaryPlan]:
+        """The job's parsed adversary plan, or None when every site is
+        honest."""
+        return parse_adversary(self.adversary, seed=self.seed)
+
+    @property
+    def sampled(self) -> bool:
+        """True when client sampling actually thins participation
+        (``uniform:S`` and ``poisson:1.0`` are the dense run)."""
+        return not self.sampler.is_trivial(self.task.sites)
+
     def check_ported(self) -> None:
         """Raise :class:`~repro_torch.NotPorted` for the first seam that is
         set to something the port does not implement."""
+        plan = self.adversary_plan
         unported = [
             ("strategy", self.strategy != "fedavg", self.strategy, "'fedavg'"),
-            ("sample", self.sample != "none", self.sample, "'none'"),
             ("topology", self.topology != "flat" or self.pod_dropout,
              f"{self.topology!r}, pod_dropout={self.pod_dropout}", "'flat'"),
             ("dp", self.dp_clip > 0 or self.dp_noise_multiplier > 0,
              f"dp_clip={self.dp_clip}, noise={self.dp_noise_multiplier}", "off"),
             ("secure_agg", self.secure_agg, "True", "False"),
-            ("aggregator", self.aggregator != "fedavg", self.aggregator, "'fedavg'"),
-            ("adversary", self.adversary is not None, self.adversary, "None"),
+            ("adversary", plan is not None and plan.kind == "noise", self.adversary,
+             "sign_flip, scale, label_flip"),
             ("device_data", self.device_data, "True", "False"),
             ("shard_sites", self.shard_sites, "True", "False"),
             ("checkpoint", self.checkpoint_dir is not None,
@@ -200,10 +231,24 @@ class FederatedJob:
         return (resolve_codec(self.compression, "compression"),
                 resolve_codec(self.down_compression, "down_compression"))
 
+    def participation(self, rounds: int) -> Tuple[np.ndarray, np.ndarray]:
+        """``(participate, scale)``: the [rounds, S] bool participation
+        schedule (Algorithm-2 availability intersected with the client
+        sampler's schedule) and the [rounds, S] float32 ``1/pi`` Eq. 1
+        weight scale."""
+        avail = availability_masks(self.task.sites, self.max_dropout,
+                                   self.seed, rounds)
+        return compose_participation(self.sampler, avail, self.seed)
+
     def masks(self, rounds: int) -> np.ndarray:
-        """The run's [rounds, S] Algorithm-2 participation schedule."""
-        return availability_masks(self.task.sites, self.max_dropout,
-                                  self.seed, rounds)
+        """The run's [rounds, S] participation schedule; without sampling,
+        the Algorithm-2 availability schedule verbatim."""
+        return self.participation(rounds)[0]
+
+    def weight_scale(self, rounds: int) -> np.ndarray:
+        """[rounds, S] float32 Eq. 1 inclusion-probability factors; the
+        rounds multiply them into the weights only when :attr:`sampled`."""
+        return self.participation(rounds)[1]
 
     def federation(self, strategy: Optional[str] = None) -> FederationConfig:
         return FederationConfig(
@@ -225,7 +270,11 @@ class FederatedJob:
             case_weights=torch.as_tensor(fed.case_weights(), device=device),
             loss_fn=bundle.loss_fn,
             optimizer=adamw(self.lr, weight_decay=self.weight_decay),
-            grad_clip=self.grad_clip, device=device)
+            grad_clip=self.grad_clip, device=device,
+            aggregator=self.aggregator_spec,
+            # a local-only view (the compressed rounds) stays honest, as in
+            # the reference
+            adversary=self.adversary_plan if strategy is None else None)
 
     def recorder(self, rounds: int, num_sites: int) -> RoundRecorder:
         return RoundRecorder(rounds, verbose=self.verbose,
@@ -256,6 +305,78 @@ class Transport:
         raise NotImplementedError
 
 
+def _validate_robustness(job: FederatedJob) -> None:
+    """The reference's composition guards for the robustness seams.  Robust
+    rules need to see the round's individual plaintext uploads side by
+    side; compositions that hide, quantize or stream them away are
+    ``ValueError``s, never silent downgrades.  (The ``max_upload_norm`` and
+    ``round_deadline_s`` clauses come with the socket transports.)"""
+    spec = job.aggregator_spec          # raises on a malformed spec string
+    plan = job.adversary_plan           # raises on a malformed plan string
+    if not spec.robust and plan is None:
+        return
+    if job.strategy == "pooled":
+        raise ValueError("the pooled centralized baseline has no "
+                         "federation to attack or robustly aggregate")
+    sites = job.task.sites
+    if resolve_codec(job.compression, "compression").name != "none":
+        raise ValueError(
+            "robust aggregation and the adversary harness operate on "
+            "plaintext fp32 uploads; delta-quantized uploads would fold "
+            "attacker-shaped residuals into honest error feedback — use "
+            "compression='none'")
+    if spec.robust and job.secure_agg:
+        raise ValueError(
+            "robust rules rank individual uploads; secure aggregation "
+            "masks every upload so only their sum is visible — the rule "
+            "would rank ciphertext.  Disable secure_agg or use "
+            "aggregator='fedavg'")
+    if job.shard_sites:
+        raise ValueError(
+            "the sharded engine folds partial sums per device shard and "
+            "runs local-strategy contexts — it has neither the full "
+            "[S, N] buffer a robust rule needs nor an in-round fault "
+            "seam; run robustness jobs with shard_sites=False")
+    if spec.rank_based:
+        if job.strategy not in ("fedavg", "fedprox"):
+            raise ValueError(
+                "rank-based robust rules (trimmed/median/krum) combine "
+                f"centrally-aggregated uploads; strategy {job.strategy!r} "
+                "has no central combine — use fedavg/fedprox (or "
+                "aggregator='normclip:c', which gossip honors too)")
+        if job.scheduler == "buffered":
+            raise ValueError(
+                "rank-based robust rules need the round's uploads side "
+                "by side; a buffered scheduler folds each arrival into a "
+                "running sum and discards it — use scheduler='sync'")
+        if spec.name == "trimmed" and 2 * spec.f >= sites:
+            raise ValueError(
+                f"trimmed:{spec.f} discards 2f={2 * spec.f} of {sites} "
+                "uploads — the trim must leave a majority (2f < S)")
+        if spec.name == "krum" and spec.f > max(sites - 3, 0):
+            raise ValueError(
+                f"krum:{spec.f} scores each upload against its "
+                f"S−f−2 nearest neighbours and needs S ≥ f+3 (S={sites})")
+    if (spec.name == "normclip"
+            and job.strategy not in ("fedavg", "fedprox", "gcml")):
+        raise ValueError(
+            "normclip bounds uploads at a central fold (fedavg/fedprox) "
+            f"or incoming gossip deltas (gcml), not {job.strategy!r}")
+
+
+def _validate_down(job: FederatedJob) -> None:
+    """The robust clause of the reference's download-compression guards."""
+    if resolve_codec(job.down_compression, "down_compression").name == "none":
+        return
+    if job.aggregator_spec.robust or job.adversary_plan is not None:
+        raise ValueError(
+            "robust aggregation rules and the adversary harness rank "
+            "plaintext uploads against ONE shared broadcast; "
+            "down_compression gives every site a different decoded "
+            "install, so upload distances would mix honest quantization "
+            "drift with attacker signal — use down_compression='none'")
+
+
 class StackedTransport(Transport):
     """Single-process simulator: every site's state in one [S, N] buffer.
     A job with a codec in either direction takes the compressed rounds."""
@@ -264,6 +385,8 @@ class StackedTransport(Transport):
 
     def execute(self, job: FederatedJob, rounds: int, init_params=None,
                 on_round=None) -> JobResult:
+        _validate_robustness(job)
+        _validate_down(job)
         scheduler = resolve_scheduler(job.scheduler)
         job.check_ported()
         codec, down_codec = job.codecs()

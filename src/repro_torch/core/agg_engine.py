@@ -11,8 +11,14 @@ The round loop keeps every site's weights as the rows of such a
 buffer, so :meth:`AggregationEngine.aggregate_round` reduces it in place
 with no concatenate copy and broadcasts by writing the active rows.
 
-Ported: the flat FedAvg path.  Pods, robust rules and the streaming
-accumulator of the reference are not (the job rejects those seams).
+Robust rules replace Eq. 1 on the same buffer: ``trimmed:f`` and
+``median`` through :func:`repro_torch.kernels.ops.trimmed_mean` (the
+kernel on CUDA), ``krum:f`` and ``normclip:c`` in plain PyTorch, as the
+reference leaves them to XLA.
+
+Ported: the flat FedAvg path and the flat robust rules.  Pods and the
+streaming accumulator of the reference are not (the job rejects those
+seams).
 """
 from __future__ import annotations
 
@@ -38,6 +44,129 @@ def normalized_weights(case_weights: torch.Tensor, active,
     if scale is not None:
         w = w * torch.as_tensor(scale, device=case_weights.device).float()
     return w / (torch.sum(w) + _EPS)
+
+
+@dataclasses.dataclass(frozen=True)
+class AggregatorSpec:
+    """Parsed site->global combine rule (the robust-aggregation seam).
+
+    ``fedavg`` is Eq. 1 exactly; the rest tolerate up to ``f`` adversarial
+    rows.  Rank-based rules (trimmed/median/krum) are order statistics over
+    the site axis: they are UNWEIGHTED over the active rows (a 100x-weighted
+    adversary would defeat the trim) and need the individual site rows."""
+    name: str = "fedavg"       # fedavg | trimmed | median | krum | normclip
+    f: int = 0                 # adversary budget (trimmed, krum)
+    c: float = 0.0             # clip norm (normclip)
+
+    @property
+    def robust(self) -> bool:
+        return self.name != "fedavg"
+
+    @property
+    def rank_based(self) -> bool:
+        return self.name in ("trimmed", "median", "krum")
+
+    @property
+    def spec(self) -> str:
+        """Canonical string form (round-trips through parse_aggregator)."""
+        if self.name in ("trimmed", "krum"):
+            return f"{self.name}:{self.f}"
+        if self.name == "normclip":
+            return f"normclip:{self.c:g}"
+        return self.name
+
+
+FEDAVG_SPEC = AggregatorSpec()
+
+
+def parse_aggregator(spec) -> AggregatorSpec:
+    """``fedavg | trimmed:f | median | krum:f | normclip:c`` -> spec.
+
+    ``trimmed:0`` trims nothing, so it parses to the fedavg spec and the job
+    runs the case-weighted Eq. 1 path.  Accepts a parsed spec (idempotent)
+    and ``None`` (fedavg)."""
+    if isinstance(spec, AggregatorSpec):
+        return spec
+    if spec is None:
+        return FEDAVG_SPEC
+    text = str(spec).strip()
+    name, _, arg = text.partition(":")
+    name = name.strip()
+    if name in ("fedavg", "median"):
+        if arg:
+            raise ValueError(f"{name} takes no argument, got {text!r}")
+        return FEDAVG_SPEC if name == "fedavg" else AggregatorSpec("median")
+    if name in ("trimmed", "krum"):
+        if not arg:
+            raise ValueError(f"{name} needs an adversary budget: {name}:f")
+        f = int(arg)
+        if f < 0:
+            raise ValueError(f"{name}:f needs f >= 0, got {text!r}")
+        if f == 0 and name == "trimmed":
+            return FEDAVG_SPEC
+        return AggregatorSpec(name, f=f)
+    if name == "normclip":
+        if not arg:
+            raise ValueError("normclip needs a clip norm: normclip:c")
+        c = float(arg)
+        if not c > 0:
+            raise ValueError(f"normclip:c needs c > 0, got {text!r}")
+        return AggregatorSpec("normclip", c=c)
+    raise ValueError(f"unknown aggregator {text!r} (expected fedavg | "
+                     "trimmed:f | median | krum:f | normclip:c)")
+
+
+def _gram_fp32(x: torch.Tensor) -> torch.Tensor:
+    """``x @ x.T`` in full fp32 whatever the global TF32 setting: with TF32
+    the products keep about three digits, which can change Krum's pick."""
+    prev = torch.get_float32_matmul_precision()
+    torch.set_float32_matmul_precision("highest")
+    try:
+        return x @ x.T
+    finally:
+        torch.set_float32_matmul_precision(prev)
+
+
+def krum_index(flat: torch.Tensor, active, f: int) -> torch.Tensor:
+    """The row Krum (Blanchard et al. 2017) picks over the active rows of
+    [S, N], as a 0-d index tensor.
+
+    Each active row scores the sum of its ``m = max(k - f - 2, 1)`` smallest
+    squared distances to OTHER active rows (``k`` active).  Invalid pairs
+    (self, inactive partner) enter at a large finite sentinel so every row's
+    order stays total, while inactive rows score +inf: the argmin (the first
+    minimum) lands on an active row even at ``k = 1``."""
+    x = flat.float()
+    act = torch.as_tensor(active, device=x.device).float() > 0.5
+    s = x.shape[0]
+    k = act.sum(dtype=torch.int32)
+    sq = torch.sum(x * x, dim=1)
+    d2 = torch.clamp_min(sq[:, None] + sq[None, :] - 2.0 * _gram_fp32(x), 0.0)
+    pair_ok = act[:, None] & act[None, :] & ~torch.eye(s, dtype=torch.bool, device=x.device)
+    ds = torch.sort(torch.where(pair_ok, d2, torch.full_like(d2, 1e30)), dim=1).values
+    m = torch.minimum(torch.clamp_min(k - f - 2, 1), torch.clamp_min(k - 1, 1))
+    r = torch.arange(s, device=x.device)[None, :]
+    score = torch.sum(torch.where(r < m, ds, torch.zeros_like(ds)), dim=1)
+    score = torch.where(act, score, torch.full_like(score, float("inf")))
+    return torch.argmin(score)
+
+
+def krum_select(flat: torch.Tensor, active, f: int) -> torch.Tensor:
+    """The row of [S, N] that :func:`krum_index` picks, verbatim (fp32)."""
+    return flat.float()[krum_index(flat, active, f)]
+
+
+def clip_factors(flat: torch.Tensor, c: float) -> torch.Tensor:
+    """[S]: each row's ``normclip:c`` factor ``min(1, c / max(||row||, 1e-12))``."""
+    norms = torch.linalg.vector_norm(flat.float(), dim=1)      # no [S, N] temporary
+    return torch.clamp(c / torch.clamp_min(norms, _EPS), max=1.0)
+
+
+def clip_rows(flat: torch.Tensor, c: float) -> torch.Tensor:
+    """Row-wise L2 clip (a copy): each site's [N] row scaled by its
+    :func:`clip_factors` factor.  The ``normclip:c`` rule bounds any single
+    upload's pull on the mean without discarding it."""
+    return flat.float() * clip_factors(flat, c)[:, None]
 
 
 def per_site_nbytes(params_stacked) -> int:
@@ -70,6 +199,21 @@ class AggregationEngine:
     def reduce_flat(self, flat: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
         """One weighted reduction over the site axis: [S, N] x [S] -> [N]."""
         return ops.fedagg(flat, weights.float().contiguous())
+
+    def reduce_robust_flat(self, flat: torch.Tensor, active,
+                           spec: AggregatorSpec) -> torch.Tensor:
+        """Rank-based combine over the active rows of [S, N] -> [N]:
+        trimmed and median launch the trimmed-mean kernel (its plain
+        version on the CPU); krum is an [S, S] distance program with a row
+        gather, plain PyTorch on every device."""
+        act = torch.as_tensor(active, device=flat.device).float()
+        if spec.name == "trimmed":
+            return ops.trimmed_mean(flat, act, spec.f)
+        if spec.name == "median":
+            return ops.masked_median(flat, act)
+        if spec.name == "krum":
+            return krum_select(flat, act, spec.f)
+        raise ValueError(f"not a rank-based rule: {spec.name}")
 
     # -- ravel layout (cached per structure/shapes/dtypes) ------------------
 
@@ -109,26 +253,47 @@ class AggregationEngine:
         return self.unflatten(self.reduce_flat(flat, weights), layout)
 
     def aggregate(self, params_stacked, case_weights: torch.Tensor,
-                  active=None, scale: Optional[torch.Tensor] = None):
-        """Eq. 1 on a stacked tree.  Returns (new stacked params, global
-        params): the global model broadcast to active sites; inactive
-        sites keep their local weights (the "disconnect" scenario)."""
+                  active=None, scale: Optional[torch.Tensor] = None,
+                  aggregator: Optional[AggregatorSpec] = None):
+        """Eq. 1 (or a robust combine) on a stacked tree.  Returns (new
+        stacked params, global params): the global model broadcast to
+        active sites; inactive sites keep their local weights (the
+        "disconnect" scenario).  Rank rules replace the weighted mean
+        (unweighted over the active rows, ``scale`` ignored); ``normclip``
+        row-clips before the weighted fold."""
         s = tree_leaves(params_stacked)[0].shape[0]
         if active is None:
             active = np.ones((s,), bool)
+        spec = aggregator or FEDAVG_SPEC
         flat, layout = self.flatten(params_stacked)
-        w = normalized_weights(case_weights, active, scale)
-        global_params = self.unflatten(self.reduce_flat(flat, w), layout)
+        if spec.rank_based:
+            gflat = self.reduce_robust_flat(flat, active, spec)
+        else:
+            if spec.name == "normclip":
+                flat = clip_rows(flat, spec.c)
+            gflat = self.reduce_flat(flat, normalized_weights(case_weights, active, scale))
+        global_params = self.unflatten(gflat, layout)
         mask = torch.as_tensor(np.asarray(active, bool))
         return (where_site(mask, broadcast_to_sites(global_params, s), params_stacked),
                 global_params)
 
     def aggregate_flat(self, flat: torch.Tensor, case_weights: torch.Tensor,
-                       active, scale: Optional[torch.Tensor] = None) -> torch.Tensor:
+                       active, scale: Optional[torch.Tensor] = None,
+                       aggregator: Optional[AggregatorSpec] = None) -> torch.Tensor:
         """:meth:`aggregate` on the [S, N] buffer itself, in place: the
-        active rows are overwritten with the global row, which is returned."""
+        active rows are overwritten with the global row, which is returned.
+        ``normclip`` never clips the buffer (inactive rows keep their
+        unclipped weights): it folds each row's clip factor into its
+        weight, which differs from folding clipped rows by rounding only."""
         active = np.asarray(active, bool)
-        gflat = self.reduce_flat(flat, normalized_weights(case_weights, active, scale))
+        spec = aggregator or FEDAVG_SPEC
+        if spec.rank_based:
+            gflat = self.reduce_robust_flat(flat, active, spec)
+        else:
+            w = normalized_weights(case_weights, active, scale)
+            if spec.name == "normclip":
+                w = w * clip_factors(flat, spec.c)
+            gflat = self.reduce_flat(flat, w)
         for i in np.flatnonzero(active):
             flat[i].copy_(gflat)
         return gflat
@@ -137,7 +302,7 @@ class AggregationEngine:
         """Strategy ``post_exchange`` entry on the round loop's [S, N]
         buffer; returns (the buffer, updated in place, and the global row)."""
         gflat = self.aggregate_flat(flat, ctx.case_weights, round_inputs["active"],
-                                    round_inputs.get("weight_scale"))
+                                    round_inputs.get("weight_scale"), ctx.aggregator)
         return flat, gflat
 
 

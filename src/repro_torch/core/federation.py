@@ -9,6 +9,11 @@ One FL round (Figs 3/4, Algorithm 1):
      skip (2) (their aggregation weight is zero and they keep their local
      weights).
 
+A Byzantine adversary plan (``FLContext.adversary``) injects its faults
+where the reference does: label flips on the round's batches before
+``pre_exchange``, parameter perturbations on the rows of malicious active
+sites after local training and before ``post_exchange``.
+
 The reference vmaps the site axis.  The port runs the sites one after
 another, which is the same math with one site's activations at a time
 (a full-width SA-Net step at 128^3 holds several GB of them).  Every
@@ -20,13 +25,14 @@ kernel then reads the buffer itself.
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Dict
+from typing import Callable, Dict, Optional
 
 import numpy as np
 import torch
 
 from repro_torch.configs.base import FederationConfig
-from repro_torch.core.agg_engine import get_engine
+from repro_torch.core.adversary import AdversaryPlan
+from repro_torch.core.agg_engine import FEDAVG_SPEC, AggregatorSpec, get_engine
 from repro_torch.core.stacking import broadcast_to_sites
 from repro_torch.core.strategies import base as strat_base
 # strategy modules self-register on import
@@ -45,6 +51,8 @@ class FLContext:
     optimizer: Optimizer
     grad_clip: float
     device: torch.device
+    aggregator: AggregatorSpec = FEDAVG_SPEC   # the site->global combine rule
+    adversary: Optional[AdversaryPlan] = None  # in-round fault injection
 
 
 def init_fl_state(ctx: FLContext, params) -> Dict:
@@ -116,11 +124,21 @@ def build_fl_round(ctx: FLContext):
             opt["step"][s] = site_opt["step"]
         return fl_state, {"loss": torch.stack(losses)}
 
+    # the malicious set is a pure function of (plan.seed, num_sites)
+    adv = ctx.adversary
+    adv_mask = adv.malicious_mask(ctx.fed.num_sites) if adv is not None else None
+
     def fl_round(fl_state, batches, round_inputs):
         active = np.asarray(round_inputs["active"], bool)
         ri = {**round_inputs, "active": active}
+        if adv is not None and adv.flips_labels:
+            batches = adv.perturb_batches(batches, adv_mask)
         fl_state = strategy.pre_exchange(fl_state, ri, ctx)
         fl_state, metrics = local_phase(fl_state, batches, active)
+        if adv is not None and adv.flips_params:
+            # what malicious ACTIVE sites expose to aggregation; the
+            # exchange overwrites those rows, so it never persists
+            adv.perturb_rows(fl_state["params"], adv_mask & active)
         fl_state = strategy.post_exchange(fl_state, ri, ctx)
         fl_state = {**fl_state, "round": fl_state["round"] + 1}
         return fl_state, metrics

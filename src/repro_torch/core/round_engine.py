@@ -6,7 +6,8 @@ the port's counterpart is a plain round loop: host numpy batches for the
 round are moved to the device, one round runs, and the per-site losses
 come back.
 
-- :func:`run_sync`: uncompressed FedAvg rounds.
+- :func:`run_sync`: uncompressed FedAvg rounds, under the job's combine
+  rule (Eq. 1 or a robust one) and adversary.
 - :func:`run_compressed`: FedAvg with int8 uploads, downloads or both.
   Sites train under the ``individual`` strategy and the loop does the
   exchange: every site's upload ``u`` (its delta plus the carried
@@ -14,6 +15,10 @@ come back.
   :func:`compressed_fold`, and with downlink compression each site
   installs its quantized delta against the model it holds
   (:func:`down_install`).
+
+Both follow the job's participation schedule (Algorithm-2 availability
+intersected with client sampling) and, when sampling thins it, multiply
+its ``1/pi`` factors into the Eq. 1 weights.
 
 Each round's history holds its own times: ``batch_s`` (host batch
 generation and the copy to the device), ``step_s`` (the round on the
@@ -73,6 +78,14 @@ def _init_state(job, bundle, ctx, init_params):
     return F.init_fl_state(ctx, tree_map(lambda t: t.to(ctx.device), params))
 
 
+def _schedule(job, rounds: int, device: torch.device):
+    """The run's [rounds, S] participation masks and, when client sampling
+    thins participation, its [rounds, S] ``1/pi`` Eq. 1 factors on
+    ``device`` (else None: dense runs keep their weights bit for bit)."""
+    masks, scale = job.participation(rounds)
+    return masks, (torch.as_tensor(scale, device=device) if job.sampled else None)
+
+
 def run_sync(job, bundle, scheduler, rounds: int, init_params=None,
              on_round: Optional[Callable[[int], None]] = None) -> JobResult:
     """``rounds`` sync FedAvg rounds of ``job``.  ``init_params`` (one
@@ -83,12 +96,15 @@ def run_sync(job, bundle, scheduler, rounds: int, init_params=None,
     ctx = job.context(bundle)
     state = _init_state(job, bundle, ctx, init_params)
     fl_round = F.build_fl_round(ctx)
-    masks = job.masks(rounds)
+    masks, wscale = _schedule(job, rounds, ctx.device)
     recorder = job.recorder(rounds, ctx.fed.num_sites)
 
     def step(r, batches):
         nonlocal state
-        state, metrics = fl_round(state, batches, F.make_round_inputs(ctx, masks[r]))
+        ri = F.make_round_inputs(ctx, masks[r])
+        if wscale is not None:
+            ri["weight_scale"] = wscale[r]
+        state, metrics = fl_round(state, batches, ri)
         return metrics["loss"]
 
     _round_loop(job, bundle, ctx, masks, recorder, step, on_round)
@@ -241,7 +257,7 @@ def run_compressed(job, bundle, scheduler, rounds: int, codec: Codec,
     state = _init_state(job, bundle, ctx, init_params)
     fl_round = F.build_fl_round(ctx)
     layout = state["layout"]
-    masks = job.masks(rounds)
+    masks, wscale = _schedule(job, rounds, ctx.device)
     recorder = job.recorder(rounds, ctx.fed.num_sites)
     engine = get_engine()
     align = align_for(ctx.device)
@@ -265,7 +281,8 @@ def run_compressed(job, bundle, scheduler, rounds: int, codec: Codec,
         active = np.asarray(masks[r], bool)
         state, metrics = fl_round(state, batches, F.make_round_inputs(ctx, active))
         params = state["params"]
-        w = normalized_weights(ctx.case_weights, active)
+        w = normalized_weights(ctx.case_weights, active,
+                               None if wscale is None else wscale[r])
         act = torch.as_tensor(active, device=dev)[:, None]
         if down:
             boot = torch.as_tensor(boot_mask[r], device=dev)[:, None]

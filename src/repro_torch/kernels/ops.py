@@ -9,6 +9,7 @@ from __future__ import annotations
 
 from repro_torch.kernels.fedagg import dequant_install, fedagg, fedagg_dequant
 from repro_torch.kernels.quantize import dequantize_int8, quantize_int8
+from repro_torch.kernels.robust import masked_median, trimmed_mean
 
 # name -> (route, source in the repo, the TPU kernel it replaces: its def line)
 KERNELS = {
@@ -22,7 +23,10 @@ KERNELS = {
                        "src/repro/kernels/fedagg.py:50"),
     "dequant_install": ("cuda", "src/repro_torch/csrc/dequant_install.cu",
                         "src/repro/kernels/fedagg.py:109"),
+    # one kernel for both rules: the median is the trimmed mean at f = S
+    "trimmed_mean": ("cuda", "src/repro_torch/csrc/trimmed_mean.cu",
+                     "src/repro/kernels/robust.py:71, src/repro/kernels/robust.py:100"),
 }
 
 __all__ = ["KERNELS", "dequant_install", "dequantize_int8", "fedagg",
-           "fedagg_dequant", "quantize_int8"]
+           "fedagg_dequant", "masked_median", "quantize_int8", "trimmed_mean"]

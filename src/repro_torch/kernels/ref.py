@@ -8,6 +8,10 @@ is ``max(absmax / 127, MIN_SCALE)`` in fp32 and ``q = clip(rint(x /
 scale), -127, 127)`` with round-half-to-even.  Every division here is a
 tensor by a tensor: on CUDA, PyTorch turns a division by a Python scalar
 into a multiplication by its reciprocal, which is not the IEEE quotient.
+
+The trimmed mean sums its kept ranks one rank at a time in ascending
+order, from +0.0, so that the kernel, which does the same in registers,
+matches it bit for bit.
 """
 from __future__ import annotations
 
@@ -61,3 +65,31 @@ def quantize_dequantize_ref(mat: torch.Tensor) -> torch.Tensor:
     """int8 quantize -> dequantize round trip over [..., C, c] fp32."""
     scale = _scales(mat)[..., None]
     return torch.clamp(torch.round(mat / scale), -_QMAX, _QMAX) * scale
+
+
+def trimmed_mean_ref(stacked: torch.Tensor, active: torch.Tensor, f: int) -> torch.Tensor:
+    """Coordinate-wise trimmed mean over the active rows of [S, N] -> [N] fp32.
+
+    Inactive rows (``active > 0.5`` false) sort past every active value as
+    +inf (NaN sorts last, as in ``jnp.sort``).  With ``k`` active rows the
+    trim depth is ``fe = min(f, max(k - 1, 0) // 2)`` and the result is the
+    unweighted mean of ranks ``[fe, k - fe)``; with ``k = 0`` it is 0.  The
+    active count stays a tensor, so nothing here waits for the device."""
+    x = stacked.float()
+    act = active.to(x.device).float() > 0.5
+    xs = torch.sort(torch.where(act[:, None], x, torch.full_like(x, float("inf"))),
+                    dim=0).values
+    k = act.sum(dtype=torch.int32)
+    fe = torch.clamp(torch.clamp_min(k - 1, 0) // 2, max=f)
+    total = torch.zeros_like(xs[0])
+    for r in range(xs.shape[0]):
+        keep = (fe <= r) & (r < k - fe)
+        total = total + torch.where(keep, xs[r], torch.zeros_like(total))
+    return total / torch.clamp_min(k - 2 * fe, 1).float()
+
+
+def masked_median_ref(stacked: torch.Tensor, active: torch.Tensor) -> torch.Tensor:
+    """Coordinate-wise median over the active rows: the trimmed mean at
+    the deepest trim, ``f = S`` (the mean of the two middle ranks for an
+    even active count)."""
+    return trimmed_mean_ref(stacked, active, int(stacked.shape[0]))

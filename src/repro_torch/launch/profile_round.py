@@ -1,11 +1,14 @@
 """Where one round of the main path spends its time on the card.
 
     python -m repro_torch.launch.profile_round [--trace DIR] [--int8]
+        [--aggregator SPEC] [--adversary SPEC]
 
 (with ``src`` on ``PYTHONPATH``).  Runs the full-width SA-Net dose FedAvg
 job (``configs/sanet_openkbp.OPENKBP_TASK``) for 2 rounds through
 ``FederatedJob.run`` (with ``--int8``: int8 uploads and downloads,
-``compression="int8", down_compression="int8"``) and traces round 1
+``compression="int8", down_compression="int8"``; ``--aggregator`` and
+``--adversary`` are the job's robust combine rule and adversary, e.g.
+``--aggregator trimmed:1 --adversary sign_flip:1``) and traces round 1
 with ``torch.profiler`` (round 0 carries the first-call set-up and is
 not traced).  Prints the round's own times from the job's history
 (``batch_s``, ``step_s``, ``wall_s``), the device busy time and idle
@@ -30,6 +33,7 @@ from repro_torch.kernels.ops import KERNELS
 
 GROUPS = [  # (group, regex over the kernel name), first match wins
     ("int8_codec", r"quantize_int8|fedagg_dequant|dequant_install"),
+    ("robust", r"trimmed_mean"),
     ("fedagg", r"fedagg"),
     ("batch_h2d", r"Memcpy HtoD"),      # the round's host batches (in batch_s)
     ("conv", r"conv|cudnn|implicit|gemm|wgrad|dgrad|sm90|xmma|cutlass|winograd"),
@@ -64,6 +68,10 @@ def main(argv=None) -> int:
     ap.add_argument("--trace", default=None, help="directory for the Chrome trace")
     ap.add_argument("--int8", action="store_true",
                     help="int8 uploads and downloads (the compressed rounds)")
+    ap.add_argument("--aggregator", default="fedavg",
+                    help="combine rule: fedavg | trimmed:f | median | krum:f | normclip:c")
+    ap.add_argument("--adversary", default=None,
+                    help="sign_flip:f | scale:c:f | label_flip:f (default: none)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_round: needs a CUDA device")
@@ -81,7 +89,8 @@ def main(argv=None) -> int:
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     codec = "int8" if args.int8 else "none"
     job = FederatedJob(task=TaskConfig(**OPENKBP_TASK), strategy="fedavg", rounds=2,
-                       compression=codec, down_compression=codec)
+                       compression=codec, down_compression=codec,
+                       aggregator=args.aggregator, adversary=args.adversary)
     with torch.profiler.profile(
             activities=acts, on_trace_ready=on_trace_ready,
             schedule=torch.profiler.schedule(wait=1, warmup=0, active=1,
@@ -106,6 +115,7 @@ def main(argv=None) -> int:
     report = {
         "device": torch.cuda.get_device_name(0), "task": OPENKBP_TASK,
         "compression": codec, "down_compression": codec,
+        "aggregator": args.aggregator, "adversary": args.adversary,
         "round": 1, "batch_s": h["batch_s"], "step_s": h["step_s"],
         "wall_s": h["wall_s"], "device_busy_s": busy_s,
         "device_idle_share_of_round": 1.0 - busy_s / h["wall_s"],

@@ -14,7 +14,8 @@ the output).  The int8 kernels ``quantize_int8``, ``dequantize_int8``,
 their plain versions (IEEE division, round half to even, no FMA
 contraction), and the quantized values and scales also equal the numpy
 int8 rule; ``fedagg_dequant``'s fold ``g`` is within rtol=atol=1e-6
-(the sum over sites in another order).  Job losses: rtol 1e-4, with TF32
+(the sum over sites in another order).  ``trimmed_mean`` (and the median,
+f = S) is bit-equal to its plain version, with NaN where it has NaN.  Job losses: rtol 1e-4, with TF32
 off on both sides, since sum orders differ and AdamW's first step
 amplifies noise on near-zero gradients.
 """
@@ -133,3 +134,49 @@ def test_fold_and_install_kernels_match_plain_on_card(cuda_device, s, rows, c):
     assert torch.equal(r, r_ref)
     torch.testing.assert_close(g, g_ref, rtol=1e-6, atol=1e-6)
     assert torch.equal(inst, ref.dequant_install_ref(q, sc, base))
+
+
+# -- the robust kernel ----------------------------------------------------------
+
+TRIM_SHAPES = [(1, 1), (2, 127), (4, 128), (5, 65_537), (8, 300), (17, 127),
+               (33, 300), (64, 65_537), (4, 6_844_323)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s,n", TRIM_SHAPES)
+def test_trimmed_mean_kernel_bit_equal_plain_on_card(cuda_device, s, n):
+    rng = np.random.default_rng(s * 11 + n)
+    x = (rng.normal(size=(s, n)) * 3.0).astype(np.float32)
+    if n >= 8:                      # non-finite values in active and inactive rows
+        x[0, 0], x[s - 1, 1], x[0, 2], x[s // 2, 3] = np.nan, np.inf, -np.inf, np.nan
+        x[:, 4] = np.inf
+    x = torch.from_numpy(x).to(cuda_device)
+    one_off = np.ones(s, np.float32)
+    one_off[s // 2] = 0.0
+    k1 = np.zeros(s, np.float32)
+    k1[-1] = 1.0
+    for a in (np.ones(s, np.float32), one_off, k1, np.zeros(s, np.float32)):
+        a = torch.from_numpy(a).to(cuda_device)
+        for f in sorted({0, 1, 2, s}):
+            before = build.LAUNCHES.get("trimmed_mean", 0)
+            out = ops.trimmed_mean(x, a, f) if f != s else ops.masked_median(x, a)
+            torch.cuda.synchronize()
+            assert build.LAUNCHES["trimmed_mean"] == before + 1
+            want = ref.trimmed_mean_ref(x, a, f)
+            nan = want.isnan()
+            assert torch.equal(out.isnan(), nan)
+            assert torch.equal(torch.where(nan, 0.0, out).view(torch.int32),
+                               torch.where(nan, 0.0, want).view(torch.int32))
+
+
+@pytest.mark.cuda
+def test_small_robust_job_on_card_matches_cpu_and_launches_the_kernel(cuda_device, monkeypatch):
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    job = FederatedJob(task=TaskConfig(kind="dose", sites=4, batch=2), rounds=3,
+                       max_dropout=1, aggregator="trimmed:1", adversary="sign_flip:1")
+    before = build.LAUNCHES.get("trimmed_mean", 0)
+    gpu = job.run()
+    assert build.LAUNCHES["trimmed_mean"] - before == job.rounds
+    cpu = job.replace(device="cpu").run()
+    np.testing.assert_allclose(gpu.losses, cpu.losses, rtol=1e-4, atol=1e-6)

@@ -83,9 +83,9 @@ def test_job_runs_on_cuda_by_default_and_raises_without_it(monkeypatch):
     ("down_compression", dict(down_compression="topk-fixed")),
     ("dp", dict(dp_clip=1.0)),
     ("secure_agg", dict(secure_agg=True)),
-    ("aggregator", dict(aggregator="median")),
-    ("adversary", dict(adversary="sign_flip:1")),
-    ("sample", dict(sample="uniform:2")),
+    ("adversary", dict(adversary="noise:1:1")),
+    ("strategy", dict(strategy="fedprox", aggregator="median")),
+    ("topology", dict(topology="pods:2", aggregator="median")),
     ("topology", dict(topology="pods:2")),
     ("shard_sites", dict(shard_sites=True)),
     ("task", dict(task=TaskConfig(kind="tokens"))),
