@@ -43,16 +43,34 @@ Phases, each of which fails the run (non-zero exit) if it goes wrong:
    3 rounds, TF32 off): trimmed:1 + sign_flip:1, median + label_flip:1,
    krum:1 + scale:3:1 (the same rows picked on both sides), normclip with
    a binding clip, median + uniform:3 sampling, and int8 uploads +
-   poisson:0.75 sampling; per-round losses and participants must agree.
+   poisson:0.75 sampling; per-round losses and participants must agree;
+9. the fourth slice's paths: serving the token models at full width
+   through ``launch/serve.py`` (prefill, then greedy decode, fp32
+   weights from a seed, TF32 off): gemma3-1b (26 layers, 4 x 1024
+   prompts, 32 steps) and rwkv6-7b (32 layers, 4 x 512, 32 steps)
+   through ``run()``, and Jamba-1.5-Large cut to 2 layers (Mamba +
+   dense FFN, Mamba + MoE; 2 x 512, 16 steps) through ``generate()``.
+   Each prefill must launch its kernel once a layer (``flash_attention``
+   26 times, ``rwkv6_scan`` 32, ``mamba_scan`` 2), each decode none of
+   the three, and every logit must be finite.  Phase 2 holds the three
+   kernels to their plain versions at ragged shapes and at these paths'
+   full-width shapes (the scans' final states too);
+10. the five reduced token configs served on the card and on the CPU
+   (the plain versions) from the same seeded weights and prompts, TF32
+   off: the greedy tokens must be equal and the logits within
+   rtol=atol=1e-4.
 
-Every kernel's launch count is zeroed just before each of phases 3-5 and
-7 and read just after.  The second-to-last line is a JSON object with one entry
-per kernel; the last line is ``{"ok": true, "device": {...}}``.  Without
+Every kernel's launch count is zeroed just before each of phases 3-5, 7
+and each path of 9, and read just after.  The second-to-last line is a
+JSON object with one entry per kernel; the last line is ``{"ok": true,
+"device": {...}}``.  Without
 CUDA, or outside a checkout of the repository, it exits non-zero and
 prints no result.
 """
 from __future__ import annotations
 
+import dataclasses
+import gc
 import json
 import math
 import subprocess
@@ -79,6 +97,28 @@ RAGGED = [(s, rows, c) for s in (1, 3, 4) for rows in (1, 7, 6_797)
 TRIM_SITES = (1, 2, 3, 4, 5, 8, 17, 33, 64)
 TRIM_WIDTHS = (1, 127, 128, 65_537)
 INT8_KERNELS = ("quantize_int8", "dequantize_int8", "fedagg_dequant", "dequant_install")
+TOKEN_KERNELS = ("flash_attention", "rwkv6_scan", "mamba_scan")
+# flash attention: (batch, q heads, kv heads, Lq, Lk, D, causal, window), ragged
+# (no Lq a multiple of any tile), GQA groups 1-4, windows None/17/512, both masks
+FLASH_CASES = [(1, 2, 2, 1, 1, 32, True, None), (2, 4, 2, 37, 37, 32, True, 17),
+               (1, 6, 2, 45, 70, 64, True, None), (3, 4, 1, 70, 99, 64, False, None),
+               (1, 3, 1, 33, 600, 128, True, 512), (2, 8, 2, 129, 129, 128, False, 17),
+               (1, 4, 1, 200, 530, 256, True, 17), (1, 4, 4, 531, 531, 256, True, 512),
+               (2, 4, 1, 77, 77, 256, False, 512), (1, 9, 3, 50, 50, 64, True, None)]
+GEMMA_ATTN = (4, 4, 1, 1024, 1024, 256)           # gemma3-1b's prefill, per layer
+# the scans: (batch, heads, L, D) and (batch, L, d_inner, d_state), ragged
+RWKV_CASES = [(1, 1, 1, 32), (2, 3, 13, 32), (1, 5, 77, 64), (3, 2, 300, 64)]
+RWKV_FULL = (4, 64, 512, 64)                       # rwkv6-7b's prefill, per layer
+MAMBA_CASES = [(1, 1, 5, 4), (2, 13, 24, 8), (1, 77, 300, 16), (3, 40, 1000, 16),
+               (2, 33, 130, 32)]
+MAMBA_FULL = (2, 512, 16384, 16)                   # Jamba-1.5-Large's prefill, per layer
+# flash attention fp32: the softmax over up to 1024 keys runs in tiles with
+# rescaling, against one softmax in the plain version (exp and sums differ)
+FLASH_TOL = dict(rtol=1e-5, atol=1e-5)
+SCAN_RTOL = 1e-5    # fp32 recurrences; atol 1e-5 of the plain version's largest value:
+                    # each output sums D or ds terms in another order, with FMA
+SERVE_TOL = dict(rtol=1e-4, atol=1e-4)             # card vs CPU logits, TF32 off
+SMALL_ARCHS = ("gemma3-1b", "smollm-135m", "qwen3-8b", "rwkv6-7b", "jamba-1.5-large-398b")
 
 
 def peaks(name: str):
@@ -586,6 +626,246 @@ def check_robust_small_jobs(torch, FederatedJob, TaskConfig, build) -> None:
     finally:
         agg_engine.krum_index = krum_index
 
+# -- the token models' kernels and serving paths ---------------------------------
+
+
+def _flash_inputs(torch, dev, case, dtype, gen):
+    b, hq, hkv, lq, lk, d = case[:6]
+    return (torch.randn(b, hq, lq, d, device=dev, generator=gen).to(dtype),
+            torch.randn(b, hkv, lk, d, device=dev, generator=gen).to(dtype),
+            torch.randn(b, hkv, lk, d, device=dev, generator=gen).to(dtype))
+
+
+def _attn_mask(torch, dev, lq, lk, causal, window):
+    """[Lq, Lk] bool, True where a key is seen (the kernel's mask)."""
+    q_pos = torch.arange(lq, device=dev)[:, None] + (lk - lq)
+    k_pos = torch.arange(lk, device=dev)[None, :]
+    ok = torch.ones((lq, lk), dtype=torch.bool, device=dev)
+    if causal:
+        ok &= k_pos <= q_pos
+    if window is not None:
+        ok &= k_pos > q_pos - window
+    return ok
+
+
+def check_flash_attention(torch, dev) -> dict:
+    """flash_attention vs its plain version at ragged shapes (both dtypes)
+    and at gemma3-1b's per-layer shape with window 512 and with none;
+    returns its kernels-line entry (the global layer, fp32)."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+    gen = torch.Generator(device=dev).manual_seed(3)
+    err = 0.0
+    full = [GEMMA_ATTN + (True, 512), GEMMA_ATTN + (True, None)]
+    for case in FLASH_CASES + full:
+        causal, window = case[6:]
+        for dtype, tol in ((torch.float32, FLASH_TOL), (torch.bfloat16, BF16_TOL)):
+            q, k, v = _flash_inputs(torch, dev, case, dtype, gen)
+            out = flash_attention_cuda(q, k, v, causal, window)
+            torch.cuda.synchronize()
+            want = ref.flash_attention_ref(q, k, v, causal, window)
+            torch.testing.assert_close(out.float(), want.float(), **tol)
+            if dtype == torch.float32:
+                err = max(err, float((out - want).abs().max()))
+    print(f"flash_attention: {len(FLASH_CASES) + len(full)} shapes x 2 dtypes agree with "
+          f"the plain version (fp32 rtol=atol=1e-5, max |err| {err:.3e}; bf16 2e-2)")
+    out = {}
+    b, hq, hkv, lq, lk, d = GEMMA_ATTN
+    for window in (512, None):
+        q, k, v = _flash_inputs(torch, dev, GEMMA_ATTN, torch.float32, gen)
+        mask = _attn_mask(torch, dev, lq, lk, True, window)
+        pairs = int(mask.sum()) * b * hq                 # the (query, key) pairs seen
+        lib = F.scaled_dot_product_attention(q, k.repeat_interleave(hq // hkv, 1),
+                                             v.repeat_interleave(hq // hkv, 1),
+                                             attn_mask=mask)
+        lib_err = float((lib - ref.flash_attention_ref(q, k, v, True, window)).abs().max())
+        out[window] = measure(
+            torch, f"flash_attention {list(GEMMA_ATTN)} fp32 causal window={window}",
+            lambda: flash_attention_cuda(q, k, v, True, window),
+            lambda: ref.flash_attention_ref(q, k, v, True, window),
+            lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask, enable_gqa=True),
+            nbytes=4 * 2 * (q.numel() + k.numel()), flops=4 * d * pairs)
+        out[window]["library_max_abs_err"] = lib_err
+        print(f"  scaled_dot_product_attention vs the plain version: max |err| {lib_err:.3e}")
+    return {"max_abs_err": err, **out[None], "window_512": out[512]}
+
+
+def _rwkv_inputs(torch, dev, shape, dtype, gen):
+    b, h, l, d = shape
+    r, k, v = (torch.randn(b, h, l, d, device=dev, generator=gen) for _ in range(3))
+    w = torch.exp(-torch.exp(torch.randn(b, h, l, d, device=dev, generator=gen) - 5.0))
+    u = torch.randn(h, d, device=dev, generator=gen) * 0.1
+    return [t.to(dtype) for t in (r, k, v, w)] + [u]
+
+
+def _close_scaled(torch, got, want, what: str) -> float:
+    """got vs want within SCAN_RTOL, atol SCAN_RTOL of want's largest value."""
+    scale = float(want.abs().max()) if want.numel() else 0.0
+    torch.testing.assert_close(got.float(), want.float(), rtol=SCAN_RTOL,
+                               atol=SCAN_RTOL * max(scale, 1.0), msg=lambda m: f"{what}: {m}")
+    return float((got.float() - want.float()).abs().max()) if want.numel() else 0.0
+
+
+def check_rwkv6_scan(torch, dev) -> dict:
+    """rwkv6_scan (out and final state) vs its plain version at ragged
+    shapes and rwkv6-7b's per-layer shape; returns its kernels-line entry."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.rwkv6_scan import rwkv6_scan_cuda
+    gen = torch.Generator(device=dev).manual_seed(4)
+    err = 0.0
+    for shape in RWKV_CASES + [RWKV_FULL]:
+        for dtype in (torch.float32, torch.bfloat16):
+            xs = _rwkv_inputs(torch, dev, shape, dtype, gen)
+            out, state = rwkv6_scan_cuda(*xs)
+            torch.cuda.synchronize()
+            w_out, w_state = ref.rwkv6_scan_ref(*xs)
+            if dtype == torch.float32:
+                err = max(err, _close_scaled(torch, out, w_out, f"rwkv6_scan out {shape}"),
+                          _close_scaled(torch, state, w_state, f"rwkv6_scan state {shape}"))
+            else:        # the state is fp32 either way; out is rounded to bf16 once
+                _close_scaled(torch, state, w_state, f"rwkv6_scan bf16 state {shape}")
+                torch.testing.assert_close(out.float(), w_out.float(), **BF16_TOL)
+    print(f"rwkv6_scan: {len(RWKV_CASES) + 1} shapes x 2 dtypes, out and final state, agree "
+          f"with the plain version (rtol {SCAN_RTOL}, atol {SCAN_RTOL} of the largest value; "
+          f"max |err| {err:.3e})")
+    b, h, l, d = RWKV_FULL
+    xs = _rwkv_inputs(torch, dev, RWKV_FULL, torch.float32, gen)
+    print("rwkv6_scan: no library time: no one PyTorch call computes the WKV-6 recurrence")
+    timing = measure(torch, f"rwkv6_scan {list(RWKV_FULL)} fp32",
+                     lambda: rwkv6_scan_cuda(*xs), lambda: ref.rwkv6_scan_ref(*xs), None,
+                     nbytes=4 * (5 * b * h * l * d + h * d + b * h * d * d),
+                     flops=7 * b * h * l * d * d)
+    return {"max_abs_err": err, **timing}
+
+
+def _mamba_inputs(torch, dev, shape, gen):
+    import torch.nn.functional as F
+    b, l, di, ds = shape
+    dt = F.softplus(torch.randn(b, l, di, device=dev, generator=gen) - 3.0)
+    bm, cm = (torch.randn(b, l, ds, device=dev, generator=gen) for _ in range(2))
+    x = torch.randn(b, l, di, device=dev, generator=gen)
+    log_a = torch.log(torch.arange(1, ds + 1, device=dev, dtype=torch.float32)).expand(di, ds)
+    return dt, bm, cm, x, log_a.contiguous()
+
+
+def check_mamba_scan(torch, dev) -> dict:
+    """mamba_scan (y and final state) vs its plain version at ragged shapes
+    and Jamba-1.5-Large's per-layer shape; returns its kernels-line entry."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.mamba_scan import mamba_scan_cuda
+    gen = torch.Generator(device=dev).manual_seed(5)
+    err = 0.0
+    for shape in MAMBA_CASES + [MAMBA_FULL]:
+        xs = _mamba_inputs(torch, dev, shape, gen)
+        y, state = mamba_scan_cuda(*xs)
+        torch.cuda.synchronize()
+        w_y, w_state = ref.mamba_scan_ref(*xs)
+        err = max(err, _close_scaled(torch, y, w_y, f"mamba_scan y {shape}"),
+                  _close_scaled(torch, state, w_state, f"mamba_scan state {shape}"))
+    print(f"mamba_scan: {len(MAMBA_CASES) + 1} shapes, y and final state, agree with the "
+          f"plain version (rtol {SCAN_RTOL}, atol {SCAN_RTOL} of the largest value; "
+          f"max |err| {err:.3e})")
+    b, l, di, ds = MAMBA_FULL
+    xs = _mamba_inputs(torch, dev, MAMBA_FULL, gen)
+    print("mamba_scan: no library time: no one PyTorch call computes the selective scan")
+    timing = measure(torch, f"mamba_scan {list(MAMBA_FULL)} fp32",
+                     lambda: mamba_scan_cuda(*xs), lambda: ref.mamba_scan_ref(*xs), None,
+                     nbytes=4 * (3 * b * l * di + 2 * b * l * ds + di * ds + b * di * ds),
+                     flops=7 * b * l * di * ds)
+    return {"max_abs_err": err, **timing}
+
+
+def _serving_report(torch, name: str, out: dict, kernel: str, layers: int) -> dict:
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    print(f"serve {name}: prefill {out['prefill_s']:.4f} s, decode {out['decode_s']:.4f} s, "
+          f"{out['tok_per_s']:.1f} tok/s, peak memory {peak:.2f} GiB, continuation "
+          f"{out['continuation']}")
+    print(f"serve {name}: launches in prefill {out['prefill_launches']}, "
+          f"in decode {out['decode_launches']}")
+    _require(out["logits_finite"], f"serve {name}: a logit is not finite")
+    _require(out["prefill_launches"].get(kernel, 0) == layers,
+             f"serve {name}: {kernel} launched {out['prefill_launches'].get(kernel, 0)} "
+             f"times in prefill, not {layers}")
+    _require(not any(out["decode_launches"].get(k, 0) for k in TOKEN_KERNELS),
+             f"serve {name}: a token kernel was launched in decode")
+    return {k: out[k] for k in ("prefill_s", "decode_s", "tok_per_s")} | {"peak_gib": peak}
+
+
+def run_serving_paths(torch, build) -> dict:
+    """This slice's paths: the three token families served at full width;
+    returns each kernel's launches on its path."""
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.launch import serve
+    from repro_torch.models import transformer as T
+    torch.backends.cuda.matmul.allow_tf32 = False
+    print(f"serving: matmul.allow_tf32={torch.backends.cuda.matmul.allow_tf32}, fp32 weights")
+    launches = {}
+    for arch, batch, prompt, steps, kernel, layers in (
+            ("gemma3-1b", 4, 1024, 32, "flash_attention", 26),
+            ("rwkv6-7b", 4, 512, 32, "rwkv6_scan", 32)):
+        args = serve.make_parser().parse_args(
+            ["--arch", arch, "--batch", str(batch), "--prompt-len", str(prompt),
+             "--decode-steps", str(steps)])
+        args.reduced = False            # the published config (the CLI cannot unset it)
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        build.reset_launches()
+        out = serve.run(args)
+        launches[kernel] = dict(build.LAUNCHES)
+        _serving_report(torch, f"{arch} {batch}x{prompt}+{steps}", out, kernel, layers)
+
+    cfg = dataclasses.replace(get_arch("jamba-1.5-large-398b").CONFIG, num_layers=2)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    params = T.init(gen, cfg, "cuda")
+    n_params = sum(t.numel() for t in _leaves(params))
+    prompts = torch.randint(0, cfg.vocab_size, (2, 512), generator=gen, device="cuda")
+    build.reset_launches()
+    out = serve.generate(params, prompts, cfg, 16)
+    launches["mamba_scan"] = dict(build.LAUNCHES)
+    out["continuation"] = out["tokens"][0][:16].tolist()
+    out["logits_finite"] = bool(torch.isfinite(out["logits"]).all())
+    print(f"serve jamba-1.5-large-398b cut to 2 layers ({[s.mixer + '+' + s.ffn for s in cfg.layer_specs()]}, "
+          f"{n_params} parameters)")
+    _serving_report(torch, "jamba 2 layers 2x512+16", out, "mamba_scan", 2)
+    del params, out
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def check_small_serving(torch, build) -> None:
+    """The five reduced token configs served on the card and on the CPU
+    (the plain versions) from the same seeded weights and prompts; the CPU
+    side is held to the JAX reference by tests/test_torch_serve.py."""
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.launch import serve
+    from repro_torch.models import transformer as T
+    from repro_torch.tree import tree_map
+    torch.backends.cuda.matmul.allow_tf32 = False
+    for arch in SMALL_ARCHS:
+        cfg = get_arch(arch).reduced()
+        gen = torch.Generator().manual_seed(7)
+        params = T.init(gen, cfg, "cpu")
+        prompts = torch.randint(0, cfg.vocab_size, (2, 20), generator=gen)
+        cpu = serve.generate(params, prompts, cfg, 6)
+        before = dict(build.LAUNCHES)
+        gpu = serve.generate(tree_map(lambda t: t.cuda(), params), prompts.cuda(), cfg, 6)
+        launched = {k: build.LAUNCHES.get(k, 0) - before.get(k, 0) for k in TOKEN_KERNELS}
+        gap = float((gpu["logits"].cpu() - cpu["logits"]).abs().max())
+        print(f"small serve {arch}: tokens cuda {gpu['tokens'][0].tolist()} cpu "
+              f"{cpu['tokens'][0].tolist()}, max |logit gap| {gap:.3e}, launched {launched}")
+        _require(torch.equal(gpu["tokens"].cpu(), cpu["tokens"]),
+                 f"small serve {arch}: greedy tokens differ between card and CPU")
+        torch.testing.assert_close(gpu["logits"].cpu(), cpu["logits"], **SERVE_TOL)
+        _require(sum(launched.values()) == cfg.num_layers,
+                 f"small serve {arch}: {launched} token-kernel launches for "
+                 f"{cfg.num_layers} layers")
+
 
 def _leaves(tree):
     from repro_torch.tree import tree_leaves
@@ -626,7 +906,10 @@ def main() -> int:
           f"{[(w, rows) for w, rows, _ in plan.groups]}")
     entries = {"fedagg": check_fedagg(torch, fedagg, ref, dev),
                **check_int8_kernels(torch, plan, layout, dev),
-               "trimmed_mean": check_trimmed_mean(torch, dev)}
+               "trimmed_mean": check_trimmed_mean(torch, dev),
+               "flash_attention": check_flash_attention(torch, dev),
+               "rwkv6_scan": check_rwkv6_scan(torch, dev),
+               "mamba_scan": check_mamba_scan(torch, dev)}
 
     main_launches = run_main_path(torch, FederatedJob, TaskConfig, build, OPENKBP_TASK)
     int8_launches, int8_result = run_int8_path(torch, FederatedJob, TaskConfig, build,
@@ -635,13 +918,18 @@ def main() -> int:
     check_small_jobs(torch, FederatedJob, TaskConfig)
     robust_launches = run_robust_path(torch, FederatedJob, TaskConfig, build, OPENKBP_TASK)
     check_robust_small_jobs(torch, FederatedJob, TaskConfig, build)
+    del int8_result
+    serving_launches = run_serving_paths(torch, build)
+    check_small_serving(torch, build)
 
     # each kernel's launches on the path that carries it: fedagg on the
     # first slice's path, the int8 fold and install on the second's, the
-    # decode in the codec phase, the trimmed mean on the robust path
+    # decode in the codec phase, the trimmed mean on the robust path, each
+    # token kernel on the serving path of its family
     path_of = {"fedagg": main_launches, "quantize_int8": int8_launches,
                "fedagg_dequant": int8_launches, "dequant_install": int8_launches,
-               "dequantize_int8": codec_launches, "trimmed_mean": robust_launches}
+               "dequantize_int8": codec_launches, "trimmed_mean": robust_launches,
+               **serving_launches}
     kernels = []
     for name, (route, source, replaces) in ops.KERNELS.items():
         kernels.append({"name": name, "route": route, "source": source,

@@ -5,6 +5,9 @@ out]``); the port stores them OIDHW (``[out, in, kd, kh, kw]``), the
 layout ``F.conv3d`` takes.  Every other leaf (biases, GroupNorm scales,
 SE matrices ``[in, out]``) has the same orientation in both.  The tree
 nesting is the same in both, so a conversion is a map over the leaves.
+A token model's tree has no 5-D leaf (dense weights are ``[d_in, d_out]``
+in both packages, stacked layers add one leading axis, MoE experts one
+more), so it crosses unchanged.
 
 The functions take and return plain numpy/tensor trees; nothing here
 imports JAX (pass ``jax.tree.map(np.asarray, params)``).

@@ -8,8 +8,11 @@ version on a card.
 from __future__ import annotations
 
 from repro_torch.kernels.fedagg import dequant_install, fedagg, fedagg_dequant
+from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.kernels.mamba_scan import mamba_scan
 from repro_torch.kernels.quantize import dequantize_int8, quantize_int8
 from repro_torch.kernels.robust import masked_median, trimmed_mean
+from repro_torch.kernels.rwkv6_scan import rwkv6_scan
 
 # name -> (route, source in the repo, the TPU kernel it replaces: its def line)
 KERNELS = {
@@ -26,7 +29,14 @@ KERNELS = {
     # one kernel for both rules: the median is the trimmed mean at f = S
     "trimmed_mean": ("cuda", "src/repro_torch/csrc/trimmed_mean.cu",
                      "src/repro/kernels/robust.py:71, src/repro/kernels/robust.py:100"),
+    "flash_attention": ("cuda", "src/repro_torch/csrc/flash_attention.cu",
+                        "src/repro/kernels/flash_attention.py:79"),
+    "rwkv6_scan": ("cuda", "src/repro_torch/csrc/rwkv6_scan.cu",
+                   "src/repro/kernels/rwkv6_scan.py:51"),
+    "mamba_scan": ("cuda", "src/repro_torch/csrc/mamba_scan.cu",
+                   "src/repro/kernels/mamba_scan.py:47"),
 }
 
 __all__ = ["KERNELS", "dequant_install", "dequantize_int8", "fedagg",
-           "fedagg_dequant", "masked_median", "quantize_int8", "trimmed_mean"]
+           "fedagg_dequant", "flash_attention", "mamba_scan", "masked_median",
+           "quantize_int8", "rwkv6_scan", "trimmed_mean"]

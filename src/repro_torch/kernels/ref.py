@@ -12,10 +12,15 @@ into a multiplication by its reciprocal, which is not the IEEE quotient.
 The trimmed mean sums its kept ranks one rank at a time in ascending
 order, from +0.0, so that the kernel, which does the same in registers,
 matches it bit for bit.
+
+The token models' three kernels (flash attention, the WKV-6 scan, the
+selective scan) have their plain versions at the end: ports of the
+reference's oracles in ``repro/kernels/ref.py``, with the final states
+the serving caches need.
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -93,3 +98,77 @@ def masked_median_ref(stacked: torch.Tensor, active: torch.Tensor) -> torch.Tens
     the deepest trim, ``f = S`` (the mean of the two middle ranks for an
     even active count)."""
     return trimmed_mean_ref(stacked, active, int(stacked.shape[0]))
+
+
+# -- the token models' kernels ---------------------------------------------------
+
+NEG_INF = -1e30
+
+
+def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        causal: bool = True, window: Optional[int] = None) -> torch.Tensor:
+    """q [B, Hq, Lq, D]; k/v [B, Hkv, Lk, D] -> [B, Hq, Lq, D] in q's dtype.
+
+    GQA (q head h reads kv head ``h // (Hq / Hkv)``), fp32 softmax, scale
+    ``D ** -0.5``.  The queries are the last Lq positions; a key at
+    position j is seen by the query at position i if ``j <= i`` (causal)
+    and ``j > i - window`` (a sliding window); other scores are -1e30."""
+    b, hq, lq, d = q.shape
+    hkv, lk = k.shape[1], k.shape[2]
+    group = hq // hkv
+    kk = k.repeat_interleave(group, dim=1).float()
+    vv = v.repeat_interleave(group, dim=1).float()
+    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), kk) * (d ** -0.5)
+    q_pos = torch.arange(lq, device=q.device) + (lk - lq)
+    k_pos = torch.arange(lk, device=q.device)
+    ok = torch.ones((lq, lk), dtype=torch.bool, device=q.device)
+    if causal:
+        ok &= k_pos[None, :] <= q_pos[:, None]
+    if window is not None:
+        ok &= k_pos[None, :] > q_pos[:, None] - window
+    s = torch.where(ok, s, torch.full_like(s, NEG_INF))
+    p = torch.softmax(s, dim=-1)
+    return torch.einsum("bhqk,bhkd->bhqd", p, vv).to(q.dtype)
+
+
+def rwkv6_scan_ref(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
+                   u: torch.Tensor, state: Optional[torch.Tensor] = None
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The WKV-6 recurrence.  r/k/v/w [B, H, L, D]; u [H, D].
+
+    out_t = r_t . (S + u * k_t (x) v_t);  S <- w_t * S + k_t (x) v_t, the
+    decay along the k index of S [B, H, D, D].  Returns (out in r's dtype,
+    the final fp32 state); S starts at ``state`` or 0."""
+    b, h, l, d = r.shape
+    s = (torch.zeros((b, h, d, d), dtype=torch.float32, device=r.device)
+         if state is None else state.float())
+    u32 = u.float()[None, :, :, None]
+    outs = []
+    for t in range(l):
+        r_t, k_t, v_t, w_t = (x[:, :, t].float() for x in (r, k, v, w))
+        kv = k_t[..., :, None] * v_t[..., None, :]
+        outs.append(torch.einsum("bhi,bhij->bhj", r_t, s + u32 * kv))
+        s = w_t[..., :, None] * s + kv
+    out = torch.stack(outs, dim=2) if outs else torch.zeros_like(r, dtype=torch.float32)
+    return out.to(r.dtype), s
+
+
+def mamba_scan_ref(dt: torch.Tensor, b_mat: torch.Tensor, c_mat: torch.Tensor,
+                   x: torch.Tensor, log_a: torch.Tensor
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The Mamba-1 selective scan.  dt/x [B, L, di]; b/c [B, L, ds];
+    log_a [di, ds].
+
+    A = -exp(log_a);  s <- exp(dt * A) * s + (dt * x) (x) B;  y = s . C,
+    s from 0.  Returns (y in dt's dtype, the final fp32 state [B, di, ds])."""
+    a = -torch.exp(log_a.float())
+    bsz, l, di = dt.shape
+    s = torch.zeros((bsz, di, log_a.shape[-1]), dtype=torch.float32, device=dt.device)
+    ys = []
+    for t in range(l):
+        dt_t, b_t, c_t, x_t = (z[:, t].float() for z in (dt, b_mat, c_mat, x))
+        dec = torch.exp(dt_t[..., None] * a)
+        s = dec * s + (dt_t * x_t)[..., None] * b_t[..., None, :]
+        ys.append(torch.einsum("bis,bs->bi", s, c_t))
+    y = torch.stack(ys, dim=1) if ys else torch.zeros_like(dt, dtype=torch.float32)
+    return y.to(dt.dtype), s

@@ -17,7 +17,12 @@ int8 rule; ``fedagg_dequant``'s fold ``g`` is within rtol=atol=1e-6
 (the sum over sites in another order).  ``trimmed_mean`` (and the median,
 f = S) is bit-equal to its plain version, with NaN where it has NaN.  Job losses: rtol 1e-4, with TF32
 off on both sides, since sum orders differ and AdamW's first step
-amplifies noise on near-zero gradients.
+amplifies noise on near-zero gradients.  The token kernels:
+``flash_attention`` fp32 rtol=atol=1e-5 (a tiled online softmax against
+one softmax over up to 1024 keys), bf16 2e-2; the scans (out or y,
+and the final state) rtol 1e-5 and atol 1e-5 of the plain version's
+largest value, since each output sums D or ds terms in another order;
+served logits card vs CPU rtol=atol=1e-4 (TF32 off), greedy tokens equal.
 """
 import numpy as np
 import pytest
@@ -180,3 +185,102 @@ def test_small_robust_job_on_card_matches_cpu_and_launches_the_kernel(cuda_devic
     assert build.LAUNCHES["trimmed_mean"] - before == job.rounds
     cpu = job.replace(device="cpu").run()
     np.testing.assert_allclose(gpu.losses, cpu.losses, rtol=1e-4, atol=1e-6)
+
+
+# -- the token models' kernels -------------------------------------------------
+
+FLASH_TOL = {torch.float32: dict(rtol=1e-5, atol=1e-5),
+             torch.bfloat16: dict(rtol=2e-2, atol=2e-2)}
+# (b, hq, hkv, lq, lk, d, causal, window): ragged, groups 1-4, both masks
+FLASH_SHAPES = [(1, 2, 2, 1, 1, 32, True, None), (2, 4, 2, 37, 37, 32, True, 17),
+                (1, 6, 2, 45, 70, 64, True, None), (3, 4, 1, 70, 99, 64, False, None),
+                (1, 3, 1, 33, 600, 128, True, 512), (2, 8, 2, 129, 129, 128, False, 17),
+                (1, 4, 1, 200, 530, 256, True, 17), (1, 4, 1, 1024, 1024, 256, True, None)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", FLASH_SHAPES, ids=lambda c: "-".join(map(str, c)))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_kernel_matches_plain_on_card(cuda_device, case, dtype):
+    b, hq, hkv, lq, lk, d, causal, window = case
+    gen = torch.Generator(device=cuda_device).manual_seed(lq * 7 + lk)
+    q = torch.randn(b, hq, lq, d, device=cuda_device, generator=gen).to(dtype)
+    k, v = (torch.randn(b, hkv, lk, d, device=cuda_device, generator=gen).to(dtype)
+            for _ in range(2))
+    before = build.LAUNCHES.get("flash_attention", 0)
+    out = ops.flash_attention(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert build.LAUNCHES["flash_attention"] == before + 1
+    assert out.dtype == dtype and out.shape == q.shape
+    want = ref.flash_attention_ref(q, k, v, causal, window)
+    torch.testing.assert_close(out.float(), want.float(), **FLASH_TOL[dtype])
+
+
+def _close_scaled(got, want):
+    scale = max(float(want.abs().max()), 1.0)
+    torch.testing.assert_close(got.float(), want.float(), rtol=1e-5, atol=1e-5 * scale)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,h,l,d", [(1, 1, 1, 32), (2, 3, 13, 32), (1, 5, 77, 64),
+                                     (4, 64, 512, 64)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_rwkv6_scan_kernel_matches_plain_on_card(cuda_device, b, h, l, d, dtype):
+    gen = torch.Generator(device=cuda_device).manual_seed(l * 3 + d)
+    r, k, v = (torch.randn(b, h, l, d, device=cuda_device, generator=gen).to(dtype)
+               for _ in range(3))
+    w = torch.exp(-torch.exp(torch.randn(b, h, l, d, device=cuda_device,
+                                         generator=gen) - 5.0)).to(dtype)
+    u = torch.randn(h, d, device=cuda_device, generator=gen) * 0.1
+    before = build.LAUNCHES.get("rwkv6_scan", 0)
+    out, state = ops.rwkv6_scan(r, k, v, w, u)
+    torch.cuda.synchronize()
+    assert build.LAUNCHES["rwkv6_scan"] == before + 1
+    want_out, want_state = ref.rwkv6_scan_ref(r, k, v, w, u)
+    _close_scaled(state, want_state)
+    if dtype == torch.float32:
+        _close_scaled(out, want_out)
+    else:
+        torch.testing.assert_close(out.float(), want_out.float(), **TOL[dtype])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,l,di,ds", [(1, 1, 5, 4), (2, 13, 24, 8), (1, 77, 300, 16),
+                                       (2, 33, 130, 32), (2, 512, 16384, 16)])
+def test_mamba_scan_kernel_matches_plain_on_card(cuda_device, b, l, di, ds):
+    gen = torch.Generator(device=cuda_device).manual_seed(l + di + ds)
+    dt = torch.nn.functional.softplus(
+        torch.randn(b, l, di, device=cuda_device, generator=gen) - 3.0)
+    bm, cm = (torch.randn(b, l, ds, device=cuda_device, generator=gen) for _ in range(2))
+    x = torch.randn(b, l, di, device=cuda_device, generator=gen)
+    log_a = torch.log(torch.arange(1, ds + 1, device=cuda_device,
+                                   dtype=torch.float32)).expand(di, ds).contiguous()
+    before = build.LAUNCHES.get("mamba_scan", 0)
+    y, state = ops.mamba_scan(dt, bm, cm, x, log_a)
+    torch.cuda.synchronize()
+    assert build.LAUNCHES["mamba_scan"] == before + 1
+    want_y, want_state = ref.mamba_scan_ref(dt, bm, cm, x, log_a)
+    _close_scaled(y, want_y)
+    _close_scaled(state, want_state)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["gemma3-1b", "rwkv6-7b", "jamba-1.5-large-398b"])
+def test_small_generate_on_card_matches_cpu_and_launches_the_kernels(cuda_device, arch,
+                                                                     monkeypatch):
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.launch import serve
+    from repro_torch.models import transformer as T
+    from repro_torch.tree import tree_map
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    cfg = get_arch(arch).reduced()
+    gen = torch.Generator().manual_seed(11)
+    params = T.init(gen, cfg, "cpu")
+    prompts = torch.randint(0, cfg.vocab_size, (2, 20), generator=gen)
+    cpu = serve.generate(params, prompts, cfg, 5)
+    gpu = serve.generate(tree_map(lambda t: t.to(cuda_device), params),
+                         prompts.to(cuda_device), cfg, 5)
+    assert sum(gpu["prefill_launches"].values()) == cfg.num_layers
+    assert gpu["decode_launches"] == {}
+    assert torch.equal(gpu["tokens"].cpu(), cpu["tokens"])
+    torch.testing.assert_close(gpu["logits"].cpu(), cpu["logits"], rtol=1e-4, atol=1e-4)
