@@ -7,10 +7,12 @@ Phases, each of which fails the run (non-zero exit) if it goes wrong:
 
 1. the card's name and power limit, then a build of every hand-written
    kernel from ``src/repro_torch/csrc`` (one ``nvcc`` per source, all
-   started together);
+   started together), and the registers, shared memory and blocks an SM
+   of each ``flash_attention`` and ``rwkv6_scan`` instance;
 2. each kernel against its plain PyTorch version on the card, at the
    paths' shapes and at ragged ones, with stated tolerances, then its
-   time beside its bound, the plain version's time and, where one exists,
+   time beside its bound (fp32 attention's at the TF32 tensor-core rate,
+   three products a flop), the plain version's time and, where one exists,
    one library call's time (CUDA events around a CUDA graph of the call
    site, median of 25 replays after a warm-up, so no host time is in
    them; the eager call site's time is kept as ``eager_ms``).
@@ -85,10 +87,11 @@ DENSE_BYTES = 4 * FULL_N                 # one model, fp32
 FP32_TOL = dict(rtol=1e-6, atol=1e-6)    # FMA contraction and sum order differ
 BF16_TOL = dict(rtol=2e-2, atol=2e-2)    # one bf16 rounding of the output
 JOB_RTOL = 1e-4                          # card vs CPU losses, TF32 off
-# Published peaks (NVIDIA data sheets, dense): memory bytes/s and fp32
-# (non-tensor-core) FLOP/s, by the name torch.cuda reports.
-PEAKS = {"H100 80GB HBM3": (3.35e12, 67e12), "H100 PCIe": (2.0e12, 51e12),
-         "H100 NVL": (3.9e12, 60e12), "H200": (4.8e12, 67e12)}
+# Published peaks (NVIDIA data sheets, dense): memory bytes/s, fp32
+# (non-tensor-core) FLOP/s and TF32 tensor-core FLOP/s, by the name
+# torch.cuda reports.
+PEAKS = {"H100 80GB HBM3": (3.35e12, 67e12, 495e12), "H100 PCIe": (2.0e12, 51e12, 378e12),
+         "H100 NVL": (3.9e12, 60e12, 417.5e12), "H200": (4.8e12, 67e12, 495e12)}
 # ragged shapes for the int8 kernels: sites x chunk rows x chunk width
 RAGGED = [(s, rows, c) for s in (1, 3, 4) for rows in (1, 7, 6_797)
           for c in (1, 127, 640, 1024)]
@@ -99,15 +102,23 @@ TRIM_WIDTHS = (1, 127, 128, 65_537)
 INT8_KERNELS = ("quantize_int8", "dequantize_int8", "fedagg_dequant", "dequant_install")
 TOKEN_KERNELS = ("flash_attention", "rwkv6_scan", "mamba_scan")
 # flash attention: (batch, q heads, kv heads, Lq, Lk, D, causal, window), ragged
-# (no Lq a multiple of any tile), GQA groups 1-4, windows None/17/512, both masks
+# (no Lq a multiple of any tile), GQA groups 1, 2, 3, 4 and 8, windows
+# None/17/45/512, both masks; Lq <= 16 against Lk >= 600 (the group's packed
+# rows fill one block), a window edge inside a 32-key stage
 FLASH_CASES = [(1, 2, 2, 1, 1, 32, True, None), (2, 4, 2, 37, 37, 32, True, 17),
                (1, 6, 2, 45, 70, 64, True, None), (3, 4, 1, 70, 99, 64, False, None),
                (1, 3, 1, 33, 600, 128, True, 512), (2, 8, 2, 129, 129, 128, False, 17),
                (1, 4, 1, 200, 530, 256, True, 17), (1, 4, 4, 531, 531, 256, True, 512),
-               (2, 4, 1, 77, 77, 256, False, 512), (1, 9, 3, 50, 50, 64, True, None)]
+               (2, 4, 1, 77, 77, 256, False, 512), (1, 9, 3, 50, 50, 64, True, None),
+               (2, 16, 2, 77, 90, 128, True, None), (1, 8, 1, 100, 100, 256, True, 64),
+               (1, 4, 1, 16, 640, 256, True, None), (2, 8, 1, 9, 700, 64, True, 300),
+               (1, 8, 2, 150, 180, 64, True, 45)]
 GEMMA_ATTN = (4, 4, 1, 1024, 1024, 256)           # gemma3-1b's prefill, per layer
 # the scans: (batch, heads, L, D) and (batch, L, d_inner, d_state), ragged
-RWKV_CASES = [(1, 1, 1, 32), (2, 3, 13, 32), (1, 5, 77, 64), (3, 2, 300, 64)]
+# the scans' L: 0, 1, and none a multiple of rwkv6_scan's 16-step stage but 0;
+# D 32 with many heads
+RWKV_CASES = [(1, 1, 1, 32), (1, 2, 0, 64), (2, 3, 13, 32), (1, 5, 77, 64), (3, 2, 300, 64),
+              (2, 40, 45, 32), (1, 64, 100, 32)]
 RWKV_FULL = (4, 64, 512, 64)                       # rwkv6-7b's prefill, per layer
 MAMBA_CASES = [(1, 1, 5, 4), (2, 13, 24, 8), (1, 77, 300, 16), (3, 40, 1000, 16),
                (2, 33, 130, 32)]
@@ -161,12 +172,22 @@ def time_ms(fn, warmup: int = 3, reps: int = 25):
     return _median_ms(graph.replay, reps), _median_ms(fn, reps)
 
 
-def measure(torch, name, kernel, plain, library, nbytes: int, flops: int) -> dict:
+def measure(torch, name, kernel, plain, library, nbytes: int, flops: int,
+            tf32_products: int = 0) -> dict:
     """Device times of one call site (``kernel``/``plain``/``library`` take
-    no arguments) beside the bound for ``nbytes`` moved and ``flops`` done;
+    no arguments) beside the bound for ``nbytes`` moved and ``flops`` done:
+    at the fp32 rate outside the tensor cores, or, with ``tf32_products``,
+    as that many TF32 products of each flop at the tensor cores' TF32 rate;
     ``eager_ms`` is the kernel's call site with the host in it."""
-    mem_rate, fp32_rate = peaks(torch.cuda.get_device_name(0))
-    bytes_ms, ops_ms = 1e3 * nbytes / mem_rate, 1e3 * flops / fp32_rate
+    mem_rate, fp32_rate, tf32_rate = peaks(torch.cuda.get_device_name(0))
+    if tf32_products:
+        ops_rate, unit = tf32_rate / tf32_products, f"{tf32_products} TF32 products a flop"
+    else:
+        ops_rate, unit = fp32_rate, "fp32 outside the tensor cores"
+    bytes_ms, ops_ms = 1e3 * nbytes / mem_rate, 1e3 * flops / ops_rate
+    print(f"{name}: bound by {'bytes' if bytes_ms >= ops_ms else 'operations'}: "
+          f"{bytes_ms:.4f} ms for {nbytes / 1e6:.1f} MB at {mem_rate / 1e12:.2f} TB/s, "
+          f"{ops_ms:.4f} ms for {flops / 1e9:.2f} GFLOP at {ops_rate / 1e12:.1f} TFLOP/s ({unit})")
     ms, eager_ms = time_ms(kernel)
     out = {"ms": ms, "plain_ms": time_ms(plain)[0],
            "library_ms": time_ms(library)[0] if library is not None else None,
@@ -175,8 +196,8 @@ def measure(torch, name, kernel, plain, library, nbytes: int, flops: int) -> dic
            "eager_ms": eager_ms}
     lib = "none" if out["library_ms"] is None else f"{out['library_ms']:.4f} ms"
     print(f"{name}: kernel {ms:.4f} ms (eager {eager_ms:.4f} ms), bound "
-          f"{out['bound_ms']:.4f} ms ({nbytes / 1e6:.1f} MB at {mem_rate / 1e12:.2f} TB/s), "
-          f"plain {out['plain_ms']:.4f} ms, library {lib}")
+          f"{out['bound_ms']:.4f} ms ({out['bound_by']}), plain {out['plain_ms']:.4f} ms, "
+          f"library {lib}")
     return out
 
 
@@ -685,10 +706,30 @@ def check_flash_attention(torch, dev) -> dict:
             lambda: flash_attention_cuda(q, k, v, True, window),
             lambda: ref.flash_attention_ref(q, k, v, True, window),
             lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask, enable_gqa=True),
-            nbytes=4 * 2 * (q.numel() + k.numel()), flops=4 * d * pairs)
+            nbytes=4 * 2 * (q.numel() + k.numel()), flops=4 * d * pairs, tf32_products=3)
         out[window]["library_max_abs_err"] = lib_err
         print(f"  scaled_dot_product_attention vs the plain version: max |err| {lib_err:.3e}")
     return {"max_abs_err": err, **out[None], "window_512": out[512]}
+
+
+def kernel_resources(build) -> None:
+    """Registers, local memory, shared memory and blocks an SM of every
+    instance of the two redesigned kernels, as ``cudaFuncGetAttributes`` and
+    the occupancy calculator give them (each source's ``*_resources``)."""
+    import ctypes
+    from repro_torch.kernels import flash_attention, rwkv6_scan
+    for mod in (flash_attention, rwkv6_scan):
+        fn = build.entry(mod.NAME, f"{mod.NAME}_resources",
+                         [ctypes.c_int64, ctypes.c_int64, ctypes.POINTER(ctypes.c_int)])
+        for d in mod.HEAD_DIMS:
+            for bf16 in (0, 1):
+                out = (ctypes.c_int * 5)()
+                err = fn(d, bf16, out)
+                _require(err == 0, f"{mod.NAME}_resources(D={d}): CUDA error {err}")
+                regs, local, smem, threads, blocks = out
+                print(f"{mod.NAME} D={d} {'bf16' if bf16 else 'fp32'}: {regs} registers, "
+                      f"local {local} B, shared {smem} B, {threads} threads, "
+                      f"{blocks} blocks an SM")
 
 
 def _rwkv_inputs(torch, dev, shape, dtype, gen):
@@ -735,7 +776,7 @@ def check_rwkv6_scan(torch, dev) -> dict:
     timing = measure(torch, f"rwkv6_scan {list(RWKV_FULL)} fp32",
                      lambda: rwkv6_scan_cuda(*xs), lambda: ref.rwkv6_scan_ref(*xs), None,
                      nbytes=4 * (5 * b * h * l * d + h * d + b * h * d * d),
-                     flops=7 * b * h * l * d * d)
+                     flops=5 * b * h * l * d * d)   # k v, the S update, r S
     return {"max_abs_err": err, **timing}
 
 
@@ -895,6 +936,7 @@ def main() -> int:
     t0 = time.perf_counter()
     build.build(list(ops.KERNELS))
     print(f"built {sorted(ops.KERNELS)} in {time.perf_counter() - t0:.1f} s")
+    kernel_resources(build)
 
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False

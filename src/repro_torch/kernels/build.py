@@ -154,6 +154,13 @@ def require_cuda(fn: str, *tensors: torch.Tensor) -> None:
         raise ValueError(f"{fn}: tensors must be contiguous")
 
 
+def require_aligned(fn: str, *tensors: torch.Tensor) -> None:
+    """Raise unless every tensor starts on a 16-byte boundary (the kernels
+    that copy their inputs 16 bytes at a time)."""
+    if any(t.data_ptr() % 16 for t in tensors):
+        raise ValueError(f"{fn}: tensors must start on a 16-byte boundary")
+
+
 def dispatch(fn: str, device: torch.device, plain: Callable, kernel: Callable, *args):
     """``plain(*args)`` for a CPU tensor, ``kernel(*args)`` for a CUDA one."""
     if device.type == "cpu":

@@ -11,8 +11,10 @@ The attention module transposes its ``[B, L, H, D]`` projections to
 this layout around the call.
 
 One CUDA kernel, ``csrc/flash_attention.cu``, for fp32 and bf16 and
-head dims 32, 64, 128 and 256.  Dispatch is by the tensors' device and
-nothing else: CPU tensors take the plain version
+head dims 32, 64, 128 and 256: fp32 on the tensor cores as three TF32
+products, bf16 as one bf16 product, the q heads of a GQA group packed
+into one block's rows, K/V tiles staged asynchronously.  Dispatch is by
+the tensors' device and nothing else: CPU tensors take the plain version
 :func:`repro_torch.kernels.ref.flash_attention_ref`, CUDA tensors launch
 the kernel or raise.
 """
@@ -28,6 +30,10 @@ from repro_torch.kernels.ref import flash_attention_ref
 
 NAME = "flash_attention"
 HEAD_DIMS = (32, 64, 128, 256)          # the kernel's template instances
+# the kernel's tiles (kBlockM and kBlockN in csrc/flash_attention.cu): packed
+# (query, head) rows a block, and keys a K/V stage, half of them a warp
+BLOCK_ROWS = 64
+BLOCK_KEYS = 32
 _ENTRY = {torch.float32: "flash_attention_f32", torch.bfloat16: "flash_attention_bf16"}
 _P, _I = ctypes.c_void_p, ctypes.c_int64
 _ARGS = [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P]
@@ -62,6 +68,7 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """Launch the CUDA kernel on PyTorch's current stream."""
     _check(q, k, v, window)
     build.require_cuda("flash_attention_cuda", q, k, v)
+    build.require_aligned("flash_attention_cuda", q, k, v)
     b, hq, lq, d = q.shape
     hkv, lk = k.shape[1], k.shape[2]
     if d not in HEAD_DIMS:

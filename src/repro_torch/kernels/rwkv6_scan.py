@@ -11,10 +11,13 @@ reference's TPU kernel returns only ``out``).  The RWKV-6 module
 transposes its ``[B, L, H, D]`` projections to this layout around the
 call.
 
-One CUDA kernel, ``csrc/rwkv6_scan.cu``, for head dims 32 and 64.
-Dispatch is by the tensors' device and nothing else: CPU tensors take
-the plain version :func:`repro_torch.kernels.ref.rwkv6_scan_ref`, CUDA
-tensors launch the kernel or raise.
+One CUDA kernel, ``csrc/rwkv6_scan.cu``, for head dims 32 and 64: a
+block per (batch, head), each thread a 4 x 8 tile of S in registers,
+the sum over rows deferred through shared memory, the inputs of 16
+steps copied asynchronously while the previous ones run.  Dispatch is
+by the tensors' device and nothing else: CPU tensors take the plain
+version :func:`repro_torch.kernels.ref.rwkv6_scan_ref`, CUDA tensors
+launch the kernel or raise.
 """
 from __future__ import annotations
 
@@ -52,6 +55,7 @@ def rwkv6_scan_cuda(r, k, v, w, u) -> Tuple[torch.Tensor, torch.Tensor]:
     _check(r, k, v, w, u)
     u32 = u.float().contiguous()
     build.require_cuda("rwkv6_scan_cuda", r, k, v, w, u32)
+    build.require_aligned("rwkv6_scan_cuda", r, k, v, w)
     b, h, l, d = r.shape
     if d not in HEAD_DIMS:
         raise ValueError(f"rwkv6_scan: head dim {d} not in {HEAD_DIMS}")

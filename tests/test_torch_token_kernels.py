@@ -148,3 +148,7 @@ def test_token_kernels_raise_on_what_they_do_not_take():
         rwkv6_scan_cuda(r, r, r, r, torch.zeros(2, 32))
     with pytest.raises(ValueError, match="CUDA"):
         mamba_scan_cuda(*map(torch.from_numpy, _mamba_inputs(1, 3, 4, 4, 0)))
+    # flash_attention and rwkv6_scan copy their inputs 16 bytes at a time
+    build.require_aligned("x", q, kv)
+    with pytest.raises(ValueError, match="16-byte"):
+        build.require_aligned("x", q, torch.zeros(33)[1:])
