@@ -8,7 +8,8 @@ Phases, each of which fails the run (non-zero exit) if it goes wrong:
 1. the card's name and power limit, then a build of every hand-written
    kernel from ``src/repro_torch/csrc`` (one ``nvcc`` per source, all
    started together), and the registers, shared memory and blocks an SM
-   of each ``flash_attention`` and ``rwkv6_scan`` instance;
+   of each instance of ``flash_attention``, ``rwkv6_scan``, ``mamba_scan``
+   and ``quantize_int8``;
 2. each kernel against its plain PyTorch version on the card, at the
    paths' shapes and at ragged ones, with stated tolerances, then its
    time beside its bound (fp32 attention's at the TF32 tensor-core rate,
@@ -23,7 +24,9 @@ Phases, each of which fails the run (non-zero exit) if it goes wrong:
 3. the first slice's path through the port's own entry point: a
    full-width SA-Net (11 channels, 24 filters, 4 levels, 128^3 OpenKBP
    volumes) trained by 4-site FedAvg for 2 sync rounds, with random
-   weights from a seed;
+   weights from a seed, TF32 convolutions (the port's choice, as the
+   reference's XLA on this card); then the same job with fp32 convolutions,
+   each round's losses, their gap and ``step_s`` printed side by side;
 4. this slice's path: the same job with int8 uploads and downloads
    (``compression="int8", down_compression="int8"``), with its exact
    byte counts per round and every kernel of the path launched in every
@@ -56,7 +59,11 @@ Phases, each of which fails the run (non-zero exit) if it goes wrong:
    26 times, ``rwkv6_scan`` 32, ``mamba_scan`` 2), each decode none of
    the three, and every logit must be finite.  Phase 2 holds the three
    kernels to their plain versions at ragged shapes and at these paths'
-   full-width shapes (the scans' final states too);
+   full-width shapes (the scans' final states too; ``mamba_scan`` with a
+   row of A for each channel, at every threads-a-channel instance, its bound
+   the larger of bytes and the operations: the fp32 instructions its SASS
+   shows with one exp an entry, on the special-function unit or as a
+   software exp2 on the fp32 lanes, whichever balances the two);
 10. the five reduced token configs served on the card and on the CPU
    (the plain versions) from the same seeded weights and prompts, TF32
    off: the greedy tokens must be equal and the logits within
@@ -93,8 +100,10 @@ JOB_RTOL = 1e-4                          # card vs CPU losses, TF32 off
 PEAKS = {"H100 80GB HBM3": (3.35e12, 67e12, 495e12), "H100 PCIe": (2.0e12, 51e12, 378e12),
          "H100 NVL": (3.9e12, 60e12, 417.5e12), "H200": (4.8e12, 67e12, 495e12)}
 # ragged shapes for the int8 kernels: sites x chunk rows x chunk width
+# (width 4: the narrowest 16-byte row; 1028: wider than the register path's
+# 1024), and one row count that takes more than one grid-stride pass
 RAGGED = [(s, rows, c) for s in (1, 3, 4) for rows in (1, 7, 6_797)
-          for c in (1, 127, 640, 1024)]
+          for c in (1, 4, 127, 640, 1024, 1028)] + [(2, 20_000, 4), (1, 40_000, 128)]
 # the trimmed mean: site counts (every register width and the shared-memory
 # path) and widths (one column, odd, a multiple of 128, many blocks)
 TRIM_SITES = (1, 2, 3, 4, 5, 8, 17, 33, 64)
@@ -120,9 +129,19 @@ GEMMA_ATTN = (4, 4, 1, 1024, 1024, 256)           # gemma3-1b's prefill, per lay
 RWKV_CASES = [(1, 1, 1, 32), (1, 2, 0, 64), (2, 3, 13, 32), (1, 5, 77, 64), (3, 2, 300, 64),
               (2, 40, 45, 32), (1, 64, 100, 32)]
 RWKV_FULL = (4, 64, 512, 64)                       # rwkv6-7b's prefill, per layer
+# mamba: every threads-a-channel instance (d_state 4, 8, 16, 32, and 5, 12, 20
+# between them), d_inner a multiple of 4 (16-byte copies) and not (4-byte),
+# and not a multiple of any instance's channels a block (32, 64); L not a
+# multiple of the 16-step stage, and 0, 1, 16, 48 (exact stages)
 MAMBA_CASES = [(1, 1, 5, 4), (2, 13, 24, 8), (1, 77, 300, 16), (3, 40, 1000, 16),
-               (2, 33, 130, 32)]
+               (2, 33, 130, 32), (2, 0, 64, 16), (1, 16, 100, 4), (2, 48, 36, 8),
+               (1, 70, 68, 32), (2, 100, 4100, 16), (1, 45, 77, 5), (2, 19, 200, 12),
+               (1, 33, 44, 20)]
 MAMBA_FULL = (2, 512, 16384, 16)                   # Jamba-1.5-Large's prefill, per layer
+# the fewest fp32 instructions an exp2 costs off the special-function unit:
+# round, reduce, a degree-5 polynomial, the exponent's add (the mamba_scan
+# bound lets the exps run on either unit)
+SOFT_EXP2_INSTRUCTIONS = 8
 # flash attention fp32: the softmax over up to 1024 keys runs in tiles with
 # rescaling, against one softmax in the plain version (exp and sums differ)
 FLASH_TOL = dict(rtol=1e-5, atol=1e-5)
@@ -173,27 +192,34 @@ def time_ms(fn, warmup: int = 3, reps: int = 25):
 
 
 def measure(torch, name, kernel, plain, library, nbytes: int, flops: int,
-            tf32_products: int = 0) -> dict:
+            tf32_products: int = 0, ops_ms: float | None = None) -> dict:
     """Device times of one call site (``kernel``/``plain``/``library`` take
     no arguments) beside the bound for ``nbytes`` moved and ``flops`` done:
     at the fp32 rate outside the tensor cores, or, with ``tf32_products``,
     as that many TF32 products of each flop at the tensor cores' TF32 rate;
+    ``ops_ms``, where given, is the operations bound itself, reckoned by the
+    caller for work that is not all fp32 flops.
     ``eager_ms`` is the kernel's call site with the host in it."""
     mem_rate, fp32_rate, tf32_rate = peaks(torch.cuda.get_device_name(0))
     if tf32_products:
         ops_rate, unit = tf32_rate / tf32_products, f"{tf32_products} TF32 products a flop"
     else:
         ops_rate, unit = fp32_rate, "fp32 outside the tensor cores"
-    bytes_ms, ops_ms = 1e3 * nbytes / mem_rate, 1e3 * flops / ops_rate
-    print(f"{name}: bound by {'bytes' if bytes_ms >= ops_ms else 'operations'}: "
+    bytes_ms = 1e3 * nbytes / mem_rate
+    if ops_ms is None:
+        ops_ms = 1e3 * flops / ops_rate
+        ops_what = f"{flops / 1e9:.2f} GFLOP at {ops_rate / 1e12:.1f} TFLOP/s ({unit})"
+    else:
+        ops_what = "the operations reckoned above"
+    bounds = {"bytes": bytes_ms, "operations": ops_ms}
+    bound_by = max(bounds, key=bounds.get)
+    print(f"{name}: bound by {bound_by}: "
           f"{bytes_ms:.4f} ms for {nbytes / 1e6:.1f} MB at {mem_rate / 1e12:.2f} TB/s, "
-          f"{ops_ms:.4f} ms for {flops / 1e9:.2f} GFLOP at {ops_rate / 1e12:.1f} TFLOP/s ({unit})")
+          f"{ops_ms:.4f} ms for {ops_what}")
     ms, eager_ms = time_ms(kernel)
     out = {"ms": ms, "plain_ms": time_ms(plain)[0],
            "library_ms": time_ms(library)[0] if library is not None else None,
-           "bound_ms": max(bytes_ms, ops_ms),
-           "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-           "eager_ms": eager_ms}
+           "bound_ms": bounds[bound_by], "bound_by": bound_by, "eager_ms": eager_ms}
     lib = "none" if out["library_ms"] is None else f"{out['library_ms']:.4f} ms"
     print(f"{name}: kernel {ms:.4f} ms (eager {eager_ms:.4f} ms), bound "
           f"{out['bound_ms']:.4f} ms ({out['bound_by']}), plain {out['plain_ms']:.4f} ms, "
@@ -299,6 +325,15 @@ def check_int8_kernels(torch, plan, layout, dev) -> dict:
                  f"fedagg_dequant residual {where} differs from its plain version")
         torch.testing.assert_close(g, g_ref, **FP32_TOL)
         _require(torch.equal(inst, inst_ref), f"dequant_install {where} differs from its plain version")
+    # rows off a 16-byte boundary take the kernel's generic path
+    width, rows = full[0][2], full[0][1]
+    x = (torch.randn(rows * width + 1, device=dev, generator=gen) * 0.05)[1:].view(rows, width)
+    q, sc = qk.quantize_int8_cuda(x)
+    q_ref, sc_ref = ref.quantize_int8_ref(x)
+    where = f"quantize_int8 [{rows}, {width}] off a 16-byte boundary"
+    _require(x.data_ptr() % 16 != 0, f"{where}: the view is on a 16-byte boundary")
+    _require(torch.equal(sc, sc_ref), f"{where}: scales differ from its plain version")
+    _require(torch.equal(q, q_ref), f"{where}: q differs from its plain version")
     print(f"int8 kernels: {len(RAGGED)} ragged shapes and {len(full)} full-width chunk "
           "groups agree with the plain versions (bit-equal; fedagg_dequant's g "
           f"rtol=atol=1e-6, max |err| {err['fedagg_dequant']:.3e}) and the numpy rule")
@@ -440,8 +475,12 @@ def _check_result(torch, result, what: str) -> None:
 
 
 def run_main_path(torch, FederatedJob, TaskConfig, build, task) -> dict:
-    """The first slice's path: full-width FedAvg, uncompressed."""
-    torch.backends.cudnn.allow_tf32 = True         # PyTorch's default, stated
+    """The first slice's path: full-width FedAvg, uncompressed, with TF32
+    convolutions (what the reference's XLA does with fp32 convolutions on
+    this card; see ``models/sanet.py``); then the same job, from the same
+    seeded initial parameters and batches, with fp32 convolutions, to
+    record how far the losses lie apart and what fp32 costs a round."""
+    torch.backends.cudnn.allow_tf32 = True         # the port's choice, stated
     torch.backends.cuda.matmul.allow_tf32 = False  # PyTorch's default, stated
     print("main path: cudnn.allow_tf32=True, matmul.allow_tf32=False")
     job = FederatedJob(task=TaskConfig(**task), strategy="fedavg", rounds=ROUNDS)
@@ -458,6 +497,16 @@ def run_main_path(torch, FederatedJob, TaskConfig, build, task) -> dict:
     _check_result(torch, result, "the main path")
     _require(launches.get("fedagg", 0) >= ROUNDS,
              f"fedagg launched {launches.get('fedagg', 0)} times on the main path")
+
+    torch.backends.cudnn.allow_tf32 = False
+    fp32 = job.run()
+    torch.backends.cudnn.allow_tf32 = True
+    _check_result(torch, fp32, "the main path with fp32 convolutions")
+    for tf, fp in zip(result.history, fp32.history):
+        gap = abs(tf["loss"] - fp["loss"]) / abs(fp["loss"])
+        print(f"main path round {tf['round']}: loss TF32 {tf['loss']:.6f} fp32 "
+              f"{fp['loss']:.6f} (relative gap {gap:.3e}); step_s TF32 {tf['step_s']:.4f} "
+              f"fp32 {fp['step_s']:.4f}")
     return launches
 
 
@@ -714,22 +763,30 @@ def check_flash_attention(torch, dev) -> dict:
 
 def kernel_resources(build) -> None:
     """Registers, local memory, shared memory and blocks an SM of every
-    instance of the two redesigned kernels, as ``cudaFuncGetAttributes`` and
+    instance of the four redesigned kernels, as ``cudaFuncGetAttributes`` and
     the occupancy calculator give them (each source's ``*_resources``)."""
     import ctypes
     from repro_torch.kernels import flash_attention, rwkv6_scan
+    out = (ctypes.c_int * 5)()
+
+    def report(what, err):
+        _require(err == 0, f"{what}: CUDA error {err}")
+        regs, local, smem, threads, blocks = out
+        print(f"{what}: {regs} registers, local {local} B, shared {smem} B, "
+              f"{threads} threads, {blocks} blocks an SM")
     for mod in (flash_attention, rwkv6_scan):
         fn = build.entry(mod.NAME, f"{mod.NAME}_resources",
                          [ctypes.c_int64, ctypes.c_int64, ctypes.POINTER(ctypes.c_int)])
         for d in mod.HEAD_DIMS:
             for bf16 in (0, 1):
-                out = (ctypes.c_int * 5)()
-                err = fn(d, bf16, out)
-                _require(err == 0, f"{mod.NAME}_resources(D={d}): CUDA error {err}")
-                regs, local, smem, threads, blocks = out
-                print(f"{mod.NAME} D={d} {'bf16' if bf16 else 'fp32'}: {regs} registers, "
-                      f"local {local} B, shared {smem} B, {threads} threads, "
-                      f"{blocks} blocks an SM")
+                report(f"{mod.NAME} D={d} {'bf16' if bf16 else 'fp32'}", fn(d, bf16, out))
+    one = [ctypes.c_int64, ctypes.POINTER(ctypes.c_int)]
+    fn = build.entry("mamba_scan", "mamba_scan_resources", one)
+    for ds in (4, 8, 16, 32):          # the instance of each threads-a-channel split
+        report(f"mamba_scan d_state<={ds}", fn(ds, out))
+    fn = build.entry("quantize_int8", "quantize_int8_resources", one)
+    for c in (128, 256, 512, 1024, 1028):  # the register path's width classes, then any
+        report(f"quantize_int8 width {c}", fn(c, out))
 
 
 def _rwkv_inputs(torch, dev, shape, dtype, gen):
@@ -786,14 +843,19 @@ def _mamba_inputs(torch, dev, shape, gen):
     dt = F.softplus(torch.randn(b, l, di, device=dev, generator=gen) - 3.0)
     bm, cm = (torch.randn(b, l, ds, device=dev, generator=gen) for _ in range(2))
     x = torch.randn(b, l, di, device=dev, generator=gen)
+    # a row of A for each channel: log(1..ds) plus N(0, 0.1), so a kernel
+    # that reads another channel's row disagrees
     log_a = torch.log(torch.arange(1, ds + 1, device=dev, dtype=torch.float32)).expand(di, ds)
+    log_a = log_a + 0.1 * torch.randn(di, ds, device=dev, generator=gen)
     return dt, bm, cm, x, log_a.contiguous()
 
 
 def check_mamba_scan(torch, dev) -> dict:
     """mamba_scan (y and final state) vs its plain version at ragged shapes
-    and Jamba-1.5-Large's per-layer shape; returns its kernels-line entry."""
-    from repro_torch.kernels import ref
+    and Jamba-1.5-Large's per-layer shape, with a row of A for each
+    channel; returns its kernels-line entry, with its bound the largest of
+    the bytes, the fp32 instructions the SASS shows and the ex2s."""
+    from repro_torch.kernels import build, ref
     from repro_torch.kernels.mamba_scan import mamba_scan_cuda
     gen = torch.Generator(device=dev).manual_seed(5)
     err = 0.0
@@ -809,12 +871,66 @@ def check_mamba_scan(torch, dev) -> dict:
           f"max |err| {err:.3e})")
     b, l, di, ds = MAMBA_FULL
     xs = _mamba_inputs(torch, dev, MAMBA_FULL, gen)
+    entries = b * l * di * ds                     # state entries a step, summed over steps
+    fp32_per_entry, ex2 = _mamba_sass_counts(build, ds)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    mhz = float(_smi("clocks.max.sm"))
+    clock_ms = 1e3 / (sms * mhz * 1e6)            # one clock of every SM
+    sfu_ms = entries / 16 * clock_ms              # every exp a MUFU.EX2, 16 a clock an SM
+    frac, per_entry = _issue_sfu_floor(fp32_per_entry)
+    ops_ms = entries * per_entry * clock_ms
+    print(f"mamba_scan: the SASS of the d_state<={ds} instance has {fp32_per_entry:.2f} fp32 "
+          f"instructions (FFMA, FMUL, FADD) per MUFU.EX2 ({ex2} of those); {sms} SMs at "
+          f"{mhz:.0f} MHz (clocks.max.sm). Every exp on the special-function unit (16 a "
+          f"clock an SM) would take {sfu_ms:.4f} ms, a floor of this design, not of the "
+          f"scan: with {frac:.1%} of the exps as a {SOFT_EXP2_INSTRUCTIONS}-instruction "
+          f"software exp2 on the fp32 lanes, issue (128 lanes a clock an SM, a MUFU one "
+          f"slot) and SFU balance at {per_entry * 128:.2f} slots an entry, {ops_ms:.4f} ms")
     print("mamba_scan: no library time: no one PyTorch call computes the selective scan")
     timing = measure(torch, f"mamba_scan {list(MAMBA_FULL)} fp32",
                      lambda: mamba_scan_cuda(*xs), lambda: ref.mamba_scan_ref(*xs), None,
                      nbytes=4 * (3 * b * l * di + 2 * b * l * ds + di * ds + b * di * ds),
-                     flops=7 * b * l * di * ds)
-    return {"max_abs_err": err, **timing}
+                     flops=0, ops_ms=ops_ms)
+    return {"max_abs_err": err, **timing, "fp32_instructions_per_entry": fp32_per_entry,
+            "sfu_ms": sfu_ms}
+
+
+def _issue_sfu_floor(fp32: float, soft: int = SOFT_EXP2_INSTRUCTIONS):
+    """(the share of exps taken off the SFU, clocks an SM per state entry)
+    for a scan that needs ``fp32`` fp32 instructions and one exp an entry,
+    when each exp may be a MUFU.EX2 (one issue slot, and the SFU's 16 lanes
+    a clock an SM) or a software exp2 of ``soft`` instructions on the fp32
+    lanes (128 slots a clock an SM): the share f that balances issue,
+    (fp32 + 1 + f * (soft - 1)) / 128, against the SFU, (1 - f) / 16."""
+    f = max(0.0, (7.0 - fp32) / (soft + 7.0))
+    return f, max((fp32 + 1 + f * (soft - 1)) / 128, (1 - f) / 16)
+
+
+def _smi(field: str) -> str:
+    return subprocess.run(["nvidia-smi", "-i", "0", f"--query-gpu={field}",
+                           "--format=csv,noheader,nounits"], capture_output=True,
+                          text=True, check=True).stdout.strip()
+
+
+def _mamba_sass_counts(build, ds: int):
+    """(fp32 instructions per MUFU.EX2, MUFU.EX2 count) in the SASS of the
+    mamba_scan instance that takes ``ds`` (its template arguments: threads a
+    channel, states a thread), from ``cuobjdump -sass`` on the built library.
+    The step loop is unrolled, with one ex2 an entry; the few ex2 of the
+    prologue's A count in with them."""
+    import re
+    threads, per = {4: (2, 2), 8: (2, 4), 16: (2, 8), 32: (4, 8)}[ds]
+    cuobjdump = Path(build.nvcc()).parent / "cuobjdump"
+    sass = subprocess.run([str(cuobjdump), "-sass", str(build.library_path("mamba_scan"))],
+                          capture_output=True, text=True, check=True).stdout
+    tag = f"mamba_scan_kernelILi{threads}ELi{per}E"
+    funcs = [f for f in re.split(r"\n\s*Function : ", sass)[1:] if tag in f.split("\n", 1)[0]]
+    _require(len(funcs) == 1, f"mamba_scan: {len(funcs)} SASS functions named {tag}")
+    ops = re.findall(r"^\s+/\*[0-9a-f]+\*/\s+(?:@!?U?P\w+\s+)?([A-Z0-9_.]+)", funcs[0], re.M)
+    ex2 = sum(o.startswith("MUFU.EX2") for o in ops)
+    fp32 = sum(o.split(".")[0] in ("FFMA", "FMUL", "FADD") for o in ops)
+    _require(ex2 > 0, "mamba_scan: no MUFU.EX2 in its SASS")
+    return fp32 / ex2, ex2
 
 
 def _serving_report(torch, name: str, out: dict, kernel: str, layers: int) -> dict:

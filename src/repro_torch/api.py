@@ -17,7 +17,11 @@ seeded adversary (``adversary="sign_flip:f" | "scale:c:f" |
 "label_flip:f"``) and client sampling (``sample="uniform:K" |
 "poisson:q"``).  Every other seam of the reference raises
 :class:`repro_torch.NotPorted` naming it, and never runs something else;
-compositions the reference refuses raise its ``ValueError``.
+compositions the reference refuses raise its ``ValueError``, checked
+first, as the reference checks them.  Every field of the reference's
+``FederatedJob`` and ``TaskConfig`` exists here with its default, so a
+reference job spec builds this job; a field of an unported seam set to
+anything but its default raises ``NotPorted`` at ``run()``.
 
 ``device`` picks where the job runs: ``None`` means ``"cuda"``, which
 raises when CUDA is absent.  Nothing falls back to the CPU: pass
@@ -33,7 +37,8 @@ import numpy as np
 import torch
 
 from repro_torch import NotPorted
-from repro_torch.comms.compression import Codec, resolve_codec
+from repro_torch.comms.compression import Codec, codec_name, resolve_codec
+from repro_torch.comms.transport import WireConfig
 from repro_torch.configs.base import FederationConfig
 from repro_torch.core import federation as F
 from repro_torch.core.adversary import AdversaryPlan, parse_adversary
@@ -41,7 +46,8 @@ from repro_torch.core.agg_engine import AggregatorSpec, parse_aggregator
 from repro_torch.core.sampling import (ClientSampler, compose_participation,
                                        resolve_sampler)
 from repro_torch.core.session import (JobResult, RoundRecorder,
-                                      availability_masks, resolve_scheduler)
+                                      availability_masks, resolve_scheduler,
+                                      scheduler_name)
 from repro_torch.optim import adamw
 
 
@@ -60,9 +66,15 @@ class TaskConfig:
     batch: int = 4                      # per-site batch per local step
     heterogeneity: float = 0.0          # non-IID knob (0 = IID)
     seed: int = 0                       # data seed (independent of job seed)
+    # -- tokens (not ported: the defaults only) ------------------------------
+    arch: str = "smollm-135m"
+    reduced: bool = True
+    seq: int = 64
     # -- volumetric (dose / seg) -------------------------------------------
     volume: Tuple[int, int, int] = (16, 16, 16)
     num_oars: int = 2                   # dose: OAR channels
+    in_channels: int = 2                # seg: input channels (not ported)
+    num_classes: int = 3                # seg: label classes (not ported)
     base_filters: int = 8
     num_levels: int = 2
     site_pools: Optional[Tuple[int, ...]] = None   # per-site distinct cases
@@ -141,6 +153,10 @@ class FederatedJob:
     lr: float = 1e-3
     weight_decay: float = 0.01
     grad_clip: float = 1.0
+    prox_mu: float = 0.01               # FedProx (not ported)
+    gcml_lambda: float = 0.5            # GCML (not ported)
+    gcml_contrast_beta: float = 1.0
+    dcml_lr: Optional[float] = None
     # Algorithm-2 dropout schedule
     max_dropout: int = 0
     dropout_scenario: str = "disconnect"
@@ -156,13 +172,25 @@ class FederatedJob:
     down_compression: Union[str, Codec] = "none"  # download codec
     dp_clip: float = 0.0
     dp_noise_multiplier: float = 0.0
+    dp_delta: float = 1e-5
+    dp_mode: str = "per-site"
     secure_agg: bool = False
     aggregator: str = "fedavg"
     adversary: Optional[str] = None
+    round_deadline_s: Optional[float] = None   # socket transports only
+    max_upload_norm: Optional[float] = None    # socket transports only
+    seed: int = 0                       # init + dropout seed
+    # socket transports (not ported)
+    io_timeout: float = 120.0
+    wire: Any = field(default_factory=WireConfig)
+    lease_ttl: Optional[float] = None
+    # the reference's compiled round engine; the port runs a round loop
+    round_engine: str = "auto"
+    chunk_rounds: Optional[int] = None
     device_data: bool = False
     shard_sites: bool = False
     checkpoint_dir: Optional[str] = None
-    seed: int = 0                       # init + dropout seed
+    ckpt_every: int = 10
     verbose: bool = False
     log_every: Optional[int] = None
     # where the job runs: None = "cuda" (raises when CUDA is absent)
@@ -210,7 +238,6 @@ class FederatedJob:
              f"{self.topology!r}, pod_dropout={self.pod_dropout}", "'flat'"),
             ("dp", self.dp_clip > 0 or self.dp_noise_multiplier > 0,
              f"dp_clip={self.dp_clip}, noise={self.dp_noise_multiplier}", "off"),
-            ("secure_agg", self.secure_agg, "True", "False"),
             ("adversary", plan is not None and plan.kind == "noise", self.adversary,
              "sign_flip, scale, label_flip"),
             ("device_data", self.device_data, "True", "False"),
@@ -221,6 +248,12 @@ class FederatedJob:
         for seam, bad, got, ok in unported:
             if bad:
                 raise NotPorted(seam, str(got), ok)
+        for name, seam in SEAM_FIELDS.items():
+            owner, attr = (self.task, name[5:]) if name.startswith("task.") else (self, name)
+            value, default = getattr(owner, attr), _default(type(owner), attr)
+            if not _same(value, default):
+                raise NotPorted(seam, f"{name}={value!r}", f"{name}={default!r}")
+        resolve_scheduler(self.scheduler)   # raises for buffered rounds
         self.codecs()                   # raises for unported codecs
         if self.dropout_scenario not in ("disconnect", "shutdown"):
             raise ValueError(f"unknown dropout_scenario {self.dropout_scenario!r}")
@@ -290,6 +323,33 @@ class FederatedJob:
             init_params=init_params, on_round=on_round)
 
 
+# Fields of the reference's job (and, as ``task.<field>``, its task) that
+# only an unported seam reads, with the seam that ``NotPorted`` names: each
+# must hold its dataclass default.
+SEAM_FIELDS = {
+    "prox_mu": "fedprox", "gcml_lambda": "gcml", "gcml_contrast_beta": "gcml",
+    "dcml_lr": "gcml", "dp_delta": "dp", "dp_mode": "dp",
+    "io_timeout": "transport", "wire": "transport", "lease_ttl": "transport",
+    "round_engine": "round_engine", "chunk_rounds": "round_engine",
+    "ckpt_every": "checkpoint", "task.arch": "task", "task.reduced": "task",
+    "task.seq": "task", "task.in_channels": "task", "task.num_classes": "task",
+}
+
+
+def _default(cls, name: str):
+    """The dataclass default of ``cls.name``."""
+    f = next(f for f in dataclasses.fields(cls) if f.name == name)
+    return f.default if f.default is not dataclasses.MISSING else f.default_factory()
+
+
+def _same(value, default) -> bool:
+    """``value == default``, with a dataclass (the reference's own
+    ``WireConfig``, say) equal to the default when its fields are."""
+    if dataclasses.is_dataclass(value) and dataclasses.is_dataclass(default):
+        return dataclasses.asdict(value) == dataclasses.asdict(default)
+    return value == default
+
+
 # ---------------------------------------------------------------------------
 # Transports
 # ---------------------------------------------------------------------------
@@ -305,21 +365,27 @@ class Transport:
         raise NotImplementedError
 
 
+def _buffered(job: FederatedJob) -> bool:
+    """True when the job asks for buffered rounds (the flat topology's one
+    scheduler serves both of the reference's tiers)."""
+    return scheduler_name(job.scheduler) == "buffered"
+
+
 def _validate_robustness(job: FederatedJob) -> None:
     """The reference's composition guards for the robustness seams.  Robust
     rules need to see the round's individual plaintext uploads side by
     side; compositions that hide, quantize or stream them away are
-    ``ValueError``s, never silent downgrades.  (The ``max_upload_norm`` and
-    ``round_deadline_s`` clauses come with the socket transports.)"""
+    ``ValueError``s, never silent downgrades."""
     spec = job.aggregator_spec          # raises on a malformed spec string
     plan = job.adversary_plan           # raises on a malformed plan string
-    if not spec.robust and plan is None:
+    if (not spec.robust and plan is None and job.max_upload_norm is None
+            and job.round_deadline_s is None):
         return
     if job.strategy == "pooled":
         raise ValueError("the pooled centralized baseline has no "
                          "federation to attack or robustly aggregate")
     sites = job.task.sites
-    if resolve_codec(job.compression, "compression").name != "none":
+    if (spec.robust or plan is not None) and codec_name(job.compression) != "none":
         raise ValueError(
             "robust aggregation and the adversary harness operate on "
             "plaintext fp32 uploads; delta-quantized uploads would fold "
@@ -331,7 +397,12 @@ def _validate_robustness(job: FederatedJob) -> None:
             "masks every upload so only their sum is visible — the rule "
             "would rank ciphertext.  Disable secure_agg or use "
             "aggregator='fedavg'")
-    if job.shard_sites:
+    if job.max_upload_norm is not None and job.secure_agg:
+        raise ValueError(
+            "max_upload_norm inspects per-upload L2 norms; secure "
+            "aggregation uploads fixed-point ciphertext whose norm is "
+            "meaningless — disable one of them")
+    if (plan is not None or spec.robust) and job.shard_sites:
         raise ValueError(
             "the sharded engine folds partial sums per device shard and "
             "runs local-strategy contexts — it has neither the full "
@@ -344,7 +415,7 @@ def _validate_robustness(job: FederatedJob) -> None:
                 f"centrally-aggregated uploads; strategy {job.strategy!r} "
                 "has no central combine — use fedavg/fedprox (or "
                 "aggregator='normclip:c', which gossip honors too)")
-        if job.scheduler == "buffered":
+        if _buffered(job):
             raise ValueError(
                 "rank-based robust rules need the round's uploads side "
                 "by side; a buffered scheduler folds each arrival into a "
@@ -362,12 +433,35 @@ def _validate_robustness(job: FederatedJob) -> None:
         raise ValueError(
             "normclip bounds uploads at a central fold (fedavg/fedprox) "
             f"or incoming gossip deltas (gcml), not {job.strategy!r}")
+    if job.round_deadline_s is not None and _buffered(job):
+        raise ValueError(
+            "round_deadline_s bounds the sync barrier; scheduler "
+            f"{job.scheduler!r} has no barrier to bound")
 
 
 def _validate_down(job: FederatedJob) -> None:
-    """The robust clause of the reference's download-compression guards."""
-    if resolve_codec(job.down_compression, "down_compression").name == "none":
+    """The reference's composition guards for download compression: the
+    download codec needs a server that tracks one reference trajectory
+    per site."""
+    if codec_name(job.down_compression) == "none":
         return
+    if job.strategy not in ("fedavg", "fedprox"):
+        raise ValueError(
+            "down_compression encodes the server's broadcast against "
+            "per-site held references; only the centrally-aggregated "
+            "strategies (fedavg/fedprox) have that broadcast, not "
+            f"{job.strategy!r}")
+    if job.secure_agg:
+        raise ValueError(
+            "secure_agg downloads stay dense: the masked protocol lets "
+            "the server materialize only the aggregate sum, while "
+            "down_compression requires it to track what each site holds "
+            "— disable one of them")
+    if _buffered(job):
+        raise ValueError(
+            "buffered-async sites pull whichever global version is "
+            "newest out of the keep_globals ring, not a per-site "
+            "residual stream; down_compression needs scheduler='sync'")
     if job.aggregator_spec.robust or job.adversary_plan is not None:
         raise ValueError(
             "robust aggregation rules and the adversary harness rank "
@@ -375,6 +469,42 @@ def _validate_down(job: FederatedJob) -> None:
             "down_compression gives every site a different decoded "
             "install, so upload distances would mix honest quantization "
             "drift with attacker signal — use down_compression='none'")
+    if job.shard_sites:
+        raise ValueError(
+            "shard_sites=True broadcasts the global through the mesh "
+            "collective, not the download codec; run down_compression "
+            "jobs with shard_sites=False")
+
+
+def _validate_stacked(job: FederatedJob) -> None:
+    """The reference's guards for what the stacked simulator cannot hold:
+    a wall-clock barrier, a server, a fault seam in buffered rounds, a
+    wire to protect."""
+    if job.round_deadline_s is not None:
+        raise ValueError(
+            "round_deadline_s bounds a real wall-clock barrier; the "
+            "stacked simulator has none — run on transport='thread' "
+            "or 'tcp'")
+    if job.max_upload_norm is not None:
+        raise ValueError(
+            "max_upload_norm is server-side upload sanitation; the "
+            "stacked simulator has no server — run on "
+            "transport='thread' or 'tcp'")
+    if job.adversary_plan is not None and _buffered(job):
+        raise ValueError(
+            "the stacked buffered loop trains local-only contexts "
+            "with no in-round fault seam; run adversarial buffered "
+            "jobs on the thread/tcp transports")
+    if job.aggregator_spec.robust and _buffered(job):
+        raise ValueError(
+            "the stacked buffered loop folds arrivals into a plain "
+            "running sum; robust buffered rounds (normclip) run on "
+            "the thread/tcp transports' server")
+    if job.secure_agg:
+        raise ValueError(
+            "secure_agg masks real uploads between distrusting "
+            "participants — there is no wire to protect inside the "
+            "stacked simulator; run it on transport='thread' or 'tcp'")
 
 
 class StackedTransport(Transport):
@@ -387,8 +517,9 @@ class StackedTransport(Transport):
                 on_round=None) -> JobResult:
         _validate_robustness(job)
         _validate_down(job)
-        scheduler = resolve_scheduler(job.scheduler)
+        _validate_stacked(job)
         job.check_ported()
+        scheduler = resolve_scheduler(job.scheduler)
         codec, down_codec = job.codecs()
         from repro_torch.core import round_engine
         if codec.name != "none" or down_codec.name != "none":

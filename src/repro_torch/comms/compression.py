@@ -143,6 +143,19 @@ _CODECS = {"none": NoneCodec, "int8": Int8Codec}
 _UNPORTED = ("fp8", "topk", "topk-sparse", "topk-fixed")
 
 
+def codec_name(spec: Union[str, Codec, None]) -> str:
+    """The name of a codec spec, unresolved: the composition guards read it
+    before an unported codec raises, as the reference's do."""
+    if spec is None:
+        return "none"
+    if isinstance(spec, Codec):
+        return spec.name
+    if spec in _CODECS or spec in _UNPORTED:
+        return spec
+    raise KeyError(f"unknown compression codec {spec!r}; known: "
+                   f"{sorted(_CODECS) + list(_UNPORTED)}")
+
+
 def resolve_codec(spec: Union[str, Codec, None], seam: str = "compression") -> Codec:
     """``None``, a name or a :class:`Codec` -> a :class:`Codec`.  The
     reference's other codecs raise :class:`~repro_torch.NotPorted` naming

@@ -26,6 +26,16 @@ class SyncScheduler:
     name = "sync"
 
 
+def scheduler_name(spec: Union[str, SyncScheduler, None]) -> str:
+    """The name of a scheduler spec, unresolved: buffered rounds are not
+    ported, but the guards that refuse their compositions are."""
+    if spec is None or isinstance(spec, SyncScheduler):
+        return "sync"
+    if spec in ("sync", "buffered"):
+        return spec
+    raise KeyError(f"unknown scheduler {spec!r}; known: ['buffered', 'sync']")
+
+
 def resolve_scheduler(spec: Union[str, SyncScheduler, None]) -> SyncScheduler:
     if spec is None or spec == "sync":
         return SyncScheduler()

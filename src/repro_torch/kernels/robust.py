@@ -11,7 +11,8 @@ Both launch one CUDA kernel, ``csrc/trimmed_mean.cu``, which is bit-equal
 to the plain version :func:`repro_torch.kernels.ref.trimmed_mean_ref`.
 Dispatch is by the tensors' device and nothing else: CPU tensors take the
 plain version, CUDA tensors launch the kernel or raise.  The kernel takes
-fp32 buffers of at most :data:`MAX_SITES` sites.
+fp32 buffers of at most :data:`MAX_SITES` sites; the plain version, any
+number, as the reference does.
 """
 from __future__ import annotations
 
@@ -40,14 +41,15 @@ def _check(stacked: torch.Tensor, active: torch.Tensor, f: int) -> None:
                          f"stacked on {stacked.device}")
     if f < 0:
         raise ValueError(f"trimmed_mean: f must be >= 0, got {f}")
-    if stacked.shape[0] > MAX_SITES:
-        raise ValueError(f"trimmed_mean: at most {MAX_SITES} sites, "
-                         f"got {stacked.shape[0]}")
 
 
 def trimmed_mean_cuda(stacked: torch.Tensor, active: torch.Tensor, f: int) -> torch.Tensor:
-    """Launch the CUDA kernel on PyTorch's current stream."""
+    """Launch the CUDA kernel on PyTorch's current stream.  The kernel
+    takes at most :data:`MAX_SITES` sites; the plain version any number."""
     _check(stacked, active, f)
+    if stacked.shape[0] > MAX_SITES:
+        raise ValueError(f"trimmed_mean_cuda: the kernel takes at most {MAX_SITES} "
+                         f"sites, got {stacked.shape[0]}")
     act = active.float().contiguous()
     build.require_cuda("trimmed_mean_cuda", stacked, act)
     s, n = stacked.shape

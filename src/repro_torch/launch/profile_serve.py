@@ -1,13 +1,16 @@
 """Where one full-width serving call spends its time on the card.
 
     python -m repro_torch.launch.profile_serve [--arch gemma3-1b] [--batch 4]
-        [--prompt-len 1024] [--decode-steps 8] [--trace DIR]
+        [--prompt-len 1024] [--decode-steps 8] [--layers N] [--trace DIR]
 
 (with ``src`` on ``PYTHONPATH``).  Serves the published config of
 ``--arch`` (fp32 weights from a seed, TF32 off) through
 ``launch.serve.generate``: one untraced warm-up call (kernel builds,
 cuBLAS set-up), then one traced call of a prefill and ``--decode-steps``
-decode steps under ``torch.profiler``.  Prints the traced call's
+decode steps under ``torch.profiler``.  ``--layers N`` cuts the config to
+its first N layers at its published widths (Jamba-1.5-Large does not fit
+one card: ``--arch jamba-1.5-large-398b --layers 2 --batch 2 --prompt-len
+512`` is the cell ``chip_smoke.py`` serves).  Prints the traced call's
 prefill and decode wall times, the device busy time and idle share of
 the call, and the device time by group (the port's kernels by name,
 GEMMs, norms and elementwise passes, copies) and of the top kernels.
@@ -17,6 +20,7 @@ it refuses to run on the CPU.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import re
 import subprocess
@@ -53,6 +57,8 @@ def main(argv=None) -> int:
     ap.add_argument("--prompt-len", type=int, default=1024, dest="prompt_len")
     ap.add_argument("--decode-steps", type=int, default=8, dest="decode_steps",
                     help="decode steps after the prefill")
+    ap.add_argument("--layers", type=int, default=None,
+                    help="cut the config to its first N layers (default: all)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--trace", default=None, help="directory for the Chrome trace")
     args = ap.parse_args(argv)
@@ -63,6 +69,8 @@ def main(argv=None) -> int:
                          text=True, check=True).stdout.strip())
     torch.backends.cuda.matmul.allow_tf32 = False
     cfg = get_arch(args.arch).CONFIG
+    if args.layers is not None:
+        cfg = dataclasses.replace(cfg, num_layers=args.layers)
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
     params = T.init(gen, cfg, "cuda")
     prompts = torch.randint(0, cfg.vocab_size, (args.batch, args.prompt_len),
@@ -90,7 +98,7 @@ def main(argv=None) -> int:
     wall_s = out["prefill_s"] + out["decode_s"]
     report = {
         "device": torch.cuda.get_device_name(0), "arch": cfg.name,
-        "batch": args.batch, "prompt_len": args.prompt_len,
+        "layers": cfg.num_layers, "batch": args.batch, "prompt_len": args.prompt_len,
         "decode_steps": args.decode_steps, "matmul_allow_tf32": False,
         "prefill_s": out["prefill_s"], "decode_s": out["decode_s"],
         "device_busy_s": busy_s, "device_idle_share": 1.0 - busy_s / wall_s,

@@ -10,10 +10,18 @@ layout), SE matrices ``[in, out]`` as the reference multiplies them.
 The public layout stays channels-last ``[B, D, H, W, C]``, as in the
 reference; :func:`sanet_apply` works channels-first inside.
 
-Numerics: the reference is fp32 throughout.  On a card, PyTorch's
-defaults apply: cuDNN runs fp32 convolutions in TF32
-(``torch.backends.cudnn.allow_tf32``) and matmuls in full fp32.  Callers
-that need full fp32 convolutions set the flag themselves.
+Numerics: the parameters and activations are fp32 throughout, as in the
+reference.  The port's runs on a card keep PyTorch's default for the
+convolutions, TF32 in cuDNN (``torch.backends.cudnn.allow_tf32 = True``),
+and full fp32 for matmuls.  That is what the reference does on such a
+card: it calls ``lax.conv_general_dilated`` with no precision and sets no
+``jax_default_matmul_precision``, so XLA takes ``lax.Precision.DEFAULT``,
+which on a GPU "uses tensorfloat32 if available (e.g. on A100 and H100
+GPUs)" (the docstring of ``jax.lax.Precision`` in jax 0.9.0).  The CPU
+computes full fp32 convolutions, so every card-vs-CPU gate turns TF32 off;
+``chip_smoke.py`` runs the full-width job both ways from the same seeded
+start and records the losses' gap and each round's ``step_s`` (PERF.md
+§5).  Callers that need full fp32 convolutions set the flag themselves.
 
 Two layout traps of the translation, both handled here:
 

@@ -22,7 +22,8 @@ amplifies noise on near-zero gradients.  The token kernels:
 products as three TF32 products on the tensor cores, against one fp32
 softmax over up to 1024 keys), bf16 2e-2; the scans (out or y,
 and the final state) rtol 1e-5 and atol 1e-5 of the plain version's
-largest value, since each output sums D or ds terms in another order;
+largest value, since each output sums D or ds terms in another order
+(``mamba_scan`` also takes its exp as ``ex2.approx``);
 served logits card vs CPU rtol=atol=1e-4 (TF32 off), greedy tokens equal.
 """
 import numpy as np
@@ -80,8 +81,11 @@ def test_small_job_on_card_matches_cpu_and_launches_the_kernel(cuda_device, monk
 
 # -- the int8 kernels -----------------------------------------------------------
 
+# widths 4 (the narrowest 16-byte row) and 1028 (past the register path's
+# 1024); 2 x 20,000 rows take more than one grid-stride pass (33,792 rows)
 INT8_SHAPES = [(1, 1, 1), (3, 7, 127), (4, 7, 640), (1, 6_797, 1024),
-               (4, 6_797, 1024), (3, 1, 1024), (4, 6_797, 127), (3, 7, 1)]
+               (4, 6_797, 1024), (3, 1, 1024), (4, 6_797, 127), (3, 7, 1),
+               (3, 7, 4), (2, 20_000, 4), (1, 5, 1028), (4, 6_797, 1028)]
 
 
 def _int8_inputs(dev, s, rows, c, seed=0):
@@ -253,15 +257,22 @@ def test_rwkv6_scan_kernel_matches_plain_on_card(cuda_device, b, h, l, d, dtype)
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("b,l,di,ds", [(1, 1, 5, 4), (2, 13, 24, 8), (1, 77, 300, 16),
-                                       (2, 33, 130, 32), (2, 512, 16384, 16)])
+                                       (2, 33, 130, 32), (2, 512, 16384, 16),
+                                       (1, 16, 100, 4), (2, 48, 36, 8), (1, 70, 68, 32),
+                                       (2, 100, 4100, 16), (1, 45, 77, 5), (2, 0, 64, 16)])
 def test_mamba_scan_kernel_matches_plain_on_card(cuda_device, b, l, di, ds):
+    """Every threads-a-channel instance (d_state 4, 8, 16, 32), 16-byte and
+    4-byte copies (d_inner and d_state multiples of 4 or not), d_inner past
+    a block's channels, L = 0 and L not a multiple of the 16-step stage; a
+    row of A for each channel, so reading another channel's row fails."""
     gen = torch.Generator(device=cuda_device).manual_seed(l + di + ds)
     dt = torch.nn.functional.softplus(
         torch.randn(b, l, di, device=cuda_device, generator=gen) - 3.0)
     bm, cm = (torch.randn(b, l, ds, device=cuda_device, generator=gen) for _ in range(2))
     x = torch.randn(b, l, di, device=cuda_device, generator=gen)
     log_a = torch.log(torch.arange(1, ds + 1, device=cuda_device,
-                                   dtype=torch.float32)).expand(di, ds).contiguous()
+                                   dtype=torch.float32)).expand(di, ds)
+    log_a = (log_a + 0.1 * torch.randn(di, ds, device=cuda_device, generator=gen)).contiguous()
     before = build.LAUNCHES.get("mamba_scan", 0)
     y, state = ops.mamba_scan(dt, bm, cm, x, log_a)
     torch.cuda.synchronize()

@@ -12,6 +12,7 @@ near-zero gradient, while the median coordinate agrees to 1e-6 and
 fewer than 1% differ by more than 1e-4.
 """
 import ast
+import dataclasses
 from pathlib import Path
 
 import numpy as np
@@ -82,7 +83,7 @@ def test_job_runs_on_cuda_by_default_and_raises_without_it(monkeypatch):
     ("compression", dict(compression="fp8")),
     ("down_compression", dict(down_compression="topk-fixed")),
     ("dp", dict(dp_clip=1.0)),
-    ("secure_agg", dict(secure_agg=True)),
+    ("device_data", dict(device_data=True)),
     ("adversary", dict(adversary="noise:1:1")),
     ("strategy", dict(strategy="fedprox", aggregator="median")),
     ("topology", dict(topology="pods:2", aggregator="median")),
@@ -97,6 +98,68 @@ def test_unported_seams_raise_a_typed_error(seam, kw):
         job.run()
     assert err.value.seam == seam
     assert isinstance(err.value, NotImplementedError)
+
+
+# ROADMAP C1: compositions the reference refuses on the stacked transport
+REFUSED = [
+    (dict(secure_agg=True), "no wire to protect"),
+    (dict(scheduler="buffered", adversary="sign_flip:1"), "no in-round fault seam"),
+    (dict(scheduler="buffered", aggregator="normclip:1"), "plain running sum"),
+    (dict(scheduler="buffered", down_compression="int8"), "needs scheduler='sync'"),
+    (dict(strategy="individual", down_compression="int8"), "fedavg/fedprox"),
+    (dict(shard_sites=True, down_compression="int8"), "shard_sites=False"),
+    (dict(round_deadline_s=5.0), "wall-clock barrier"),
+    (dict(max_upload_norm=10.0), "upload sanitation"),
+]
+
+
+@pytest.mark.parametrize("kw,frag", REFUSED)
+def test_refused_compositions_raise_the_reference_value_error(kw, frag):
+    with pytest.raises(ValueError, match=frag):
+        JJob(task=JTask(**TASK), rounds=1, **kw).run()
+    with pytest.raises(ValueError, match=frag):
+        FederatedJob(task=TaskConfig(**TASK), rounds=1, device="cpu", **kw).run()
+
+
+# every field of the reference's job and task that names an unported seam:
+# (field, a value other than the default, the seam NotPorted names)
+FIELDS = [
+    ("prox_mu", 0.1, "fedprox"), ("gcml_lambda", 0.7, "gcml"),
+    ("gcml_contrast_beta", 2.0, "gcml"), ("dcml_lr", 0.01, "gcml"),
+    ("dp_delta", 1e-6, "dp"), ("dp_mode", "per-example", "dp"),
+    ("io_timeout", 5.0, "transport"), ("wire", "secret", "transport"),
+    ("lease_ttl", 3.0, "transport"), ("round_engine", "loop", "round_engine"),
+    ("chunk_rounds", 2, "round_engine"), ("ckpt_every", 5, "checkpoint"),
+    ("task.arch", "gemma3-1b", "task"), ("task.reduced", False, "task"),
+    ("task.seq", 32, "task"), ("task.in_channels", 4, "task"),
+    ("task.num_classes", 5, "task"),
+]
+
+
+def _default(cls, name):
+    f = {f.name: f for f in dataclasses.fields(cls)}[name]
+    return f.default if f.default is not dataclasses.MISSING else f.default_factory()
+
+
+@pytest.mark.parametrize("name,other,seam", FIELDS)
+def test_reference_fields_take_their_defaults_and_refuse_other_values(name, other, seam):
+    """A spec that names the field at the reference's default (the
+    reference's own ``WireConfig`` for ``wire``) builds the port's job
+    and passes its seam check; any other value raises ``NotPorted``."""
+    from repro.comms.transport import WireConfig as JWire
+    if name.startswith("task."):
+        field = name[len("task."):]
+        job = FederatedJob(task=TaskConfig(**TASK, **{field: _default(JTask, field)}),
+                           rounds=1, device="cpu")
+        bad = job.replace(task=TaskConfig(**TASK, **{field: other}))
+    else:
+        job = FederatedJob(task=TaskConfig(**TASK), rounds=1, device="cpu",
+                           **{name: _default(JJob, name)})
+        bad = job.replace(**{name: JWire(secret=other) if name == "wire" else other})
+    job.check_ported()
+    with pytest.raises(NotPorted) as err:
+        bad.run()
+    assert err.value.seam == seam
 
 
 def _imports(path: Path):

@@ -120,11 +120,38 @@ def test_trimmed_mean_wrapper_takes_plain_version_on_cpu_and_refuses_bad_input()
         ops.trimmed_mean(x, torch.ones(4), 1)
     with pytest.raises(ValueError):
         ops.trimmed_mean(x, a, -1)
-    with pytest.raises(ValueError):
-        ops.trimmed_mean(torch.zeros(robust.MAX_SITES + 1, 3),
-                         torch.ones(robust.MAX_SITES + 1), 1)
+    # the kernel's site limit is the kernel's: its wrapper checks it before
+    # the device, so this runs on the CPU; the plain version has none
+    with pytest.raises(ValueError, match="at most 256 sites"):
+        robust.trimmed_mean_cuda(torch.zeros(robust.MAX_SITES + 1, 3),
+                                 torch.ones(robust.MAX_SITES + 1), 1)
     with pytest.raises(ValueError):
         robust.trimmed_mean_cuda(x, a, 1)                  # not a CUDA tensor
+
+
+# trimmed:3 over 300 rows keeps 251 ranks, which the port adds one at a time
+# in ascending order (as its kernel does) and XLA as a tree; the two fp32
+# sums differ by up to 1.21e-6 here (measured), above TRIM_TOL's atol
+TRIMMED_300_ATOL = 4e-6
+
+
+@pytest.mark.parametrize("spec", ["median", "trimmed:3"])
+def test_plain_rules_take_more_sites_than_the_kernel(spec):
+    """300 rows, more than the kernel's 256: the plain rules on the CPU
+    run them through the engine, as the reference does.  The median (one
+    or two ranks) holds ``TRIM_TOL``; ``trimmed:3`` its rtol with
+    ``TRIMMED_300_ATOL``."""
+    s = 300
+    x = _buffer(s, n=257, seed=11)
+    active = np.ones(s, bool)
+    active[::7] = False
+    got = tagg.get_engine().reduce_robust_flat(torch.from_numpy(x), active,
+                                               tagg.parse_aggregator(spec)).numpy()
+    want = np.asarray(jagg.get_engine().reduce_robust_flat(
+        jnp.asarray(x), jnp.asarray(active), jagg.parse_aggregator(spec)))
+    assert got.shape == (257,)
+    atol = TRIM_TOL["atol"] if spec == "median" else TRIMMED_300_ATOL
+    np.testing.assert_allclose(got, want, rtol=TRIM_TOL["rtol"], atol=atol)
 
 
 # -- Krum and the norm clip ---------------------------------------------------------
