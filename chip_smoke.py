@@ -8,8 +8,8 @@ Phases, each of which fails the run (non-zero exit) if it goes wrong:
 1. the card's name and power limit, then a build of every hand-written
    kernel from ``src/repro_torch/csrc`` (one ``nvcc`` per source, all
    started together), and the registers, shared memory and blocks an SM
-   of each instance of ``flash_attention``, ``rwkv6_scan``, ``mamba_scan``
-   and ``quantize_int8``;
+   of each instance of ``flash_attention``, ``rwkv6_scan``, ``mamba_scan``,
+   ``quantize_int8`` and ``dequantize_int8``;
 2. each kernel against its plain PyTorch version on the card, at the
    paths' shapes and at ragged ones, with stated tolerances, then its
    time beside its bound (fp32 attention's at the TF32 tensor-core rate,
@@ -17,6 +17,10 @@ Phases, each of which fails the run (non-zero exit) if it goes wrong:
    one library call's time (CUDA events around a CUDA graph of the call
    site, median of 25 replays after a warm-up, so no host time is in
    them; the eager call site's time is kept as ``eager_ms``).
+   ``dequantize_int8`` is timed as one launch over a full-width message
+   (its 160 leaves), its library yardstick ``torch.mul`` leaf by leaf, and
+   held to its plain version on 32 messages of ragged leaves laid out as
+   payloads after headers of every length mod 16.
    ``quantize_int8``, ``dequantize_int8``, ``dequant_install`` and the
    residual of ``fedagg_dequant`` must be bit-equal to their plain
    versions, and the quantized values and scales equal to the numpy int8
@@ -31,12 +35,30 @@ Phases, each of which fails the run (non-zero exit) if it goes wrong:
    (``compression="int8", down_compression="int8"``), with its exact
    byte counts per round and every kernel of the path launched in every
    round;
-5. the wire codec: the full-width global model encoded with ``Int8Codec``
-   on the card and decoded there, against the plain encoder and decoder;
+5. the wire codec: the full-width global model encoded for the wire as a
+   site uploads it (the reference's layout; one ``quantize_int8`` launch a
+   chunk width), held to the plain encoder on the reference's element
+   order; its frame decoded three ways, bit-equal: grouped on the card
+   (ONE ``dequantize_int8`` launch), leaf by leaf on the card, and the
+   plain version (the first two timed eager); and a frame encoded on the
+   CPU (align=1: odd widths, rows and scales off any alignment) decoded on
+   the card in one launch, bit-equal to the plain version;
+5b. this slice's path: the same full-width int8 job on the socket
+   deployment (``transport="thread"``: four site threads on the card, real
+   TCP round trips to the aggregation server on the card), held to the
+   stacked int8 job of phase 4: payload bytes equal, globals within the
+   reference's thread-vs-stacked bound (rtol 2e-3, atol 2e-4) but on at
+   most 1e-5 of the elements (each within ``lr * rounds``: fold-order
+   round-off that AdamW's next step amplifies), losses,
+   ``wall_s``/``batch_s``/``step_s`` and peak memory printed, and ONE
+   ``dequantize_int8`` launch for every int8 message decoded (uploads,
+   downloads and the error-feedback updates at both ends); then the same
+   job again, as the witness of that round-off, held the same way;
 6. small jobs run on the card and on the CPU (the plain versions):
    uncompressed, int8 up only, int8 both ways and int8 down only;
    per-round losses must agree, and each side's bytes must be its own
-   layout's;
+   layout's; then a 2-site job on the tcp transport (one process a site),
+   uncompressed and int8 both ways, the same way;
 7. the third slice's path: the full-width job under Byzantine-robust
    aggregation (``aggregator="trimmed:1"``, one sign-flipping site,
    ``max_dropout=1``), with ``trimmed_mean`` launched once per round,
@@ -69,7 +91,7 @@ Phases, each of which fails the run (non-zero exit) if it goes wrong:
    off: the greedy tokens must be equal and the logits within
    rtol=atol=1e-4.
 
-Every kernel's launch count is zeroed just before each of phases 3-5, 7
+Every kernel's launch count is zeroed just before each of phases 3-5b, 7
 and each path of 9, and read just after.  The second-to-last line is a
 JSON object with one entry per kernel; the last line is ``{"ok": true,
 "device": {...}}``.  Without
@@ -286,7 +308,6 @@ def check_int8_kernels(torch, plan, layout, dev) -> dict:
     """The four int8 kernels vs their plain versions at the ragged shapes
     and the full-width chunk groups; returns their kernels-line entries."""
     import numpy as np
-    from repro_torch.comms.compression import _as_chunks
     from repro_torch.kernels import fedagg as fk
     from repro_torch.kernels import quantize as qk
     from repro_torch.kernels import ref
@@ -363,18 +384,33 @@ def check_int8_kernels(torch, plan, layout, dev) -> dict:
         lambda: [ref.dequant_install_ref(q, sc, b) for (q, sc), (_, _, b) in zip(q3s, mats)],
         lambda: [torch.addcmul(b, q, sc[..., None]) for (q, sc), (_, _, b) in zip(q3s, mats)],
         nbytes=elems * 9 + rows_all * 4, flops=2 * elems)
-    # the codec decodes one model leaf by leaf, in the card's layout
-    leaves = [qk.quantize_int8_cuda(_as_chunks(torch.randn(
-        int(np.prod(sh)), device=dev, generator=gen) * 0.05, 1024, 128))
-        for sh in layout.shapes]
-    d_elems = sum(q.numel() for q, _ in leaves)
-    d_rows = sum(q.shape[0] for q, _ in leaves)
+    err["dequantize_int8"] = max(err["dequantize_int8"], check_grouped_dequant(torch, dev))
+    # one full-width message in the card's layout: every leaf, one grouped
+    # launch; the library yardstick multiplies leaf by leaf (no one PyTorch
+    # call decodes leaves of several widths)
+    from repro_torch.comms.compression import WirePlan
+    wp = WirePlan.of(layout, 1024, 128, dev, port=True)
+    _, q_all, s_all = wp.encode(torch.randn(layout.n, device=dev, generator=gen) * 0.05)
+    qb, sb = q_all.view(torch.uint8), s_all.view(torch.uint8)
+    host_table = torch.from_numpy(wp.table.host)
+    leaves = [(q_all[qo: qo + rows * width].view(rows, width), s_all[ro: ro + rows])
+              for qo, ro, rows, width in wp._places]
+    got = qk.dequantize_int8_grouped_cuda(wp.table, qb, sb, torch.empty(layout.n, device=dev))
+    torch.cuda.synchronize()
+    want = ref.dequantize_int8_grouped_ref(host_table, qb, sb, torch.empty(layout.n, device=dev))
+    per_leaf = torch.cat([qk.dequantize_int8_cuda(q, sc).reshape(-1)[: int(np.prod(sh))]
+                          for (q, sc), sh in zip(leaves, wp.wire.shapes)])
+    _require(torch.equal(got, want) and torch.equal(got, per_leaf),
+             "dequantize_int8 grouped full-width message differs from its plain version "
+             "or from the per-leaf launches")
+    err["dequantize_int8"] = max(err["dequantize_int8"], float((got - want).abs().max()))
     out["dequantize_int8"] = measure(
-        torch, f"dequantize_int8 x{len(leaves)} leaves [{d_elems} elements]",
-        lambda: [qk.dequantize_int8_cuda(q, sc) for q, sc in leaves],
-        lambda: [ref.dequantize_int8_ref(q, sc) for q, sc in leaves],
+        torch, f"dequantize_int8 one message [{wp.table.leaves} leaves, "
+        f"{wp.table.total_rows} rows, {layout.n} values]",
+        lambda: qk.dequantize_int8_grouped_cuda(wp.table, qb, sb, got),
+        lambda: ref.dequantize_int8_grouped_ref(host_table, qb, sb, want),
         lambda: [torch.mul(q, sc[:, None]) for q, sc in leaves],
-        nbytes=d_elems * 5 + d_rows * 4, flops=d_elems)
+        nbytes=wp.table.nbytes(), flops=layout.n)
     return {name: {"max_abs_err": err[name], **out[name]} for name in out}
 
 
@@ -543,32 +579,291 @@ def run_int8_path(torch, FederatedJob, TaskConfig, build, task):
     return launches, result
 
 
-def check_codec(torch, build, global_params) -> dict:
-    """The wire codec on the card: encode the full-width global with
-    ``Int8Codec`` (the kernel), decode it on the card, and hold both to
-    the plain encoder and decoder; returns the phase's launches."""
+def _eager_ms(torch, fn, reps: int = 11) -> float:
+    """Median host-clock ms of ``fn`` with the device synchronised around it."""
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - t0))
+    return sorted(times)[reps // 2]
+
+
+def check_codec(torch, build, global_params) -> None:
+    """The wire codec on the card: the full-width global, as a site uploads
+    it (the reference's layout, one quantize launch per chunk width), held
+    to the plain encoder on the reference's element order; its frame then
+    decoded three ways, which must be bit-equal: grouped on the card (ONE
+    dequantize_int8 launch), leaf by leaf on the card (``decode_array``),
+    and the plain version on the CPU; the first two timed eager.  Then a
+    frame encoded on the CPU (align=1: odd widths, rows and scales off any
+    alignment) decoded on the card, bit-equal to the plain version."""
     import numpy as np
-    from repro_torch.comms.compression import (Int8Codec, _as_chunks, decode_array,
-                                               tree_payload_nbytes)
-    from repro_torch.kernels import ref
-    params = _leaves(global_params)
+    from repro_torch import convert
+    from repro_torch.comms.codec import decode_message, encode_message, payload_span
+    from repro_torch.comms.compression import (Int8Codec, UploadCompressor, decode_array,
+                                               decode_tree, tree_payload_nbytes)
+
+    def encode(tree):
+        payload, meta = UploadCompressor(Int8Codec(), error_feedback=False).encode(tree)
+        return payload, encode_message("upload", {"site": 0, "round": 1, **meta}, payload)
+
+    params = [t.float() for t in _leaves(global_params)]
     build.reset_launches()
-    enc = _leaves(Int8Codec().encode_tree(global_params))
-    dec = [decode_array(qt, device="cuda") for qt in enc]
+    payload, frame = encode(global_params)
+    torch.cuda.synchronize()
+    enc_launches = dict(build.LAUNCHES)
+    enc = _leaves(payload)
+    nbytes = tree_payload_nbytes(payload)
+    print(f"codec: {len(enc)} leaves, {nbytes} payload bytes, frame {len(frame)} bytes; "
+          f"encode launches {enc_launches}")
+    _require(nbytes == INT8_BYTES, f"codec payload {nbytes} bytes, expected {INT8_BYTES}")
+    _require(enc_launches.get("dequantize_int8", 0) == 0
+             and enc_launches.get("quantize_int8", 0) == 4,
+             "the encode without error feedback launches quantize_int8 once a chunk width")
+    for p, qt in zip(params, enc):
+        wire = convert.to_reference({"x": p})["x"]
+        _require(tuple(qt.shape) == wire.shape, "codec leaf is not in the reference's shape")
+        q, sc = _chunks(torch, wire.reshape(-1))
+        _require(np.array_equal(qt.data["q"], q.numpy()) and np.array_equal(qt.data["scale"],
+                                                                           sc.numpy()),
+                 "codec payload differs from the plain encoder's on the reference's order")
+
+    _, _, tree = decode_message(frame)
+    leaves = _leaves(tree)
+    build.reset_launches()
+    grouped = decode_tree(tree, device="cuda")
     torch.cuda.synchronize()
     launches = dict(build.LAUNCHES)
-    nbytes = tree_payload_nbytes(enc)
-    print(f"codec: {len(enc)} leaves, {nbytes} payload bytes; launches {launches}")
-    _require(nbytes == INT8_BYTES, f"codec payload {nbytes} bytes, expected {INT8_BYTES}")
-    for p, qt, d in zip(params, enc, dec):
-        q, s = ref.quantize_int8_ref(_as_chunks(p.reshape(-1), 1024, 128))
-        _require(np.array_equal(qt.data["q"], q.cpu().numpy())
-                 and np.array_equal(qt.data["scale"], s.cpu().numpy()),
-                 "codec payload differs from the plain encoder's")
-        _require(d.shape == p.shape and torch.equal(d.cpu(), decode_array(qt, device="cpu")),
-                 "codec decode on the card differs from the plain decode")
-    _require(launches.get("dequantize_int8", 0) == len(enc), "dequantize_int8 not launched")
+    per_leaf = [decode_array(qt, device="cuda") for qt in leaves]
+    plain = decode_tree(tree, device="cpu")
+    for g, l, c in zip(_leaves(grouped), per_leaf, _leaves(plain)):
+        _require(torch.equal(g, l) and torch.equal(g.cpu(), c),
+                 "message decode: grouped, per-leaf and plain differ")
+    _require(launches.get("dequantize_int8", 0) == 1,
+             f"one message decoded with {launches.get('dequantize_int8', 0)} "
+             "dequantize_int8 launches, not one")
+    grouped_ms = _eager_ms(torch, lambda: decode_tree(tree, device="cuda"))
+    leaf_ms = _eager_ms(torch, lambda: [decode_array(qt, device="cuda") for qt in leaves])
+    print(f"codec: one upload frame ({len(frame)} bytes) to a device tree, eager: grouped "
+          f"{grouped_ms:.4f} ms (1 launch), per leaf {leaf_ms:.4f} ms ({len(leaves)} launches); "
+          "bit-equal to each other and to the plain version")
+
+    cpu_payload, cpu_frame = encode(tree_map_cpu(global_params))
+    _, _, cpu_tree = decode_message(cpu_frame)
+    cpu_leaves = _leaves(cpu_tree)
+    _, offsets = payload_span([a for qt in cpu_leaves for a in (qt.data["q"],
+                                                                qt.data["scale"])])
+    odd_rows = sum(o % 16 != 0 or qt.data["q"].shape[1] % 16 != 0
+                   for o, qt in zip(offsets[0::2], cpu_leaves))
+    odd_scales = sum(o % 4 != 0 for o in offsets[1::2])
+    _require(odd_rows > 0 and odd_scales > 0, "the CPU frame has no misaligned row or scale")
+    build.reset_launches()
+    on_card = decode_tree(cpu_tree, device="cuda")
+    torch.cuda.synchronize()
+    _require(build.LAUNCHES.get("dequantize_int8", 0) == 1,
+             "the misaligned frame took more than one launch")
+    for g, c in zip(_leaves(on_card), _leaves(decode_tree(cpu_tree, device="cpu"))):
+        _require(torch.equal(g.cpu(), c), "misaligned frame: card decode differs from plain")
+    print(f"codec: a CPU-encoded frame (align=1, {tree_payload_nbytes(cpu_payload)} payload "
+          f"bytes; {odd_rows} leaves with rows off 16 bytes or odd widths, {odd_scales} with "
+          "scales off 4 bytes) decoded on the card in one launch, bit-equal to the plain version")
+
+
+def _chunks(torch, flat_np):
+    """The plain encoder on one leaf's align-128 chunks, on the CPU."""
+    from repro_torch.comms.compression import _as_chunks
+    from repro_torch.kernels import ref
+    return ref.quantize_int8_ref(_as_chunks(torch.from_numpy(flat_np.copy()), 1024, 128))
+
+
+def tree_map_cpu(tree):
+    from repro_torch.tree import tree_map
+    return tree_map(lambda t: t.detach().cpu(), tree)
+
+
+def check_grouped_dequant(torch, dev) -> float:
+    """The grouped dequantize_int8 against its plain version, bit for bit,
+    on messages laid out as a payload (each leaf's q then its scales) after
+    a header of every length mod 16: leaves of many sizes at align 1 (odd
+    widths, rows and scales at any byte offset) and 128 (the card's),
+    output offsets off 16 bytes, a ragged last row, and one leaf of more
+    rows than a grid-stride pass.  Returns the largest |difference|."""
+    import numpy as np
+    from repro_torch.comms.compression import chunk_geom
+    from repro_torch.kernels import quantize as qk
+    from repro_torch.kernels import ref
+    rng = np.random.default_rng(3)
+    sizes = [1, 3, 5, 127, 128, 129, 1000, 1024, 1025, 3001, 4103, 65_537]
+    err, cases = 0.0, 0
+    for align in (1, 128):
+        for head in range(16):
+            order = rng.permutation(len(sizes)) if head else np.arange(len(sizes))
+            parts, entries, pos, out_off = [], [], head, 0
+            for i in order:
+                n = sizes[i] * (256 if head == 15 else 1)   # past one grid-stride pass
+                rows, width = chunk_geom(n, 1024, align)
+                q = rng.integers(-127, 128, size=rows * width, dtype=np.int8)
+                sc = (rng.random(rows, dtype=np.float32) * 0.01 + 1e-4).astype(np.float32)
+                entries.append((pos, pos + q.nbytes, rows, width, n, out_off))
+                parts += [q.view(np.uint8), sc.view(np.uint8)]
+                pos += q.nbytes + sc.nbytes
+                out_off += n
+            buf = np.concatenate([np.zeros(head, np.uint8)] + parts)
+            table = qk.Int8Table.of(entries)
+            b = torch.from_numpy(buf).to(dev)
+            got = qk.dequantize_int8_grouped_cuda(table, b, b, torch.full((out_off,), float("nan"),
+                                                                          device=dev))
+            torch.cuda.synchronize()
+            want = ref.dequantize_int8_grouped_ref(torch.from_numpy(table.host), b, b,
+                                                   torch.full((out_off,), float("nan"),
+                                                              device=dev))
+            _require(torch.equal(got, want), f"dequantize_int8 grouped, align {align}, "
+                     f"header {head}: differs from its plain version")
+            err = max(err, float((got - want).abs().max()))
+            cases += 1
+    print(f"dequantize_int8 grouped: {cases} messages of {len(sizes)} leaves (align 1 and "
+          f"128, headers 0-15 bytes, the last of {table.total_rows} rows) bit-equal to the "
+          "plain version")
+    return err
+
+
+def run_socket_path(torch, FederatedJob, TaskConfig, build, task, stacked) -> dict:
+    """This slice's path: the full-width 4-site job with int8 both ways on
+    the thread transport (real TCP round trips to the AggregationServer on
+    the card), held to the stacked int8 job ``stacked``: payload bytes
+    equal; globals within the reference's own thread-vs-stacked bound
+    (rtol 2e-3, atol 2e-4) but on at most 1e-5 of the elements, which are
+    held to ``lr * ROUNDS``: the server folds in arrival order and
+    normalizes once (the reference's server), the stacked kernel folds
+    normalized weights, and AdamW's next step can turn that round-off into
+    a flipped int8 step or ``lr * sign(noise)`` where a gradient is near
+    zero.  The witness, in the same run: the socket job run again, whose
+    only difference is its fold's arrival order; it is printed against
+    the first run and held to the stacked job the same way
+    (``probe_fold_order.py`` shows both runs of the socket job exceeding
+    the bound against each other on the same conv weight element).  Every
+    int8 message decoded (4 uploads at the server, 4 downloads at the
+    sites, 8 error-feedback updates a round once the downlink sends
+    deltas) takes ONE dequantize_int8 launch.  Returns the first run's
+    launches."""
+    from repro_torch.core.round_engine import bootstrap_masks
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = False
+    job = FederatedJob(task=TaskConfig(**task), strategy="fedavg", rounds=ROUNDS,
+                       transport="thread", compression="int8", down_compression="int8")
+    torch.cuda.reset_peak_memory_stats()
+    build.reset_launches()
+    t0 = time.perf_counter()
+    result = job.run()
+    wall = time.perf_counter() - t0
+    launches = dict(build.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    _check_result(torch, result, "the socket path")
+    for s, t in zip(stacked.history, result.history):
+        print(f"socket path round {t['round']}: loss stacked {s['loss']:.6f} thread "
+              f"{t['loss']:.6f}; per site stacked {[round(v, 6) for v in s['per_site_loss']]} "
+              f"thread {[round(v, 6) for v in t['per_site_loss']]}; wall_s stacked "
+              f"{s['wall_s']:.4f} thread {t['wall_s']:.4f}; batch_s {s['batch_s']:.4f} / "
+              f"{t['batch_s']:.4f}; step_s {s['step_s']:.4f} / {t['step_s']:.4f}")
+    comm, sc = result.comm, stacked.comm
+    print(f"socket path: {ROUNDS} rounds in {wall:.1f} s with set-up, peak memory {peak:.2f} "
+          f"GiB, comm {comm}")
+    _require(comm["site_payload_bytes"] == sc["upload_bytes"],
+             f"site_payload_bytes {comm['site_payload_bytes']} != stacked upload_bytes "
+             f"{sc['upload_bytes']}")
+    _require(comm["download_payload_bytes"] == sc["download_bytes"],
+             f"download_payload_bytes {comm['download_payload_bytes']} != stacked "
+             f"download_bytes {sc['download_bytes']}")
+    worst, outside = _outside(result.global_params, stacked.global_params)
+    print(f"socket path: globals max |thread - stacked| {worst:.3e}; leaves with elements "
+          f"outside rtol 2e-3, atol 2e-4 (leaf, shape, count, max): {outside}")
+    masks = job.masks(ROUNDS)
+    boot = bootstrap_masks(masks, 16)
+    # per round: each int8 upload is decoded at the server and, for its
+    # residual, at the site; each int8 (delta) download at the site and,
+    # for the held copy, at the server
+    per_round = [2 * int(masks[r].sum()) + 2 * int((masks[r] & ~boot[r]).sum())
+                 for r in range(ROUNDS)]
+    got = launches.get("dequantize_int8", 0)
+    print(f"kernels launched on the socket path: {launches}; dequantize_int8 {got} for "
+          f"{sum(per_round)} int8 messages decoded ({per_round} a round)")
+    _require(got == sum(per_round),
+             f"dequantize_int8 launched {got} times for {sum(per_round)} int8 messages")
+    _require(launches.get("quantize_int8", 0) == 4 * sum(
+        int(masks[r].sum()) + int((masks[r] & ~boot[r]).sum()) for r in range(ROUNDS)),
+        "quantize_int8 not launched once a chunk width an int8 encode")
+    # the reference's bound holds but where AdamW's step turns fold-order
+    # round-off into a flipped int8 step or about lr * sign(noise): there
+    # |difference| <= lr * ROUNDS, on at most 1e-5 of the elements (a
+    # wrong fold, a site dropped or counted twice, moves millions)
+    _require_fold_noise(job, worst, outside, "the socket path")
+    again = job.run()
+    _check_result(torch, again, "the socket path run again")
+    w_again, o_again = _outside(again.global_params, stacked.global_params)
+    w_runs, o_runs = _outside(again.global_params, result.global_params)
+    print(f"socket path, witness (the same job again: only the fold's arrival order "
+          f"differs): max |again - stacked| {w_again:.3e}, outside {o_again}; max |again - "
+          f"first run| {w_runs:.3e}, outside {o_runs}; losses {again.losses}")
+    _require_fold_noise(job, w_again, o_again, "the socket path run again")
     return launches
+
+
+def _outside(got, want):
+    """(max |got - want|, [(leaf, shape, count, max)] of the leaves with
+    elements outside rtol 2e-3, atol 2e-4 of ``want``)."""
+    worst, outside = 0.0, []
+    for i, (a, b) in enumerate(zip(_leaves(got), _leaves(want))):
+        d = (a - b).abs()
+        worst = max(worst, float(d.max()))
+        bad = int((d > 2e-4 + 2e-3 * b.abs()).sum())
+        if bad:
+            outside.append((i, tuple(a.shape), bad, float(d.max())))
+    return worst, outside
+
+
+def _require_fold_noise(job, worst, outside, what: str) -> None:
+    n_out = sum(bad for _, _, bad, _ in outside)
+    _require(worst <= job.lr * ROUNDS and n_out <= 1e-5 * FULL_N,
+             f"{what}: globals differ from the stacked job's by up to {worst:.3e} "
+             f"(lr * rounds {job.lr * ROUNDS}), {n_out} elements outside rtol 2e-3, atol 2e-4")
+
+
+def check_small_tcp_jobs(torch, FederatedJob, TaskConfig) -> None:
+    """A 2-site job at the tiny size on the tcp transport (one process a
+    site), uncompressed and int8 both ways, on the card and on the CPU, TF32
+    off: per-round losses within rtol 1e-4, and each side's payload bytes
+    its own layout's (align 128 on the card, 1 on the CPU)."""
+    from repro_torch.core.round_engine import bootstrap_masks, encoded_nbytes
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    base = FederatedJob(task=TaskConfig(kind="dose", sites=2, batch=1, volume=(8, 8, 8),
+                                        base_filters=4), rounds=3, transport="tcp")
+    for codec in ("none", "int8"):
+        job = base.replace(compression=codec, down_compression=codec)
+        gpu, cpu = job.run(), job.replace(device="cpu").run()
+        print(f"small tcp job {codec}: losses cuda {gpu.losses} cpu {cpu.losses}")
+        for g, c in zip(gpu.losses, cpu.losses):
+            _require(math.isclose(g, c, rel_tol=JOB_RTOL, abs_tol=1e-6),
+                     f"small tcp job {codec}: cuda loss {g} != cpu loss {c}")
+        if codec == "none":
+            continue
+        shapes = [tuple(t.shape) for t in _leaves(cpu.global_params)]
+        masks = job.masks(job.rounds)
+        boot = bootstrap_masks(masks, 16)
+        dense = 4 * sum(math.prod(sh) for sh in shapes)
+        for res, align in ((gpu, 128), (cpu, 1)):
+            enc = encoded_nbytes(shapes, 1024, align)
+            want_up = int(masks.sum()) * enc
+            want_down = int((masks & boot).sum()) * dense + int((masks & ~boot).sum()) * enc
+            _require(res.comm["site_payload_bytes"] == want_up
+                     and res.comm["download_payload_bytes"] == want_down,
+                     f"small tcp job align {align}: payload bytes {res.comm}")
+        print(f"small tcp job int8: payload bytes cuda {gpu.comm['site_payload_bytes']} up "
+              f"{gpu.comm['download_payload_bytes']} down; cpu {cpu.comm['site_payload_bytes']}"
+              f" / {cpu.comm['download_payload_bytes']}")
 
 
 def check_small_jobs(torch, FederatedJob, TaskConfig) -> None:
@@ -763,7 +1058,7 @@ def check_flash_attention(torch, dev) -> dict:
 
 def kernel_resources(build) -> None:
     """Registers, local memory, shared memory and blocks an SM of every
-    instance of the four redesigned kernels, as ``cudaFuncGetAttributes`` and
+    instance of the five redesigned kernels, as ``cudaFuncGetAttributes`` and
     the occupancy calculator give them (each source's ``*_resources``)."""
     import ctypes
     from repro_torch.kernels import flash_attention, rwkv6_scan
@@ -787,6 +1082,9 @@ def kernel_resources(build) -> None:
     fn = build.entry("quantize_int8", "quantize_int8_resources", one)
     for c in (128, 256, 512, 1024, 1028):  # the register path's width classes, then any
         report(f"quantize_int8 width {c}", fn(c, out))
+    fn = build.entry("dequantize_int8", "dequantize_int8_resources",
+                     [ctypes.POINTER(ctypes.c_int)])
+    report("dequantize_int8 grouped", fn(out))
 
 
 def _rwkv_inputs(torch, dev, shape, dtype, gen):
@@ -1072,8 +1370,11 @@ def main() -> int:
     main_launches = run_main_path(torch, FederatedJob, TaskConfig, build, OPENKBP_TASK)
     int8_launches, int8_result = run_int8_path(torch, FederatedJob, TaskConfig, build,
                                                OPENKBP_TASK)
-    codec_launches = check_codec(torch, build, int8_result.global_params)
+    check_codec(torch, build, int8_result.global_params)
+    socket_launches = run_socket_path(torch, FederatedJob, TaskConfig, build, OPENKBP_TASK,
+                                      int8_result)
     check_small_jobs(torch, FederatedJob, TaskConfig)
+    check_small_tcp_jobs(torch, FederatedJob, TaskConfig)
     robust_launches = run_robust_path(torch, FederatedJob, TaskConfig, build, OPENKBP_TASK)
     check_robust_small_jobs(torch, FederatedJob, TaskConfig, build)
     del int8_result
@@ -1082,11 +1383,11 @@ def main() -> int:
 
     # each kernel's launches on the path that carries it: fedagg on the
     # first slice's path, the int8 fold and install on the second's, the
-    # decode in the codec phase, the trimmed mean on the robust path, each
+    # decode on the socket path, the trimmed mean on the robust path, each
     # token kernel on the serving path of its family
     path_of = {"fedagg": main_launches, "quantize_int8": int8_launches,
                "fedagg_dequant": int8_launches, "dequant_install": int8_launches,
-               "dequantize_int8": codec_launches, "trimmed_mean": robust_launches,
+               "dequantize_int8": socket_launches, "trimmed_mean": robust_launches,
                **serving_launches}
     kernels = []
     for name, (route, source, replaces) in ops.KERNELS.items():

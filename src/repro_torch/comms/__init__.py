@@ -1,1 +1,2 @@
-"""The port's communication layer: so far the int8 wire codec."""
+"""The port's communication layer: the wire codec, the socket transport,
+peers, leases and the aggregation server."""

@@ -16,13 +16,18 @@ Robust rules replace Eq. 1 on the same buffer: ``trimmed:f`` and
 kernel on CUDA), ``krum:f`` and ``normclip:c`` in plain PyTorch, as the
 reference leaves them to XLA.
 
-Ported: the flat FedAvg path and the flat robust rules.  Pods and the
-streaming accumulator of the reference are not (the job rejects those
-seams).
+The socket server's side is here too: :class:`StreamingAccumulator` (the
+O(N) running Eq. 1 sum, on the server's device), the upload sanitation
+checks and :func:`robust_combine_trees` (the rank rules over a round's
+uploads, stacked into ``[k, N]``).
+
+Ported: the flat FedAvg path, the flat robust rules and the socket
+server's fold.  Pods are not (the job rejects that seam).
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
@@ -184,10 +189,64 @@ class RavelLayout:
     offsets: Tuple[int, ...]
     n: int                                 # total flat param count
 
+    @functools.cached_property
+    def sizes(self) -> Tuple[int, ...]:
+        return tuple(int(np.prod(sh, dtype=np.int64)) for sh in self.shapes)
+
     def views(self, flat_row: torch.Tensor):
         """Per-leaf views (no copy) of one [N] row, in flatten order."""
-        return [flat_row[ofs: ofs + int(np.prod(sh, dtype=np.int64))].view(sh)
-                for sh, ofs in zip(self.shapes, self.offsets)]
+        return [t.view(sh) for t, sh in zip(torch.split(flat_row[: self.n], self.sizes),
+                                             self.shapes)]
+
+
+def tree_layout(tree) -> RavelLayout:
+    """The fp32 ravel layout of ONE unstacked tree, in flatten order; a
+    :class:`~repro_torch.comms.codec.QuantizedTensor` leaf counts at its
+    logical shape.  Cached by structure and shapes."""
+    leaves = tree_leaves(tree)
+    shapes = tuple(tuple(x.shape) for x in leaves)
+    skeleton = tree_map(lambda _: None, tree)
+    key = (repr(skeleton), shapes)
+    layout = _TREE_LAYOUTS.get(key)
+    if layout is None:
+        sizes = [int(np.prod(sh, dtype=np.int64)) for sh in shapes]
+        offsets = tuple(int(o) for o in np.cumsum([0] + sizes[:-1]))
+        layout = RavelLayout(skeleton, shapes, (torch.float32,) * len(shapes), offsets,
+                             sum(sizes))
+        _TREE_LAYOUTS[key] = layout
+    return layout
+
+
+_TREE_LAYOUTS: Dict[Any, RavelLayout] = {}
+
+
+def ravel(tree) -> torch.Tensor:
+    """ONE unstacked tree of fp32 tensors -> its flat [N] buffer.  Leaves
+    that are consecutive views of one buffer (every tree the port's
+    decoders and accumulators hand out) give that buffer back without a
+    copy; any other tree is concatenated (cast to fp32)."""
+    if isinstance(tree, torch.Tensor) and tree.dim() == 1:
+        return tree
+    leaves = tree_leaves(tree)
+    first = leaves[0]
+    if all(isinstance(x, torch.Tensor) for x in leaves):
+        offset, base = first.storage_offset(), first.untyped_storage().data_ptr()
+        ok = True
+        for x in leaves:
+            if (x.dtype != torch.float32 or not x.is_contiguous() or x.device != first.device
+                    or x.untyped_storage().data_ptr() != base or x.storage_offset() != offset):
+                ok = False
+                break
+            offset += x.numel()
+        if ok:
+            return first.as_strided((offset - first.storage_offset(),), (1,))
+    return torch.cat([torch.as_tensor(np.asarray(x) if not isinstance(x, torch.Tensor) else x)
+                      .reshape(-1).float() for x in leaves])
+
+
+def unravel(flat: torch.Tensor, layout: RavelLayout):
+    """[N] buffer -> a tree of views of it (no copy), shaped by ``layout``."""
+    return tree_unflatten(layout.treedef, layout.views(flat))
 
 
 class AggregationEngine:
@@ -315,3 +374,94 @@ def get_engine() -> AggregationEngine:
     if _DEFAULT_ENGINE is None:
         _DEFAULT_ENGINE = AggregationEngine()
     return _DEFAULT_ENGINE
+
+
+# ---------------------------------------------------------------------------
+# The socket server's fold and upload sanitation, on the server's device
+# ---------------------------------------------------------------------------
+
+
+class StreamingAccumulator:
+    """O(N)-memory running Eq. 1 sum for the aggregation server.
+
+    ``fold`` adds one site's upload, scaled by its weight, into one fp32
+    buffer on the upload's device as it arrives: the server holds one model
+    however many sites report.  An upload whose flat buffer the caller owns
+    (``owned=True``, every decoded upload) is scaled in place.  A lock
+    guards the fold, so handler threads may fold concurrently.  The sums
+    follow the reference's numpy fold: ``x * fp32(w)`` rounded, then added,
+    and ``finalize`` multiplies by ``fp32(1 / total weight)``."""
+
+    def __init__(self):
+        import threading
+        self._lock = threading.Lock()
+        self._layout: Optional[RavelLayout] = None
+        self._acc: Optional[torch.Tensor] = None
+        self._weight_total = 0.0
+        self.count = 0
+
+    def fold(self, tree, weight: float, owned: bool = False) -> None:
+        w = float(np.float32(weight))
+        x = ravel(tree)
+        layout = tree_layout(tree)
+        x = x.mul_(w) if owned and x.dtype == torch.float32 else x.float() * w
+        with self._lock:
+            if self._acc is None:
+                self._layout, self._acc = layout, x if owned else x.clone()
+            else:
+                if layout.shapes != self._layout.shapes:
+                    raise ValueError("upload tree structure changed mid-round")
+                self._acc.add_(x)
+            self._weight_total += float(weight)
+            self.count += 1
+
+    def finalize(self):
+        """Normalize by the folded weight total and return the global tree
+        (fp32 views of one buffer); resets the accumulator."""
+        with self._lock:
+            if self._acc is None:
+                return None
+            acc = self._acc.mul_(float(np.float32(1.0 / self._weight_total)))
+            tree = unravel(acc, self._layout)
+            self._layout, self._acc = None, None
+            self._weight_total, self.count = 0.0, 0
+        return tree
+
+
+def tree_all_finite(tree) -> bool:
+    """True iff every leaf is NaN/Inf-free (one device reduction)."""
+    return bool(torch.isfinite(ravel(tree)).all())
+
+
+def tree_l2_norm(tree) -> float:
+    """Global L2 norm of an upload, accumulated in float64 so that huge
+    adversarial values do not overflow the check meant to catch them."""
+    return float(torch.linalg.vector_norm(ravel(tree).double()))
+
+
+def clip_tree_norm(tree, c: float):
+    """Scale one upload by ``min(1, c / ||tree||)`` before it folds
+    (``normclip`` stays a streaming fold)."""
+    norm = tree_l2_norm(tree)
+    if norm <= c:
+        return tree
+    flat = ravel(tree) * float(np.float32(c / max(norm, _EPS)))
+    return unravel(flat, tree_layout(tree))
+
+
+def robust_combine_trees(trees, spec: AggregatorSpec):
+    """The rank rules over the round's uploads at the server: the rows are
+    stacked into one ``[k, N]`` device buffer and combined by the port's
+    rules, unweighted over all k rows (``trimmed_mean``/median launch the
+    kernel on CUDA; Krum picks one upload verbatim)."""
+    if not trees:
+        return None
+    layout = tree_layout(trees[0])
+    if any(tree_layout(t).shapes != layout.shapes for t in trees[1:]):
+        raise ValueError("upload tree structure changed mid-round")
+    stacked = torch.stack([ravel(t) for t in trees])
+    active = torch.ones(len(trees), device=stacked.device)
+    if spec.name == "krum":
+        return trees[int(krum_index(stacked, active, spec.f))]
+    return unravel(get_engine().reduce_robust_flat(stacked, np.ones(len(trees), bool), spec),
+                   layout)

@@ -109,7 +109,10 @@ def build_fl_round(ctx: FLContext):
         shutdown = ctx.fed.dropout_scenario == "shutdown"
         losses = []
         for s in range(flat.shape[0]):
-            row = flat[s]
+            # a fresh buffer: cuDNN picks its algorithms by the weights'
+            # alignment, and row s of [S, N] sits off 16 bytes when N is odd;
+            # a site's step must not depend on its row (nor on its transport)
+            row = flat[s].clone()
             site_opt = {"step": opt["step"][s], "mu": opt["mu"][s], "nu": opt["nu"][s]}
             for k in range(next(iter(batches.values())).shape[1]):
                 batch = {name: b[s, k] for name, b in batches.items()}

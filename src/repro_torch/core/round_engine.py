@@ -139,24 +139,30 @@ class ChunkPlan:
     indexes the buffer with one zero appended (index N pads a leaf's last
     row).  ``scatter`` [N] is each element's place in the groups' matrices
     laid end to end.  Packing is one gather per group, unpacking one
-    gather in all."""
+    gather in all.  ``leaves`` gives each leaf's place in the matrices:
+    ``(group, first row, rows, width)``.  ``reorder=False`` reads every
+    leaf in its own order, for a buffer that already holds the reference's
+    layout (the wire's)."""
 
     groups: Tuple[Tuple[int, int, torch.Tensor], ...]
     scatter: torch.Tensor
+    leaves: Tuple[Tuple[int, int, int, int], ...] = ()
 
     @classmethod
     def of(cls, layout: RavelLayout, chunk: int, align: int,
-           device: torch.device) -> "ChunkPlan":
+           device: torch.device, reorder: bool = True) -> "ChunkPlan":
         by_width: Dict[int, List[np.ndarray]] = {}
+        places = []
         for shape, offset in zip(layout.shapes, layout.offsets):
             n = int(np.prod(shape, dtype=np.int64))
             rows, width = chunk_geom(n, chunk, align)
             idx = np.arange(offset, offset + n, dtype=np.int64)
-            order = convert.reference_order(shape)
+            order = convert.reference_order(shape) if reorder else None
             if order is not None:
                 idx = idx.reshape(shape).transpose(order).reshape(-1)
-            by_width.setdefault(width, []).extend(
-                [idx, np.full(rows * width - n, layout.n, np.int64)])
+            parts = by_width.setdefault(width, [])
+            places.append((width, sum(p.size for p in parts) // width, rows))
+            parts.extend([idx, np.full(rows * width - n, layout.n, np.int64)])
         groups, scatter, base = [], np.empty(layout.n, np.int64), 0
         for width, parts in by_width.items():
             gather = np.concatenate(parts)
@@ -164,7 +170,9 @@ class ChunkPlan:
             scatter[gather[real]] = base + np.flatnonzero(real)
             base += gather.size
             groups.append((width, gather.size // width, torch.from_numpy(gather).to(device)))
-        return cls(tuple(groups), torch.from_numpy(scatter).to(device))
+        group_of = {width: i for i, width in enumerate(by_width)}
+        leaves = tuple((group_of[w], row, rows, w) for w, row, rows in places)
+        return cls(tuple(groups), torch.from_numpy(scatter).to(device), leaves)
 
     def pack(self, flat: torch.Tensor) -> List[torch.Tensor]:
         """``[.., N]`` -> one zero-padded ``[.., rows, width]`` fp32 matrix

@@ -41,15 +41,18 @@ LAUNCHES: Dict[str, int] = {}
 _LIBS: Dict[str, ctypes.CDLL] = {}
 _FNS: Dict[Tuple[str, str], Callable] = {}
 _LOCK = threading.Lock()
+_COUNT_LOCK = threading.Lock()
 
 
 def count_launch(name: str) -> None:
-    LAUNCHES[name] = LAUNCHES.get(name, 0) + 1
+    with _COUNT_LOCK:              # socket sites and server launch from threads
+        LAUNCHES[name] = LAUNCHES.get(name, 0) + 1
 
 
 def reset_launches() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+    with _COUNT_LOCK:
+        for name in LAUNCHES:
+            LAUNCHES[name] = 0
 
 
 def nvcc() -> str:
@@ -91,7 +94,9 @@ def _start_build(name: str):
 
 def build(names: Iterable[str]) -> Dict[str, Path]:
     """Compile the named sources, one ``nvcc`` each, all started together.
-    Raises with the compiler's output if any build fails."""
+    Raises with the compiler's output if any build fails.  Processes that
+    build at once are safe: each compiles to a file of its own and renames
+    it into place."""
     started = {n: _start_build(n) for n in names}
     errors = []
     for name, (proc, tmp, out) in started.items():

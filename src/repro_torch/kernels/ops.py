@@ -10,7 +10,8 @@ from __future__ import annotations
 from repro_torch.kernels.fedagg import dequant_install, fedagg, fedagg_dequant
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.mamba_scan import mamba_scan
-from repro_torch.kernels.quantize import dequantize_int8, quantize_int8
+from repro_torch.kernels.quantize import (Int8Table, dequantize_int8,
+                                          dequantize_int8_grouped, quantize_int8)
 from repro_torch.kernels.robust import masked_median, trimmed_mean
 from repro_torch.kernels.rwkv6_scan import rwkv6_scan
 
@@ -37,6 +38,7 @@ KERNELS = {
                    "src/repro/kernels/mamba_scan.py:47"),
 }
 
-__all__ = ["KERNELS", "dequant_install", "dequantize_int8", "fedagg",
+__all__ = ["Int8Table", "KERNELS", "dequant_install", "dequantize_int8",
+           "dequantize_int8_grouped", "fedagg",
            "fedagg_dequant", "flash_attention", "mamba_scan", "masked_median",
            "quantize_int8", "rwkv6_scan", "trimmed_mean"]

@@ -51,6 +51,22 @@ def dequantize_int8_ref(q: torch.Tensor, scales: torch.Tensor) -> torch.Tensor:
     return q.float() * scales[:, None]
 
 
+def dequantize_int8_grouped_ref(table: torch.Tensor, q_base: torch.Tensor,
+                                s_base: torch.Tensor, out: torch.Tensor) -> torch.Tensor:
+    """Every int8 leaf of a message into the flat fp32 buffer ``out``.
+
+    ``table`` is int64 [leaves, 7]: q offset (bytes into the uint8 buffer
+    ``q_base``), scale offset (bytes into ``s_base``; a scale may sit at any
+    byte offset), rows, width, size, output offset and first row.  Each
+    leaf is :func:`dequantize_int8_ref` of its ``[rows, width]`` matrix, of
+    which the first ``size`` values land at its output offset."""
+    for q_off, s_off, rows, width, size, out_off, _ in table.tolist():
+        q = q_base[q_off: q_off + rows * width].view(torch.int8).view(rows, width)
+        s = s_base[s_off: s_off + 4 * rows].clone().view(torch.float32)
+        out[out_off: out_off + size] = dequantize_int8_ref(q, s).reshape(-1)[:size]
+    return out
+
+
 def fedagg_dequant_ref(q: torch.Tensor, scales: torch.Tensor, u: torch.Tensor,
                        weights: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """Dequantize every site's upload and fold Eq. 1 over them:

@@ -128,6 +128,71 @@ def test_quantize_kernels_bit_equal_plain_and_numpy_on_card(cuda_device, s, rows
     assert float(sc[0]) == float(np.float32(1e-12))        # the zero chunk
 
 
+def _message(rng, sizes, align, head):
+    """A payload of int8 leaves (each leaf's q, then its scales) after
+    ``head`` bytes, and its leaf table."""
+    from repro_torch.comms.compression import chunk_geom
+    parts, entries, pos, out = [np.zeros(head, np.uint8)], [], head, 0
+    for n in sizes:
+        rows, width = chunk_geom(n, 1024, align)
+        q = rng.integers(-127, 128, size=rows * width, dtype=np.int8)
+        sc = rng.random(rows, dtype=np.float32)
+        entries.append((pos, pos + q.nbytes, rows, width, n, out))
+        parts += [q.view(np.uint8), sc.view(np.uint8)]
+        pos += q.nbytes + sc.nbytes
+        out += n
+    return np.concatenate(parts), ops.Int8Table.of(entries), out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("align", [1, 128])
+@pytest.mark.parametrize("head", [0, 1, 3, 7])
+def test_grouped_dequantize_bit_equal_plain_on_card(cuda_device, align, head):
+    """One launch decodes every leaf of a message, bit-equal to the plain
+    version, at any header length (rows, scales and outputs off alignment)."""
+    rng = np.random.default_rng(head)
+    buf, table, n = _message(rng, [1, 5, 127, 128, 1025, 3001, 70_000], align, head)
+    b = torch.from_numpy(buf).to(cuda_device)
+    before = build.LAUNCHES.get("dequantize_int8", 0)
+    got = ops.dequantize_int8_grouped(table, b, b, torch.empty(n, device=cuda_device))
+    torch.cuda.synchronize()
+    assert build.LAUNCHES["dequantize_int8"] == before + 1
+    want = ref.dequantize_int8_grouped_ref(torch.from_numpy(table.host), b.cpu(), b.cpu(),
+                                           torch.empty(n))
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.cuda
+def test_small_thread_job_on_card_decodes_each_message_in_one_launch(cuda_device,
+                                                                     monkeypatch):
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    job = FederatedJob(task=TaskConfig(kind="dose", sites=2, batch=1, volume=(8, 8, 8),
+                                       base_filters=4), rounds=2, transport="thread",
+                       compression="int8", down_compression="int8")
+    build.reset_launches()
+    gpu = job.run()
+    launched = build.LAUNCHES.get("dequantize_int8", 0)
+    cpu = job.replace(device="cpu").run()
+    np.testing.assert_allclose(gpu.losses, cpu.losses, rtol=1e-4)
+    # round 0: 2 uploads (server decode + site residual); round 1: also 2
+    # delta downloads (site decode + server held copy)
+    assert launched == 4 + 8
+
+
+@pytest.mark.cuda
+def test_small_robust_socket_job_on_card_runs_the_trimmed_mean_kernel(cuda_device,
+                                                                      monkeypatch):
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    job = FederatedJob(task=TaskConfig(kind="dose", sites=3, batch=1, volume=(8, 8, 8),
+                                       base_filters=4), rounds=2, transport="thread",
+                       aggregator="median")
+    build.reset_launches()
+    gpu = job.run()
+    assert build.LAUNCHES.get("trimmed_mean", 0) == job.rounds    # one a round, at the server
+    cpu = job.replace(device="cpu").run()
+    np.testing.assert_allclose(gpu.losses, cpu.losses, rtol=1e-4)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("s,rows,c", INT8_SHAPES)
 def test_fold_and_install_kernels_match_plain_on_card(cuda_device, s, rows, c):

@@ -77,7 +77,6 @@ def test_job_runs_on_cuda_by_default_and_raises_without_it(monkeypatch):
 
 
 @pytest.mark.parametrize("seam,kw", [
-    ("transport", dict(transport="tcp")),
     ("scheduler", dict(scheduler="buffered")),
     ("strategy", dict(strategy="fedprox")),
     ("compression", dict(compression="fp8")),
@@ -127,8 +126,7 @@ FIELDS = [
     ("prox_mu", 0.1, "fedprox"), ("gcml_lambda", 0.7, "gcml"),
     ("gcml_contrast_beta", 2.0, "gcml"), ("dcml_lr", 0.01, "gcml"),
     ("dp_delta", 1e-6, "dp"), ("dp_mode", "per-example", "dp"),
-    ("io_timeout", 5.0, "transport"), ("wire", "secret", "transport"),
-    ("lease_ttl", 3.0, "transport"), ("round_engine", "loop", "round_engine"),
+    ("round_engine", "loop", "round_engine"),
     ("chunk_rounds", 2, "round_engine"), ("ckpt_every", 5, "checkpoint"),
     ("task.arch", "gemma3-1b", "task"), ("task.reduced", False, "task"),
     ("task.seq", 32, "task"), ("task.in_channels", 4, "task"),
@@ -143,10 +141,9 @@ def _default(cls, name):
 
 @pytest.mark.parametrize("name,other,seam", FIELDS)
 def test_reference_fields_take_their_defaults_and_refuse_other_values(name, other, seam):
-    """A spec that names the field at the reference's default (the
-    reference's own ``WireConfig`` for ``wire``) builds the port's job
-    and passes its seam check; any other value raises ``NotPorted``."""
-    from repro.comms.transport import WireConfig as JWire
+    """A spec that names the field at the reference's default builds the
+    port's job and passes its seam check; any other value raises
+    ``NotPorted``."""
     if name.startswith("task."):
         field = name[len("task."):]
         job = FederatedJob(task=TaskConfig(**TASK, **{field: _default(JTask, field)}),
@@ -155,7 +152,7 @@ def test_reference_fields_take_their_defaults_and_refuse_other_values(name, othe
     else:
         job = FederatedJob(task=TaskConfig(**TASK), rounds=1, device="cpu",
                            **{name: _default(JJob, name)})
-        bad = job.replace(**{name: JWire(secret=other) if name == "wire" else other})
+        bad = job.replace(**{name: other})
     job.check_ported()
     with pytest.raises(NotPorted) as err:
         bad.run()
