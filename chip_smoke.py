@@ -71,6 +71,29 @@ Phases, each of which fails the run (non-zero exit) if it goes wrong:
    krum:1 + scale:3:1 (the same rows picked on both sides), normclip with
    a binding clip, median + uniform:3 sampling, and int8 uploads +
    poisson:0.75 sampling; per-round losses and participants must agree;
+11. the dose experiment (Figs 7-9) at full width (``OPENKBP_TASK``, TF32
+   convolutions, 2 rounds): the pooled baseline (one site whose batch is
+   the 4 sites' batches, a batch of 4 at 128^3) and the individual
+   baseline (4 sites, ``comm`` None); ``fedagg`` once each (the final
+   global, held to the plain fold of the final rows in every job of
+   11-13; phase 2 holds ``fedagg``, ``trimmed_mean`` and the int8 kernels
+   to their plain versions at these jobs' shapes too);
+12. the strategy comparison on BraTS (Figs 11/12; ``BRATS_TASK``: 4 MRI
+   channels, 4 classes, 6,840,300 parameters, the sites' case counts):
+   fedavg, fedprox (``prox_mu=0.01``), fedprox with int8 both ways and
+   fedprox under ``trimmed:1`` at 2 local steps, each with the exact
+   launches its code implies (``run_seg_strategies`` states them), the
+   FedProx anchor held to the broadcast rows and the global, fedprox's
+   ``step_s`` beside fedavg's and its per-site losses equal to fedavg's
+   (one local step from the anchor: the Eq. 2 term is 0);
+13. gossip on PanSeg (Fig 15; ``PANSEG_TASK``: 1 channel, 2 classes, 5
+   sites, 6,838,014 parameters): GCML without churn and with
+   ``max_dropout=1`` under shutdown, each round's pairings and DCML
+   losses printed, ``fedagg`` once (the final global);
+14. small jobs of every strategy above (8^3, 4 filters, TF32 off) on the
+   card and on the CPU: losses within ``JOB_RTOL``, masks, pairings and
+   ``comm`` equal, the globals (and FedProx's anchors) within ``lr`` a
+   local step and ``SMALL_MEDIAN_TOL`` at the median;
 9. the fourth slice's paths: serving the token models at full width
    through ``launch/serve.py`` (prefill, then greedy decode, fp32
    weights from a seed, TF32 off): gemma3-1b (26 layers, 4 x 1024
@@ -91,8 +114,10 @@ Phases, each of which fails the run (non-zero exit) if it goes wrong:
    off: the greedy tokens must be equal and the logits within
    rtol=atol=1e-4.
 
-Every kernel's launch count is zeroed just before each of phases 3-5b, 7
-and each path of 9, and read just after.  The second-to-last line is a
+Phases 11-14 run after phase 8, before 9.  Every kernel's launch count is
+zeroed just before each of phases 3-5b, 7, each path of 9 and each
+full-width job of 11-13, and read just after; each of 11-14 prints its
+seconds.  The second-to-last line is a
 JSON object with one entry per kernel; the last line is ``{"ok": true,
 "device": {...}}``.  Without
 CUDA, or outside a checkout of the repository, it exits non-zero and
@@ -111,6 +136,8 @@ from pathlib import Path
 
 ROUNDS = 2
 FULL_N = 6_844_323                       # full-width SA-Net parameter count
+BRATS_N = 6_840_300                      # SANET_SEG's parameter count (the reference's)
+PANSEG_N = 6_838_014                     # SANET_OAR's
 INT8_BYTES = 6_900_148                   # one model, int8, the card's layout
 DENSE_BYTES = 4 * FULL_N                 # one model, fp32
 FP32_TOL = dict(rtol=1e-6, atol=1e-6)    # FMA contraction and sum order differ
@@ -250,9 +277,12 @@ def measure(torch, name, kernel, plain, library, nbytes: int, flops: int,
 
 
 def check_fedagg(torch, fedagg, ref, dev) -> dict:
-    """fedagg vs its plain version; returns its entry of the kernels line."""
+    """fedagg vs its plain version; returns its entry of the kernels line.
+    The full-width cases are the paths' shapes: 4 OpenKBP and 4 BraTS
+    sites, the pooled baseline's one row and GCML's 5 PanSeg sites."""
     gen = torch.Generator(device=dev).manual_seed(0)
-    cases = [(4, FULL_N)] + [(s, n) for s in (1, 3, 16) for n in (1, 127, 65_537)]
+    full = [(4, FULL_N), (1, FULL_N), (4, BRATS_N), (5, PANSEG_N)]
+    cases = full + [(s, n) for s in (1, 3, 16) for n in (1, 127, 65_537)]
     err32 = 0.0
     for s, n in cases:
         w = torch.rand(s, device=dev, generator=gen)
@@ -268,7 +298,7 @@ def check_fedagg(torch, fedagg, ref, dev) -> dict:
             err = float((out.float() - want.float()).abs().max())
             if dtype == torch.float32:
                 err32 = max(err32, err)
-            if n == FULL_N:
+            if (s, n) in full:
                 print(f"fedagg [{s}, {n}] {dtype}: max |kernel - plain| = {err:.3e}")
     print(f"fedagg: {len(cases)} shapes x 2 dtypes agree with the plain version "
           f"(fp32 rtol=atol=1e-6, bf16 rtol=atol=2e-2)")
@@ -304,18 +334,21 @@ def _require(ok: bool, what: str) -> None:
         raise SystemExit(f"chip_smoke: {what}")
 
 
-def check_int8_kernels(torch, plan, layout, dev) -> dict:
+def check_int8_kernels(torch, plan, layout, dev, seg_plan) -> dict:
     """The four int8 kernels vs their plain versions at the ragged shapes
-    and the full-width chunk groups; returns their kernels-line entries."""
+    and the full-width chunk groups of OpenKBP's SA-Net (``plan``, also the
+    timed shapes) and BraTS's (``seg_plan``); returns their kernels-line
+    entries."""
     import numpy as np
     from repro_torch.kernels import fedagg as fk
     from repro_torch.kernels import quantize as qk
     from repro_torch.kernels import ref
     gen = torch.Generator(device=dev).manual_seed(1)
     full = [(4, rows, width) for width, rows, _ in plan.groups]
+    seg = [(4, rows, width) for width, rows, _ in seg_plan.groups]
     err = {"quantize_int8": 0.0, "dequantize_int8": 0.0, "fedagg_dequant": 0.0,
            "dequant_install": 0.0}
-    for s, rows, c in RAGGED + full:
+    for s, rows, c in RAGGED + full + seg:
         u, w, base = _int8_inputs(torch, dev, s, rows, c, gen)
         x = u.view(s * rows, c)
         q, sc = qk.quantize_int8_cuda(x)
@@ -355,8 +388,8 @@ def check_int8_kernels(torch, plan, layout, dev) -> dict:
     _require(x.data_ptr() % 16 != 0, f"{where}: the view is on a 16-byte boundary")
     _require(torch.equal(sc, sc_ref), f"{where}: scales differ from its plain version")
     _require(torch.equal(q, q_ref), f"{where}: q differs from its plain version")
-    print(f"int8 kernels: {len(RAGGED)} ragged shapes and {len(full)} full-width chunk "
-          "groups agree with the plain versions (bit-equal; fedagg_dequant's g "
+    print(f"int8 kernels: {len(RAGGED)} ragged shapes and {len(full)} OpenKBP and "
+          f"{len(seg)} BraTS full-width chunk groups agree with the plain versions (bit-equal; fedagg_dequant's g "
           f"rtol=atol=1e-6, max |err| {err['fedagg_dequant']:.3e}) and the numpy rule")
 
     # times at the full-width path's shapes: one call site runs every group
@@ -444,15 +477,17 @@ def _trim_cases(torch, dev, s, n, gen):
 
 def check_trimmed_mean(torch, dev) -> dict:
     """trimmed_mean (and the median, f = S) vs its plain version, bit for
-    bit, at ragged shapes and at full width; returns its kernels-line entry."""
+    bit, at ragged shapes and at full width (OpenKBP's and BraTS's 4 sites);
+    returns its kernels-line entry."""
     from repro_torch.kernels import ref, robust
     gen = torch.Generator(device=dev).manual_seed(2)
     err, cases = 0.0, 0
-    shapes = [(s, n) for s in TRIM_SITES for n in TRIM_WIDTHS] + [(4, FULL_N)]
+    full = [(4, FULL_N), (4, BRATS_N)]
+    shapes = [(s, n) for s in TRIM_SITES for n in TRIM_WIDTHS] + full
     for s, n in shapes:
         x, patterns = _trim_cases(torch, dev, s, n, gen)
-        depths = sorted({0, 1, 2, s}) if n != FULL_N else [1, s]
-        for a in patterns if n != FULL_N else patterns[:2]:
+        depths = sorted({0, 1, 2, s}) if (s, n) not in full else [1, s]
+        for a in patterns if (s, n) not in full else patterns[:2]:
             for f in depths:
                 out = robust.trimmed_mean_cuda(x, a, f)
                 torch.cuda.synchronize()
@@ -464,7 +499,7 @@ def check_trimmed_mean(torch, dev) -> dict:
                          " differs from its plain version")
                 cases += 1
     print(f"trimmed_mean: {cases} cases ({len(TRIM_SITES)} site counts x {len(TRIM_WIDTHS)} "
-          f"widths x trim depths x active patterns, non-finite values, full width "
+          f"widths x trim depths x active patterns, non-finite values, {full} "
           f"f=1 and median) bit-equal to the plain version")
 
     x = torch.randn(4, FULL_N, device=dev, generator=gen)
@@ -991,6 +1026,300 @@ def check_robust_small_jobs(torch, FederatedJob, TaskConfig, build) -> None:
     finally:
         agg_engine.krum_index = krum_index
 
+# -- the paper's strategy set (phases 11-14) -------------------------------------
+
+PROX_MU = 0.01
+# FedProx against FedAvg where the Eq. 2 term is exactly 0: the same
+# arithmetic but for adding that 0 (and the round-0 anchor, Eq. 1 over
+# four identical rows, which may round an element by an ulp)
+PROX_ZERO_RTOL = 1e-6
+# card vs CPU globals of the small strategy jobs (lr 1e-3): a fault in a
+# step moves most elements by about lr; fp32 sum orders moved the median
+# by 0 to 1.04e-6 (6 AdamW steps of the seg FedProx job)
+SMALL_MEDIAN_TOL = 1e-5
+
+
+def _strategy_history(result, what: str) -> None:
+    """Each round's losses, times, pairings and (GCML) DCML losses."""
+    for h in result.history:
+        line = (f"{what} round {h['round']}: active {h['active']} loss {h['loss']:.6f} "
+                f"per-site {[round(v, 6) for v in h['per_site_loss']]} wall_s "
+                f"{h['wall_s']:.4f} batch_s {h['batch_s']:.4f} step_s {h['step_s']:.4f}")
+        if "partner" in h:
+            line += f" partner {h['partner']} is_receiver {h['is_receiver']}"
+        for k in ("dcml_loss_r", "dcml_loss_s", "dcml_val_r", "dcml_val_s"):
+            if k in h:
+                line += f" {k} {[round(v, 6) for v in h[k]]}"
+        for k in ("upload_bytes", "download_bytes"):
+            if k in h:
+                line += f" {k} {h[k]}"
+        print(line)
+
+
+def run_strategy_job(torch, FederatedJob, TaskConfig, build, task, n_params: int,
+                     what: str, expect, **kw):
+    """One full-width job of the strategy set, 2 sync rounds, TF32
+    convolutions, random weights from seed 0.  Every kernel's launches are
+    zeroed just before ``job.run()`` and must equal ``expect[name]`` (0 for
+    a kernel not named) just after.
+
+    The final global is ``fedagg``'s last launch on every uncompressed
+    path: it is held to the plain version on the final rows and the
+    normalized case weights (``FP32_TOL``).  FedProx's anchor, the global
+    of the last round, must equal every row it was broadcast to (every
+    site is active in these jobs) and lie
+    within ``FP32_TOL`` of that plain global; under int8 it must be the
+    global itself (the anchor is re-pinned to the exact fold).  Returns the
+    result."""
+    from repro_torch.kernels import ref
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = False
+    job = FederatedJob(task=TaskConfig(**task), rounds=ROUNDS, **kw)
+    torch.cuda.reset_peak_memory_stats()
+    build.reset_launches()
+    t0 = time.perf_counter()
+    result = job.run()
+    wall = time.perf_counter() - t0
+    launches = {k: v for k, v in build.LAUNCHES.items() if v}
+    _strategy_history(result, what)
+    print(f"{what}: {ROUNDS} rounds in {wall:.1f} s with set-up, peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, comm {result.comm}")
+    print(f"{what}: kernels launched {launches}, expected {expect}")
+    got_n = sum(t.numel() for t in _leaves(result.global_params))
+    _require(got_n == n_params, f"{what}: {got_n} parameters, not {n_params}")
+    _require(all(math.isfinite(v) for h in result.history for v in h["per_site_loss"]),
+             f"non-finite loss on {what}")
+    _require(all(bool(torch.isfinite(t).all()) for t in _leaves(result.global_params)),
+             f"non-finite global parameters on {what}")
+    for name in set(launches) | set(expect):
+        _require(launches.get(name, 0) == expect.get(name, 0),
+                 f"{what}: {name} launched {launches.get(name, 0)} times, "
+                 f"expected {expect.get(name, 0)}")
+    rows = result.state["params"]
+    flat = torch.cat([t.reshape(-1) for t in _leaves(result.global_params)])
+    anchor = result.state["strategy"].get("global")
+    if kw.get("compression", "none") == "none":
+        cw = torch.as_tensor(job.federation().case_weights(), device=rows.device)
+        want = ref.fedagg_ref(rows, cw / cw.sum())
+        torch.testing.assert_close(flat, want, **FP32_TOL)
+        print(f"{what}: final global [{rows.shape[0]}, {rows.shape[1]}] within fp32 "
+              f"rtol=atol=1e-6 of the plain fedagg (max |err| "
+              f"{float((flat - want).abs().max()):.3e})")
+        if anchor is not None:
+            _require(all(torch.equal(r, anchor) for r in rows),
+                     f"{what}: a row differs from the FedProx anchor it was broadcast")
+            torch.testing.assert_close(anchor, want, **FP32_TOL)
+    elif anchor is not None:
+        _require(torch.equal(anchor, flat), f"{what}: the anchor is not the final global")
+        print(f"{what}: the anchor is the final global, bit for bit")
+    return result
+
+
+def _timed(phase: str, fn, *args) -> None:
+    gc.collect()
+    t0 = time.perf_counter()
+    fn(*args)
+    print(f"phase {phase}: {time.perf_counter() - t0:.1f} s")
+
+
+def run_dose_strategies(torch, FederatedJob, TaskConfig, build, task) -> None:
+    """Phase 11, the dose experiment (Figs 7-9): the pooled baseline (ONE
+    site whose batch is the 4 sites' batches, a batch of 4 at 128^3) and
+    the individual baseline (4 sites, no exchange, ``comm`` None).  Neither
+    aggregates in a round: ``fedagg`` runs once, for the final global (the
+    case-weighted mean of the site rows; one row when pooled)."""
+    sites = task["sites"]
+    pooled = run_strategy_job(torch, FederatedJob, TaskConfig, build, task, FULL_N,
+                              "dose pooled", {"fedagg": 1}, strategy="pooled")
+    _require(tuple(pooled.state["params"].shape) == (1, FULL_N)
+             and all(len(h["per_site_loss"]) == 1 and h["active"] == sites
+                     for h in pooled.history) and pooled.comm is None,
+             "dose pooled: not one site over the task's sites")
+    del pooled
+    indiv = run_strategy_job(torch, FederatedJob, TaskConfig, build, task, FULL_N,
+                             "dose individual", {"fedagg": 1}, strategy="individual")
+    _require(tuple(indiv.state["params"].shape) == (sites, FULL_N) and indiv.comm is None,
+             "dose individual: not one row a site, or a comm")
+
+
+def run_seg_strategies(torch, FederatedJob, TaskConfig, build, task, counts) -> None:
+    """Phase 12, the strategy comparison on BraTS (Figs 11/12), 4 sites at
+    the paper's case counts.  Launches, worked out from the code:
+
+    - fedavg: ``fedagg`` once a round (``aggregate_round``) and once for
+      the final global;
+    - fedprox: one more, the round-0 anchor (``FedProx.init_state``, the
+      mean of the identical initial rows);
+    - fedprox + int8 both ways (``run_compressed`` under ``fedprox-local``):
+      ``fedagg`` once for the anchor and once a round (the fold of the
+      sites' upload anchors, ``reduce_flat(anchor, w)``), none at the end
+      (the global is the fold's); per round and chunk-width group G,
+      ``quantize_int8`` twice (the uploads' fold, the installs),
+      ``fedagg_dequant`` once and ``dequant_install`` once;
+    - fedprox + trimmed:1: ``trimmed_mean`` once a round, ``fedagg`` for
+      the anchor and the final global only.
+
+    With one local step and every site active, each site starts its step at
+    the anchor, so the Eq. 2 term and its gradient are 0: plain FedProx's
+    per-site losses must be FedAvg's (within ``PROX_ZERO_RTOL``), and its
+    ``step_s`` times a term that is computed but pulls nothing.  The int8
+    job's sites install quantized copies, so the term pulls there; the
+    ``trimmed:1`` job takes 2 local steps, so its second step reads the
+    term at full width."""
+    from repro_torch.comms.compression import align_for
+    from repro_torch.core.agg_engine import get_engine
+    from repro_torch.core.round_engine import ChunkPlan
+    from repro_torch.core.stacking import broadcast_to_sites
+    base = dict(case_counts=counts, prox_mu=PROX_MU)
+    steps, losses = {}, {}
+    for strategy, expect in (("fedavg", {"fedagg": ROUNDS + 1}),
+                             ("fedprox", {"fedagg": ROUNDS + 2})):
+        res = run_strategy_job(torch, FederatedJob, TaskConfig, build, task, BRATS_N,
+                               f"brats {strategy}", expect, strategy=strategy, **base)
+        steps[strategy] = [h["step_s"] for h in res.history]
+        losses[strategy] = [v for h in res.history for v in h["per_site_loss"]]
+        _require(res.comm["upload_count"] == ROUNDS * task["sites"],
+                 f"brats {strategy}: comm {res.comm}")
+        del res
+    print(f"brats step_s a round: fedavg {steps['fedavg']} fedprox {steps['fedprox']} "
+          f"(round 1: fedprox / fedavg = {steps['fedprox'][-1] / steps['fedavg'][-1]:.4f})")
+    gap = max(abs(p - a) / abs(a) for a, p in zip(losses["fedavg"], losses["fedprox"]))
+    print(f"brats fedprox vs fedavg, one local step (the Eq. 2 term is 0): per-site losses "
+          f"{'bit-equal' if losses['fedprox'] == losses['fedavg'] else 'differ'}, "
+          f"max relative gap {gap:.3e}")
+    _require(gap <= PROX_ZERO_RTOL,
+             f"brats fedprox: per-site losses {gap:.3e} from fedavg's with a zero Eq. 2 term")
+    layout = get_engine().layout_of(broadcast_to_sites(
+        TaskConfig(**task).build().init_fn(0), 1))
+    dev = torch.device("cuda")
+    groups = len(ChunkPlan.of(layout, 1024, align_for(dev), dev).groups)
+    print(f"brats chunk-width groups: {groups}")
+    res = run_strategy_job(
+        torch, FederatedJob, TaskConfig, build, task, BRATS_N, "brats fedprox int8",
+        {"fedagg": 1 + ROUNDS, "quantize_int8": 2 * groups * ROUNDS,
+         "fedagg_dequant": groups * ROUNDS, "dequant_install": groups * ROUNDS},
+        strategy="fedprox", compression="int8", down_compression="int8", **base)
+    _require(res.comm["compression"] == "int8" and res.comm["down_compression"] == "int8",
+             f"brats fedprox int8: comm {res.comm}")
+    del res
+    run_strategy_job(torch, FederatedJob, TaskConfig, build, task, BRATS_N,
+                     "brats fedprox trimmed:1, 2 local steps",
+                     {"fedagg": 2, "trimmed_mean": ROUNDS},
+                     strategy="fedprox", aggregator="trimmed:1", local_steps=2, **base)
+
+
+def run_gossip(torch, FederatedJob, TaskConfig, build, task) -> None:
+    """Phase 13, gossip on PanSeg (Fig 15): GCML over 5 sites without churn,
+    then with ``max_dropout=1`` under the shutdown scenario.  GCML has no
+    server: ``fedagg`` runs once, for the final global, and nothing else.
+    Each round pairs floor(active / 2) receivers, each with a finite DCML
+    loss; the others run no DCML step (NaN)."""
+    for what, kw in (("panseg gcml", {}),
+                     ("panseg gcml churn", dict(max_dropout=1, dropout_scenario="shutdown"))):
+        res = run_strategy_job(torch, FederatedJob, TaskConfig, build, task, PANSEG_N, what,
+                               {"fedagg": 1}, strategy="gcml", **kw)
+        _require(res.comm is None, f"{what}: comm {res.comm}")
+        for h in res.history:
+            recv = [i for i, r in enumerate(h["is_receiver"]) if r]
+            _require(len(recv) == h["active"] // 2,
+                     f"{what} round {h['round']}: {len(recv)} receivers of {h['active']}")
+            _require(all(math.isfinite(h[k][i]) for i in recv
+                         for k in ("dcml_loss_r", "dcml_loss_s", "dcml_val_r", "dcml_val_s")),
+                     f"{what} round {h['round']}: a receiver's DCML loss is not finite")
+            _require(all(math.isnan(v) for i, v in enumerate(h["dcml_loss_r"]) if i not in recv),
+                     f"{what} round {h['round']}: a DCML step off the pairing")
+        del res
+
+
+def _close_globals(torch, job, gpu, cpu, what: str) -> None:
+    """Card against CPU: the global model and, for FedProx, the anchor.
+    Each element within ``lr`` a site's AdamW step (``rounds *
+    local_steps`` of them; a step is about ``lr * sign(g)``, and float noise
+    flips a near-zero gradient's sign), plus one quantization step under
+    int8; the median difference within ``SMALL_MEDIAN_TOL``."""
+    got, want = (torch.cat([t.reshape(-1) for t in _leaves(res.global_params)]).cpu()
+                 for res in (gpu, cpu))
+    pairs = [("global", got, want)]
+    if "global" in cpu.state["strategy"]:
+        pairs.append(("anchor", gpu.state["strategy"]["global"].cpu(),
+                      cpu.state["strategy"]["global"]))
+    bound = job.lr * job.rounds * job.local_steps
+    if job.compression != "none":
+        bound += float(want.abs().max()) / 127
+    for name, a, b in pairs:
+        d = (a - b).abs()
+        print(f"small {what}: {name} card vs CPU max |diff| {float(d.max()):.3e} "
+              f"(bound {bound:.3e}), median {float(d.median()):.3e} "
+              f"(bound {SMALL_MEDIAN_TOL:.0e})")
+        _require(float(d.max()) <= bound and float(d.median()) <= SMALL_MEDIAN_TOL,
+                 f"small {what}: the {name} differs between card and CPU")
+
+
+def check_small_strategy_jobs(torch, FederatedJob, TaskConfig) -> None:
+    """Phase 14: small jobs of each strategy (8^3, 4 filters, 2 levels, 3
+    rounds, TF32 off) on the card and on the CPU (the plain versions); the
+    CPU path is held to the JAX reference by tests/test_torch_seg.py,
+    tests/test_torch_strategies.py and tests/test_torch_gcml.py.  Losses
+    (and GCML's receivers' DCML losses) within ``JOB_RTOL``; masks,
+    pairings and ``comm`` equal (int8: each side's bytes its own layout's,
+    as :func:`check_small_jobs` holds them).  The global models (and
+    FedProx's anchors) by :func:`_close_globals`.  The seg FedProx job
+    takes 2 local steps, so every round's second step reads the Eq. 2 term
+    on both sides."""
+    from repro_torch.comms.compression import align_for
+    from repro_torch.core.round_engine import bootstrap_masks, encoded_nbytes
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    tiny = dict(batch=1, volume=(8, 8, 8), base_filters=4, num_levels=2)
+    dose = TaskConfig(kind="dose", sites=4, **tiny)
+    seg = TaskConfig(kind="seg", sites=4, in_channels=2, num_classes=3, **tiny)
+    pan = TaskConfig(kind="seg", sites=5, in_channels=1, num_classes=2, **tiny)
+    cases = [("pooled", dose, dict(strategy="pooled")),
+             ("individual", dose, dict(strategy="individual", max_dropout=1)),
+             ("fedprox dose", dose, dict(strategy="fedprox", max_dropout=1, prox_mu=0.5)),
+             ("fedprox seg", seg, dict(strategy="fedprox", max_dropout=1, local_steps=2,
+                                       case_counts=(52, 44, 35, 28))),
+             ("fedprox int8", seg, dict(strategy="fedprox", max_dropout=1, compression="int8",
+                                        down_compression="int8")),
+             ("fedprox trimmed:1", seg, dict(strategy="fedprox", max_dropout=1,
+                                             aggregator="trimmed:1", adversary="sign_flip:1")),
+             ("gcml", pan, dict(strategy="gcml")),
+             ("gcml churn", pan, dict(strategy="gcml", max_dropout=1,
+                                      dropout_scenario="shutdown", seed=3)),
+             ("gcml normclip", pan, dict(strategy="gcml", max_dropout=1,
+                                         aggregator="normclip:0.01"))]
+    for what, task, kw in cases:
+        job = FederatedJob(task=task, rounds=3, **kw)
+        gpu, cpu = job.run(), job.replace(device="cpu").run()
+        print(f"small {what}: losses cuda {gpu.losses} cpu {cpu.losses}")
+        for g, c in zip(gpu.history, cpu.history):
+            for key in ("active", "partner", "is_receiver"):
+                _require(g.get(key) == c.get(key), f"small {what}: {key} differs")
+            for a, b in zip(g["per_site_loss"], c["per_site_loss"]):
+                _require(math.isclose(a, b, rel_tol=JOB_RTOL, abs_tol=1e-6),
+                         f"small {what}: cuda loss {a} != cpu loss {b}")
+            for i, r in enumerate(g.get("is_receiver", [])):
+                if r:
+                    _require(math.isclose(g["dcml_loss_r"][i], c["dcml_loss_r"][i],
+                                          rel_tol=JOB_RTOL, abs_tol=1e-6),
+                             f"small {what}: DCML losses differ")
+        _close_globals(torch, job, gpu, cpu, what)
+        if "compression" not in kw:
+            _require(gpu.comm == cpu.comm, f"small {what}: comm {gpu.comm} != {cpu.comm}")
+            continue
+        masks = job.masks(job.rounds)
+        boot = bootstrap_masks(masks, 16)
+        shapes = [tuple(t.shape) for t in _leaves(cpu.global_params)]
+        dense = 4 * sum(math.prod(sh) for sh in shapes)
+        for res, align in ((gpu, align_for(torch.device("cuda"))), (cpu, 1)):
+            enc = encoded_nbytes(shapes, 1024, align)
+            for r, h in enumerate(res.history):
+                want = sum(dense if b else enc for a, b in zip(masks[r], boot[r]) if a)
+                _require(h["upload_bytes"] == int(masks[r].sum()) * enc
+                         and h["download_bytes"] == want,
+                         f"small {what} align {align}: round {r} bytes")
+
+
 # -- the token models' kernels and serving paths ---------------------------------
 
 
@@ -1334,7 +1663,9 @@ def main() -> int:
         return 2
     sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
     from repro_torch.api import FederatedJob, TaskConfig
-    from repro_torch.configs.sanet_openkbp import OPENKBP_TASK, SANET
+    from repro_torch.configs.sanet_openkbp import (BRATS_TASK, OPENKBP_TASK, PANSEG_TASK,
+                                                SANET, SANET_SEG)
+    from repro_torch.data.partition import BRATS_SITE_CASES
     from repro_torch.core.agg_engine import get_engine
     from repro_torch.core.round_engine import ChunkPlan
     from repro_torch.core.stacking import broadcast_to_sites
@@ -1358,10 +1689,13 @@ def main() -> int:
     layout = get_engine().layout_of(broadcast_to_sites(
         sanet_init(torch.Generator().manual_seed(0), SANET), 1))
     plan = ChunkPlan.of(layout, 1024, 128, dev)
-    print(f"full-width chunk groups (width, rows per site): "
-          f"{[(w, rows) for w, rows, _ in plan.groups]}")
+    seg_plan = ChunkPlan.of(get_engine().layout_of(broadcast_to_sites(
+        sanet_init(torch.Generator().manual_seed(0), SANET_SEG), 1)), 1024, 128, dev)
+    print(f"full-width chunk groups (width, rows per site): OpenKBP "
+          f"{[(w, rows) for w, rows, _ in plan.groups]}, BraTS "
+          f"{[(w, rows) for w, rows, _ in seg_plan.groups]}")
     entries = {"fedagg": check_fedagg(torch, fedagg, ref, dev),
-               **check_int8_kernels(torch, plan, layout, dev),
+               **check_int8_kernels(torch, plan, layout, dev, seg_plan),
                "trimmed_mean": check_trimmed_mean(torch, dev),
                "flash_attention": check_flash_attention(torch, dev),
                "rwkv6_scan": check_rwkv6_scan(torch, dev),
@@ -1378,6 +1712,12 @@ def main() -> int:
     robust_launches = run_robust_path(torch, FederatedJob, TaskConfig, build, OPENKBP_TASK)
     check_robust_small_jobs(torch, FederatedJob, TaskConfig, build)
     del int8_result
+    jobs = (torch, FederatedJob, TaskConfig)
+    _timed("11 (dose pooled, individual)", run_dose_strategies, *jobs, build, OPENKBP_TASK)
+    _timed("12 (brats fedavg, fedprox, + int8, + trimmed:1)", run_seg_strategies, *jobs,
+           build, BRATS_TASK, tuple(BRATS_SITE_CASES[:BRATS_TASK["sites"]]))
+    _timed("13 (panseg gcml)", run_gossip, *jobs, build, PANSEG_TASK)
+    _timed("14 (small strategy jobs, card and CPU)", check_small_strategy_jobs, *jobs)
     serving_launches = run_serving_paths(torch, build)
     check_small_serving(torch, build)
 

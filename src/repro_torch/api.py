@@ -8,10 +8,12 @@ transport:
     result = job.run()                  # on CUDA
     result = job.replace(device="cpu").run()
 
-Ported so far: the SA-Net dose task, ``strategy="fedavg"`` (paper Eq. 1)
-with sync rounds on the stacked transport, uncompressed or with int8
-uploads and/or downloads (``compression="int8"``,
-``down_compression="int8"``); the socket deployment
+Ported so far: the SA-Net dose and segmentation tasks; on the stacked
+transport, sync rounds of the paper's strategy set: ``fedavg`` (Eq. 1),
+``fedprox`` (Eq. 2), the ``individual`` and ``pooled`` baselines and
+``gcml`` (gossip pairs and regional DCML, Eq. 3), FedAvg and FedProx
+uncompressed or with int8 uploads and/or downloads
+(``compression="int8"``, ``down_compression="int8"``); the socket deployment
 (``transport="thread" | "tcp"``: one site a thread or a process, real TCP
 round trips to an :class:`~repro_torch.comms.coordinator.AggregationServer`
 on the job's device, ``strategy="fedavg" | "individual"``, sync rounds,
@@ -73,7 +75,7 @@ from repro_torch.tree import tree_map
 @dataclass(frozen=True)
 class TaskConfig:
     """What the federation trains on.  ``kind`` in {tokens, dose, seg};
-    the port runs ``dose``."""
+    the port runs ``dose`` and ``seg``."""
 
     kind: str = "tokens"
     sites: int = 4
@@ -87,8 +89,8 @@ class TaskConfig:
     # -- volumetric (dose / seg) -------------------------------------------
     volume: Tuple[int, int, int] = (16, 16, 16)
     num_oars: int = 2                   # dose: OAR channels
-    in_channels: int = 2                # seg: input channels (not ported)
-    num_classes: int = 3                # seg: label classes (not ported)
+    in_channels: int = 2                # seg: input channels
+    num_classes: int = 3                # seg: label classes
     base_filters: int = 8
     num_levels: int = 2
     site_pools: Optional[Tuple[int, ...]] = None   # per-site distinct cases
@@ -100,8 +102,13 @@ class TaskConfig:
             return SANetConfig(in_channels=2 + self.num_oars, out_channels=1,
                                base_filters=self.base_filters,
                                num_levels=self.num_levels, task="dose")
-        if self.kind in ("tokens", "seg"):
-            raise NotPorted("task", f"kind={self.kind!r}", "kind='dose'")
+        if self.kind == "seg":
+            return SANetConfig(in_channels=self.in_channels,
+                               out_channels=self.num_classes,
+                               base_filters=self.base_filters,
+                               num_levels=self.num_levels, task="segmentation")
+        if self.kind == "tokens":
+            raise NotPorted("task", f"kind={self.kind!r}", "kind='dose' or 'seg'")
         raise ValueError(f"unknown task kind {self.kind!r}")
 
     def build(self) -> "TaskBundle":
@@ -111,14 +118,35 @@ class TaskConfig:
 
 @dataclass
 class TaskBundle:
-    """Built task: loss/init fns + host batch samplers over the generator."""
+    """Built task: loss/forward/init fns + host batch samplers over the
+    generator."""
 
     task: TaskConfig
-    loss_fn: Callable
+    loss_fn: Callable                                     # (params, batch) -> (loss, metrics)
     init_fn: Callable[[int], Any]                         # seed -> CPU params
     model_cfg: Any
     stacked: Callable[[int, int], Dict[str, np.ndarray]]  # (round, K) -> [S,K,B,…]
     sample: Callable[[int, int], Dict[str, np.ndarray]]   # (site, step) -> [B,…]
+    forward_fn: Callable                                  # -> (loss, logits, labels), one forward
+
+    def logits_fn(self, params, batch):
+        """(logits, labels) for DCML's regions, from :attr:`forward_fn`."""
+        return self.forward_fn(params, batch)[1:]
+
+    @staticmethod
+    def pooled_view(b: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
+        """Concatenate the site axis into one site's batch
+        ([S, K, B, …] -> [1, K, S·B, …]): the paper's Pooled upper
+        baseline."""
+        return {k: np.reshape(np.swapaxes(x, 0, 1), (1, x.shape[1], -1) + x.shape[3:])
+                for k, x in b.items()}
+
+    def round_batches(self, round_index: int, local_steps: int,
+                      pooled: bool = False) -> Dict[str, np.ndarray]:
+        """[S, K, B, …] host batches for one round (K = local steps); with
+        ``pooled``, the :meth:`pooled_view` of them."""
+        b = self.stacked(round_index, local_steps)
+        return self.pooled_view(b) if pooled else b
 
     def site_batches(self, site: int, round_index: int,
                      local_steps: int) -> Dict[str, np.ndarray]:
@@ -130,21 +158,46 @@ class TaskBundle:
 
 
 def _build_volume_task(task: TaskConfig) -> TaskBundle:
-    from repro_torch.data.synthetic import DoseTaskGenerator
+    from repro_torch.data.synthetic import DoseTaskGenerator, SegTaskGenerator
     from repro_torch.models import sanet as sanet_mod
     scfg = task.model_config()
-    gen = DoseTaskGenerator(volume=task.volume, num_oars=task.num_oars,
-                            num_sites=task.sites,
-                            heterogeneity=task.heterogeneity,
-                            seed=task.seed, site_pools=task.site_pools)
+    if task.kind == "dose":
+        gen = DoseTaskGenerator(volume=task.volume, num_oars=task.num_oars,
+                                num_sites=task.sites,
+                                heterogeneity=task.heterogeneity,
+                                seed=task.seed, site_pools=task.site_pools)
+        loss_of = sanet_mod.dose_loss_of
+
+        def logits_of(pred, batch):
+            # dose regression viewed as binary high/low for DCML regions
+            return (torch.cat([pred, -pred], dim=-1),
+                    (batch["dose"][..., 0] > 0.5).to(torch.int32))
+    else:
+        gen = SegTaskGenerator(volume=task.volume, in_channels=task.in_channels,
+                               num_classes=task.num_classes, num_sites=task.sites,
+                               heterogeneity=task.heterogeneity,
+                               seed=task.seed, site_pools=task.site_pools)
+        loss_of = sanet_mod.segmentation_loss_of
+
+        def logits_of(pred, batch):
+            return pred, batch["labels"]
+
+    def apply(params, batch):
+        return sanet_mod.sanet_apply(params, batch["volume"], scfg)
+
+    def forward_fn(params, batch):
+        out = apply(params, batch)
+        return (loss_of(out, batch, scfg)[0],) + logits_of(out[0], batch)
+
     return TaskBundle(
         task=task,
-        loss_fn=lambda p, b: sanet_mod.dose_loss(p, b, scfg),
+        loss_fn=lambda p, b: loss_of(apply(p, b), b, scfg),
         init_fn=lambda seed: sanet_mod.sanet_init(
             torch.Generator().manual_seed(seed), scfg),
         model_cfg=scfg,
         stacked=lambda rnd, k: gen.stacked_batches(rnd, k, task.batch),
-        sample=lambda site, step: gen.sample(site, step, task.batch))
+        sample=lambda site, step: gen.sample(site, step, task.batch),
+        forward_fn=forward_fn)
 
 
 # ---------------------------------------------------------------------------
@@ -177,10 +230,10 @@ class FederatedJob:
     lr: float = 1e-3
     weight_decay: float = 0.01
     grad_clip: float = 1.0
-    prox_mu: float = 0.01               # FedProx (not ported)
-    gcml_lambda: float = 0.5            # GCML (not ported)
+    prox_mu: float = 0.01               # FedProx (Eq. 2)
+    gcml_lambda: float = 0.5            # GCML (Eq. 3)
     gcml_contrast_beta: float = 1.0
-    dcml_lr: Optional[float] = None
+    dcml_lr: Optional[float] = None     # default: lr
     # Algorithm-2 dropout schedule
     max_dropout: int = 0
     dropout_scenario: str = "disconnect"
@@ -231,6 +284,12 @@ class FederatedJob:
         return dataclasses.replace(self, **kw)
 
     @property
+    def train_sites(self) -> int:
+        """Sites in the *training* federation (Pooled trains as 1 site
+        over the concatenated data)."""
+        return 1 if self.strategy == "pooled" else self.task.sites
+
+    @property
     def sampler(self) -> ClientSampler:
         """The job's resolved client sampler."""
         return resolve_sampler(self.sample)
@@ -257,7 +316,8 @@ class FederatedJob:
         set to something the port does not implement on ``transport``."""
         plan = self.adversary_plan
         socket = transport != "stacked"
-        strategies = ("fedavg", "individual") if socket else ("fedavg",)
+        strategies = (("fedavg", "individual") if socket
+                      else ("fedavg", "fedprox", "individual", "pooled", "gcml"))
         unported = [
             ("strategy", self.strategy not in strategies, self.strategy,
              ", ".join(repr(x) for x in strategies)),
@@ -299,6 +359,10 @@ class FederatedJob:
         schedule (Algorithm-2 availability intersected with the client
         sampler's schedule) and the [rounds, S] float32 ``1/pi`` Eq. 1
         weight scale."""
+        if self.sampled and self.strategy == "pooled":
+            raise ValueError("client sampling is meaningless for the "
+                             "pooled centralized baseline; use sample="
+                             "'none'")
         avail = availability_masks(self.task.sites, self.max_dropout,
                                    self.seed, rounds)
         return compose_participation(self.sampler, avail, self.seed)
@@ -315,13 +379,15 @@ class FederatedJob:
 
     def federation(self, strategy: Optional[str] = None,
                    num_sites: Optional[int] = None) -> FederationConfig:
-        sites = self.task.sites if num_sites is None else num_sites
+        sites = self.train_sites if num_sites is None else num_sites
         counts = self.case_counts
         if counts is not None and len(counts) != sites:
-            counts = None               # a 1-site worker's view
+            counts = None               # a 1-site view (a socket worker, pooled)
         return FederationConfig(
             num_sites=sites, strategy=strategy or self.strategy,
             local_steps=self.local_steps, rounds=self.rounds,
+            prox_mu=self.prox_mu, gcml_lambda=self.gcml_lambda,
+            gcml_contrast_beta=self.gcml_contrast_beta,
             max_dropout_sites=self.max_dropout,
             dropout_scenario=self.dropout_scenario,
             site_case_counts=counts)
@@ -339,7 +405,7 @@ class FederatedJob:
         return F.FLContext(
             fed=fed,
             case_weights=torch.as_tensor(fed.case_weights(), device=device),
-            loss_fn=bundle.loss_fn,
+            loss_fn=bundle.loss_fn, forward_fn=bundle.forward_fn, dcml_lr=self.dcml_lr or self.lr,
             optimizer=adamw(self.lr, weight_decay=self.weight_decay),
             grad_clip=self.grad_clip, device=device,
             aggregator=self.aggregator_spec,
@@ -371,11 +437,9 @@ class FederatedJob:
 # only an unported seam reads, with the seam that ``NotPorted`` names: each
 # must hold its dataclass default.
 SEAM_FIELDS = {
-    "prox_mu": "fedprox", "gcml_lambda": "gcml", "gcml_contrast_beta": "gcml",
-    "dcml_lr": "gcml", "dp_delta": "dp", "dp_mode": "dp",
+    "dp_delta": "dp", "dp_mode": "dp",
     "round_engine": "round_engine", "chunk_rounds": "round_engine",
-    "task.arch": "task", "task.reduced": "task",
-    "task.seq": "task", "task.in_channels": "task", "task.num_classes": "task",
+    "task.arch": "task", "task.reduced": "task", "task.seq": "task",
 }
 
 
@@ -540,6 +604,19 @@ def _validate_stacked(job: FederatedJob) -> None:
             "secure_agg masks real uploads between distrusting "
             "participants — there is no wire to protect inside the "
             "stacked simulator; run it on transport='thread' or 'tcp'")
+    if _pods(job) and job.strategy not in ("fedavg", "fedprox"):
+        raise ValueError(
+            "a pods topology needs a centrally-aggregated strategy "
+            f"(fedavg/fedprox), not {job.strategy!r}")
+    if _buffered(job) and job.strategy != "fedavg":
+        raise ValueError("buffered-async scheduling currently supports "
+                         f"fedavg only, not {job.strategy!r}")
+    if (not _buffered(job) and codec_name(job.compression) != "none"
+            and job.strategy not in ("fedavg", "fedprox")):
+        raise ValueError(
+            "compression on the stacked transport currently supports "
+            f"fedavg/fedprox only, not {job.strategy!r}; run gcml "
+            "compression on the thread/tcp transports")
 
 
 class StackedTransport(Transport):

@@ -20,6 +20,7 @@ import numpy as np
 class FederationConfig:
     """Paper §II hyper-parameters.
 
+    ``strategy`` in {fedavg, fedprox, gcml, individual, pooled};
     ``site_case_counts`` are the m_i of Eq. 1 (default: uniform);
     ``max_dropout_sites`` is N_max of Algorithm 2.
     """
@@ -28,6 +29,12 @@ class FederationConfig:
     strategy: str = "fedavg"
     local_steps: int = 1
     rounds: int = 100
+    # FedProx (Eq. 2)
+    prox_mu: float = 0.01
+    # GCML (Eq. 3)
+    gcml_lambda: float = 0.5
+    gcml_contrast_beta: float = 1.0
+    # Algorithm 2
     max_dropout_sites: int = 0
     dropout_scenario: str = "disconnect"   # disconnect | shutdown
     site_case_counts: Optional[Tuple[int, ...]] = None

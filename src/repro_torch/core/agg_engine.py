@@ -157,8 +157,10 @@ def krum_index(flat: torch.Tensor, active, f: int) -> torch.Tensor:
 
 
 def krum_select(flat: torch.Tensor, active, f: int) -> torch.Tensor:
-    """The row of [S, N] that :func:`krum_index` picks, verbatim (fp32)."""
-    return flat.float()[krum_index(flat, active, f)]
+    """A copy of the row of [S, N] that :func:`krum_index` picks, verbatim
+    (fp32): a global row that outlives the round (FedProx's anchor) must
+    not alias the buffer the next round trains in."""
+    return flat.float()[krum_index(flat, active, f)].clone()
 
 
 def clip_factors(flat: torch.Tensor, c: float) -> torch.Tensor:
@@ -197,6 +199,20 @@ class RavelLayout:
         """Per-leaf views (no copy) of one [N] row, in flatten order."""
         return [t.view(sh) for t, sh in zip(torch.split(flat_row[: self.n], self.sizes),
                                              self.shapes)]
+
+    def trainable(self, flat_row: torch.Tensor):
+        """``(tree, leaves)``: one [N] row as a parameter tree whose leaves
+        are detached views that require grad (differentiate a loss of the
+        tree with respect to ``leaves``)."""
+        leaves = [v.detach().requires_grad_() for v in self.views(flat_row)]
+        return tree_unflatten(self.treedef, leaves), leaves
+
+    @staticmethod
+    def flat_grad(leaves, grads) -> torch.Tensor:
+        """The gradients of ``leaves`` as one [N] row (zeros where a leaf
+        got none)."""
+        return torch.cat([(torch.zeros_like(p) if g is None else g).reshape(-1)
+                          for p, g in zip(leaves, grads)])
 
 
 def tree_layout(tree) -> RavelLayout:

@@ -2,12 +2,18 @@
 
 One FL round (Figs 3/4, Algorithm 1):
 
-  1. local training: ``local_steps`` optimizer steps per site, each site
-     on its own batch shard;
-  2. post-exchange: weighted aggregation + broadcast (Eq. 1);
-  3. dropout semantics: "shutdown" sites skip (1); inactive sites always
-     skip (2) (their aggregation weight is zero and they keep their local
-     weights).
+  1. (decentralized) pre-exchange: receive a peer's model + regional
+     DCML (GCML);
+  2. local training: ``local_steps`` optimizer steps per site, each site
+     on its own batch shard, with the strategy's extra local term
+     (FedProx's proximal pull);
+  3. (centralized) post-exchange: weighted aggregation + broadcast (Eq. 1);
+  4. dropout semantics: "shutdown" sites skip (2); inactive sites always
+     skip the exchanges (their aggregation weight is zero and they keep
+     their local weights).
+
+Host-side per-round inputs (the active mask, the gossip pairing) come
+from the job's precomputed schedule and :mod:`repro_torch.core.gossip`.
 
 A Byzantine adversary plan (``FLContext.adversary``) injects its faults
 where the reference does: label flips on the round's batches before
@@ -37,9 +43,10 @@ from repro_torch.core.stacking import broadcast_to_sites
 from repro_torch.core.strategies import base as strat_base
 # strategy modules self-register on import
 from repro_torch.core.strategies import fedavg as _f  # noqa: F401
+from repro_torch.core.strategies import fedprox as _p  # noqa: F401
+from repro_torch.core.strategies import gcml as _g  # noqa: F401
 from repro_torch.core.strategies import individual as _i  # noqa: F401
 from repro_torch.optim import Optimizer, apply_updates, clip_by_global_norm
-from repro_torch.tree import tree_unflatten
 
 
 @dataclasses.dataclass
@@ -53,6 +60,16 @@ class FLContext:
     device: torch.device
     aggregator: AggregatorSpec = FEDAVG_SPEC   # the site->global combine rule
     adversary: Optional[AdversaryPlan] = None  # in-round fault injection
+    # (params, batch) -> (loss, logits, labels) from ONE forward: GCML's
+    # DCML step reads both from it rather than running the network twice
+    forward_fn: Optional[Callable] = None
+    dcml_lr: Optional[float] = None            # GCML's DCML SGD step size
+
+    def scalar_loss_fn(self, params, batch):
+        return self.loss_fn(params, batch)[0]
+
+    def logits_fn(self, params, batch):
+        return self.forward_fn(params, batch)[1:]
 
 
 def init_fl_state(ctx: FLContext, params) -> Dict:
@@ -71,31 +88,43 @@ def init_fl_state(ctx: FLContext, params) -> Dict:
             "strategy": strategy.init_state(flat, ctx), "round": 0}
 
 
-def make_round_inputs(ctx: FLContext, active: np.ndarray) -> Dict[str, np.ndarray]:
+def make_round_inputs(ctx: FLContext, active: np.ndarray,
+                      rng: Optional[np.random.Generator] = None,
+                      round_index: int = 0) -> Dict[str, np.ndarray]:
     """Host-side coordinator outputs for one round: the [S] active mask
-    (from the job's precomputed Algorithm-2 schedule)."""
-    if len(active) != ctx.fed.num_sites:
-        raise ValueError(f"{len(active)} mask entries for {ctx.fed.num_sites} sites")
-    return {"active": np.asarray(active, bool)}
+    (from the job's precomputed schedule) and, for a pairing strategy,
+    the gossip pairing drawn from ``rng`` (default: a generator seeded by
+    ``round_index``); without one, ``partner`` is the identity and no
+    site receives."""
+    from repro_torch.core.gossip import pair_sites
+    s = ctx.fed.num_sites
+    if len(active) != s:
+        raise ValueError(f"{len(active)} mask entries for {s} sites")
+    active = np.asarray(active, bool)
+    partner = np.arange(s)
+    is_recv = np.zeros(s, bool)
+    if strat_base.get_strategy(ctx.fed.strategy).needs_pairing:
+        rng = rng or np.random.default_rng(round_index)
+        partner, is_recv, _ = pair_sites(active, rng)
+    return {"active": active, "partner": partner, "is_receiver": is_recv}
 
 
 def build_fl_round(ctx: FLContext):
     """Returns ``fl_round(fl_state, batches, round_inputs) -> (fl_state, metrics)``.
 
     ``batches`` leaves are [S, local_steps, per-site batch...] tensors on
-    ``ctx.device``; ``metrics["loss"]`` is each site's loss at its last
-    local step, [S].
+    ``ctx.device``; for GCML, ``round_inputs`` also carries ``dcml_batch``
+    and ``val_batch`` with [S, per-site batch...] leaves.
+    ``metrics["loss"]`` is each site's loss at its last local step, [S];
+    a strategy's own metrics (GCML's DCML losses) join it.
     """
     strategy = strat_base.get_strategy(ctx.fed.strategy)
 
     def site_train_step(row, opt, batch, layout, strat_ref):
-        leaves = [v.detach().requires_grad_() for v in layout.views(row)]
-        params = tree_unflatten(layout.treedef, leaves)
+        params, leaves = layout.trainable(row)
         loss, metrics = ctx.loss_fn(params, batch)
         loss = loss + strategy.local_loss_extra(params, strat_ref, ctx)
-        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
-        g = torch.cat([(torch.zeros_like(p) if gr is None else gr).reshape(-1)
-                       for p, gr in zip(leaves, grads)])
+        g = layout.flat_grad(leaves, torch.autograd.grad(loss, leaves, allow_unused=True))
         if ctx.grad_clip:
             g, gnorm = clip_by_global_norm(g, ctx.grad_clip)
         else:
@@ -144,6 +173,8 @@ def build_fl_round(ctx: FLContext):
             adv.perturb_rows(fl_state["params"], adv_mask & active)
         fl_state = strategy.post_exchange(fl_state, ri, ctx)
         fl_state = {**fl_state, "round": fl_state["round"] + 1}
+        if "metrics" in fl_state:
+            metrics = {**metrics, **fl_state.pop("metrics")}
         return fl_state, metrics
 
     return fl_round

@@ -6,13 +6,16 @@ the port's counterpart is a plain round loop: host numpy batches for the
 round are moved to the device, one round runs, and the per-site losses
 come back.
 
-- :func:`run_sync`: uncompressed FedAvg rounds, under the job's combine
-  rule (Eq. 1 or a robust one) and adversary.
-- :func:`run_compressed`: FedAvg with int8 uploads, downloads or both.
-  Sites train under the ``individual`` strategy and the loop does the
-  exchange: every site's upload ``u`` (its delta plus the carried
-  error-feedback residual) is quantized and folded by
-  :func:`compressed_fold`, and with downlink compression each site
+- :func:`run_sync`: uncompressed rounds of every ported strategy:
+  FedAvg and FedProx under the job's combine rule (Eq. 1 or a robust
+  one) and adversary, the individual and pooled baselines, and GCML with
+  the host's gossip pairings and its DCML and validation batches.
+- :func:`run_compressed`: FedAvg or FedProx with int8 uploads, downloads
+  or both.  Sites train under the strategy's local half (``individual``,
+  or ``fedprox-local`` with the Eq. 2 anchor re-pinned to each broadcast
+  global) and the loop does the exchange: every site's upload ``u`` (its
+  delta plus the carried error-feedback residual) is quantized and folded
+  by :func:`compressed_fold`, and with downlink compression each site
   installs its quantized delta against the model it holds
   (:func:`down_install`).
 
@@ -41,6 +44,7 @@ from repro_torch.core.agg_engine import (RavelLayout, get_engine,
                                          normalized_weights, per_site_nbytes)
 from repro_torch.core.session import JobResult
 from repro_torch.core.stacking import broadcast_to_sites
+from repro_torch.core.strategies.base import get_strategy
 from repro_torch.kernels import ops
 from repro_torch.tree import tree_map
 
@@ -51,23 +55,23 @@ def _sync(device: torch.device) -> None:
 
 
 def _round_loop(job, bundle, ctx, masks: np.ndarray, recorder,
-                step: Callable[[int, Dict[str, torch.Tensor]], torch.Tensor],
-                on_round: Optional[Callable[[int], None]],
-                extra: Callable[[int], Dict] = lambda r: {}) -> None:
-    """Run ``step(r, batches) -> per-site losses`` for every round, timing
-    each one, and record it."""
+                step: Callable[[int, Dict[str, torch.Tensor]], Tuple[torch.Tensor, Dict]],
+                on_round: Optional[Callable[[int], None]], pooled: bool = False) -> None:
+    """Run ``step(r, batches) -> (per-site losses, extra history keys)``
+    for every round, timing each one, and record it.  With ``pooled`` the
+    batches are the round's pooled view."""
     for r in range(len(masks)):
         _sync(ctx.device)
         t0 = time.perf_counter()
         b = {k: torch.from_numpy(v).to(ctx.device)
-             for k, v in bundle.stacked(r, job.local_steps).items()}
+             for k, v in bundle.round_batches(r, job.local_steps, pooled).items()}
         _sync(ctx.device)
         t1 = time.perf_counter()
-        losses = step(r, b)
+        losses, extra = step(r, b)
         _sync(ctx.device)
         t2 = time.perf_counter()
         recorder.record(r, losses.cpu().numpy(), masks[r],
-                        extra={**extra(r), "batch_s": t1 - t0, "step_s": t2 - t1,
+                        extra={**extra, "batch_s": t1 - t0, "step_s": t2 - t1,
                                "wall_s": t2 - t0})
         if on_round is not None:
             on_round(r)
@@ -88,33 +92,58 @@ def _schedule(job, rounds: int, device: torch.device):
 
 def run_sync(job, bundle, scheduler, rounds: int, init_params=None,
              on_round: Optional[Callable[[int], None]] = None) -> JobResult:
-    """``rounds`` sync FedAvg rounds of ``job``.  ``init_params`` (one
-    unstacked tree) replaces the seeded initialization, e.g. to start from
-    parameters converted from the reference.  ``on_round(r)`` is called
-    after round ``r`` is recorded, outside its timed span (a profiler's
-    ``step``, for one)."""
+    """``rounds`` sync rounds of ``job`` under its strategy.
+    ``init_params`` (one unstacked tree) replaces the seeded
+    initialization, e.g. to start from parameters converted from the
+    reference.  ``on_round(r)`` is called after round ``r`` is recorded,
+    outside its timed span (a profiler's ``step``, for one).
+
+    A pooled job trains one site on the sites' batches concatenated; its
+    history counts the task's sites in ``active``, as the reference's
+    does.  A pairing strategy (GCML) draws each round's pairs from one
+    numpy generator seeded by the job's seed, consumed round by round as
+    the reference consumes it, and records ``partner`` and
+    ``is_receiver``; its
+    DCML batch is the round's local step 0 and its validation batch the
+    last local step.  ``comm`` is the simulated wire volume of the
+    centrally aggregated strategies (fedavg, fedprox), None otherwise."""
     ctx = job.context(bundle)
+    strategy = get_strategy(job.strategy)
     state = _init_state(job, bundle, ctx, init_params)
     fl_round = F.build_fl_round(ctx)
     masks, wscale = _schedule(job, rounds, ctx.device)
+    pooled = job.strategy == "pooled"
+    pair_rng = np.random.default_rng(job.seed)      # consumed round by round
     recorder = job.recorder(rounds, ctx.fed.num_sites)
 
     def step(r, batches):
         nonlocal state
-        ri = F.make_round_inputs(ctx, masks[r])
+        # the pooled site trains every round; the availability mask counts
+        # the task's sites (the history's "active"), not the one row
+        ri = F.make_round_inputs(ctx, np.ones(1, bool) if pooled else masks[r],
+                                 rng=pair_rng)
+        if strategy.needs_val_batch:
+            ri["dcml_batch"] = {k: v[:, 0] for k, v in batches.items()}
+            ri["val_batch"] = {k: v[:, -1] for k, v in batches.items()}
         if wscale is not None:
             ri["weight_scale"] = wscale[r]
         state, metrics = fl_round(state, batches, ri)
-        return metrics["loss"]
+        extra = {k: v.cpu().tolist() for k, v in metrics.items() if k.startswith("dcml_")}
+        if strategy.needs_pairing:
+            extra["partner"] = [int(v) for v in ri["partner"]]
+            extra["is_receiver"] = [bool(v) for v in ri["is_receiver"]]
+        return metrics["loss"], extra
 
-    _round_loop(job, bundle, ctx, masks, recorder, step, on_round)
+    _round_loop(job, bundle, ctx, masks, recorder, step, on_round, pooled=pooled)
     global_params = F.global_model(state, ctx)
-    nbytes = per_site_nbytes(broadcast_to_sites(global_params, 1))
-    uploads = int(np.asarray(masks).sum())
-    comm = {"upload_bytes": uploads * nbytes, "download_bytes": uploads * nbytes,
-            "total_bytes": 2 * uploads * nbytes, "upload_count": uploads,
-            "download_count": uploads, "compression": "none",
-            "down_compression": "none", "simulated": True}
+    comm = None
+    if job.strategy in ("fedavg", "fedprox"):
+        nbytes = per_site_nbytes(broadcast_to_sites(global_params, 1))
+        uploads = int(np.asarray(masks).sum())
+        comm = {"upload_bytes": uploads * nbytes, "download_bytes": uploads * nbytes,
+                "total_bytes": 2 * uploads * nbytes, "upload_count": uploads,
+                "download_count": uploads, "compression": "none",
+                "down_compression": "none", "simulated": True}
     return recorder.result(global_params, transport="stacked",
                            scheduler=scheduler.name, state=state, comm=comm)
 
@@ -244,8 +273,9 @@ def bootstrap_masks(masks: np.ndarray, keep: int) -> np.ndarray:
 def run_compressed(job, bundle, scheduler, rounds: int, codec: Codec,
                    down_codec: Optional[Codec] = None, init_params=None,
                    on_round: Optional[Callable[[int], None]] = None) -> JobResult:
-    """``rounds`` sync FedAvg rounds with int8 uploads (``codec``), int8
-    downloads (``down_codec``) or both; arguments as :func:`run_sync`.
+    """``rounds`` sync FedAvg or FedProx rounds with int8 uploads
+    (``codec``), int8 downloads (``down_codec``) or both; arguments as
+    :func:`run_sync`.
 
     The chunk layout follows the job's device as the reference's follows
     its backend: ``align=128`` and the CUDA kernels on a card, ``align=1``
@@ -260,8 +290,14 @@ def run_compressed(job, bundle, scheduler, rounds: int, codec: Codec,
     ``KEEP_GLOBALS_DEFAULT`` rounds old or more (round 0 for everyone)
     bootstraps dense both ways.  Without the uplink, uploads are dense
     and ``g`` is the plain Eq. 1 fold.  The error-feedback residual is
-    replaced on active rows only; inactive rows keep their weights."""
-    ctx = job.context(bundle, strategy="individual")        # local-only rounds
+    replaced on active rows only; inactive rows keep their weights.
+
+    FedProx trains its local half (``fedprox-local``): its Eq. 2 anchor
+    starts at the initial model and is re-pinned to each round's exact
+    global ``g``, one anchor for every site even when each installs its
+    own quantized copy, as the reference's engine broadcasts it."""
+    prox = job.strategy == "fedprox"
+    ctx = job.context(bundle, strategy="fedprox-local" if prox else "individual")
     state = _init_state(job, bundle, ctx, init_params)
     fl_round = F.build_fl_round(ctx)
     layout = state["layout"]
@@ -314,7 +350,12 @@ def run_compressed(job, bundle, scheduler, rounds: int, codec: Codec,
             rows = ref[None].expand(s, n)
         for i in np.flatnonzero(active):
             params[i].copy_(rows[i])       # broadcast; AdamW moments are kept
-        return metrics["loss"]
+        if prox:                           # next round's Eq. 2 anchor
+            state = {**state, "strategy": {"global": ref}}
+        out = {"upload_bytes": int(round_up[r])}
+        if down:
+            out["download_bytes"] = int(round_down[r])
+        return metrics["loss"], out
 
     # host-precomputed per-round wire bytes, as the reference counts them;
     # a bootstrap download is the dense fp32 model
@@ -327,13 +368,7 @@ def run_compressed(job, bundle, scheduler, rounds: int, codec: Codec,
     else:
         round_down = masks.sum(axis=1).astype(np.int64) * dense
 
-    def extra(r):
-        out = {"upload_bytes": int(round_up[r])}
-        if down:
-            out["download_bytes"] = int(round_down[r])
-        return out
-
-    _round_loop(job, bundle, ctx, masks, recorder, step, on_round, extra)
+    _round_loop(job, bundle, ctx, masks, recorder, step, on_round)
     uploads = int(masks.sum())
     comm = {"upload_bytes": int(round_up.sum()),
             "upload_raw_bytes": uploads * dense,

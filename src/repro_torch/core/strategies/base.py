@@ -2,10 +2,12 @@
 
 A strategy contributes hooks to the federated round (Fig 3/4):
 
-  * ``init_state``       -- per-federation state
+  * ``init_state``       -- per-federation state (FedProx's global model)
   * ``pre_exchange``     -- model exchange BEFORE local training
-  * ``post_exchange``    -- aggregation AFTER local training (Eq. 1)
+                            (decentralized FL: receive + DCML, Algorithm 1)
+  * ``post_exchange``    -- aggregation AFTER local training (Eq. 1/2)
   * ``local_loss_extra`` -- an additive term on the local objective
+                            (FedProx's proximal term, Eq. 2)
 
 In the port the stacked parameters are the round loop's ``[S, N]``
 buffer; host-side coordination arrives through ``round_inputs``.
@@ -19,6 +21,8 @@ import torch
 
 class Strategy:
     name: str = "base"
+    needs_pairing: bool = False         # round inputs carry a gossip pairing
+    needs_val_batch: bool = False       # round inputs carry DCML/validation batches
 
     def init_state(self, params_flat, ctx) -> Dict[str, Any]:
         return {}

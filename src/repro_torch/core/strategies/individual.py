@@ -1,8 +1,10 @@
-"""Individual training (no exchange), ported from ``repro/core/strategies/individual.py``.
+"""Baselines, ported from ``repro/core/strategies/individual.py``:
+Individual (no exchange) and Pooled (a single-site federation over the
+concatenated data).
 
-The paper's lower baseline, and the local half that the compressed
-round trains under: its hooks exchange nothing, so the round is each
-site's local steps, and the compressed driver does the exchange itself.
+Their hooks exchange nothing, so a round is each site's local steps.
+Individual is also the local half that the compressed rounds and the
+socket sites train under: the round loop does the exchange itself.
 """
 from __future__ import annotations
 
@@ -11,5 +13,14 @@ from repro_torch.core.strategies.base import Strategy, register
 
 @register
 class Individual(Strategy):
-    """Each site trains alone on its local data."""
+    """Each site trains alone on its local data: the paper's lower baseline."""
     name = "individual"
+
+
+@register
+class Pooled(Strategy):
+    """Centralized training on pooled data: the paper's upper baseline.
+
+    A 1-site federation whose site sees every case: the round loop
+    concatenates the sites' batches (``TaskBundle.pooled_view``)."""
+    name = "pooled"

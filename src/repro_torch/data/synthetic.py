@@ -1,9 +1,17 @@
-"""Synthetic OpenKBP-like dose batches, ported from ``repro/data/synthetic.py``.
+"""Synthetic volumetric batches, ported from ``repro/data/synthetic.py``.
 
-The host numpy generator of the reference, kept line for line so the
-same seed gives bit-equal batches: a CT-like background, spherical PTV
-and OAR masks, and a dose field that is an analytic function of the
-geometry.  Site heterogeneity shifts organ geometry per site.
+The host numpy generators of the reference, kept line for line so the
+same seed gives bit-equal batches:
+
+* ``DoseTaskGenerator``: OpenKBP-like, a CT-like background, spherical
+  PTV and OAR masks, and a dose field that is an analytic function of the
+  geometry;
+* ``SegTaskGenerator``: BraTS/PanSeg-like, multi-channel volumes with
+  blob-shaped foreground classes.
+
+Site heterogeneity shifts the geometry per site.  The reference's traced
+generators (``traced_stacked_batches``) draw from JAX's PRNG and are not
+ported.
 """
 from __future__ import annotations
 
@@ -81,5 +89,52 @@ class DoseTaskGenerator:
         sites = []
         for s in range(self.num_sites):
             ks = [one(s, k) for k in range(local_steps)]
+            sites.append({k: np.stack([x[k] for x in ks]) for k in ks[0]})
+        return {k: np.stack([s[k] for s in sites]) for k in sites[0]}
+
+
+@dataclass
+class SegTaskGenerator:
+    """BraTS/PanSeg-like: channels -> voxel labels (blob classes).
+
+    ``site_pools`` limits how many distinct cases a site owns: smaller
+    sites recycle a smaller pool.
+    """
+
+    volume: Tuple[int, int, int] = (32, 32, 32)
+    in_channels: int = 4
+    num_classes: int = 4
+    num_sites: int = 8
+    heterogeneity: float = 0.0
+    seed: int = 0
+    site_pools: Optional[Tuple[int, ...]] = None
+
+    def sample(self, site: int, step: int, batch: int) -> Dict[str, np.ndarray]:
+        if self.site_pools is not None:
+            step = step % max(self.site_pools[site], 1)
+        rng = np.random.default_rng(self.seed * 104729 + site * 211 + step)
+        d, h, w = self.volume
+        vol = np.zeros((batch, d, h, w, self.in_channels), np.float32)
+        labels = np.zeros((batch, d, h, w), np.int32)
+        shift = self.heterogeneity * (site - self.num_sites / 2) / self.num_sites
+        for b in range(batch):
+            lab = np.zeros((d, h, w), np.int32)
+            for c in range(1, self.num_classes):
+                center = np.array([d, h, w]) * (0.5 + shift + rng.uniform(-0.15, 0.15, 3))
+                r = d * rng.uniform(0.10, 0.20) / c
+                lab = np.where(_sphere_mask((d, h, w), center, r) > 0, c, lab)
+            base = rng.normal(0, 0.15, (d, h, w, self.in_channels)).astype(np.float32)
+            for ch in range(self.in_channels):
+                base[..., ch] += lab * (0.5 + 0.25 * ch)   # strong class signal
+            vol[b] = base
+            labels[b] = lab
+        return {"volume": vol, "labels": labels}
+
+    def stacked_batches(self, step: int, local_steps: int, per_site_batch: int):
+        """[S, K, B, ...] batches for one FL round (K = local steps)."""
+        sites = []
+        for s in range(self.num_sites):
+            ks = [self.sample(s, step * local_steps + k, per_site_batch)
+                  for k in range(local_steps)]
             sites.append({k: np.stack([x[k] for x in ks]) for k in ks[0]})
         return {k: np.stack([s[k] for s in sites]) for k in sites[0]}

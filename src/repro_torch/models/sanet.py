@@ -257,7 +257,12 @@ def dose_loss(params, batch, cfg: SANetConfig, ds_weight: float = 0.5):
 
     ``batch["mask"]`` restricts the loss to the patient volume.
     """
-    pred, ds_outs = sanet_apply(params, batch["volume"], cfg)
+    return dose_loss_of(sanet_apply(params, batch["volume"], cfg), batch, cfg, ds_weight)
+
+
+def dose_loss_of(outputs, batch, cfg: SANetConfig, ds_weight: float = 0.5):
+    """:func:`dose_loss` from the network's ``(pred, ds_outs)``."""
+    pred, ds_outs = outputs
     mask = batch.get("mask")
 
     def mae(p):
@@ -282,7 +287,14 @@ def _soft_jaccard(probs, onehot, eps=1e-6):
 def segmentation_loss(params, batch, cfg: SANetConfig, focal_gamma: float = 2.0,
                       use_focal: bool = False, ds_weight: float = 0.5):
     """Jaccard distance + (focal or plain) CE (paper §III.B.3 / §III.C.3)."""
-    pred, ds_outs = sanet_apply(params, batch["volume"], cfg)
+    return segmentation_loss_of(sanet_apply(params, batch["volume"], cfg), batch, cfg,
+                                focal_gamma, use_focal, ds_weight)
+
+
+def segmentation_loss_of(outputs, batch, cfg: SANetConfig, focal_gamma: float = 2.0,
+                         use_focal: bool = False, ds_weight: float = 0.5):
+    """:func:`segmentation_loss` from the network's ``(pred, ds_outs)``."""
+    pred, ds_outs = outputs
     labels = batch["labels"].long()                         # [B, D, H, W]
     onehot = F.one_hot(labels, cfg.out_channels).to(pred.dtype)
 

@@ -78,18 +78,18 @@ def test_job_runs_on_cuda_by_default_and_raises_without_it(monkeypatch):
 
 @pytest.mark.parametrize("seam,kw", [
     ("scheduler", dict(scheduler="buffered")),
-    ("strategy", dict(strategy="fedprox")),
+    ("strategy", dict(strategy="fedprox", transport="thread")),
     ("compression", dict(compression="fp8")),
     ("down_compression", dict(down_compression="topk-fixed")),
     ("dp", dict(dp_clip=1.0)),
     ("device_data", dict(device_data=True)),
     ("adversary", dict(adversary="noise:1:1")),
-    ("strategy", dict(strategy="fedprox", aggregator="median")),
+    ("strategy", dict(strategy="fedprox", aggregator="median", transport="thread")),
     ("topology", dict(topology="pods:2", aggregator="median")),
     ("topology", dict(topology="pods:2")),
     ("shard_sites", dict(shard_sites=True)),
     ("task", dict(task=TaskConfig(kind="tokens"))),
-    ("strategy", dict(compression="int8", strategy="fedprox")),
+    ("strategy", dict(compression="int8", strategy="gcml", transport="tcp")),
 ])
 def test_unported_seams_raise_a_typed_error(seam, kw):
     job = FederatedJob(task=TaskConfig(**TASK), rounds=1, device="cpu").replace(**kw)
@@ -120,17 +120,17 @@ def test_refused_compositions_raise_the_reference_value_error(kw, frag):
         FederatedJob(task=TaskConfig(**TASK), rounds=1, device="cpu", **kw).run()
 
 
-# every field of the reference's job and task that names an unported seam:
+# fields of the reference's job and task that name an unported seam:
 # (field, a value other than the default, the seam NotPorted names)
 FIELDS = [
-    ("prox_mu", 0.1, "fedprox"), ("gcml_lambda", 0.7, "gcml"),
-    ("gcml_contrast_beta", 2.0, "gcml"), ("dcml_lr", 0.01, "gcml"),
+    ("dp_clip", 1.0, "dp"), ("dp_noise_multiplier", 1.0, "dp"),
+    ("pod_dropout", 1, "topology"), ("device_data", True, "device_data"),
     ("dp_delta", 1e-6, "dp"), ("dp_mode", "per-example", "dp"),
     ("round_engine", "loop", "round_engine"),
     ("chunk_rounds", 2, "round_engine"), ("ckpt_every", 5, "checkpoint"),
     ("task.arch", "gemma3-1b", "task"), ("task.reduced", False, "task"),
-    ("task.seq", 32, "task"), ("task.in_channels", 4, "task"),
-    ("task.num_classes", 5, "task"),
+    ("task.seq", 32, "task"), ("checkpoint_dir", "ckpt", "checkpoint"),
+    ("shard_sites", True, "shard_sites"),
 ]
 
 
