@@ -94,6 +94,22 @@ Phases, each of which fails the run (non-zero exit) if it goes wrong:
    card and on the CPU: losses within ``JOB_RTOL``, masks, pairings and
    ``comm`` equal, the globals (and FedProx's anchors) within ``lr`` a
    local step and ``SMALL_MEDIAN_TOL`` at the median;
+15. the serverless and private socket deployment at full width on the
+   thread transport (``run_serverless_private`` states each check):
+   PanSeg GCML through the ``CoordinationServer`` and direct pushes, dense
+   (its global held to phase 13's stacked GCML by phase 5b's bound) and
+   with int8 pushes (``quantize_int8`` once a chunk width a push,
+   ``dequantize_int8`` twice a push; one push's decode bit-equal to the
+   plain one, both kernels timed at this layout); BraTS FedProx with int8
+   both ways (every anchor the install it was re-pinned to, bit for bit;
+   payload bytes equal to phase 12's stacked job's); OpenKBP FedAvg with
+   ``secure_agg`` (``privacy`` the reference's dict, the global held to
+   the plain thread job's by phase 5b's bound, and the fixed point on the
+   same inputs: the card's unmask bit-equal to the CPU's and within the
+   fixed point's bound of the float64 mean, a dropped site repaired); each
+   job's ``wall_s``/``batch_s``/``step_s``, peak and launches printed; then
+   small tcp jobs of the three seams (8^3, 2 rounds) held to their thread
+   twins;
 9. the fourth slice's paths: serving the token models at full width
    through ``launch/serve.py`` (prefill, then greedy decode, fp32
    weights from a seed, TF32 off): gemma3-1b (26 layers, 4 x 1024
@@ -114,10 +130,10 @@ Phases, each of which fails the run (non-zero exit) if it goes wrong:
    off: the greedy tokens must be equal and the logits within
    rtol=atol=1e-4.
 
-Phases 11-14 run after phase 8, before 9.  Every kernel's launch count is
+Phases 11-15 run after phase 8, before 9.  Every kernel's launch count is
 zeroed just before each of phases 3-5b, 7, each path of 9 and each
-full-width job of 11-13, and read just after; each of 11-14 prints its
-seconds.  The second-to-last line is a
+full-width job of 11-13 and 15, and read just after; each of 11-15 prints
+its seconds.  The second-to-last line is a
 JSON object with one entry per kernel; the last line is ``{"ok": true,
 "device": {...}}``.  Without
 CUDA, or outside a checkout of the repository, it exits non-zero and
@@ -279,9 +295,10 @@ def measure(torch, name, kernel, plain, library, nbytes: int, flops: int,
 def check_fedagg(torch, fedagg, ref, dev) -> dict:
     """fedagg vs its plain version; returns its entry of the kernels line.
     The full-width cases are the paths' shapes: 4 OpenKBP and 4 BraTS
-    sites, the pooled baseline's one row and GCML's 5 PanSeg sites."""
+    sites, the pooled baseline's one row, a socket FedProx site's BraTS
+    anchor (one row) and GCML's 5 PanSeg sites."""
     gen = torch.Generator(device=dev).manual_seed(0)
-    full = [(4, FULL_N), (1, FULL_N), (4, BRATS_N), (5, PANSEG_N)]
+    full = [(4, FULL_N), (1, FULL_N), (4, BRATS_N), (1, BRATS_N), (5, PANSEG_N)]
     cases = full + [(s, n) for s in (1, 3, 16) for n in (1, 127, 65_537)]
     err32 = 0.0
     for s, n in cases:
@@ -859,9 +876,9 @@ def _outside(got, want):
     return worst, outside
 
 
-def _require_fold_noise(job, worst, outside, what: str) -> None:
+def _require_fold_noise(job, worst, outside, what: str, n: int = FULL_N) -> None:
     n_out = sum(bad for _, _, bad, _ in outside)
-    _require(worst <= job.lr * ROUNDS and n_out <= 1e-5 * FULL_N,
+    _require(worst <= job.lr * ROUNDS and n_out <= 1e-5 * n,
              f"{what}: globals differ from the stacked job's by up to {worst:.3e} "
              f"(lr * rounds {job.lr * ROUNDS}), {n_out} elements outside rtol 2e-3, atol 2e-4")
 
@@ -899,6 +916,40 @@ def check_small_tcp_jobs(torch, FederatedJob, TaskConfig) -> None:
         print(f"small tcp job int8: payload bytes cuda {gpu.comm['site_payload_bytes']} up "
               f"{gpu.comm['download_payload_bytes']} down; cpu {cpu.comm['site_payload_bytes']}"
               f" / {cpu.comm['download_payload_bytes']}")
+
+
+def check_small_socket_seams(torch, FederatedJob, TaskConfig, build) -> None:
+    """Phase 15's seams at the tiny size (8^3, 4 filters, 2 rounds, TF32
+    off) on the tcp transport (one process a site, on the card), each held
+    to its thread twin: GCML with int8 pushes (2 sites), FedProx under the
+    median with ``max_upload_norm`` (3 sites; the server's ``trimmed_mean``
+    launches once a round in this process, the sites' kernels in theirs),
+    and FedAvg with ``secure_agg`` under ``max_dropout=1`` (3 sites).  Losses
+    within rtol 1e-5 (the same arithmetic; the fold's order may differ),
+    ``comm`` and ``privacy`` equal."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    tiny = dict(batch=1, volume=(8, 8, 8), base_filters=4, num_levels=2)
+    pan = TaskConfig(kind="seg", sites=2, in_channels=1, num_classes=2, **tiny)
+    dose = TaskConfig(kind="dose", sites=3, **tiny)
+    cases = [("gcml int8", pan, dict(strategy="gcml", compression="int8"), {}),
+             ("fedprox median", dose, dict(strategy="fedprox", prox_mu=0.5, aggregator="median",
+                                           max_upload_norm=1e3), {"trimmed_mean": ROUNDS}),
+             ("secure_agg", dose, dict(secure_agg=True, max_dropout=1), {})]
+    for what, task, kw, server in cases:
+        job = FederatedJob(task=task, rounds=ROUNDS, transport="tcp", **kw)
+        build.reset_launches()
+        tcp = job.run()
+        launches = {k: v for k, v in build.LAUNCHES.items() if v}
+        thread = job.replace(transport="thread").run()
+        print(f"small tcp {what}: losses tcp {tcp.losses} thread {thread.losses}; comm "
+              f"{tcp.comm}; privacy {tcp.privacy}; launches in this process {launches}")
+        for a, b in zip(tcp.losses, thread.losses):
+            _require(math.isclose(a, b, rel_tol=1e-5, abs_tol=1e-7),
+                     f"small tcp {what}: loss {a} != thread twin's {b}")
+        _require(tcp.comm == thread.comm and tcp.privacy == thread.privacy,
+                 f"small tcp {what}: comm or privacy differs from the thread twin's")
+        _expect_launches(f"small tcp {what} (the server's)", launches, server)
 
 
 def check_small_jobs(torch, FederatedJob, TaskConfig) -> None:
@@ -1056,12 +1107,49 @@ def _strategy_history(result, what: str) -> None:
         print(line)
 
 
+def _run_job(torch, FederatedJob, TaskConfig, build, task, n_params: int, what: str,
+             rounds: int = ROUNDS, **kw):
+    """One full-width job, ``rounds`` sync rounds, TF32 convolutions,
+    random weights from seed 0.  Every kernel's launches are counted from 0
+    just before ``job.run()`` and the peak is reset just before.  Prints
+    each round's ``wall_s``, ``batch_s`` and ``step_s``, the peak,
+    ``comm``, ``privacy`` and the launches; requires the parameter count
+    and finite losses and global.  Returns (result, launches, job)."""
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = False
+    job = FederatedJob(task=TaskConfig(**task), rounds=rounds, **kw)
+    torch.cuda.reset_peak_memory_stats()
+    build.reset_launches()
+    t0 = time.perf_counter()
+    result = job.run()
+    wall = time.perf_counter() - t0
+    launches = {k: v for k, v in build.LAUNCHES.items() if v}
+    _strategy_history(result, what)
+    print(f"{what}: {rounds} rounds in {wall:.1f} s with set-up, peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, comm {result.comm}, "
+          f"privacy {result.privacy}; kernels launched {launches}")
+    got_n = sum(t.numel() for t in _leaves(result.global_params))
+    _require(got_n == n_params, f"{what}: {got_n} parameters, not {n_params}")
+    _require(all(math.isfinite(v) for h in result.history for v in h["per_site_loss"]),
+             f"non-finite loss on {what}")
+    _require(all(bool(torch.isfinite(t).all()) for t in _leaves(result.global_params)),
+             f"non-finite global parameters on {what}")
+    return result, launches, job
+
+
+def _expect_launches(what: str, launches: dict, expect: dict) -> None:
+    for name in set(launches) | set(expect):
+        _require(launches.get(name, 0) == expect.get(name, 0),
+                 f"{what}: {name} launched {launches.get(name, 0)} times, "
+                 f"expected {expect.get(name, 0)}")
+    print(f"{what}: launches as the code implies {expect}")
+
+
 def run_strategy_job(torch, FederatedJob, TaskConfig, build, task, n_params: int,
                      what: str, expect, **kw):
-    """One full-width job of the strategy set, 2 sync rounds, TF32
-    convolutions, random weights from seed 0.  Every kernel's launches are
-    zeroed just before ``job.run()`` and must equal ``expect[name]`` (0 for
-    a kernel not named) just after.
+    """One full-width job of the strategy set on the stacked transport
+    (:func:`_run_job`); every kernel's launches must equal ``expect[name]``
+    (0 for a kernel not named).
 
     The final global is ``fedagg``'s last launch on every uncompressed
     path: it is held to the plain version on the final rows and the
@@ -1072,29 +1160,9 @@ def run_strategy_job(torch, FederatedJob, TaskConfig, build, task, n_params: int
     global itself (the anchor is re-pinned to the exact fold).  Returns the
     result."""
     from repro_torch.kernels import ref
-    torch.backends.cudnn.allow_tf32 = True
-    torch.backends.cuda.matmul.allow_tf32 = False
-    job = FederatedJob(task=TaskConfig(**task), rounds=ROUNDS, **kw)
-    torch.cuda.reset_peak_memory_stats()
-    build.reset_launches()
-    t0 = time.perf_counter()
-    result = job.run()
-    wall = time.perf_counter() - t0
-    launches = {k: v for k, v in build.LAUNCHES.items() if v}
-    _strategy_history(result, what)
-    print(f"{what}: {ROUNDS} rounds in {wall:.1f} s with set-up, peak memory "
-          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, comm {result.comm}")
-    print(f"{what}: kernels launched {launches}, expected {expect}")
-    got_n = sum(t.numel() for t in _leaves(result.global_params))
-    _require(got_n == n_params, f"{what}: {got_n} parameters, not {n_params}")
-    _require(all(math.isfinite(v) for h in result.history for v in h["per_site_loss"]),
-             f"non-finite loss on {what}")
-    _require(all(bool(torch.isfinite(t).all()) for t in _leaves(result.global_params)),
-             f"non-finite global parameters on {what}")
-    for name in set(launches) | set(expect):
-        _require(launches.get(name, 0) == expect.get(name, 0),
-                 f"{what}: {name} launched {launches.get(name, 0)} times, "
-                 f"expected {expect.get(name, 0)}")
+    result, launches, job = _run_job(torch, FederatedJob, TaskConfig, build, task, n_params,
+                                     what, **kw)
+    _expect_launches(what, launches, expect)
     rows = result.state["params"]
     flat = torch.cat([t.reshape(-1) for t in _leaves(result.global_params)])
     anchor = result.state["strategy"].get("global")
@@ -1115,11 +1183,12 @@ def run_strategy_job(torch, FederatedJob, TaskConfig, build, task, n_params: int
     return result
 
 
-def _timed(phase: str, fn, *args) -> None:
+def _timed(phase: str, fn, *args):
     gc.collect()
     t0 = time.perf_counter()
-    fn(*args)
+    out = fn(*args)
     print(f"phase {phase}: {time.perf_counter() - t0:.1f} s")
+    return out
 
 
 def run_dose_strategies(torch, FederatedJob, TaskConfig, build, task) -> None:
@@ -1142,7 +1211,7 @@ def run_dose_strategies(torch, FederatedJob, TaskConfig, build, task) -> None:
              "dose individual: not one row a site, or a comm")
 
 
-def run_seg_strategies(torch, FederatedJob, TaskConfig, build, task, counts) -> None:
+def run_seg_strategies(torch, FederatedJob, TaskConfig, build, task, counts) -> dict:
     """Phase 12, the strategy comparison on BraTS (Figs 11/12), 4 sites at
     the paper's case counts.  Launches, worked out from the code:
 
@@ -1201,19 +1270,23 @@ def run_seg_strategies(torch, FederatedJob, TaskConfig, build, task, counts) -> 
         strategy="fedprox", compression="int8", down_compression="int8", **base)
     _require(res.comm["compression"] == "int8" and res.comm["down_compression"] == "int8",
              f"brats fedprox int8: comm {res.comm}")
+    int8_comm = res.comm
     del res
     run_strategy_job(torch, FederatedJob, TaskConfig, build, task, BRATS_N,
                      "brats fedprox trimmed:1, 2 local steps",
                      {"fedagg": 2, "trimmed_mean": ROUNDS},
                      strategy="fedprox", aggregator="trimmed:1", local_steps=2, **base)
+    return int8_comm
 
 
-def run_gossip(torch, FederatedJob, TaskConfig, build, task) -> None:
+def run_gossip(torch, FederatedJob, TaskConfig, build, task):
     """Phase 13, gossip on PanSeg (Fig 15): GCML over 5 sites without churn,
     then with ``max_dropout=1`` under the shutdown scenario.  GCML has no
     server: ``fedagg`` runs once, for the final global, and nothing else.
     Each round pairs floor(active / 2) receivers, each with a finite DCML
-    loss; the others run no DCML step (NaN)."""
+    loss; the others run no DCML step (NaN).  Returns the job without churn
+    (its global and history), phase 15's yardstick."""
+    first = None
     for what, kw in (("panseg gcml", {}),
                      ("panseg gcml churn", dict(max_dropout=1, dropout_scenario="shutdown"))):
         res = run_strategy_job(torch, FederatedJob, TaskConfig, build, task, PANSEG_N, what,
@@ -1228,7 +1301,10 @@ def run_gossip(torch, FederatedJob, TaskConfig, build, task) -> None:
                      f"{what} round {h['round']}: a receiver's DCML loss is not finite")
             _require(all(math.isnan(v) for i, v in enumerate(h["dcml_loss_r"]) if i not in recv),
                      f"{what} round {h['round']}: a DCML step off the pairing")
+        if first is None:
+            first = dataclasses.replace(res, state=None)
         del res
+    return first
 
 
 def _close_globals(torch, job, gpu, cpu, what: str) -> None:
@@ -1318,6 +1394,380 @@ def check_small_strategy_jobs(torch, FederatedJob, TaskConfig) -> None:
                 _require(h["upload_bytes"] == int(masks[r].sum()) * enc
                          and h["download_bytes"] == want,
                          f"small {what} align {align}: round {r} bytes")
+
+
+# -- the serverless and private socket deployment (phase 15) ---------------------
+
+
+def _held_to(torch, job, got, want, what: str, n: int) -> None:
+    """The socket bound of phase 5b: rtol 2e-3, atol 2e-4 but on at most
+    1e-5 of the elements, each within ``lr * rounds``."""
+    worst, outside = _outside(got.global_params, want.global_params)
+    print(f"{what}: max |difference| {worst:.3e}; leaves with elements outside rtol 2e-3, "
+          f"atol 2e-4 (leaf, shape, count, max): {outside}")
+    for a, b in zip(got.history, want.history):
+        print(f"{what} round {a['round']}: per site {[round(v, 6) for v in a['per_site_loss']]}"
+              f" against {[round(v, 6) for v in b['per_site_loss']]}")
+    _require_fold_noise(job, worst, outside, what, n)
+
+
+def _chunk_groups(torch, TaskConfig, task) -> tuple:
+    """(chunk-width groups, encoded bytes) of one int8 model of ``task`` on
+    the card."""
+    from repro_torch.comms.compression import WirePlan, align_for
+    from repro_torch.core.agg_engine import get_engine
+    from repro_torch.core.round_engine import encoded_nbytes
+    from repro_torch.core.stacking import broadcast_to_sites
+    dev = torch.device("cuda")
+    layout = get_engine().layout_of(broadcast_to_sites(TaskConfig(**task).build().init_fn(0), 1))
+    plan = WirePlan.of(layout, 1024, align_for(dev), dev, port=True)
+    return len(plan.chunks.groups), encoded_nbytes(layout.shapes, 1024, align_for(dev))
+
+
+def check_push_decode(torch, build, TaskConfig, task) -> dict:
+    """One int8 gossip push at PanSeg's layout as a sender makes it (the
+    site's wire plan: ``quantize_int8`` once a chunk width, the push
+    stream's error-feedback residual: ``dequantize_int8`` once) and a
+    receiver reads it off the frame (``dequantize_int8`` once): the card's
+    decode bit-equal to the plain decode of the same frame on the CPU, and
+    ``quantize_int8`` bit-equal to its plain version (q and scales) at each
+    of the push's chunk groups.  Then both kernels timed at this layout
+    (one push): ``quantize_int8`` over the push's chunk groups,
+    ``dequantize_int8`` over one message."""
+    from repro_torch.api import _p2p_payload
+    from repro_torch.comms.codec import decode_message, encode_message
+    from repro_torch.comms.compression import (Int8Codec, UploadCompressor, WirePlan,
+                                               decode_flat, decode_upload)
+    from repro_torch.core.agg_engine import ravel, tree_layout
+    from repro_torch.kernels import quantize as qk
+    from repro_torch.kernels import ref
+    from repro_torch.tree import tree_map
+    dev = torch.device("cuda")
+    params = tree_map(lambda t: t.to(dev), TaskConfig(**task).build().init_fn(0))
+    layout = tree_layout(params)
+    flat = ravel(params)
+    edge = WirePlan.of(layout, 1024, 128, dev, port=True)
+    groups = len(edge.chunks.groups)
+    build.reset_launches()
+    payload, meta = _p2p_payload(flat, edge, layout, UploadCompressor(Int8Codec()))
+    sent = {k: v for k, v in build.LAUNCHES.items() if v}
+    _, imeta, tree = decode_message(encode_message("model", {"site": 0, "round": 1, **meta},
+                                                   payload))
+    got = ravel(decode_upload(tree, imeta, plan=edge))
+    torch.cuda.synchronize()
+    launches = {k: v for k, v in build.LAUNCHES.items() if v}
+    want, _ = decode_flat(tree, device="cpu")
+    _require(torch.equal(got.cpu(), want),
+             "a PanSeg push decoded on the card differs from the plain decode")
+    _expect_launches("one PanSeg push, sent", sent,
+                     {"quantize_int8": groups, "dequantize_int8": 1})
+    _expect_launches("one PanSeg push, sent and received", launches,
+                     {"quantize_int8": groups, "dequantize_int8": 2})
+    print(f"one PanSeg push [{layout.n} values, {groups} chunk groups, "
+          f"{edge.table.leaves} leaves]: the card's decode bit-equal to the plain decode")
+    mats = edge.chunks.pack(flat)
+    for m in mats:
+        q, sc = qk.quantize_int8_cuda(m)
+        torch.cuda.synchronize()
+        q_ref, sc_ref = ref.quantize_int8_ref(m)
+        _require(torch.equal(q, q_ref) and torch.equal(sc, sc_ref),
+                 f"quantize_int8 at a PanSeg chunk group {list(m.shape)} differs from its "
+                 "plain version")
+    print(f"quantize_int8 at PanSeg's {groups} chunk groups "
+          f"{[list(m.shape) for m in mats]}: bit-equal to the plain version (q and scales)")
+    elems = sum(m.numel() for m in mats)
+    rows_all = sum(m.shape[0] for m in mats)
+    out = {"quantize_int8": measure(
+        torch, f"quantize_int8 one PanSeg push x{groups} groups [{elems} elements]",
+        lambda: [qk.quantize_int8_cuda(m) for m in mats],
+        lambda: [ref.quantize_int8_ref(m) for m in mats], None,
+        nbytes=elems * 5 + rows_all * 4, flops=6 * elems)}
+    _, q_all, s_all = edge.encode(flat)
+    qb, sb = q_all.view(torch.uint8), s_all.view(torch.uint8)
+    host_table = torch.from_numpy(edge.table.host)
+    leaves = [(q_all[qo: qo + rows * width].view(rows, width), s_all[ro: ro + rows])
+              for qo, ro, rows, width in edge._places]
+    o1, o2 = torch.empty(layout.n, device=dev), torch.empty(layout.n, device=dev)
+    out["dequantize_int8"] = measure(
+        torch, f"dequantize_int8 one PanSeg push [{edge.table.leaves} leaves, "
+        f"{edge.table.total_rows} rows, {layout.n} values]",
+        lambda: qk.dequantize_int8_grouped_cuda(edge.table, qb, sb, o1),
+        lambda: ref.dequantize_int8_grouped_ref(host_table, qb, sb, o2),
+        lambda: [torch.mul(q, sc[:, None]) for q, sc in leaves],
+        nbytes=edge.table.nbytes(), flops=layout.n)
+    return out
+
+
+def check_secure_fold(torch, n: int, sites: int = 4) -> None:
+    """Secure aggregation's arithmetic at full width on synthetic rows:
+    ``sites`` rows drawn like a model's, masked on the host (the reference's
+    Philox streams and fixed point), folded on the card as int64 words and
+    unmasked there with the last site missing (its masks repaired; the
+    all-folded round is held on the job's own uploads by
+    :func:`run_secure_pair`).  The card's global must be bit-equal to the CPU's
+    from the same words, and within the fixed point's bound of the float64
+    weighted mean of the folded rows: ``k * 2^-33 / W`` absolute (k folded
+    sites, half a step each, W their weight total) plus half an fp32 ulp."""
+    import numpy as np
+    from repro_torch.core.agg_engine import StreamingAccumulator
+    from repro_torch.privacy import SecureAggClient, SecureAggState, masked_values
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(5)
+    rows = [(rng.normal(size=n) * 0.05).astype(np.float32) for _ in range(sites)]
+    weights = [1.0 / sites] * sites
+    masks = np.ones((2, sites), bool)
+    folded = list(range(sites - 1))
+    t0 = time.perf_counter()
+    enc = [SecureAggClient("s", "site", i).encode({"w": rows[i]}, weights[i],
+                                                   list(range(sites)), 1)[0]
+           for i in folded]
+    t_enc = (time.perf_counter() - t0) / len(folded)
+    globals_ = {}
+    for where in (dev, torch.device("cpu")):
+        acc = StreamingAccumulator()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in folded:
+            acc.fold(masked_values(enc[i], device=where), 1.0)
+        state = SecureAggState("s", "site", masks)
+        g = state.unmask(acc.finalize_int(), 1, set(folded),
+                         sum(weights[i] for i in folded))["w"]
+        torch.cuda.synchronize()
+        globals_[where] = (g.cpu(), time.perf_counter() - t0, state.recovered)
+    (card, t_card, rec), (cpu, _, rec_cpu) = globals_[dev], globals_[torch.device("cpu")]
+    _require(torch.equal(card, cpu) and rec == rec_cpu,
+             f"secure fold of sites {folded}: the card's unmask differs from the CPU's")
+    w_tot = sum(weights[i] for i in folded)
+    exact = sum(np.float64(weights[i]) * rows[i].astype(np.float64) for i in folded) / w_tot
+    err = np.abs(card.numpy().astype(np.float64) - exact)
+    bound = len(folded) * 2.0 ** -33 / w_tot + 2.0 ** -24 * np.abs(exact)
+    _require(bool((err <= bound).all()),
+             f"secure fold of sites {folded}: beyond the fixed point's bound")
+    print(f"secure fold of sites {folded} ({n} values, recovered {rec}): the card's global "
+          f"bit-equal to the CPU's; max |err| against the float64 mean "
+          f"{float(err.max()):.3e} (bound at most {float(bound.max()):.3e}); host encode "
+          f"{t_enc:.3f} s a site, fold + unmask on the card {t_card:.3f} s")
+
+
+def _flat_np(tree):
+    import numpy as np
+    return np.concatenate([np.asarray(x, np.float32).reshape(-1) for x in _leaves(tree)])
+
+
+def run_secure_pair(torch, FederatedJob, TaskConfig, build, task) -> dict:
+    """OpenKBP FedAvg on the thread transport, plain and with
+    ``secure_agg=True``, 2 rounds each, with every site's upload (the
+    plaintext row before the mask, in the wire's layout, and its weight)
+    and site 0's download of each round recorded.  cuDNN is held to its
+    deterministic algorithms for both jobs, so their first-round uploads
+    are the same bits.  Held:
+
+    - every round's masked global bit-equal to the fixed point of that
+      round's uploads, summed mask-free on the host and decoded in float64
+      as the reference does (the masks cancel, the int64 fold and the
+      unmask are exact at full width on the job's own uploads);
+    - that float64 decode within ``k * 2^-33 / W`` of the exact weighted
+      mean (k sites, half a fixed-point step each, W their weight total;
+      plus float64's own rounding) and within 2^-28 of the mean's largest
+      element;
+    - the first round's two globals (same uploads) against that mean: the
+      masked one within the fixed-point step plus half an fp32 ulp, the
+      plain one within the fp32 fold's bound ``(k + 3) * 2^-24 * sum(w|x|) / W``
+      (the weights' and the reciprocal's rounding, k products, k - 1 adds,
+      the scaling), and so each other within the sum of the two;
+    - the final globals by the socket bound of phase 5b: the second
+      round's AdamW step turns the first round's last-bit differences into
+      up to ``lr`` on some elements.
+
+    Returns the masked job's launches."""
+    import numpy as np
+    from repro_torch.comms.peer import Peer
+    from repro_torch.privacy import SecureAggClient
+    from repro_torch.privacy.secure_agg import FRAC_BITS, _fixed_point
+    ups, downs = {}, {}
+    upload, download, encode = Peer.upload, Peer.download, SecureAggClient.encode
+
+    def upload_spy(self, addr, weights, round_index, *a, **k):
+        if not (k.get("meta_extra") or {}).get("masked"):
+            ups[(self.site_id, round_index)] = (_flat_np(weights), None)
+        return upload(self, addr, weights, round_index, *a, **k)
+
+    def encode_spy(self, tree, weight, participants, round_index):
+        ups[(self.my_id, round_index + 1)] = (_flat_np(tree), float(weight))
+        return encode(self, tree, weight, participants, round_index)
+
+    def download_spy(self, addr, round_index, *a, **k):
+        out = download(self, addr, round_index, *a, **k)
+        if self.site_id == 0:
+            downs[round_index] = _flat_np(out[0] if k.get("with_meta") else out)
+        return out
+
+    runs = {}
+    Peer.upload, Peer.download, SecureAggClient.encode = upload_spy, download_spy, encode_spy
+    torch.backends.cudnn.deterministic = True
+    try:
+        for what, kw in (("openkbp fedavg thread", {}),
+                         ("openkbp fedavg thread secure_agg", {"secure_agg": True})):
+            ups.clear()
+            downs.clear()
+            res, launches, job = _run_job(torch, FederatedJob, TaskConfig, build, task, FULL_N,
+                                          what, transport="thread", **kw)
+            runs[what] = (res, launches, job, dict(ups), dict(downs))
+    finally:
+        Peer.upload, Peer.download, SecureAggClient.encode = upload, download, encode
+        torch.backends.cudnn.deterministic = False
+    plain, p_launches, _, p_ups, p_downs = runs["openkbp fedavg thread"]
+    res, launches, job, s_ups, s_downs = runs["openkbp fedavg thread secure_agg"]
+    _expect_launches("openkbp fedavg thread (plain, secure_agg)", {**p_launches, **launches}, {})
+    _require(res.privacy == {"secure_agg": True, "mechanism": "none"} and plain.privacy is None,
+             f"openkbp secure_agg: privacy {res.privacy}, plain {plain.privacy}")
+    uploads = int(job.masks(ROUNDS).sum())
+    _require(res.comm["site_payload_bytes"] == uploads * 8 * FULL_N
+             and res.comm["upload_raw_bytes"] == uploads * 4 * FULL_N,
+             f"openkbp secure_agg: comm {res.comm}")
+    sites = task["sites"]
+    cw = job.federation().case_weights()
+    for r in range(1, ROUNDS + 1):
+        xs = [s_ups[(i, r)][0] for i in range(sites)]
+        ws = [s_ups[(i, r)][1] for i in range(sites)]
+        words = np.zeros(FULL_N, np.uint64)
+        for x, w in zip(xs, ws):
+            words += _fixed_point(x, w)
+        w_tot = sum(ws)
+        dec = words.view(np.int64).astype(np.float64) * (1.0 / (float(2 ** FRAC_BITS) * w_tot))
+        _require(np.array_equal(s_downs[r], dec.astype(np.float32)),
+                 f"openkbp secure_agg round {r}: the global is not the fixed point of the "
+                 "round's uploads")
+        exact = sum(np.float64(w) * x.astype(np.float64) for x, w in zip(xs, ws)) / w_tot
+        fixed = sites * 2.0 ** -33 / w_tot
+        fp_err = float(np.abs(dec - exact).max())
+        top = float(np.abs(exact).max())
+        # the float64 decode and mean round at 2^-53 of the largest element
+        _require(fp_err <= fixed + 2.0 ** -50 * top and fp_err <= 2.0 ** -28 * top,
+                 f"openkbp secure_agg round {r}: fixed-point error {fp_err:.3e} beyond "
+                 f"{fixed:.3e} or 2^-28 of {top:.3e}")
+        print(f"openkbp secure_agg round {r}: the global bit-equal to the fixed point of the "
+              f"round's {sites} uploads; the float64 decode within {fp_err:.3e} of the exact "
+              f"mean (bound {fixed:.3e}; {fp_err / top:.3e} of its largest |element| "
+              f"{top:.3e}, bound 2^-28 = {2.0 ** -28:.3e})")
+        if r != 1:
+            continue
+        same = all(np.array_equal(p_ups[(i, 1)][0], x) for i, x in enumerate(xs))
+        _require(same, "openkbp: the plain and masked jobs' first-round uploads differ")
+        wabs = sum(np.float64(w) * np.abs(x.astype(np.float64)) for x, w in zip(xs, cw)) / w_tot
+        bound_sa = (fixed + 2.0 ** -24 * np.abs(exact)) * (1 + 2.0 ** -20)
+        bound_plain = (sites + 3) * 2.0 ** -24 * wabs * (1 + 2.0 ** -20)
+        g_sa, g_plain = s_downs[1].astype(np.float64), p_downs[1].astype(np.float64)
+        e_sa, e_plain = np.abs(g_sa - exact), np.abs(g_plain - exact)
+        gap = np.abs(g_sa - g_plain)
+        _require(bool((e_sa <= bound_sa).all()) and bool((e_plain <= bound_plain).all())
+                 and bool((gap <= bound_sa + bound_plain).all()),
+                 "openkbp round 1: a global beyond its rounding bound")
+        print(f"openkbp round 1 (the same uploads, bit for bit): masked global within "
+              f"{float(e_sa.max()):.3e} of the exact mean (bound at most "
+              f"{float(bound_sa.max()):.3e}), plain within {float(e_plain.max()):.3e} (bound "
+              f"at most {float(bound_plain.max()):.3e}); masked against plain: max |gap| "
+              f"{float(gap.max()):.3e}, {int((gap > 0).sum())} of {FULL_N} elements differ, "
+              f"{float(gap.max()) / top:.3e} of the largest |element|")
+    _held_to(torch, job, res, plain, "openkbp secure_agg against plain", FULL_N)
+    return launches
+
+
+def run_serverless_private(torch, FederatedJob, TaskConfig, build, tasks, gossip,
+                           fedprox_comm, counts) -> dict:
+    """Phase 15, the serverless and private socket deployment, at full
+    width on the thread transport.  Returns each job's launches.
+
+    - PanSeg GCML (5 sites): the CoordinationServer pairs the sites, which
+      push their rows to each other and run the DCML step on the card.
+      Dense, no kernel runs (the final fold is the driver's); its global is
+      held to phase 13's stacked GCML (the same seed, so the same pairings)
+      by the socket bound of phase 5b.  With int8 pushes: per push
+      ``quantize_int8`` once a chunk width and ``dequantize_int8`` twice
+      (the push stream's residual at the sender, the decode at the
+      receiver); the pushes' bytes exact; one push's decode bit-equal to
+      the plain one and both kernels timed at this layout.
+    - BraTS FedProx (4 sites, the case counts) with int8 both ways: each
+      site's anchor, read at each round's first local step (one step a
+      round), must be the global it installed bit for bit; the payload bytes
+      equal phase 12's stacked FedProx + int8 job's; ``fedagg`` once a site
+      (its round-0 anchor), the int8 kernels as phase 5b counts them.
+    - OpenKBP FedAvg with ``secure_agg=True`` (4 sites) and its plain twin:
+      ``privacy`` must be the reference's dict, the masked words 8 bytes a
+      value, every round's masked global bit-equal to the fixed point of
+      the job's own uploads and the first round's held to the plain job's
+      (:func:`run_secure_pair`); then the missing-site repair on synthetic
+      rows (:func:`check_secure_fold`)."""
+    import numpy as np
+    from repro_torch.core.round_engine import bootstrap_masks
+    from repro_torch.core.strategies.fedprox import FedProxLocal
+    from repro_torch.core.agg_engine import ravel
+    pan, brats, openkbp = tasks
+    paths = {}
+    res, launches, job = _run_job(torch, FederatedJob, TaskConfig, build, pan, PANSEG_N,
+                                  "panseg gcml thread", transport="thread", strategy="gcml")
+    _expect_launches("panseg gcml thread", launches, {})
+    _require(res.comm is None and res.privacy is None,
+             f"panseg gcml thread: comm {res.comm}, privacy {res.privacy}")
+    _held_to(torch, job, res, gossip, "panseg gcml thread against stacked", PANSEG_N)
+    paths["panseg gcml thread"] = launches
+    del res
+    groups, enc_bytes = _chunk_groups(torch, TaskConfig, pan)
+    pushes = ROUNDS * (pan["sites"] // 2)
+    res, launches, job = _run_job(torch, FederatedJob, TaskConfig, build, pan, PANSEG_N,
+                                  "panseg gcml thread int8", transport="thread",
+                                  strategy="gcml", compression="int8")
+    _expect_launches("panseg gcml thread int8", launches,
+                     {"quantize_int8": groups * pushes, "dequantize_int8": 2 * pushes})
+    c = res.comm
+    _require(c["upload_count"] == pushes and c["upload_bytes"] == pushes * enc_bytes
+             and c["upload_raw_bytes"] == pushes * 4 * PANSEG_N and c["download_bytes"] == 0,
+             f"panseg gcml thread int8: comm {c}, {pushes} pushes of {enc_bytes} bytes")
+    paths["panseg gcml thread int8"] = launches
+    del res
+    push_times = check_push_decode(torch, build, TaskConfig, pan)
+
+    seen = []
+    extra = FedProxLocal.local_loss_extra
+
+    def anchor_spy(self, params_site, strat_state, ctx):
+        seen.append(torch.equal(ravel(params_site).detach(), strat_state["global"]))
+        return extra(self, params_site, strat_state, ctx)
+
+    FedProxLocal.local_loss_extra = anchor_spy
+    try:
+        res, launches, job = _run_job(
+            torch, FederatedJob, TaskConfig, build, brats, BRATS_N, "brats fedprox thread int8",
+            transport="thread", strategy="fedprox", prox_mu=PROX_MU, case_counts=counts, compression="int8",
+            down_compression="int8")
+    finally:
+        FedProxLocal.local_loss_extra = extra
+    masks = job.masks(ROUNDS)
+    boot = bootstrap_masks(masks, 16)
+    ups = int(masks.sum())
+    deltas = int((masks & ~boot).sum())
+    g_brats, _ = _chunk_groups(torch, TaskConfig, brats)
+    _expect_launches("brats fedprox thread int8", launches,
+                     {"fedagg": brats["sites"], "quantize_int8": g_brats * (ups + deltas),
+                      "dequantize_int8": 2 * ups + 2 * deltas})
+    print(f"brats fedprox thread int8: {sum(seen)} of {len(seen)} first local steps start at "
+          "an anchor bit-equal to the installed global")
+    _require(len(seen) == ups and all(seen),
+             "brats fedprox thread int8: an anchor is not the installed global")
+    c = res.comm
+    _require(c["site_payload_bytes"] == fedprox_comm["upload_bytes"]
+             and c["download_payload_bytes"] == fedprox_comm["download_bytes"],
+             f"brats fedprox thread int8: payload bytes {c} against stacked {fedprox_comm}")
+    paths["brats fedprox thread int8"] = launches
+    del res
+
+    paths["openkbp fedavg thread secure_agg"] = run_secure_pair(
+        torch, FederatedJob, TaskConfig, build, openkbp)
+    check_secure_fold(torch, FULL_N)
+    print(f"phase 15 launches by path: {paths}")
+    print(f"phase 15 kernels at PanSeg's layout (one push): "
+          f"{json.dumps({k: {m: v[m] for m in ('ms', 'eager_ms', 'plain_ms', 'library_ms', 'bound_ms', 'bound_by')} for k, v in push_times.items()})}")
+    return paths
 
 
 # -- the token models' kernels and serving paths ---------------------------------
@@ -1714,17 +2164,28 @@ def main() -> int:
     del int8_result
     jobs = (torch, FederatedJob, TaskConfig)
     _timed("11 (dose pooled, individual)", run_dose_strategies, *jobs, build, OPENKBP_TASK)
-    _timed("12 (brats fedavg, fedprox, + int8, + trimmed:1)", run_seg_strategies, *jobs,
-           build, BRATS_TASK, tuple(BRATS_SITE_CASES[:BRATS_TASK["sites"]]))
-    _timed("13 (panseg gcml)", run_gossip, *jobs, build, PANSEG_TASK)
+    fedprox_comm = _timed("12 (brats fedavg, fedprox, + int8, + trimmed:1)",
+                          run_seg_strategies, *jobs, build, BRATS_TASK,
+                          tuple(BRATS_SITE_CASES[:BRATS_TASK["sites"]]))
+    gossip = _timed("13 (panseg gcml)", run_gossip, *jobs, build, PANSEG_TASK)
     _timed("14 (small strategy jobs, card and CPU)", check_small_strategy_jobs, *jobs)
+    p15 = _timed("15 (serverless and private sockets: gcml, fedprox, secure_agg)",
+                 run_serverless_private, *jobs, build,
+                 (PANSEG_TASK, BRATS_TASK, OPENKBP_TASK), gossip, fedprox_comm,
+                 tuple(BRATS_SITE_CASES[:BRATS_TASK["sites"]]))
+    _timed("15 (small tcp jobs: gcml, fedprox, secure_agg)", check_small_socket_seams, *jobs,
+           build)
+    del gossip
     serving_launches = run_serving_paths(torch, build)
     check_small_serving(torch, build)
 
     # each kernel's launches on the path that carries it: fedagg on the
     # first slice's path, the int8 fold and install on the second's, the
     # decode on the socket path, the trimmed mean on the robust path, each
-    # token kernel on the serving path of its family
+    # token kernel on the serving path of its family (phase 15's paths
+    # printed their own above)
+    print(f"launches on phase 15's paths: {p15}")
+    print(smi)
     path_of = {"fedagg": main_launches, "quantize_int8": int8_launches,
                "fedagg_dequant": int8_launches, "dequant_install": int8_launches,
                "dequantize_int8": socket_launches, "trimmed_mean": robust_launches,

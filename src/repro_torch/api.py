@@ -16,10 +16,14 @@ uncompressed or with int8 uploads and/or downloads
 (``compression="int8"``, ``down_compression="int8"``); the socket deployment
 (``transport="thread" | "tcp"``: one site a thread or a process, real TCP
 round trips to an :class:`~repro_torch.comms.coordinator.AggregationServer`
-on the job's device, ``strategy="fedavg" | "individual"``, sync rounds,
-int8 both ways, the wire's auth/TLS/streaming/faults, leases,
+on the job's device, ``strategy="fedavg" | "fedprox" | "individual"``, sync
+rounds, int8 both ways, secure aggregation (``secure_agg=True``: pairwise
+masked fixed-point uploads), the wire's auth/TLS/streaming/faults, leases,
 ``round_deadline_s``, ``max_upload_norm`` and ``run(resume=True)`` from a
-``checkpoint_dir``); the Byzantine-robust combine rules
+``checkpoint_dir``; and ``strategy="gcml"`` serverless: a
+:class:`~repro_torch.comms.coordinator.CoordinationServer` pairs the sites
+and they push models to each other directly, dense or int8); the
+Byzantine-robust combine rules
 (``aggregator="trimmed:f" | "median" | "krum:f" | "normclip:c"``), the
 seeded adversary (``adversary="sign_flip:f" | "scale:c:f" |
 "label_flip:f"``) and client sampling (``sample="uniform:K" |
@@ -51,7 +55,8 @@ import torch
 from repro_torch import NotPorted
 from repro_torch.comms.compression import (KEEP_GLOBALS_DEFAULT, Codec, UploadCompressor,
                                            WirePlan, align_for, codec_name,
-                                           decode_download, resolve_codec)
+                                           decode_download, decode_upload, resolve_codec,
+                                           tree_payload_nbytes)
 from repro_torch.comms.transport import WireConfig
 from repro_torch.configs.base import FederationConfig
 from repro_torch.core import federation as F
@@ -60,6 +65,7 @@ from repro_torch.core.agg_engine import (AggregatorSpec, StreamingAccumulator,
                                          parse_aggregator, ravel, unravel)
 from repro_torch.core.sampling import (ClientSampler, compose_participation,
                                        resolve_sampler)
+from repro_torch.core.strategies.base import get_strategy
 from repro_torch.core.session import (JobResult, RoundRecorder, SyncScheduler,
                                       availability_masks, resolve_scheduler,
                                       scheduler_name)
@@ -290,6 +296,24 @@ class FederatedJob:
         return 1 if self.strategy == "pooled" else self.task.sites
 
     @property
+    def mask_secret(self) -> str:
+        """The shared secret the pairwise mask seeds derive from: the wire's
+        auth secret when set, else a seed-derived default."""
+        return self.wire.secret or f"fedkbp-mask:{self.seed}"
+
+    def privacy_report(self, rounds: Optional[int] = None) -> Optional[Dict[str, Any]]:
+        """``JobResult.privacy``: None when no privacy mechanism is on, the
+        mechanism's settings otherwise.  DP's accountant is not ported: a
+        job with DP raises :class:`~repro_torch.NotPorted` naming ``dp``."""
+        dp = self.dp_clip > 0 or self.dp_noise_multiplier > 0
+        if not dp and not self.secure_agg:
+            return None
+        if dp:
+            raise NotPorted("dp", f"dp_clip={self.dp_clip}, "
+                                  f"noise={self.dp_noise_multiplier}", "off")
+        return {"secure_agg": True, "mechanism": "none"}
+
+    @property
     def sampler(self) -> ClientSampler:
         """The job's resolved client sampler."""
         return resolve_sampler(self.sample)
@@ -316,7 +340,7 @@ class FederatedJob:
         set to something the port does not implement on ``transport``."""
         plan = self.adversary_plan
         socket = transport != "stacked"
-        strategies = (("fedavg", "individual") if socket
+        strategies = (("fedavg", "fedprox", "individual", "gcml") if socket
                       else ("fedavg", "fedprox", "individual", "pooled", "gcml"))
         unported = [
             ("strategy", self.strategy not in strategies, self.strategy,
@@ -333,7 +357,6 @@ class FederatedJob:
              self.checkpoint_dir, "None on the stacked transport"),
             ("checkpoint", self.ckpt_every != 10 and not socket,
              f"ckpt_every={self.ckpt_every}", "ckpt_every=10 on the stacked transport"),
-            ("secure_agg", self.secure_agg and socket, "True", "False"),
         ]
         for seam, bad, got, ok in unported:
             if bad:
@@ -659,27 +682,65 @@ def _site_store(job: FederatedJob, site_id: int):
     return CheckpointStore(Path(job.checkpoint_dir) / f"site{site_id}")
 
 
-def _run_site(job: FederatedJob, site_id: int, agg_addr, rounds: int,
+def _wire_row(state, adv, one: np.ndarray) -> torch.Tensor:
+    """The site's row as it goes on the wire: under a parameter-flipping
+    adversary a perturbed copy (the site's own state stays honest, as on
+    the stacked transport), else the row itself."""
+    flat = state["params"][0]
+    if adv is None or not adv.flips_params:
+        return flat
+    flat = flat.clone()[None]
+    adv.perturb_rows(flat, one)
+    return flat[0]
+
+
+def _p2p_payload(flat: torch.Tensor, edge: WirePlan, layout,
+                 peer_comp: Optional[UploadCompressor]) -> Tuple[Any, Optional[Dict]]:
+    """A gossip push of ``flat`` (the port's layout): ``(tree, meta_extra)``
+    in the wire's layout, dense (one gather, one copy to the host) or int8
+    through the push stream's own compressor (one ``quantize_int8`` launch
+    per chunk width, its own error-feedback residual)."""
+    if peer_comp is None:
+        return edge.host_tree(flat), None
+    return peer_comp.encode(unravel(flat, layout))
+
+
+def _run_site(job: FederatedJob, site_id: int, agg_addr, coord_addr, rounds: int,
               start_round: int = 0, init_params=None) -> Dict[str, Any]:
     """One site's FL script (paper Algorithm 1, site side), the same under a
     thread or an OS process.
 
     The site trains on the job's device under the ``individual`` strategy
-    (its 1-site round loop) with its own seeded batch stream, so thread
-    scheduling never changes a batch.  At its edge it converts between its
-    OIDHW model and the wire's reference layout: a dense upload is one
-    gather and one copy to the host; an int8 upload is the
-    :class:`UploadCompressor`'s (one ``quantize_int8`` launch per chunk
-    width, one copy, the error-feedback residual on the device); a download
-    is one copy to the device, one ``dequantize_int8`` launch if it is int8,
-    and one gather into the port's layout.  With a ``checkpoint_dir`` the
-    site keeps its own store and, resumed at ``start_round > 0``, reloads
-    round ``start_round - 1``; with a ``lease_ttl`` it holds a lease, and a
-    late joiner adopts the join reply's global."""
+    (its 1-site round loop; ``fedprox-local`` for FedProx, whose Eq. 2
+    anchor is re-pinned to every installed global) with its own seeded
+    batch stream, so thread scheduling never changes a batch.  At its edge
+    it converts between its OIDHW model and the wire's reference layout: a
+    dense upload is one gather and one copy to the host; an int8 upload is
+    the :class:`UploadCompressor`'s (one ``quantize_int8`` launch per chunk
+    width, one copy, the error-feedback residual on the device); a masked
+    upload (``secure_agg``) is the dense host copy in fixed point plus the
+    round's pairwise masks; a download is one copy to the device, one
+    ``dequantize_int8`` launch if it is int8, and one gather into the port's
+    layout.
+
+    Under GCML (``coord_addr``) the site registers with the coordination
+    server and, in each round, before it trains: a sender pushes its row to
+    its receiver (dense, or int8 through a second compressor with its own
+    residual); a receiver decodes the push (one ``dequantize_int8`` launch
+    if int8), runs the regional DCML step (Eq. 3) on a fresh copy of its row
+    with the round's first local batch and validates on its last, and
+    writes the merged row.  Its ``step_s`` includes that exchange.
+
+    With a ``checkpoint_dir`` the site keeps its own store and, resumed at
+    ``start_round > 0``, reloads round ``start_round - 1``; with a
+    ``lease_ttl`` it holds a lease, and a late joiner adopts the join
+    reply's global."""
     from repro_torch.comms.peer import Peer
     dev = job.torch_device
     bundle = job.task.build()
-    ctx = job.context(bundle, strategy="individual", num_sites=1)
+    prox = job.strategy == "fedprox"
+    ctx = job.context(bundle, strategy="fedprox-local" if prox else "individual",
+                      num_sites=1)
     params0 = init_params if init_params is not None else bundle.init_fn(job.seed)
     state = F.init_fl_state(ctx, tree_map(lambda t: torch.as_tensor(t).to(dev), params0))
     fl_round = F.build_fl_round(ctx)
@@ -687,12 +748,23 @@ def _run_site(job: FederatedJob, site_id: int, agg_addr, rounds: int,
     masks = job.masks(rounds)
     one = np.ones(1, bool)
     adv = job.adversary_plan
-    malicious = adv is not None and bool(adv.malicious_mask(job.task.sites)[site_id])
+    if adv is not None and not adv.malicious_mask(job.task.sites)[site_id]:
+        adv = None                               # this site is honest
+    pairing = get_strategy(job.strategy).needs_pairing
     codec, down_codec = job.codecs()
     comp = UploadCompressor(codec, job.error_feedback) if codec.name != "none" else None
+    # one compressor per outgoing stream, so each residual compensates its own
+    peer_comp = (UploadCompressor(codec, job.error_feedback)
+                 if codec.name != "none" and pairing else None)
     down = down_codec.name != "none"
     edge = WirePlan.of(layout, getattr(codec, "chunk", 1024), align_for(dev), dev, port=True)
     peer = Peer(site_id, wire=job.wire)
+    sa = None                    # secure aggregation: this site's upload masker
+    sa_bytes = sa_raw = sa_count = 0
+    if job.secure_agg:
+        from repro_torch.privacy import SecureAggClient
+        sa = SecureAggClient(job.mask_secret, "site", site_id)
+        sa_weight = float(job.federation().case_weights()[site_id])
     losses: List[float] = []
     times: List[Tuple[float, float]] = []        # (batch_s, step_s) a round
     base_round = start_round     # server round of the global this site holds
@@ -703,10 +775,12 @@ def _run_site(job: FederatedJob, site_id: int, agg_addr, rounds: int,
     store = _site_store(job, site_id) if job.checkpoint_dir else None
     zeros = torch.zeros(layout.n, dtype=torch.float32, device=dev)
     hb = None
+    dcml = None
     try:
         if start_round > 0 and store is not None:
             like = {"params": zeros, "mu": zeros, "nu": zeros, "step": zeros[:1],
-                    "reference": zeros, "residual": zeros, "down_ref": zeros}
+                    "reference": zeros, "residual": zeros, "down_ref": zeros,
+                    "anchor": zeros}
             loaded, lmeta = store.load("state", start_round - 1, like)
             t = {k: torch.from_numpy(np.asarray(v)).to(dev) for k, v in loaded.items()}
             state["params"][0].copy_(t["params"])
@@ -714,6 +788,8 @@ def _run_site(job: FederatedJob, site_id: int, agg_addr, rounds: int,
             state["opt"]["nu"][0].copy_(t["nu"])
             state["opt"]["step"][0] = t["step"].to(torch.int32)[0]
             base_round = int(lmeta.get("base_round", start_round))
+            if prox:
+                state["strategy"] = {"global": t["anchor"]}
             if comp is not None:
                 reference = t["reference"] if lmeta.get("has_reference") else None
                 comp.residual = t["residual"] if lmeta.get("has_residual") else None
@@ -730,20 +806,43 @@ def _run_site(job: FederatedJob, site_id: int, agg_addr, rounds: int,
                 # a late joiner: adopt the live global, skip the done rounds
                 g = edge.to_port(edge.decode(hb.bootstrap))
                 state["params"][0].copy_(g)
+                if prox:
+                    state["strategy"] = {"global": g}
                 base_round = join_round
                 if comp is not None:
                     reference = g
                 losses.extend([float("nan")] * (join_round - start_round))
                 times.extend([(float("nan"), float("nan"))] * (join_round - start_round))
                 start_round = join_round
+        if pairing:
+            from repro_torch.core.strategies.gcml import make_site_dcml
+            dcml = make_site_dcml(job.context(bundle))
+            peer.register(coord_addr)
         for r in range(start_round, rounds):
             me_active = bool(masks[r, site_id])
             t0 = time.perf_counter()
             b = {k: torch.from_numpy(v).to(dev)
                  for k, v in bundle.site_batches(site_id, r, job.local_steps).items()}
-            if malicious and adv.flips_labels:
+            if adv is not None and adv.flips_labels:
                 b = adv.perturb_batches(b, one)
             t1 = time.perf_counter()
+            if dcml is not None and me_active:   # the decentralized pre-exchange
+                asg = peer.get_assignment(coord_addr, r + 1)
+                recv_of = {int(asg["partner"][j]): j for j in range(len(asg["partner"]))
+                           if asg["is_receiver"][j]}
+                if asg["is_sender"][site_id]:
+                    payload, smeta = _p2p_payload(_wire_row(state, adv, one), edge, layout,
+                                                  peer_comp)
+                    peer.send_model(tuple(asg["addresses"][str(recv_of[site_id])]),
+                                    payload, r + 1, meta_extra=smeta)
+                if asg["is_receiver"][site_id]:
+                    imeta, incoming = peer.recv_model(timeout=job.io_timeout)
+                    p_s = edge.to_port(ravel(decode_upload(incoming, imeta, plan=edge)))
+                    # fresh buffers: cuDNN picks its algorithms by alignment
+                    merged, _ = dcml(state["params"][0].clone(), p_s.clone(),
+                                     {k: v[0, 0] for k, v in b.items()},
+                                     {k: v[0, -1] for k, v in b.items()}, layout)
+                    state["params"][0].copy_(merged)
             if me_active or job.dropout_scenario == "disconnect":
                 state, metrics = fl_round(state, b, F.make_round_inputs(ctx, one))
                 losses.append(float(metrics["loss"][0]))
@@ -751,15 +850,18 @@ def _run_site(job: FederatedJob, site_id: int, agg_addr, rounds: int,
                 losses.append(float("nan"))
             times.append((t1 - t0, time.perf_counter() - t1))
             if agg_addr is not None and me_active:
-                flat = state["params"][0]
-                if malicious and adv.flips_params:
-                    # only the wire payload is perturbed; the site's state
-                    # stays honest, as on the stacked transport
-                    flat = flat.clone()[None]
-                    adv.perturb_rows(flat, one)
-                    flat = flat[0]
+                flat = _wire_row(state, adv, one)
                 cmeta = None
-                if comp is not None:
+                if sa is not None:
+                    # masked against the round's scheduled participants (every
+                    # site replays the schedule; the server repairs any of
+                    # them that never arrives)
+                    payload = edge.host_tree(flat)
+                    sa_raw += tree_payload_nbytes(payload)
+                    payload, cmeta = sa.encode(payload, sa_weight, np.flatnonzero(masks[r]), r)
+                    sa_bytes += tree_payload_nbytes(payload)
+                    sa_count += 1
+                elif comp is not None:
                     # a reference older than the server's window is gone
                     # there: re-send dense rather than an unfoldable delta
                     if reference is not None and r + 1 - base_round >= KEEP_GLOBALS_DEFAULT:
@@ -791,6 +893,8 @@ def _run_site(job: FederatedJob, site_id: int, agg_addr, rounds: int,
                     if comp is not None:
                         reference = gflat
                     state["params"][0].copy_(gflat)   # AdamW's moments are kept
+                    if prox:                          # the Eq. 2 anchor: the install
+                        state["strategy"] = {"global": gflat}
             if store is not None and r % job.ckpt_every == 0:
                 opt = state["opt"]
                 store.save("state", r, {
@@ -799,34 +903,36 @@ def _run_site(job: FederatedJob, site_id: int, agg_addr, rounds: int,
                     "reference": reference if reference is not None else zeros,
                     "residual": (comp.residual if comp is not None and comp.residual is not None
                                  else zeros),
-                    "down_ref": ravel(down_ref) if down_ref is not None else zeros},
+                    "down_ref": ravel(down_ref) if down_ref is not None else zeros,
+                    "anchor": state["strategy"]["global"] if prox else zeros},
                     meta={"base_round": base_round,
                           "has_reference": reference is not None,
                           "has_residual": comp is not None and comp.residual is not None,
                           "has_down_ref": down_ref is not None,
                           "down_acked": down_acked})
+        streams = [c for c in (comp, peer_comp) if c is not None]
         return {"losses": losses, "times": times, "stale_uploads": stale_uploads,
                 "rejected_uploads": rejected_uploads,
                 "params": state["params"][0].detach().cpu().numpy().copy(),
-                "upload_payload_bytes": comp.encoded_bytes if comp is not None else 0,
-                "upload_raw_bytes": comp.raw_bytes if comp is not None else 0,
-                "upload_count": comp.encodes if comp is not None else 0}
+                "upload_payload_bytes": sum(c.encoded_bytes for c in streams) + sa_bytes,
+                "upload_raw_bytes": sum(c.raw_bytes for c in streams) + sa_raw,
+                "upload_count": sum(c.encodes for c in streams) + sa_count}
     finally:
         if hb is not None:
             hb.stop(leave=True)
         peer.close()
 
 
-def _site_worker(job, site_id, agg_addr, result_q, rounds, start_round=0, init_params=None,
-                 precision=None):
+def _site_worker(job, site_id, agg_addr, coord_addr, result_q, rounds, start_round=0,
+                 init_params=None, precision=None):
     """Queue-reporting wrapper around :func:`_run_site` (thread or process).
     ``precision`` (a site process's) is the parent's TF32 flags for cuDNN
     and matmuls: a spawned process starts from PyTorch's defaults."""
     if precision is not None:
         torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = precision
     try:
-        result_q.put((site_id, _run_site(job, site_id, agg_addr, rounds, start_round,
-                                         init_params)))
+        result_q.put((site_id, _run_site(job, site_id, agg_addr, coord_addr, rounds,
+                                         start_round, init_params)))
     except Exception as e:  # noqa: BLE001 — the job raises it
         result_q.put((site_id, {"error": f"{type(e).__name__}: {e}"}))
 
@@ -866,6 +972,10 @@ def _socket_down_refs(job: FederatedJob, rr: int, num_sites: int):
 class _SocketTransport(Transport):
     """Shared round-trip machinery for thread- and process-backed sites.
 
+    A centrally aggregated strategy (fedavg, fedprox) gets an
+    :class:`~repro_torch.comms.coordinator.AggregationServer` on the job's
+    device (with a ``SecureAggState`` under ``secure_agg``), a pairing
+    strategy (gcml) a ``CoordinationServer``, ``individual`` neither.
     The history is assembled from the sites' reports after the run: a
     round's ``wall_s`` is the run's mean (the driver does not see remote
     rounds), ``batch_s`` and ``step_s`` the sites' mean for that round (a
@@ -884,7 +994,8 @@ class _SocketTransport(Transport):
         if job.strategy == "pooled":
             raise ValueError("pooled is a single-process baseline; "
                              "run it on the stacked transport")
-        if job.strategy == "gcml" and job.max_dropout:
+        strategy = get_strategy(job.strategy)
+        if strategy.needs_pairing and job.max_dropout:
             raise ValueError("gossip under dropout needs coordinated status "
                              "updates; run it on the stacked transport")
         if _pods(job) and job.strategy not in ("fedavg", "fedprox"):
@@ -939,25 +1050,36 @@ class _SocketTransport(Transport):
             from repro_torch.kernels import build
             build.build(["quantize_int8", "dequantize_int8", "fedagg", "trimmed_mean"])
         recorder = job.recorder(rounds, num_sites)
-        from repro_torch.comms.coordinator import AggregationServer
-        agg = None
+        from repro_torch.comms.coordinator import AggregationServer, CoordinationServer
+        servers, agg, agg_addr, coord_addr = [], None, None, None
         try:
-            if job.strategy != "individual":
+            if not strategy.needs_pairing and job.strategy != "individual":
+                sa_state = None
+                if job.secure_agg:
+                    from repro_torch.privacy import SecureAggState
+                    sa_state = SecureAggState(job.mask_secret, "site", job.masks(rounds))
                 agg = AggregationServer(
                     "127.0.0.1", 0, num_sites=num_sites,
                     case_weights=list(fed.case_weights()),
                     download_timeout=job.io_timeout / 2, scheduler=scheduler,
                     wire=job.wire, lease_ttl=job.lease_ttl, initial_round=start_round,
                     initial_global=initial_global, ckpt_store=recorder.store,
-                    ckpt_every=job.ckpt_every, aggregator=job.aggregator,
-                    max_upload_norm=job.max_upload_norm,
+                    ckpt_every=job.ckpt_every, secure_agg=sa_state,
+                    aggregator=job.aggregator, max_upload_norm=job.max_upload_norm,
                     down_compression=down_codec if down else None,
                     initial_down=initial_down, device=dev)
-            results = self._run_workers(job, num_sites, agg.addr if agg else None,
-                                        rounds, start_round, init_params)
+                servers.append(agg)
+                agg_addr = agg.addr
+            if strategy.needs_pairing:
+                coord = CoordinationServer("127.0.0.1", 0, num_sites=num_sites,
+                                           seed=job.seed, wire=job.wire)
+                servers.append(coord)
+                coord_addr = coord.addr
+            results = self._run_workers(job, num_sites, agg_addr, coord_addr, rounds,
+                                        start_round, init_params)
         finally:
-            if agg is not None:
-                agg.stop()
+            for srv in servers:
+                srv.stop()
         per_site = dict(results)
         dead = {i: p["error"] for i, p in per_site.items() if "error" in p}
         if dead:
@@ -966,8 +1088,11 @@ class _SocketTransport(Transport):
                 raise RuntimeError(f"site workers failed: {dead}")
             if job.verbose:
                 print(f"elastic: finishing without failed sites {sorted(dead)}")
+        # the server's counters are the framed bytes; the sites' the encoded
+        # payload, the gossip pushes included
         site_payload = sum(p.get("upload_payload_bytes", 0) for p in per_site.values())
         site_raw = sum(p.get("upload_raw_bytes", 0) for p in per_site.values())
+        site_count = sum(p.get("upload_count", 0) for p in per_site.values())
         comm = None
         if agg is not None:
             snap = agg.stats.snapshot()
@@ -984,6 +1109,12 @@ class _SocketTransport(Transport):
                 # the payload split (download_bytes also counts framing)
                 comm["download_payload_bytes"] = agg.down_counters["encoded"]
                 comm["download_raw_bytes"] = agg.down_counters["raw"]
+        elif site_count:                     # gossip pushes, compressed
+            comm = {"upload_bytes": site_payload, "upload_raw_bytes": site_raw,
+                    "download_bytes": 0, "total_bytes": site_payload,
+                    "upload_count": site_count, "download_count": 0,
+                    "compression": codec.name, "down_compression": "none",
+                    "simulated": False}
         exec_rounds = rounds - start_round
         nan = float("nan")
         losses = np.stack([per_site[i].get("losses", [nan] * exec_rounds)
@@ -1020,9 +1151,11 @@ class _SocketTransport(Transport):
             recorder.store.save("global", rounds - 1, convert.to_reference(global_params))
         return recorder.result(global_params, transport=self.name, scheduler=scheduler.name,
                                comm=comm, resumed_from=resumed_from,
-                               rejected_uploads=agg.rejected_uploads if agg else 0)
+                               rejected_uploads=agg.rejected_uploads if agg else 0,
+                               privacy=job.privacy_report(rounds))
 
-    def _run_workers(self, job, num_sites, agg_addr, rounds, start_round, init_params):
+    def _run_workers(self, job, num_sites, agg_addr, coord_addr, rounds, start_round,
+                     init_params):
         raise NotImplementedError
 
 
@@ -1032,11 +1165,13 @@ class ThreadTransport(_SocketTransport):
 
     name = "thread"
 
-    def _run_workers(self, job, num_sites, agg_addr, rounds, start_round, init_params):
+    def _run_workers(self, job, num_sites, agg_addr, coord_addr, rounds, start_round,
+                     init_params):
         q: "queue.Queue" = queue.Queue()
         threads = [threading.Thread(
             target=_site_worker,
-            args=(job, i, agg_addr, q, rounds, start_round, init_params), daemon=True)
+            args=(job, i, agg_addr, coord_addr, q, rounds, start_round, init_params),
+            daemon=True)
             for i in range(num_sites)]
         for t in threads:
             t.start()
@@ -1052,14 +1187,16 @@ class TcpTransport(_SocketTransport):
 
     name = "tcp"
 
-    def _run_workers(self, job, num_sites, agg_addr, rounds, start_round, init_params):
+    def _run_workers(self, job, num_sites, agg_addr, coord_addr, rounds, start_round,
+                     init_params):
         import multiprocessing as mp
         mpctx = mp.get_context("spawn")
         q = mpctx.Queue()
         precision = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
         procs = [mpctx.Process(
             target=_site_worker,
-            args=(job, i, agg_addr, q, rounds, start_round, init_params, precision),
+            args=(job, i, agg_addr, coord_addr, q, rounds, start_round, init_params,
+                  precision),
             daemon=True)
             for i in range(num_sites)]
         for p in procs:

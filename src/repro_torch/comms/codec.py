@@ -65,9 +65,11 @@ class QuantizedTensor:
 
 @dataclasses.dataclass
 class MaskedTensor:
-    """A secure-aggregation leaf on the wire: ``data["v"]`` holds int64
-    fixed-point masked words.  The port decodes it; it never produces one
-    (secure aggregation is not ported)."""
+    """A secure-aggregation leaf on the wire: ``shape`` is the logical
+    tensor shape and ``data["v"]`` holds the int64 fixed-point masked words
+    (two's complement).  Serialized as a ``__masked__`` skeleton node beside
+    ``__quant__``; the transport never unmasks (that is
+    :mod:`repro_torch.privacy.secure_agg`'s job, and only the sum ever is)."""
 
     shape: Tuple[int, ...]
     data: Dict[str, np.ndarray]

@@ -62,11 +62,12 @@ def align_for(device: torch.device) -> int:
 
 
 def tree_payload_nbytes(tree: Any) -> int:
-    """Wire payload bytes of a tree whose leaves are tensors, numpy arrays
-    and/or :class:`QuantizedTensor` (framing excluded)."""
+    """Wire payload bytes of a tree whose leaves are tensors, numpy arrays,
+    :class:`QuantizedTensor` and/or :class:`MaskedTensor` (framing
+    excluded)."""
     total = 0
     for x in tree_leaves(tree):
-        if isinstance(x, QuantizedTensor):
+        if isinstance(x, (QuantizedTensor, MaskedTensor)):
             total += x.nbytes
         elif isinstance(x, torch.Tensor):
             total += x.numel() * x.element_size()
@@ -340,7 +341,8 @@ def _decode(tree, layout, device: torch.device, last=None):
             arrays += [q, s]
             geom.append(q.shape)
         elif isinstance(x, MaskedTensor):
-            raise NotPorted("secure_agg", "a masked upload", "plaintext uploads")
+            # masked words fold as integers (privacy.secure_agg), never decode
+            raise ValueError("a masked leaf in a plaintext message")
         else:
             a = np.asarray(x)
             if a.dtype.kind != "f":

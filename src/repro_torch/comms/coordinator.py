@@ -1,5 +1,6 @@
-"""The aggregation server of centralized FL (paper Figs 3 and 4, Algorithm 1),
-ported from ``repro/comms/coordinator.py``: its sync branch.
+"""Coordination and aggregation services (paper Figs 3 and 4, Algorithm 1),
+ported from ``repro/comms/coordinator.py``: the aggregation server's sync
+branch and the coordination server.
 
 ``AggregationServer`` folds each site's upload into a streaming Eq. 1
 accumulator as it arrives (one fp32 model of memory, not one per site),
@@ -17,9 +18,17 @@ Ported: sync barrier rounds with Algorithm-2 dropout, the robust rules
 (a per-round row buffer for the rank rules, ``normclip`` before the fold),
 upload sanitation (``max_upload_norm``, non-finite uploads), the round
 deadline, downlink compression with per-site held references on the
-device, leases and late joiners, and server-side checkpoints.  Buffered
-scheduling, secure aggregation and the ``CoordinationServer`` of
-decentralized FL are not.
+device, leases and late joiners, server-side checkpoints, and secure
+aggregation: masked uploads move to the device as int64 words in one copy,
+fold there as a sum modulo 2^64, and are unmasked once the barrier closes
+(:mod:`repro_torch.privacy.secure_agg`).  Buffered scheduling is not.
+
+``CoordinationServer`` is decentralized FL's coordinator: it never touches
+weights.  It tracks the sites' addresses and active status, pairs the
+active sites into (sender, receiver) roles each round with
+:func:`repro_torch.core.gossip.pair_sites`, and hands out the assignment;
+the sites then push models to each other directly.  It is host metadata
+only and runs no device code.
 """
 from __future__ import annotations
 
@@ -27,6 +36,7 @@ import threading
 import time
 from typing import Any, Dict, List, Optional, Set
 
+import numpy as np
 import torch
 
 from repro_torch import NotPorted
@@ -37,7 +47,9 @@ from repro_torch.comms.transport import Server, WireConfig, WireStats
 from repro_torch.core.agg_engine import (StreamingAccumulator, clip_tree_norm,
                                          parse_aggregator, robust_combine_trees,
                                          tree_all_finite, tree_l2_norm, tree_layout)
+from repro_torch.core.gossip import pair_sites
 from repro_torch.core.session import RoundScheduler, SyncScheduler
+from repro_torch.privacy import masked_values
 
 # what a malformed payload raises while it decodes (a device fault is none
 # of these, and reaches the site as an error reply, never a rejection)
@@ -84,9 +96,12 @@ class AggregationServer:
         self.device = _device(device)
         self.num_sites = num_sites
         self.aggregator = parse_aggregator(aggregator)
-        if secure_agg is not None:
-            raise NotPorted("secure_agg", "an AggregationServer with secure_agg",
-                            "plaintext uploads")
+        if self.aggregator.rank_based and secure_agg is not None:
+            raise ValueError(
+                f"aggregator {self.aggregator.name!r} is rank-based: it "
+                "must inspect individual site updates, which secure "
+                "aggregation's pairwise masks hide by design — use "
+                "normclip or fedavg with secure_agg")
         scheduler = scheduler or SyncScheduler()
         if not isinstance(scheduler, SyncScheduler):
             raise NotPorted("scheduler", repr(scheduler), "'sync'")
@@ -94,6 +109,12 @@ class AggregationServer:
         self.max_upload_norm = max_upload_norm
         self._rejected: Set[int] = set()
         self.rejected_uploads = 0
+        # secure aggregation (privacy.SecureAggState): masked words fold as
+        # a modular int64 sum; finalize repairs the pair seeds of scheduled
+        # sites that never arrived, then decodes the fixed point
+        self.secure_agg = secure_agg
+        self._masked_weight = 0.0
+        self._masked_round: Optional[int] = None
         self.weights = {i: (case_weights[i] if case_weights else 1.0)
                         for i in range(num_sites)}
         self.download_timeout = download_timeout
@@ -169,8 +190,15 @@ class AggregationServer:
                             timeout=self.download_timeout)
 
     def _finalize_buffer(self):
-        """Lock held.  The round's global: the rank rule over the row
-        buffer, or the normalized streaming sum."""
+        """Lock held.  The round's global: a masked round's unmasked
+        integer sum (repaired for scheduled-but-missing sites, decoded at
+        the weight total the uploads' meta carried), the rank rule over the
+        row buffer, or the normalized streaming sum."""
+        if self._masked_round is not None:
+            tree = self.secure_agg.unmask(self._acc.finalize_int(), self._masked_round,
+                                          set(self._folded), self._masked_weight)
+            self._masked_weight, self._masked_round = 0.0, None
+            return tree
         if self.aggregator.rank_based:
             rows = [self._rows[s] for s in sorted(self._rows)]
             self._rows = {}
@@ -279,12 +307,54 @@ class AggregationServer:
                 port=False)
         return self._plan
 
-    def _upload(self, meta, tree) -> bytes:
-        site = int(meta["site"])
-        if meta.get("masked"):
+    def _fold(self, site: int, meta, tree, masked: bool) -> bytes:
+        """Take the lock, re-check the upload's round and fold it: masked
+        words at weight 1 (the plaintext weight total rides the meta),
+        a rank rule's row into the buffer, else ``weight * discount``."""
+        with self._lock:
+            upload_round = int(meta.get("round", self._round + 1))
+            self._wait_for_upload_round(upload_round)
+            discount = self._discount(upload_round)
+            if discount is None:
+                return encode_message("ack", {"round": self._round, "stale": True}, None)
+            if site not in self._folded:
+                if self._folded and masked != (self._masked_round is not None):
+                    return encode_message("error", {"message": "mixed masked and plaintext "
+                                                               "uploads in one round"}, None)
+                if masked:
+                    self._acc.fold(tree, 1.0)
+                    self._masked_weight += float(meta.get("weight", self.weights[site]))
+                    self._masked_round = int(meta.get("mask_round", upload_round - 1))
+                elif self.aggregator.rank_based:
+                    self._rows[site] = tree
+                else:
+                    w = float(meta.get("weight", self.weights[site]))
+                    # the decoded upload is this handler's own buffer
+                    self._acc.fold(tree, w * discount, owned=True)
+                self._folded.add(site)
+                if self._first_fold_t is None:
+                    self._first_fold_t = time.time()
+            if self.registry is not None:            # an upload is a renewal
+                self.registry.renew(site)
+            self._last_scheduled = int(meta.get("active_sites", self.num_sites))
+            if self.scheduler.ready(len(self._folded), self._barrier_expected()):
+                self._on_ready()
+            return encode_message("ack", {"round": self._round, "stale": False}, None)
+
+    def _masked_upload(self, meta, tree) -> bytes:
+        """A secure-aggregation upload: its words go to the device in one
+        copy and fold unscaled; there is no plaintext to sanitize."""
+        if self.secure_agg is None:
             return encode_message("error", {"message": "masked upload to a server "
                                                        "without secure aggregation "
                                                        "configured"}, None)
+        return self._fold(int(meta["site"]), meta, masked_values(tree, device=self.device),
+                          masked=True)
+
+    def _upload(self, meta, tree) -> bytes:
+        site = int(meta["site"])
+        if meta.get("masked"):
+            return self._masked_upload(meta, tree)
         # decode outside the lock: only the staleness check and the
         # reference's snapshot need it; staleness is checked again before
         # the fold, in case the round advanced meanwhile
@@ -320,28 +390,7 @@ class AggregationServer:
             return self._reject_upload(site, "norm_outlier")
         if self.aggregator.name == "normclip":
             tree = clip_tree_norm(tree, self.aggregator.c)
-        with self._lock:
-            upload_round = int(meta.get("round", self._round + 1))
-            self._wait_for_upload_round(upload_round)
-            discount = self._discount(upload_round)
-            if discount is None:
-                return encode_message("ack", {"round": self._round, "stale": True}, None)
-            if site not in self._folded:
-                if self.aggregator.rank_based:
-                    self._rows[site] = tree
-                else:
-                    w = float(meta.get("weight", self.weights[site]))
-                    # the decoded upload is this handler's own buffer
-                    self._acc.fold(tree, w * discount, owned=True)
-                self._folded.add(site)
-                if self._first_fold_t is None:
-                    self._first_fold_t = time.time()
-            if self.registry is not None:            # an upload is a renewal
-                self.registry.renew(site)
-            self._last_scheduled = int(meta.get("active_sites", self.num_sites))
-            if self.scheduler.ready(len(self._folded), self._barrier_expected()):
-                self._on_ready()
-            return encode_message("ack", {"round": self._round, "stale": False}, None)
+        return self._fold(site, meta, tree, masked=False)
 
     def _handle(self, kind, meta, tree):
         if kind == "upload":
@@ -397,4 +446,71 @@ class AggregationServer:
             self._reaper.join(timeout=2)
         if self._deadline_thread is not None:
             self._deadline_thread.join(timeout=2)
+        self.server.stop()
+
+
+class CoordinationServer:
+    """Decentralized FL coordinator: metadata and pairing only (Fig 4).
+
+    ``register`` records a site's address, ``status_update`` its active
+    flag, and ``get_assignment`` returns round ``r``'s pairing, generated
+    once per round in round order from ``np.random.default_rng(seed)`` and
+    kept for ``keep_assignments`` rounds, so a lagging site never gets the
+    pairing of a later round.  It waits (up to 60 s) for every site to
+    register before the first pairing."""
+
+    def __init__(self, host: str, port: int, num_sites: int, seed: int = 0,
+                 keep_assignments: int = 64, wire: Optional[WireConfig] = None):
+        self.num_sites = num_sites
+        self.rng = np.random.default_rng(seed)
+        self.keep_assignments = keep_assignments
+        self._lock = threading.Condition()
+        self._sites: Dict[int, Dict[str, Any]] = {}         # site -> {addr, active}
+        self._assignments: Dict[int, Dict[str, Any]] = {}   # round -> assignment
+        self._next_round = 1
+        self.server = Server(host, port, self._handle, wire=wire).start()
+        self.addr = self.server.addr
+
+    def _handle(self, kind, meta, tree):
+        if kind == "register":
+            with self._lock:
+                self._sites[int(meta["site"])] = {"addr": tuple(meta["addr"]), "active": True}
+                self._lock.notify_all()
+            return encode_message("ack", {}, None)
+        if kind == "status_update":            # Algorithm 1 "send status update"
+            with self._lock:
+                site = int(meta["site"])
+                if site in self._sites:
+                    self._sites[site]["active"] = bool(meta["active"])
+            return encode_message("ack", {}, None)
+        if kind == "get_assignment":           # Algorithm 1, coordinator side
+            want_round = int(meta["round"])
+            with self._lock:
+                self._lock.wait_for(lambda: len(self._sites) == self.num_sites, timeout=60)
+                while self._next_round <= want_round:
+                    active = np.array([self._sites[i]["active"]
+                                       for i in range(self.num_sites)])
+                    partner, is_recv, is_send = pair_sites(active, self.rng)
+                    self._assignments[self._next_round] = {
+                        "round": self._next_round,
+                        "partner": partner.tolist(),
+                        "is_receiver": is_recv.tolist(),
+                        "is_sender": is_send.tolist(),
+                        "active": active.tolist(),
+                        "addresses": {str(i): list(self._sites[i]["addr"])
+                                      for i in range(self.num_sites)},
+                    }
+                    self._next_round += 1
+                for old in [k for k in self._assignments
+                            if k < self._next_round - self.keep_assignments]:
+                    del self._assignments[old]
+                asg = self._assignments.get(want_round)
+                if asg is None:
+                    return encode_message(
+                        "error", {"message": f"assignment for round {want_round} "
+                                             f"already pruned"}, None)
+                return encode_message("assignment", asg, None)
+        raise ValueError(f"unknown rpc {kind!r}")
+
+    def stop(self):
         self.server.stop()

@@ -17,9 +17,10 @@ kernel on CUDA), ``krum:f`` and ``normclip:c`` in plain PyTorch, as the
 reference leaves them to XLA.
 
 The socket server's side is here too: :class:`StreamingAccumulator` (the
-O(N) running Eq. 1 sum, on the server's device), the upload sanitation
-checks and :func:`robust_combine_trees` (the rank rules over a round's
-uploads, stacked into ``[k, N]``).
+O(N) running Eq. 1 sum, on the server's device, and secure aggregation's
+modular int64 fold), the upload sanitation checks and
+:func:`robust_combine_trees` (the rank rules over a round's uploads,
+stacked into ``[k, N]``).
 
 Ported: the flat FedAvg path, the flat robust rules and the socket
 server's fold.  Pods are not (the job rejects that seam).
@@ -244,20 +245,40 @@ def ravel(tree) -> torch.Tensor:
     if isinstance(tree, torch.Tensor) and tree.dim() == 1:
         return tree
     leaves = tree_leaves(tree)
-    first = leaves[0]
-    if all(isinstance(x, torch.Tensor) for x in leaves):
-        offset, base = first.storage_offset(), first.untyped_storage().data_ptr()
-        ok = True
-        for x in leaves:
-            if (x.dtype != torch.float32 or not x.is_contiguous() or x.device != first.device
-                    or x.untyped_storage().data_ptr() != base or x.storage_offset() != offset):
-                ok = False
-                break
-            offset += x.numel()
-        if ok:
-            return first.as_strided((offset - first.storage_offset(),), (1,))
+    flat = _one_buffer(leaves, torch.float32)
+    if flat is not None:
+        return flat
     return torch.cat([torch.as_tensor(np.asarray(x) if not isinstance(x, torch.Tensor) else x)
                       .reshape(-1).float() for x in leaves])
+
+
+def _one_buffer(leaves, dtype: torch.dtype) -> Optional[torch.Tensor]:
+    """The flat buffer that ``leaves`` are consecutive ``dtype`` views of,
+    or None."""
+    first = leaves[0]
+    if not all(isinstance(x, torch.Tensor) for x in leaves):
+        return None
+    offset, base = first.storage_offset(), first.untyped_storage().data_ptr()
+    for x in leaves:
+        if (x.dtype != dtype or not x.is_contiguous() or x.device != first.device
+                or x.untyped_storage().data_ptr() != base or x.storage_offset() != offset):
+            return None
+        offset += x.numel()
+    return first.as_strided((offset - first.storage_offset(),), (1,))
+
+
+def ravel_words(tree) -> torch.Tensor:
+    """ONE tree of int64 tensors (masked fixed-point words) -> its flat [N]
+    buffer: the leaves' own buffer where they are consecutive views of one,
+    else a concatenation (never a cast)."""
+    if isinstance(tree, torch.Tensor) and tree.dim() == 1:
+        return tree
+    leaves = tree_leaves(tree)
+    if any(x.dtype != torch.int64 for x in leaves):
+        raise TypeError("masked words are int64 tensors, got "
+                        f"{sorted({str(x.dtype) for x in leaves})}")
+    flat = _one_buffer(leaves, torch.int64)
+    return flat if flat is not None else torch.cat([x.reshape(-1) for x in leaves])
 
 
 def unravel(flat: torch.Tensor, layout: RavelLayout):
@@ -406,7 +427,13 @@ class StreamingAccumulator:
     (``owned=True``, every decoded upload) is scaled in place.  A lock
     guards the fold, so handler threads may fold concurrently.  The sums
     follow the reference's numpy fold: ``x * fp32(w)`` rounded, then added,
-    and ``finalize`` multiplies by ``fp32(1 / total weight)``."""
+    and ``finalize`` multiplies by ``fp32(1 / total weight)``.
+
+    A masked (secure-aggregation) round folds trees of int64 words instead:
+    at weight 1 only, as exact ``int64`` additions whose two's-complement
+    wrap gives the reference's modular ``uint64`` sum bit for bit; it
+    finalizes through :meth:`finalize_int` and
+    :meth:`~repro_torch.privacy.secure_agg.SecureAggState.unmask`."""
 
     def __init__(self):
         import threading
@@ -418,18 +445,30 @@ class StreamingAccumulator:
 
     def fold(self, tree, weight: float, owned: bool = False) -> None:
         w = float(np.float32(weight))
-        x = ravel(tree)
         layout = tree_layout(tree)
-        x = x.mul_(w) if owned and x.dtype == torch.float32 else x.float() * w
+        if tree_leaves(tree)[0].dtype == torch.int64:
+            # any float scaling would destroy the masks' cancellation: the
+            # site weights ride the upload meta and divide out at unmask
+            if w != 1.0:
+                raise ValueError(f"integer (masked) uploads fold at weight 1.0, got {w}")
+            x = ravel_words(tree)
+        else:
+            x = ravel(tree)
+            x = x.mul_(w) if owned and x.dtype == torch.float32 else x.float() * w
         with self._lock:
             if self._acc is None:
                 self._layout, self._acc = layout, x if owned else x.clone()
             else:
-                if layout.shapes != self._layout.shapes:
+                if layout.shapes != self._layout.shapes or x.dtype != self._acc.dtype:
                     raise ValueError("upload tree structure changed mid-round")
                 self._acc.add_(x)
             self._weight_total += float(weight)
             self.count += 1
+
+    @property
+    def is_integer(self) -> bool:
+        """True when the buffered round is a masked (fixed-point) one."""
+        return self._acc is not None and self._acc.dtype == torch.int64
 
     def finalize(self):
         """Normalize by the folded weight total and return the global tree
@@ -437,8 +476,22 @@ class StreamingAccumulator:
         with self._lock:
             if self._acc is None:
                 return None
+            if self.is_integer:
+                raise ValueError("masked integer rounds finalize via "
+                                 "finalize_int() + SecureAggState.unmask()")
             acc = self._acc.mul_(float(np.float32(1.0 / self._weight_total)))
             tree = unravel(acc, self._layout)
+            self._layout, self._acc = None, None
+            self._weight_total, self.count = 0.0, 0
+        return tree
+
+    def finalize_int(self):
+        """The raw modular sum of a masked round, unnormalized (int64 views
+        of one buffer); resets the accumulator."""
+        with self._lock:
+            if self._acc is None:
+                return None
+            tree = unravel(self._acc, self._layout)
             self._layout, self._acc = None, None
             self._weight_total, self.count = 0.0, 0
         return tree

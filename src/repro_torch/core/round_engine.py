@@ -145,7 +145,8 @@ def run_sync(job, bundle, scheduler, rounds: int, init_params=None,
                 "download_count": uploads, "compression": "none",
                 "down_compression": "none", "simulated": True}
     return recorder.result(global_params, transport="stacked",
-                           scheduler=scheduler.name, state=state, comm=comm)
+                           scheduler=scheduler.name, state=state, comm=comm,
+                           privacy=job.privacy_report(rounds))
 
 
 # ---------------------------------------------------------------------------
@@ -380,4 +381,5 @@ def run_compressed(job, bundle, scheduler, rounds: int, codec: Codec,
             "down_compression": down_codec.name if down else "none",
             "simulated": True}
     return recorder.result(engine.unflatten(ref, layout), transport="stacked",
-                           scheduler=scheduler.name, state=state, comm=comm)
+                           scheduler=scheduler.name, state=state, comm=comm,
+                           privacy=job.privacy_report(rounds))

@@ -103,6 +103,9 @@ class JobResult:
     # uploads the socket server rejected (non-finite, norm outliers,
     # undecodable); 0 on the stacked transport
     rejected_uploads: int = 0
+    # the privacy mechanisms' settings (FederatedJob.privacy_report); None
+    # when none is on
+    privacy: Optional[Dict[str, Any]] = None
 
     @property
     def losses(self) -> List[float]:
@@ -156,8 +159,10 @@ class RoundRecorder:
 
     def result(self, global_params, *, transport: str, scheduler: str,
                state=None, comm=None, resumed_from: Optional[int] = None,
-               rejected_uploads: int = 0) -> JobResult:
+               rejected_uploads: int = 0,
+               privacy: Optional[Dict[str, Any]] = None) -> JobResult:
         return JobResult(history=self.history, global_params=global_params,
                          wall_s=time.time() - self._t0, transport=transport,
                          scheduler=scheduler, state=state, comm=comm,
-                         resumed_from=resumed_from, rejected_uploads=rejected_uploads)
+                         resumed_from=resumed_from, rejected_uploads=rejected_uploads,
+                         privacy=privacy)

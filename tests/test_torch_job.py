@@ -53,6 +53,7 @@ def test_fedavg_trajectory_matches_jax_job(scenario):
     assert float(diff.median()) <= 1e-6
     assert float((diff > 1e-4).float().mean()) < 0.01
     assert tres.comm == jres.comm
+    assert tres.privacy is jres.privacy is None
 
 
 def test_history_holds_each_rounds_times_and_on_round_sees_each_round():
@@ -76,20 +77,25 @@ def test_job_runs_on_cuda_by_default_and_raises_without_it(monkeypatch):
     assert FederatedJob().torch_device == torch.device("cuda")
 
 
+# a case whose seam has since been ported names another seam still
+# unported, under the id it always had
 @pytest.mark.parametrize("seam,kw", [
     ("scheduler", dict(scheduler="buffered")),
-    ("strategy", dict(strategy="fedprox", transport="thread")),
+    pytest.param("topology", dict(strategy="fedprox", transport="thread", topology="pods:2"),
+                 id="strategy-kw1"),
     ("compression", dict(compression="fp8")),
     ("down_compression", dict(down_compression="topk-fixed")),
     ("dp", dict(dp_clip=1.0)),
     ("device_data", dict(device_data=True)),
     ("adversary", dict(adversary="noise:1:1")),
-    ("strategy", dict(strategy="fedprox", aggregator="median", transport="thread")),
+    pytest.param("dp", dict(strategy="fedprox", aggregator="median", transport="thread",
+                            dp_clip=1.0), id="strategy-kw7"),
     ("topology", dict(topology="pods:2", aggregator="median")),
     ("topology", dict(topology="pods:2")),
     ("shard_sites", dict(shard_sites=True)),
     ("task", dict(task=TaskConfig(kind="tokens"))),
-    ("strategy", dict(compression="int8", strategy="gcml", transport="tcp")),
+    pytest.param("compression", dict(compression="fp8", strategy="gcml", transport="tcp"),
+                 id="strategy-kw12"),
 ])
 def test_unported_seams_raise_a_typed_error(seam, kw):
     job = FederatedJob(task=TaskConfig(**TASK), rounds=1, device="cpu").replace(**kw)

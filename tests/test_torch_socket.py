@@ -43,6 +43,8 @@ torch = pytest.importorskip("torch")
 
 import jax  # noqa: E402
 
+from _torch_jax_helpers import assert_globals_close, reference_init, tree_paths  # noqa: E402
+
 from repro.api import FederatedJob as JJob  # noqa: E402
 from repro.api import TaskConfig as JTask  # noqa: E402
 from repro.comms import compression as jcomp  # noqa: E402
@@ -430,36 +432,9 @@ def test_server_rules_match_the_jax_server(kw):
 # Jobs
 # ---------------------------------------------------------------------------
 
-def _paths(tree, prefix=""):
-    if isinstance(tree, dict):
-        for k in sorted(tree):
-            yield from _paths(tree[k], f"{prefix}/{k}")
-    elif isinstance(tree, list):
-        for i, v in enumerate(tree):
-            yield from _paths(v, f"{prefix}/{i}")
-    else:
-        yield prefix, tree
-
-
-def _assert_globals_close(got, want, noise_bound):
-    """rtol 2e-3, atol 2e-4 everywhere but the GroupNorm-fed conv biases,
-    which are held to ``noise_bound`` (see the module docstring)."""
-    for (path, a), (_, b) in zip(_paths(got), _paths(want)):
-        a, b = np.asarray(a), np.asarray(b)
-        if path.endswith(("/conv1/b", "/conv2/b")):
-            assert float(np.abs(a - b).max()) <= noise_bound, path
-        else:
-            np.testing.assert_allclose(a, b, rtol=2e-3, atol=2e-4, err_msg=path)
-
-
 PAYLOAD_KEYS = ("site_payload_bytes", "upload_raw_bytes", "download_payload_bytes",
                 "download_raw_bytes", "upload_count", "download_count", "compression",
                 "down_compression", "simulated")
-
-
-def _init(jjob):
-    return convert.from_reference(jax.tree.map(
-        np.asarray, jjob.task.build().init_fn(jax.random.PRNGKey(jjob.seed))))
 
 
 @pytest.mark.parametrize("codec,extra", [
@@ -467,13 +442,18 @@ def _init(jjob):
     pytest.param("int8", dict(sample="uniform:2"), id="int8-sampled"),
     pytest.param("none", dict(aggregator="median", max_upload_norm=1e3, round_deadline_s=30.0),
                  id="median"),
-    pytest.param("none", dict(strategy="individual"), id="individual")])
+    pytest.param("none", dict(strategy="individual"), id="individual"),
+    pytest.param("none", dict(strategy="fedprox", prox_mu=0.5, local_steps=2), id="fedprox"),
+    pytest.param("int8", dict(strategy="fedprox", prox_mu=0.5), id="fedprox-int8"),
+    pytest.param("none", dict(strategy="fedprox", prox_mu=0.5, aggregator="median",
+                              max_upload_norm=1e3), id="fedprox-median")])
 def test_thread_job_matches_jax_thread_job(codec, extra):
     kw = dict(rounds=3, seed=0, max_dropout=1, transport="thread",
               compression=codec, down_compression=codec, **extra)
     jjob = JJob(task=JTask(**TINY), **kw)
     jres = jjob.run()
-    tres = FederatedJob(task=TaskConfig(**TINY), device=CPU, **kw).run(init_params=_init(jjob))
+    tres = FederatedJob(task=TaskConfig(**TINY), device=CPU,
+                        **kw).run(init_params=reference_init(jjob))
     assert min(h["active"] for h in jres.history) < 3       # a masked round ran
     assert len(tres.history) == len(jres.history) == 3
     for th, jh in zip(tres.history, jres.history):
@@ -484,8 +464,9 @@ def test_thread_job_matches_jax_thread_job(codec, extra):
         assert tres.comm.get(k) == jres.comm.get(k), k
     assert tres.comm == jres.comm      # framing too: the same frames (individual: None)
     assert tres.rejected_uploads == jres.rejected_uploads == 0
+    assert tres.privacy is jres.privacy is None
     want = convert.from_reference(jax.tree.map(np.asarray, jres.global_params))
-    _assert_globals_close(tres.global_params, want, jjob.lr * jjob.rounds)
+    assert_globals_close(tres.global_params, want, jjob.lr * jjob.rounds)
 
 
 def test_reference_transports_exceed_their_bound_only_on_groupnorm_fed_biases():
@@ -498,8 +479,8 @@ def test_reference_transports_exceed_their_bound_only_on_groupnorm_fed_biases():
     thread, stacked = jjob.run(), jjob.replace(transport="stacked").run()
     beyond = []
     for (path, a), (_, b) in zip(
-            _paths(convert.from_reference(jax.tree.map(np.asarray, thread.global_params))),
-            _paths(convert.from_reference(jax.tree.map(np.asarray, stacked.global_params)))):
+            tree_paths(convert.from_reference(jax.tree.map(np.asarray, thread.global_params))),
+            tree_paths(convert.from_reference(jax.tree.map(np.asarray, stacked.global_params)))):
         a, b = a.numpy(), b.numpy()
         if np.any(np.abs(a - b) > 2e-4 + 2e-3 * np.abs(b)):
             beyond.append(path)
@@ -563,6 +544,44 @@ def test_thread_job_resumes_from_its_checkpoints(tmp_path):
         FederatedJob(rounds=1, **kw).run(resume=True)
 
 
+def test_fedprox_thread_job_resumes_with_its_anchor(tmp_path):
+    """FedProx's Eq. 2 anchor is checkpointed with the site: the resumed
+    rounds pull toward the anchor the killed run held (two local steps, so
+    the pull is nonzero), and reproduce the uninterrupted run."""
+    kw = dict(task=TaskConfig(**{**TINY, "sites": 2}), seed=0, device=CPU, strategy="fedprox",
+              prox_mu=0.5, local_steps=2, transport="thread", ckpt_every=1)
+    ref = FederatedJob(rounds=3, **kw).run()
+    job = FederatedJob(rounds=3, checkpoint_dir=str(tmp_path), **kw)
+    job.run(rounds=2)
+    res = job.run(rounds=3, resume=True)
+    assert res.resumed_from == 1 and len(res.history) == 1
+    np.testing.assert_allclose(res.losses, ref.losses[2:], rtol=1e-5)
+    for a, b in zip(tree_leaves(res.global_params), tree_leaves(ref.global_params)):
+        np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.parametrize("codec", ["none", "int8"])
+def test_fedprox_site_anchor_is_the_installed_global(codec, monkeypatch):
+    """After every download a FedProx site's anchor is the global it
+    installed, bit for bit: each round's first local step (one a round)
+    starts from the install, so its parameters equal the anchor.  Under
+    int8 downloads the install is the site's decoded copy."""
+    from repro_torch.core.agg_engine import ravel
+    from repro_torch.core.strategies.fedprox import FedProxLocal
+    seen = []
+    extra = FedProxLocal.local_loss_extra
+
+    def spy(self, params_site, strat_state, ctx):
+        seen.append(torch.equal(ravel(params_site).detach(), strat_state["global"]))
+        return extra(self, params_site, strat_state, ctx)
+
+    monkeypatch.setattr(FedProxLocal, "local_loss_extra", spy)
+    res = FederatedJob(task=TaskConfig(**TINY), rounds=3, seed=0, device=CPU, strategy="fedprox",
+                       transport="thread", compression=codec, down_compression=codec).run()
+    assert len(seen) == 9 and all(seen), seen
+    assert res.comm["download_count"] == 9
+
+
 def test_individual_and_robust_socket_jobs_run():
     base = FederatedJob(task=TaskConfig(**TINY), rounds=2, seed=0, device=CPU,
                         transport="thread")
@@ -573,14 +592,16 @@ def test_individual_and_robust_socket_jobs_run():
     assert med.rejected_uploads == 0 and med.comm["upload_count"] == 6
 
 
-# the unported socket seams name their seam; the refused compositions raise
-# the reference's ValueError on both packages
+# the unported socket seams name their seam (a case whose seam has since
+# been ported names another one still unported, under the id it always
+# had); the refused compositions raise the reference's ValueError on both
+# packages
 UNPORTED = [
     ("scheduler", dict(scheduler="buffered")),
-    ("strategy", dict(strategy="fedprox")),
-    ("strategy", dict(strategy="gcml")),
+    pytest.param("topology", dict(strategy="fedprox", topology="pods:2"), id="strategy-kw1"),
+    pytest.param("compression", dict(strategy="gcml", compression="fp8"), id="strategy-kw2"),
     ("topology", dict(topology="pods:2")),
-    ("secure_agg", dict(secure_agg=True)),
+    pytest.param("dp", dict(secure_agg=True, dp_clip=1.0), id="secure_agg-kw4"),
     ("dp", dict(dp_clip=1.0)),
     ("compression", dict(compression="fp8")),
     ("down_compression", dict(down_compression="topk-fixed")),

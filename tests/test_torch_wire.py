@@ -248,3 +248,52 @@ def test_port_model_encodes_the_reference_layout_bit_for_bit():
     assert dmeta == {"compression": "none", "delta": False}
     for a, b in zip(jax.tree.leaves(dense), jax.tree.leaves(params)):
         np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.parametrize("codec", ["none", "int8"])
+def test_p2p_push_bytes_equal_the_reference(codec, monkeypatch):
+    """A gossip push as a port site sends it (its row through the site's
+    wire plan, or its push compressor) is the reference site's frame byte
+    for byte for the same parameters (a seg SA-Net: conv weights OIDHW in
+    the port, DHWIO on the wire)."""
+    from repro.comms import transport as jtransport
+    from repro.comms.peer import Peer as JPeer
+    from repro_torch.api import TaskConfig
+    from repro_torch.api import _p2p_payload
+    from repro_torch.comms import transport as ttransport
+    from repro_torch.comms.peer import Peer as TPeer
+    port = TaskConfig(kind="seg", in_channels=1, num_classes=2, base_filters=4).build().init_fn(3)
+    params = convert.to_reference(port)
+    layout = tree_layout(port)
+    flat = ravel(port)
+    frames = {}
+
+    def spy(module, key):
+        encode = module.encode_message
+
+        def wrapped(kind, meta, tree):
+            out = encode(kind, meta, tree)
+            if kind == "model":
+                frames[key] = out
+            return out
+        monkeypatch.setattr(module, "encode_message", wrapped)
+
+    spy(jtransport, "jax")
+    spy(ttransport, "port")
+    peer_comp = (tcomp.UploadCompressor(tcomp.resolve_codec(codec))
+                 if codec != "none" else None)
+    edge = tcomp.WirePlan.of(layout, 1024, 1, CPU, port=True)
+    payload, meta = _p2p_payload(flat, edge, layout, peer_comp)
+    jpayload, jmeta = params, None
+    if codec != "none":
+        jpayload, jmeta = jcomp.UploadCompressor(jcomp.resolve_codec(codec)).encode(params)
+    for peer_cls, tree, m in ((TPeer, payload, meta), (JPeer, jpayload, jmeta)):
+        sender, receiver = peer_cls(1), peer_cls(2)
+        try:
+            sender.send_model(receiver.addr, tree, 3, meta_extra=m)
+            receiver.recv_model(timeout=10)
+        finally:
+            sender.close()
+            receiver.close()
+    assert frames["port"] == frames["jax"]
+    assert (meta is None) == (codec == "none")
