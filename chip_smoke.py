@@ -110,6 +110,21 @@ Phases, each of which fails the run (non-zero exit) if it goes wrong:
    job's ``wall_s``/``batch_s``/``step_s``, peak and launches printed; then
    small tcp jobs of the three seams (8^3, 2 rounds) held to their thread
    twins;
+16. two-tier pods and buffered rounds (``run_pods_and_buffered`` states
+   each check): on the stacked transport at full width, ``pods:2`` FedAvg
+   (its round-0 global and phase 3's flat one, from the same bits of
+   trained rows, each within its fp32 rounding bound of the exact mean; the
+   final global within phase 5b's bound of phase 3's; ``fedagg`` on [2, N]
+   once a round), ``trimmed:1`` a pod with ``pod_dropout=1`` (a whole pod
+   offline; ``trimmed_mean`` once a pod a round, held to the plain engine),
+   int8 both ways in two tiers (``quantize_int8``, ``dequantize_int8`` and
+   ``dequant_install`` bit-equal to their plain versions on the job's
+   chunks; intra-pod bytes phase 4's), and buffered rounds (dense, int8 on
+   the flat layout, int8 on the host loop: versions a host replay's, each
+   global the plain fold of its last version's arrivals); on the thread
+   transport ``pods:2`` int8, a buffered root, and secure aggregation at
+   both tiers (each partial and global the fixed point of its inputs); then
+   8^3 jobs on tcp and with a whole pod offline;
 9. the fourth slice's paths: serving the token models at full width
    through ``launch/serve.py`` (prefill, then greedy decode, fp32
    weights from a seed, TF32 off): gemma3-1b (26 layers, 4 x 1024
@@ -130,10 +145,10 @@ Phases, each of which fails the run (non-zero exit) if it goes wrong:
    off: the greedy tokens must be equal and the logits within
    rtol=atol=1e-4.
 
-Phases 11-15 run after phase 8, before 9.  Every kernel's launch count is
+Phases 11-16 run after phase 8, before 9.  Every kernel's launch count is
 zeroed just before each of phases 3-5b, 7, each path of 9 and each
-full-width job of 11-13 and 15, and read just after; each of 11-15 prints
-its seconds.  The second-to-last line is a
+full-width job of 11-13, 15 and 16, and read just after; each of 11-16
+prints its seconds.  The second-to-last line is a
 JSON object with one entry per kernel; the last line is ``{"ok": true,
 "device": {...}}``.  Without
 CUDA, or outside a checkout of the repository, it exits non-zero and
@@ -296,9 +311,11 @@ def check_fedagg(torch, fedagg, ref, dev) -> dict:
     """fedagg vs its plain version; returns its entry of the kernels line.
     The full-width cases are the paths' shapes: 4 OpenKBP and 4 BraTS
     sites, the pooled baseline's one row, a socket FedProx site's BraTS
-    anchor (one row) and GCML's 5 PanSeg sites."""
+    anchor (one row), GCML's 5 PanSeg sites and the cross-pod combine's two
+    pods (its second at weight 0: a pod offline).  Returns the [4, N] time
+    and, under ``pods_2``, the [2, N] one."""
     gen = torch.Generator(device=dev).manual_seed(0)
-    full = [(4, FULL_N), (1, FULL_N), (4, BRATS_N), (1, BRATS_N), (5, PANSEG_N)]
+    full = [(4, FULL_N), (1, FULL_N), (4, BRATS_N), (1, BRATS_N), (5, PANSEG_N), (2, FULL_N)]
     cases = full + [(s, n) for s in (1, 3, 16) for n in (1, 127, 65_537)]
     err32 = 0.0
     for s, n in cases:
@@ -324,7 +341,12 @@ def check_fedagg(torch, fedagg, ref, dev) -> dict:
     timing = measure(torch, f"fedagg [4, {FULL_N}] fp32", lambda: fedagg.fedagg_cuda(x, w),
                      lambda: ref.fedagg_ref(x, w), lambda: torch.matmul(w, x),
                      nbytes=(x.numel() + w.numel() + FULL_N) * 4, flops=2 * x.numel())
-    return {"max_abs_err": err32, **timing}
+    x2, w2 = x[:2].contiguous(), torch.tensor([0.75, 0.25], device=dev)
+    pods = measure(torch, f"fedagg [2, {FULL_N}] fp32 (the cross-pod combine)",
+                   lambda: fedagg.fedagg_cuda(x2, w2), lambda: ref.fedagg_ref(x2, w2),
+                   lambda: torch.matmul(w2, x2), nbytes=(x2.numel() + 2 + FULL_N) * 4,
+                   flops=2 * x2.numel())
+    return {"max_abs_err": err32, **timing, "pods_2": pods}
 
 
 def _int8_inputs(torch, dev, s, rows, c, gen):
@@ -562,12 +584,13 @@ def _check_result(torch, result, what: str) -> None:
              f"non-finite global parameters on {what}")
 
 
-def run_main_path(torch, FederatedJob, TaskConfig, build, task) -> dict:
+def run_main_path(torch, FederatedJob, TaskConfig, build, task):
     """The first slice's path: full-width FedAvg, uncompressed, with TF32
     convolutions (what the reference's XLA does with fp32 convolutions on
     this card; see ``models/sanet.py``); then the same job, from the same
     seeded initial parameters and batches, with fp32 convolutions, to
-    record how far the losses lie apart and what fp32 costs a round."""
+    record how far the losses lie apart and what fp32 costs a round.
+    Returns (the TF32 run's launches, its result: phase 16's yardstick)."""
     torch.backends.cudnn.allow_tf32 = True         # the port's choice, stated
     torch.backends.cuda.matmul.allow_tf32 = False  # PyTorch's default, stated
     print("main path: cudnn.allow_tf32=True, matmul.allow_tf32=False")
@@ -595,7 +618,7 @@ def run_main_path(torch, FederatedJob, TaskConfig, build, task) -> dict:
         print(f"main path round {tf['round']}: loss TF32 {tf['loss']:.6f} fp32 "
               f"{fp['loss']:.6f} (relative gap {gap:.3e}); step_s TF32 {tf['step_s']:.4f} "
               f"fp32 {fp['step_s']:.4f}")
-    return launches
+    return launches, result
 
 
 def run_int8_path(torch, FederatedJob, TaskConfig, build, task):
@@ -1773,6 +1796,646 @@ def run_serverless_private(torch, FederatedJob, TaskConfig, build, tasks, gossip
 # -- the token models' kernels and serving paths ---------------------------------
 
 
+# -- two-tier pods and buffered rounds (phase 16) --------------------------------
+
+TRIM_TOL = dict(rtol=1e-6, atol=1e-7)    # tests/test_torch_robust.py's
+PODS_SEED = 0     # the main path's seed: with pod_dropout=1 it takes pod 0 of
+                  # case b offline in rounds 1 and 2
+
+
+class _Spy:
+    """Wraps ``owner.name`` while the ``with`` block runs: each call goes to
+    the original, and ``calls`` gets ``(pre(args, kwargs), post(args,
+    kwargs, out))`` (``pre`` sees the inputs before the call may change
+    them)."""
+
+    def __init__(self, owner, name, pre=None, post=None):
+        self.owner, self.name, self.pre, self.post = owner, name, pre, post
+        self.calls = []
+
+    def __enter__(self):
+        self.orig = orig = getattr(self.owner, self.name)
+
+        def wrapper(*a, **k):
+            before = self.pre(a, k) if self.pre is not None else None
+            out = orig(*a, **k)
+            self.calls.append((before, self.post(a, k, out) if self.post is not None else None))
+            return out
+
+        setattr(self.owner, self.name, wrapper)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.owner, self.name, self.orig)
+
+
+def _flat(torch, tree):
+    return torch.cat([t.reshape(-1) for t in _leaves(tree)])
+
+
+def _rounding_check(torch, what, rows, w, got, bound_terms: int) -> float:
+    """``got`` [N] within ``bound_terms * 2^-24 * sum_s w_s |x_s|`` of the
+    exact (float64) weighted mean of ``rows`` [S, N] at normalized weights
+    ``w`` [S]; returns the largest |error| over the bound."""
+    x = rows.double()
+    wd = w.double()[:, None]
+    exact = (wd * x).sum(0)
+    bound = bound_terms * 2.0 ** -24 * (wd * x.abs()).sum(0) * (1 + 2.0 ** -20)
+    err = (got.double() - exact).abs()
+    _require(bool((err <= bound).all()), f"{what}: beyond its fp32 rounding bound")
+    return float((err / bound.clamp_min(1e-300)).max())
+
+
+def _hold_qdq(torch, what: str, u, plan, deq) -> list:
+    """``quantize_int8`` and ``dequantize_int8`` on ``plan``'s chunk
+    matrices of ``u`` bit-equal to their plain versions, and the job's
+    ``deq`` (its ``round_engine.qdq`` of ``u``) the kernels' decode; returns
+    the matrices' shapes."""
+    from repro_torch.kernels import quantize, ref
+    mats = []
+    for mat in plan.pack(u):
+        m2 = mat.reshape(-1, mat.shape[-1])
+        qk, sk = quantize.quantize_int8_cuda(m2)
+        qp, sp = ref.quantize_int8_ref(m2)
+        dk, dp = quantize.dequantize_int8_cuda(qk, sk), ref.dequantize_int8_ref(qp, sp)
+        _require(torch.equal(qk, qp) and _bits_equal(torch, sk, sp) and _bits_equal(torch, dk, dp),
+                 f"{what}: quantize/dequantize differ from the plain versions at "
+                 f"{tuple(m2.shape)}")
+        mats.append(dk.view(mat.shape))
+    _require(_bits_equal(torch, plan.unpack(mats), deq), f"{what}: the job's qdq is not the kernels'")
+    return [tuple(m.shape) for m in mats]
+
+
+def run_pods_stacked(torch, FederatedJob, TaskConfig, build, task, flat_main, int8_comm):
+    """Phase 16 a-c: ``pods:2`` on the stacked transport at full width.
+
+    a. FedAvg, 2 rounds, against phase 3's flat job.  cuDNN's deterministic
+       algorithms, here and for a 1-round flat twin, make round 0's trained
+       rows the same bits in both; each round-0 global is held to the exact
+       (float64) mean of those rows by its fp32 bound, ``(S + 3) * 2^-24 *
+       sum w|x|`` flat and ``(S + P + 6) * 2^-24 * sum w|x|`` in two tiers
+       (the one-hot product's and the cross-pod fold's roundings).  The
+       final global is held to phase 3's by the socket bound of phase 5b;
+       ``comm`` is ``simulated_pods_comm``'s; ``fedagg`` runs on [2, N] once
+       a round (the cross-pod combine) and once on the final rows.
+    b. ``Topology(pods, 2, assignment=(0, 0, 0, 1))`` under ``trimmed:1``
+       with ``pod_dropout=1``, ``max_dropout=1``, 3 rounds: a whole pod goes
+       offline; ``trimmed_mean`` once a pod a round (a pod without an active
+       member included: an all-zero mask), ``fedagg`` once a round on [2, N]
+       and once at the end; every round's two-tier global held to the plain
+       engine (``trimmed_mean_ref`` a pod, ``fedagg_ref``) on the same rows
+       by ``TRIM_TOL``.
+    c. int8 both ways, 2 rounds: the uploads quantized and dequantized a
+       chunk width at a time (not the fused ``fedagg_dequant``), folded in
+       two tiers; the intra-pod bytes equal phase 4's flat int8 job's, the
+       cross-pod bytes dense a pod a round; ``quantize_int8``,
+       ``dequantize_int8`` and ``dequant_install`` bit-equal to their plain
+       versions on the job's own last-round chunks.
+    Returns (case c's result, {case: launches})."""
+    import numpy as np
+    from repro_torch.core import round_engine
+    from repro_torch.core.agg_engine import AggregationEngine
+    from repro_torch.core.topology import Topology, simulated_pods_comm
+    from repro_torch.kernels import fedagg as fedagg_mod, ops, quantize, ref
+    out = {}
+    shapes = []
+    rows_of = _Spy(AggregationEngine, "aggregate_round",
+                   pre=lambda a, k: a[1].clone(), post=lambda a, k, o: o[1].clone())
+    # (a) the composition law at round 0, then the pods job to the end
+    torch.backends.cudnn.deterministic = True
+    try:
+        with rows_of, _Spy(ops, "fedagg", pre=lambda a, k: tuple(a[0].shape)) as shp:
+            _run_job(torch, FederatedJob, TaskConfig, build, task, FULL_N,
+                     "16a flat fedavg, round 0 (deterministic cuDNN)", rounds=1)
+            flat_rows, flat_g = rows_of.calls[-1]
+            shp.calls.clear()
+            res, launches, job = _run_job(torch, FederatedJob, TaskConfig, build, task, FULL_N,
+                                          "16a pods:2 fedavg", topology="pods:2",
+                                          seed=PODS_SEED)
+            shapes = [c[0] for c in shp.calls]
+    finally:
+        torch.backends.cudnn.deterministic = False
+    pods_rows, pods_g = rows_of.calls[-ROUNDS]
+    _require(torch.equal(flat_rows, pods_rows), "16a: round 0's trained rows differ")
+    w = torch.as_tensor(job.federation().case_weights(), device=pods_rows.device)
+    w = w / w.sum()
+    s, p = task["sites"], 2
+    r_flat = _rounding_check(torch, "16a flat round 0", flat_rows, w, flat_g, s + 3)
+    r_pods = _rounding_check(torch, "16a pods round 0", pods_rows, w, pods_g, s + p + 6)
+    gap = (flat_g - pods_g).abs()
+    print(f"16a round 0: flat and pods globals within {r_flat:.3f} and {r_pods:.3f} of their "
+          f"fp32 bounds of the exact mean; they differ on {int((gap > 0).sum())} of {FULL_N} "
+          f"elements, by at most {float(gap.max()):.3e}")
+    _held_to(torch, job, res, flat_main, "16a pods:2 fedavg against phase 3", FULL_N)
+    masks = job.masks(ROUNDS)
+    want_comm = simulated_pods_comm(job.topo, masks, DENSE_BYTES)
+    _require(res.comm == want_comm, f"16a comm {res.comm} != {want_comm}")
+    _expect_launches("16a pods:2 fedavg", launches, {"fedagg": ROUNDS + 1})
+    _require(shapes == [(p, FULL_N)] * ROUNDS + [(s, FULL_N)],
+             f"16a fedagg shapes {shapes}")
+    print(f"16a: fedagg launched {launches.get('fedagg', 0)} times, at {shapes}")
+    out["a"] = launches
+
+    # (b) a rank rule a pod, a whole pod offline
+    topo = Topology(kind="pods", num_pods=2, assignment=(0, 0, 0, 1))
+    robust = _Spy(AggregationEngine, "reduce_pods_robust",
+                  pre=lambda a, k: (a[1].clone(), np.asarray(a[2], bool).copy()),
+                  post=lambda a, k, o: o.clone())
+    with robust:
+        res, launches, job = _run_job(torch, FederatedJob, TaskConfig, build, task, FULL_N,
+                                      "16b pods trimmed:1, pod_dropout=1", rounds=3,
+                                      topology=topo, aggregator="trimmed:1", pod_dropout=1,
+                                      max_dropout=1, seed=PODS_SEED)
+    masks = job.masks(3)
+    pod_of = topo.pod_of(s)
+    offline = [r for r in range(3) if any(not masks[r][pod_of == q].any() for q in range(2))]
+    _require(bool(offline), f"16b: no round with a whole pod offline ({masks.tolist()})")
+    print(f"16b: masks {masks.astype(int).tolist()}; a whole pod offline in rounds {offline}")
+    _expect_launches("16b pods trimmed:1", launches, {"trimmed_mean": 2 * 3, "fedagg": 3 + 1})
+    worst = 0.0
+    for (rows, active), got in robust.calls:
+        members = [torch.as_tensor((pod_of == q) & active, device=rows.device).float()
+                   for q in range(2)]
+        parts = torch.stack([ref.trimmed_mean_ref(rows, m, 1) for m in members])
+        cnt = torch.stack([m.sum() for m in members])
+        want = ref.fedagg_ref(parts, cnt / (cnt.sum() + 1e-12))
+        torch.testing.assert_close(got, want, **TRIM_TOL)
+        worst = max(worst, float((got - want).abs().max()))
+    print(f"16b: {len(robust.calls)} two-tier globals within rtol 1e-6, atol 1e-7 of the plain "
+          f"engine on the card's rows (max |err| {worst:.3e})")
+    out["b"] = launches
+
+    # (c) int8 both ways in two tiers
+    qdq = _Spy(round_engine, "qdq", pre=lambda a, k: (a[0].clone(), a[1]),
+               post=lambda a, k, o: o.clone())
+    inst = _Spy(round_engine, "down_install", pre=lambda a, k: (a[0].clone(), a[1].clone(), a[2]),
+                post=lambda a, k, o: o.clone())
+    with qdq, inst:
+        res_c, launches, job = _run_job(torch, FederatedJob, TaskConfig, build, task, FULL_N,
+                                        "16c pods:2 int8 both ways", topology="pods:2",
+                                        compression="int8", down_compression="int8",
+                                        seed=PODS_SEED)
+    masks = job.masks(ROUNDS)
+    c = res_c.comm
+    cross = simulated_pods_comm(job.topo, masks, DENSE_BYTES)["cross_pod_upload_bytes"]
+    _require(c["intra_pod_upload_bytes"] == int8_comm["upload_bytes"]
+             and c["intra_pod_download_bytes"] == int8_comm["download_bytes"]
+             and c["cross_pod_upload_bytes"] == c["cross_pod_download_bytes"] == cross
+             == 2 * ROUNDS * DENSE_BYTES,
+             f"16c comm {c} against phase 4's {int8_comm}")
+    (u, plan), deq = qdq.calls[-1][0], qdq.calls[-1][1]
+    g_count = len(plan.groups)
+    _expect_launches("16c pods:2 int8", launches,
+                     {"quantize_int8": 2 * g_count * ROUNDS, "dequantize_int8": g_count * ROUNDS,
+                      "dequant_install": g_count * ROUNDS, "fedagg": 2 * ROUNDS})
+    shapes = _hold_qdq(torch, "16c", u, plan, deq)
+    (g, held, dplan), installed = inst.calls[-1]
+    parts = []
+    for d, h in zip(dplan.pack(g[None] - held), dplan.pack(held)):
+        n_s, rows, width = d.shape
+        qk, sk = quantize.quantize_int8_cuda(d.reshape(n_s * rows, width))
+        ik = fedagg_mod.dequant_install_cuda(qk.view(n_s, rows, width), sk.view(n_s, rows), h)
+        ip = ref.dequant_install_ref(qk.view(n_s, rows, width), sk.view(n_s, rows), h)
+        _require(_bits_equal(torch, ik, ip), "16c: dequant_install differs from the plain version")
+        parts.append(ik)
+    _require(_bits_equal(torch, dplan.unpack(parts), installed),
+             "16c: the job's install is not the kernel's")
+    print(f"16c: comm {c}; quantize_int8, dequantize_int8 and dequant_install bit-equal to "
+          f"their plain versions on the job's last-round chunks ({g_count} chunk widths, "
+          f"{shapes})")
+    out["c"] = launches
+    return res_c, out
+
+
+def _buffered_replay(masks, seed, sched):
+    """The buffered schedule replayed on the host from the scheduler's own
+    ``discount`` and ``ready``: per round its arrivals (site, folded,
+    fired) and the version after it."""
+    import numpy as np
+    rng = np.random.default_rng(seed + 13)
+    version, count = 0, 0
+    base = np.zeros(masks.shape[1], np.int64)
+    rounds, versions = [], []
+    for r in range(masks.shape[0]):
+        active = np.flatnonzero(masks[r])
+        arrivals, uploaded = [], []
+        for site in rng.permutation(active):
+            site = int(site)
+            if sched.discount(version - int(base[site])) is None:
+                base[site] = version
+                arrivals.append((site, False, False))
+                continue
+            count += 1
+            uploaded.append(site)
+            fire = sched.ready(count, len(active))
+            version, count = (version + 1, 0) if fire else (version, count)
+            arrivals.append((site, True, fire))
+        base[uploaded] = version
+        rounds.append(arrivals)
+        versions.append(version)
+    return rounds, versions
+
+
+def run_buffered_stacked(torch, FederatedJob, TaskConfig, build, task) -> dict:
+    """Phase 16 d: buffered FedAvg at full width, 3 rounds, ``buffer_k=2``,
+    ``max_dropout=1``: dense and int8 on the scan engine's schedule, and
+    int8 with ``max_staleness=16`` on the reference's host loop.  Each job's
+    recorded versions must equal a host replay of the schedule from the
+    scheduler's own ``discount`` and ``ready``, and its global the plain
+    float64 fold ``sum w d / sum w`` of the decoded arrivals of the last
+    version (recorded as the job folded them) within ``FP32_TOL``.
+    ``fedagg`` once (version 0); the int8 scan one ``quantize_int8`` and one
+    ``dequantize_int8`` an arrival (the flat layout: one chunk width), both
+    bit-equal to their plain versions on the last arrival's flat matrix,
+    whose decode must be the job's; the host loop ``quantize_int8`` once a
+    chunk width an upload and ``dequantize_int8`` twice (the residual, the
+    decode)."""
+    from repro_torch.comms.compression import chunk_geom
+    from repro_torch.core import round_engine
+    from repro_torch.core.agg_engine import StreamingAccumulator, ravel
+    from repro_torch.core.session import BufferedScheduler
+    groups = len(round_engine.ChunkPlan.of(_layout_of(TaskConfig, task), 1024, 128,
+                                           torch.device("cpu")).groups)
+    out = {}
+    cases = [("16d buffered dense", BufferedScheduler(buffer_k=2), {},
+              round_engine, "fold_arrival", lambda a, k: (a[1].clone(), float(a[2]))),
+             ("16d buffered int8 (scan)", BufferedScheduler(buffer_k=2),
+              {"compression": "int8"}, round_engine, "fold_arrival",
+              lambda a, k: (a[1].clone(), float(a[2]))),
+             ("16d buffered int8 (host loop)", BufferedScheduler(buffer_k=2, max_staleness=16),
+              {"compression": "int8"}, StreamingAccumulator, "fold",
+              lambda a, k: (ravel(a[1]).clone(), float(a[2])))]
+    for what, sched, kw, owner, name, pre in cases:
+        with _Spy(owner, name, pre=pre) as folds, \
+                _Spy(round_engine, "qdq", pre=lambda a, k: (a[0].clone(), a[1]),
+                     post=lambda a, k, o: o.clone()) as qdqs:
+            res, launches, job = _run_job(torch, FederatedJob, TaskConfig, build, task, FULL_N,
+                                          what, rounds=3, scheduler=sched, max_dropout=1,
+                                          seed=PODS_SEED, **kw)
+        masks = job.masks(3)
+        arrivals, versions = _buffered_replay(masks, job.seed, sched)
+        got_versions = [h["version"] for h in res.history]
+        _require(got_versions == versions, f"{what}: versions {got_versions} != {versions}")
+        fired = [a[2] for rnd in arrivals for a in rnd if a[1]]
+        _require(len(fired) == len(folds.calls), f"{what}: {len(folds.calls)} folds recorded, "
+                 f"{len(fired)} in the schedule")
+        last = max(i for i, f in enumerate(fired) if f)
+        first = max([i + 1 for i, f in enumerate(fired[:last]) if f] + [0])
+        d = torch.stack([folds.calls[i][0][0] for i in range(first, last + 1)]).double()
+        wts = torch.tensor([folds.calls[i][0][1] for i in range(first, last + 1)],
+                           dtype=torch.float64, device=d.device)
+        want = (wts[:, None] * d).sum(0) / wts.sum()
+        got = _flat(torch, res.global_params).double()
+        torch.testing.assert_close(got, want, **FP32_TOL)
+        folds_n = len(fired)
+        expect = {"fedagg": 1}
+        held = ""
+        if "compression" in kw and sched.max_staleness < 16:
+            expect.update(quantize_int8=folds_n, dequantize_int8=folds_n)
+            rows_f, c_f = chunk_geom(FULL_N, 1024, 1)
+            _require(res.comm["upload_bytes"] == folds_n * (rows_f * c_f + 4 * rows_f),
+                     f"{what}: comm {res.comm}")
+            _require(len(qdqs.calls) == folds_n,
+                     f"{what}: {len(qdqs.calls)} qdq calls for {folds_n} folds")
+            (u, plan), deq = qdqs.calls[-1]
+            shapes = _hold_qdq(torch, what, u, plan, deq)
+            _require(shapes == [(rows_f, c_f)], f"{what}: the flat layout is {shapes}, not "
+                     f"{[(rows_f, c_f)]}")
+            held = (f"; quantize_int8 and dequantize_int8 bit-equal to their plain versions "
+                    f"on the last arrival's flat {shapes[0]} matrix")
+        elif "compression" in kw:
+            expect.update(quantize_int8=groups * folds_n, dequantize_int8=2 * folds_n)
+        _expect_launches(what, launches, expect)
+        print(f"{what}: versions {got_versions} (the host replay's); {folds_n} folds; the "
+              f"global within fp32 rtol=atol=1e-6 of the plain fold of version "
+              f"{versions[-1]}'s {last + 1 - first} arrivals (max |err| "
+              f"{float((got - want).abs().max()):.3e}); comm {res.comm}{held}")
+        out[what] = launches
+    return out
+
+
+def _layout_of(TaskConfig, task):
+    from repro_torch.core.agg_engine import get_engine
+    from repro_torch.core.stacking import broadcast_to_sites
+    return get_engine().layout_of(broadcast_to_sites(TaskConfig(**task).build().init_fn(0), 1))
+
+
+def _tier_spies(torch):
+    """Spies on a socket pods job's servers: ``events`` gets, in each
+    server's order, ``("fold", server, site, weight, decoded, decode)`` for
+    every plaintext fold (``decode`` = the upload's payload, meta and
+    reference on the host, as the handler thread decoded it) and
+    ``("final", server, flat, weight)`` for every finalized buffer."""
+    import threading
+    from repro_torch.comms import compression
+    from repro_torch.comms.coordinator import AggregationServer
+    events, tl = [], threading.local()
+
+    def decoded(a, k, out):
+        ref = a[2]
+        tl.last = (a[0], dict(a[1]), None if ref is None else tree_map_cpu(ref))
+
+    def folded(a, k):
+        server, site, meta, tree = a[:4]
+        events.append(("fold", server, int(site),
+                       float(meta.get("weight", server.weights[site])), _flat(torch, tree),
+                       getattr(tl, "last", None)))
+        tl.last = None
+
+    def finalized(a, k, out):
+        if out[0] is not None:
+            events.append(("final", a[0], _flat(torch, out[0]), float(out[1])))
+
+    spies = [_Spy(compression, "decode_upload", post=decoded),
+             _Spy(AggregationServer, "_fold", pre=folded),
+             _Spy(AggregationServer, "_finalize_buffer", post=finalized)]
+    return spies, events
+
+
+def _hold_fold(torch, what: str, folds, got, weight: float) -> float:
+    """A server's finalized buffer ``got`` within the fp32 bound ``(3k +
+    2) * 2^-24 * sum w|x| / sum w`` of the exact (float64) fold of its
+    ``k`` decoded inputs at their weights (a product, a rounded weight and
+    a sum an input, the normalization), and its weight their sum."""
+    wts = [f[1] for f in folds]
+    _require(math.isclose(weight, sum(wts), rel_tol=1e-12),
+             f"{what}: weight {weight}, the folds' {sum(wts)}")
+    rows = torch.stack([f[2] for f in folds])
+    w = torch.tensor(wts, dtype=torch.float64, device=rows.device)
+    return _rounding_check(torch, what, rows, w / w.sum(), got, 3 * len(folds) + 2)
+
+
+def _elem_scales(torch, payload):
+    """Each element's quantization step in an int8 payload (0 for a dense
+    leaf): the payload decoded on the host with every q set to 1."""
+    import numpy as np
+    from repro_torch.comms.codec import QuantizedTensor
+    from repro_torch.comms.compression import decode_flat
+    from repro_torch.tree import tree_map
+    ones = tree_map(lambda x: QuantizedTensor(x.codec, x.shape, {
+        "q": np.ones_like(x.data["q"]), "scale": x.data["scale"]})
+        if isinstance(x, QuantizedTensor) else np.zeros_like(x), payload)
+    return decode_flat(ones, device="cpu")[0].double()
+
+
+def _hold_pod_tiers(torch, job, events, what: str) -> str:
+    """Both tiers of a socket pods job (sync tiers, plaintext) held to their
+    own inputs, from :func:`_tier_spies`' events:
+
+    - every upload a server decoded (sites' at their pod server, leaders'
+      at the root) bit-equal to its plain decode on the host
+      (``dequantize_int8``'s plain version, ``+`` the same reference);
+    - each pod's partial a round: folded from exactly its active members,
+      at their case weights, within :func:`_hold_fold`'s bound;
+    - each leader's upload, decoded at the root, within its quantization
+      error of its pod's partial: ``|x - p| <= (s_t + s_t-1) / 2`` (its
+      error-feedback residuals, this upload's and the last one's, at each
+      element's step; ``1 + 2^-15`` for the fp32 quotient inside ``rint``)
+      plus 2^-21 of the magnitudes;
+    - the root's global a round: folded from exactly the active pods, each
+      at its partial's weight, within :func:`_hold_fold`'s bound.
+    A dropped, doubled or misweighted upload or partial, or a wrong decode,
+    fails.  Returns a summary."""
+    import numpy as np
+    from repro_torch.comms.compression import WirePlan, align_for, decode_upload
+    from repro_torch.comms.pods import PodAggregationServer
+    from repro_torch.core.agg_engine import tree_layout
+    cpu = torch.device("cpu")
+    rounds, p = job.rounds, job.topo.num_pods
+    masks = job.masks(rounds)
+    pod_of = job.topo.pod_of(job.task.sites)
+    groups, pending = {}, {}
+    for ev in events:
+        if ev[0] == "fold":
+            pending.setdefault(ev[1], []).append(ev[2:])
+        else:
+            groups.setdefault(ev[1], []).append((pending.pop(ev[1], []), ev[2], ev[3]))
+    _require(not any(pending.values()), f"{what}: folds after a server's last finalize")
+    pods = sorted((s for s in groups if isinstance(s, PodAggregationServer)),
+                  key=lambda s: s.pod_id)
+    roots = [s for s in groups if not isinstance(s, PodAggregationServer)]
+    _require(len(pods) == p and len(roots) == 1, f"{what}: {len(pods)} pod servers and "
+             f"{len(roots)} roots finalized")
+    decodes = 0
+    for srv in groups:
+        for folds, _, _ in groups[srv]:
+            for _, _, x, (payload, meta, ref) in folds:
+                plan = WirePlan.of(tree_layout(payload), 1024, align_for(cpu), cpu, port=False)
+                want = _flat(torch, decode_upload(payload, meta, ref, plan=plan))
+                _require(_bits_equal(torch, x.cpu(), want),
+                         f"{what}: a server's decode differs from the plain decode")
+                decodes += 1
+    partials, worst = {}, 0.0
+    for srv in pods:
+        q = srv.pod_id
+        members = pod_of == q
+        active = [r for r in range(rounds) if (masks[r] & members).any()]
+        _require(len(groups[srv]) == len(active),
+                 f"{what}: pod {q} made {len(groups[srv])} partials for {len(active)} rounds")
+        for r, (folds, got, w) in zip(active, groups[srv]):
+            sites = sorted(f[0] for f in folds)
+            _require(sites == [int(i) for i in np.flatnonzero(masks[r] & members)],
+                     f"{what}: pod {q} round {r} folded sites {sites}")
+            worst = max(worst, _hold_fold(torch, f"{what} pod {q} round {r}", folds, got, w))
+            partials[(q, r)] = (got, w)
+    root = roots[0]
+    _require(len(groups[root]) == rounds, f"{what}: {len(groups[root])} root rounds")
+    prev = {}
+    for r, (folds, got, w) in enumerate(groups[root]):
+        pods_in = sorted(f[0] for f in folds)
+        _require(pods_in == [q for q in range(p) if (q, r) in partials],
+                 f"{what}: root round {r} folded pods {pods_in}")
+        for q, pw, x, (payload, meta, ref) in folds:
+            part, part_w = partials[(q, r)]
+            _require(pw == part_w, f"{what}: pod {q} round {r} at weight {pw}, its partial's "
+                     f"{part_w}")
+            sc = _elem_scales(torch, payload)
+            sc_prev = prev.get(q, torch.zeros_like(sc))
+            prev[q] = sc
+            pd = part.cpu().double()
+            mag = pd.abs() + sc + sc_prev
+            if ref is not None:
+                mag += _flat(torch, ref).double().abs()
+            bound = 0.5 * (sc + sc_prev) * (1 + 2.0 ** -15) + 2.0 ** -21 * mag
+            _require(bool(((x.cpu().double() - pd).abs() <= bound).all()),
+                     f"{what}: pod {q}'s upload in round {r} is not its partial")
+        worst = max(worst, _hold_fold(torch, f"{what} root round {r}", folds, got, w))
+    return (f"{decodes} server decodes bit-equal to the plain decode; {len(partials)} pod "
+            f"partials and {rounds} root globals each the fold of exactly its active inputs "
+            f"at their weights (within {worst:.3f} of the fp32 bound); each leader's upload "
+            f"within its int8 step of its pod's partial")
+
+
+def run_pods_sockets(torch, FederatedJob, TaskConfig, build, task, stacked_int8) -> dict:
+    """Phase 16 e-g on the thread transport at full width, 2 rounds.
+
+    e. ``pods:2`` int8 both ways: each tier held to its own inputs
+       (:func:`_hold_pod_tiers`: every server decode bit-equal to the plain
+       decode, every partial and root global the fp32 fold of exactly its
+       active inputs at their weights, each leader's upload within its int8
+       step of its partial).  The leaders re-upload their partials int8 (a
+       delta against the last root global they pulled, with their own error
+       feedback) where the stacked twin (case c) folds them dense in fp32,
+       so the global is held to case c's only within ``lr * rounds``
+       everywhere, and the count outside phase 5b's bound is printed; the
+       sites' payload bytes equal case c's intra-pod upload bytes; the root
+       folds one partial an active pod a round.
+    f. a sync pod tier under a buffered root (``buffer_k=2``), dense: the
+       reference's invariants (finite losses, every scheduled upload made,
+       one partial an active pod a round at the root, cross-pod bytes).
+    g. ``secure_agg`` at both tiers beside the plain pods job (cuDNN's
+       deterministic algorithms, so round 0's uploads are the same bits):
+       each round's partial a pod server unmasked, as its leader masks it
+       again, bit-equal to the host's mask-free fixed point of its sites'
+       uploads, and the root's global (site 0's download) bit-equal to the
+       fixed point of the leaders' partials; the final global held to the
+       plain pods job's by phase 5b's bound.
+    Returns {case: launches}."""
+    import numpy as np
+    from repro_torch.comms.peer import Peer
+    from repro_torch.comms.pods import PodTransport
+    from repro_torch.core.session import BufferedScheduler
+    from repro_torch.core.topology import Topology, active_pod_counts
+    from repro_torch.privacy import SecureAggClient
+    from repro_torch.privacy.secure_agg import FRAC_BITS, _fixed_point
+    out = {}
+    root_uploads = _Spy(PodTransport, "comm",
+                        pre=lambda a, k: a[0].root.stats.snapshot().get("upload", {}).get(
+                            "count", 0))
+    spies, events = _tier_spies(torch)
+    with root_uploads, spies[0], spies[1], spies[2]:
+        res, launches, job = _run_job(torch, FederatedJob, TaskConfig, build, task, FULL_N,
+                                      "16e thread pods:2 int8 both ways", transport="thread",
+                                      topology="pods:2", compression="int8",
+                                      down_compression="int8", seed=PODS_SEED)
+    print(f"16e: {_hold_pod_tiers(torch, job, events, '16e')}")
+    del events[:]
+    masks = job.masks(ROUNDS)
+    pods_rounds = int(active_pod_counts(job.topo, masks).sum())
+    worst, outside = _outside(res.global_params, stacked_int8.global_params)
+    print(f"16e: against case c: max |difference| {worst:.3e} (bound lr * rounds "
+          f"{job.lr * ROUNDS}); outside rtol 2e-3, atol 2e-4 (leaf, shape, count, max): "
+          f"{outside} ({sum(b for _, _, b, _ in outside)} of {FULL_N})")
+    _require(worst <= job.lr * ROUNDS, "16e: globals beyond lr * rounds of case c's")
+    _require(res.comm["site_payload_bytes"] == stacked_int8.comm["intra_pod_upload_bytes"],
+             f"16e: site payload {res.comm['site_payload_bytes']} != case c's intra-pod "
+             f"{stacked_int8.comm['intra_pod_upload_bytes']}")
+    _require(root_uploads.calls[-1][0] == pods_rounds,
+             f"16e: {root_uploads.calls[-1][0]} cross-pod uploads, {pods_rounds} expected")
+    print(f"16e: comm {res.comm}; {pods_rounds} cross-pod uploads")
+    out["e"] = launches
+
+    topo = Topology.pods(2, inter_scheduler=BufferedScheduler(buffer_k=2))
+    with root_uploads:
+        res, launches, job = _run_job(torch, FederatedJob, TaskConfig, build, task, FULL_N,
+                                      "16f thread pods:2, a buffered root", transport="thread",
+                                      topology=topo, seed=PODS_SEED)
+    c = res.comm
+    _require(c["upload_count"] == int(job.masks(ROUNDS).sum()) and c["cross_pod_upload_bytes"] > 0
+             and root_uploads.calls[-1][0] == pods_rounds
+             and all(s <= 1 for s in res.history[-1]["stale_uploads"]),
+             f"16f: comm {c}, root uploads {root_uploads.calls[-1][0]}, stale "
+             f"{res.history[-1]['stale_uploads']}")
+    out["f"] = launches
+
+    # (g) secure aggregation at both tiers, beside the plain pods job
+    ups, downs = {}, {}
+
+    def encode_pre(a, k):       # (client, tree, weight, participants, round_index)
+        client, tree, weight, _, round_index = a
+        ups[(client.tier, client.my_id, round_index + 1)] = (_flat_np(tree), float(weight))
+
+    def download_post(a, k, got):   # (peer, addr, round_index, ...)
+        if a[0].site_id == 0 and a[2]:
+            downs[a[2]] = _flat_np(got[0] if k.get("with_meta") else got)
+
+    torch.backends.cudnn.deterministic = True
+    try:
+        with _Spy(SecureAggClient, "encode", pre=encode_pre), \
+                _Spy(Peer, "download", post=download_post):
+            plain, p_launches, _ = _run_job(torch, FederatedJob, TaskConfig, build, task,
+                                            FULL_N, "16g thread pods:2", transport="thread",
+                                            topology="pods:2", seed=PODS_SEED)
+            downs.clear()
+            res, launches, job = _run_job(torch, FederatedJob, TaskConfig, build, task, FULL_N,
+                                          "16g thread pods:2 secure_agg", transport="thread",
+                                          topology="pods:2", secure_agg=True, seed=PODS_SEED)
+    finally:
+        torch.backends.cudnn.deterministic = False
+
+    def fixed_mean(pairs):
+        words = np.zeros(FULL_N, np.uint64)
+        for x, w in pairs:
+            words += _fixed_point(x, w)
+        w_tot = sum(w for _, w in pairs)
+        return (words.view(np.int64).astype(np.float64)
+                * (1.0 / (float(2 ** FRAC_BITS) * w_tot))).astype(np.float32)
+
+    pod_of = job.topo.pod_of(task["sites"])
+    for r in range(1, ROUNDS + 1):
+        for q in range(2):
+            sites = [int(i) for i in np.flatnonzero(pod_of == q)]
+            want = fixed_mean([ups[("site", i, r)] for i in sites])
+            _require(np.array_equal(ups[("pod", q, r)][0], want),
+                     f"16g round {r}: pod {q}'s partial is not the fixed point of its sites")
+        want = fixed_mean([ups[("pod", q, r)] for q in range(2)])
+        _require(np.array_equal(downs[r], want),
+                 f"16g round {r}: the root's global is not the fixed point of the partials")
+    print(f"16g: in each of {ROUNDS} rounds both pods' partials and the root's global "
+          f"bit-equal to the host's mask-free fixed point of their own inputs; privacy "
+          f"{res.privacy}")
+    _held_to(torch, job, res, plain, "16g pods secure_agg against the plain pods job", FULL_N)
+    out["g"] = {**p_launches, **launches}
+    return out
+
+
+def check_small_pods_jobs(torch, FederatedJob, TaskConfig) -> None:
+    """Phase 16 h at 8^3 (4 filters, TF32 off): a 2-site ``pods:2`` job on
+    the tcp transport held to the flat stacked job (a pod a site: the
+    two-tier mean is the flat one up to rounding), losses within
+    ``JOB_RTOL`` and the global within ``lr * rounds``; and a 4-site thread
+    ``pods:2`` job with ``pod_dropout=1`` whose schedule takes a whole pod
+    offline, which must end with finite losses and every scheduled upload
+    made."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    tiny = dict(kind="dose", batch=1, volume=(8, 8, 8), base_filters=4)
+    job = FederatedJob(task=TaskConfig(sites=2, **tiny), rounds=3)
+    flat, tcp = job.run(), job.replace(transport="tcp", topology="pods:2").run()
+    d = float((_flat(torch, flat.global_params) - _flat(torch, tcp.global_params)).abs().max())
+    print(f"16h tcp pods:2 (2 sites): losses {tcp.losses} against the flat stacked job's "
+          f"{flat.losses}; max |global difference| {d:.3e}; comm {tcp.comm}")
+    for a, b in zip(tcp.losses, flat.losses):
+        _require(math.isclose(a, b, rel_tol=JOB_RTOL, abs_tol=1e-6),
+                 f"16h tcp pods: loss {a} != flat {b}")
+    _require(d <= job.lr * job.rounds, "16h tcp pods: global beyond lr * rounds of flat")
+    job = FederatedJob(task=TaskConfig(sites=4, **tiny), rounds=3, transport="thread",
+                       topology="pods:2", pod_dropout=1, seed=3)
+    masks = job.masks(3)
+    _require(any(not m[:2].any() or not m[2:].any() for m in masks),
+             "16h: no whole pod offline")
+    res = job.run()
+    _require(all(math.isfinite(v) for v in res.losses)
+             and res.comm["upload_count"] == int(masks.sum()),
+             f"16h thread pods pod_dropout: losses {res.losses}, comm {res.comm}")
+    print(f"16h thread pods:2 pod_dropout=1: masks {masks.astype(int).tolist()}, losses "
+          f"{res.losses}, comm {res.comm}")
+
+
+def run_pods_and_buffered(torch, FederatedJob, TaskConfig, build, task, flat_main,
+                          int8_comm) -> dict:
+    """Phase 16: two-tier pods and buffered rounds at full width (a-g) and
+    small socket jobs (h); returns each path's launches."""
+    stacked_int8, launches = run_pods_stacked(torch, FederatedJob, TaskConfig, build, task,
+                                              flat_main, int8_comm)
+    launches.update(run_buffered_stacked(torch, FederatedJob, TaskConfig, build, task))
+    launches.update(run_pods_sockets(torch, FederatedJob, TaskConfig, build, task,
+                                     stacked_int8))
+    del stacked_int8
+    check_small_pods_jobs(torch, FederatedJob, TaskConfig)
+    return launches
+
+
 def _flash_inputs(torch, dev, case, dtype, gen):
     b, hq, hkv, lq, lk, d = case[:6]
     return (torch.randn(b, hq, lq, d, device=dev, generator=gen).to(dtype),
@@ -2151,9 +2814,11 @@ def main() -> int:
                "rwkv6_scan": check_rwkv6_scan(torch, dev),
                "mamba_scan": check_mamba_scan(torch, dev)}
 
-    main_launches = run_main_path(torch, FederatedJob, TaskConfig, build, OPENKBP_TASK)
+    main_launches, main_result = run_main_path(torch, FederatedJob, TaskConfig, build,
+                                               OPENKBP_TASK)
     int8_launches, int8_result = run_int8_path(torch, FederatedJob, TaskConfig, build,
                                                OPENKBP_TASK)
+    int8_comm = int8_result.comm
     check_codec(torch, build, int8_result.global_params)
     socket_launches = run_socket_path(torch, FederatedJob, TaskConfig, build, OPENKBP_TASK,
                                       int8_result)
@@ -2176,6 +2841,9 @@ def main() -> int:
     _timed("15 (small tcp jobs: gcml, fedprox, secure_agg)", check_small_socket_seams, *jobs,
            build)
     del gossip
+    p16 = _timed("16 (two-tier pods and buffered rounds)", run_pods_and_buffered, *jobs,
+                 build, OPENKBP_TASK, main_result, int8_comm)
+    del main_result
     serving_launches = run_serving_paths(torch, build)
     check_small_serving(torch, build)
 
@@ -2185,6 +2853,7 @@ def main() -> int:
     # token kernel on the serving path of its family (phase 15's paths
     # printed their own above)
     print(f"launches on phase 15's paths: {p15}")
+    print(f"launches on phase 16's paths: {p16}")
     print(smi)
     path_of = {"fedagg": main_launches, "quantize_int8": int8_launches,
                "fedagg_dequant": int8_launches, "dequant_install": int8_launches,

@@ -13,17 +13,22 @@ transport, sync rounds of the paper's strategy set: ``fedavg`` (Eq. 1),
 ``fedprox`` (Eq. 2), the ``individual`` and ``pooled`` baselines and
 ``gcml`` (gossip pairs and regional DCML, Eq. 3), FedAvg and FedProx
 uncompressed or with int8 uploads and/or downloads
-(``compression="int8"``, ``down_compression="int8"``); the socket deployment
+(``compression="int8"``, ``down_compression="int8"``), and buffered FedAvg
+rounds (``scheduler="buffered"`` or a ``BufferedScheduler``: FedBuff's
+K-of-S fold with a staleness discount, dense or int8); the socket deployment
 (``transport="thread" | "tcp"``: one site a thread or a process, real TCP
 round trips to an :class:`~repro_torch.comms.coordinator.AggregationServer`
 on the job's device, ``strategy="fedavg" | "fedprox" | "individual"``, sync
-rounds, int8 both ways, secure aggregation (``secure_agg=True``: pairwise
-masked fixed-point uploads), the wire's auth/TLS/streaming/faults, leases,
-``round_deadline_s``, ``max_upload_norm`` and ``run(resume=True)`` from a
-``checkpoint_dir``; and ``strategy="gcml"`` serverless: a
+or buffered rounds, int8 both ways, secure aggregation (``secure_agg=True``:
+pairwise masked fixed-point uploads), the wire's auth/TLS/streaming/faults,
+leases, ``round_deadline_s``, ``max_upload_norm`` and ``run(resume=True)``
+from a ``checkpoint_dir``; and ``strategy="gcml"`` serverless: a
 :class:`~repro_torch.comms.coordinator.CoordinationServer` pairs the sites
-and they push models to each other directly, dense or int8); the
-Byzantine-robust combine rules
+and they push models to each other directly, dense or int8); two-tier pods
+on both transports (``topology="pods:K"`` or a ``Topology``, whole-pod churn
+with ``pod_dropout``; on sockets a server a pod, leaders that re-upload
+their pod's partial to a root, per-tier schedulers and secure aggregation at
+both tiers); the Byzantine-robust combine rules
 (``aggregator="trimmed:f" | "median" | "krum:f" | "normclip:c"``), the
 seeded adversary (``adversary="sign_flip:f" | "scale:c:f" |
 "label_flip:f"``) and client sampling (``sample="uniform:K" |
@@ -53,9 +58,9 @@ import numpy as np
 import torch
 
 from repro_torch import NotPorted
-from repro_torch.comms.compression import (KEEP_GLOBALS_DEFAULT, Codec, UploadCompressor,
-                                           WirePlan, align_for, codec_name,
-                                           decode_download, decode_upload, resolve_codec,
+from repro_torch.comms.compression import (KEEP_GLOBALS_DEFAULT, Codec, GlobalPull,
+                                           UploadCompressor, WirePlan, align_for, codec_name,
+                                           decode_upload, edge_rounds, resolve_codec,
                                            tree_payload_nbytes)
 from repro_torch.comms.transport import WireConfig
 from repro_torch.configs.base import FederationConfig
@@ -66,9 +71,10 @@ from repro_torch.core.agg_engine import (AggregatorSpec, StreamingAccumulator,
 from repro_torch.core.sampling import (ClientSampler, compose_participation,
                                        resolve_sampler)
 from repro_torch.core.strategies.base import get_strategy
-from repro_torch.core.session import (JobResult, RoundRecorder, SyncScheduler,
-                                      availability_masks, resolve_scheduler,
-                                      scheduler_name)
+from repro_torch.core.session import (BufferedScheduler, JobResult, RoundRecorder,
+                                      RoundScheduler, SyncScheduler, availability_masks,
+                                      resolve_scheduler)
+from repro_torch.core.topology import FLAT, Topology, resolve_topology
 from repro_torch.optim import adamw
 from repro_torch.tree import tree_map
 
@@ -248,8 +254,8 @@ class FederatedJob:
     sample: str = "none"
     transport: str = "stacked"
     scheduler: Any = "sync"
-    topology: str = "flat"
-    pod_dropout: int = 0
+    topology: Union[str, Topology] = "flat"
+    pod_dropout: int = 0                # pod-tier Algorithm-2 churn (pods only)
     compression: Union[str, Codec] = "none"      # upload codec
     error_feedback: bool = True         # carry the quantization residual
     down_compression: Union[str, Codec] = "none"  # download codec
@@ -294,6 +300,10 @@ class FederatedJob:
         """Sites in the *training* federation (Pooled trains as 1 site
         over the concatenated data)."""
         return 1 if self.strategy == "pooled" else self.task.sites
+
+    @property
+    def topo(self) -> Topology:
+        return resolve_topology(self.topology)
 
     @property
     def mask_secret(self) -> str:
@@ -345,8 +355,6 @@ class FederatedJob:
         unported = [
             ("strategy", self.strategy not in strategies, self.strategy,
              ", ".join(repr(x) for x in strategies)),
-            ("topology", self.topology != "flat" or self.pod_dropout,
-             f"{self.topology!r}, pod_dropout={self.pod_dropout}", "'flat'"),
             ("dp", self.dp_clip > 0 or self.dp_noise_multiplier > 0,
              f"dp_clip={self.dp_clip}, noise={self.dp_noise_multiplier}", "off"),
             ("adversary", plan is not None and plan.kind == "noise", self.adversary,
@@ -366,7 +374,7 @@ class FederatedJob:
             value, default = getattr(owner, attr), _default(type(owner), attr)
             if value != default:
                 raise NotPorted(seam, f"{name}={value!r}", f"{name}={default!r}")
-        resolve_scheduler(self.scheduler)   # raises for buffered rounds
+        resolve_scheduler(self.scheduler)   # raises for an unknown name
         self.codecs()                   # raises for unported codecs
         if self.dropout_scenario not in ("disconnect", "shutdown"):
             raise ValueError(f"unknown dropout_scenario {self.dropout_scenario!r}")
@@ -379,15 +387,20 @@ class FederatedJob:
 
     def participation(self, rounds: int) -> Tuple[np.ndarray, np.ndarray]:
         """``(participate, scale)``: the [rounds, S] bool participation
-        schedule (Algorithm-2 availability intersected with the client
+        schedule (Algorithm-2 availability, the site tier's churn composed
+        with ``pod_dropout``'s pod tier, intersected with the client
         sampler's schedule) and the [rounds, S] float32 ``1/pi`` Eq. 1
         weight scale."""
+        if self.pod_dropout and not self.topo.is_pods:
+            raise ValueError("pod_dropout requires a pods topology "
+                             "(--topology pods:K)")
         if self.sampled and self.strategy == "pooled":
             raise ValueError("client sampling is meaningless for the "
                              "pooled centralized baseline; use sample="
                              "'none'")
         avail = availability_masks(self.task.sites, self.max_dropout,
-                                   self.seed, rounds)
+                                   self.seed, rounds, topology=self.topo,
+                                   pod_dropout=self.pod_dropout)
         return compose_participation(self.sampler, avail, self.seed)
 
     def masks(self, rounds: int) -> np.ndarray:
@@ -399,6 +412,15 @@ class FederatedJob:
         """[rounds, S] float32 Eq. 1 inclusion-probability factors; the
         rounds multiply them into the weights only when :attr:`sampled`."""
         return self.participation(rounds)[1]
+
+    def tier_schedulers(self) -> Tuple[RoundScheduler, RoundScheduler]:
+        """(intra-pod, cross-pod) schedulers: the topology's per-tier
+        overrides, else the job's scheduler at both tiers."""
+        topo = self.topo
+        return (resolve_scheduler(topo.intra_scheduler if topo.intra_scheduler is not None
+                                  else self.scheduler),
+                resolve_scheduler(topo.inter_scheduler if topo.inter_scheduler is not None
+                                  else self.scheduler))
 
     def federation(self, strategy: Optional[str] = None,
                    num_sites: Optional[int] = None) -> FederationConfig:
@@ -421,7 +443,9 @@ class FederatedJob:
         """The round loop's view of this job; ``strategy`` overrides the
         job's (the compressed rounds and the socket sites train under
         ``individual``) and ``num_sites`` the federation's size (a socket
-        site's 1-site view)."""
+        site's 1-site view).  The topology rides along on the whole
+        federation's view only: a socket site's tiering happens at its
+        aggregation point."""
         bundle = bundle or self.task.build()
         fed = self.federation(strategy, num_sites)
         device = self.torch_device
@@ -432,6 +456,8 @@ class FederatedJob:
             optimizer=adamw(self.lr, weight_decay=self.weight_decay),
             grad_clip=self.grad_clip, device=device,
             aggregator=self.aggregator_spec,
+            topology=(self.topo if num_sites is None and self.strategy != "pooled"
+                      else FLAT),
             # a local-only view (the compressed rounds) stays honest, as in
             # the reference
             adversary=self.adversary_plan if strategy is None else None)
@@ -488,9 +514,14 @@ class Transport:
 
 
 def _buffered(job: FederatedJob) -> bool:
-    """True when the job asks for buffered rounds (the flat topology's one
-    scheduler serves both of the reference's tiers)."""
-    return scheduler_name(job.scheduler) == "buffered"
+    """True when the job's own scheduler is buffered."""
+    return isinstance(resolve_scheduler(job.scheduler), BufferedScheduler)
+
+
+def _any_tier_buffered(job: FederatedJob) -> bool:
+    """True when either tier's scheduler is buffered (under the flat
+    topology both tiers are the job's)."""
+    return any(isinstance(t, BufferedScheduler) for t in job.tier_schedulers())
 
 
 def _validate_robustness(job: FederatedJob) -> None:
@@ -537,7 +568,7 @@ def _validate_robustness(job: FederatedJob) -> None:
                 f"centrally-aggregated uploads; strategy {job.strategy!r} "
                 "has no central combine — use fedavg/fedprox (or "
                 "aggregator='normclip:c', which gossip honors too)")
-        if _buffered(job):
+        if _any_tier_buffered(job):
             raise ValueError(
                 "rank-based robust rules need the round's uploads side "
                 "by side; a buffered scheduler folds each arrival into a "
@@ -555,7 +586,7 @@ def _validate_robustness(job: FederatedJob) -> None:
         raise ValueError(
             "normclip bounds uploads at a central fold (fedavg/fedprox) "
             f"or incoming gossip deltas (gcml), not {job.strategy!r}")
-    if job.round_deadline_s is not None and _buffered(job):
+    if job.round_deadline_s is not None and resolve_scheduler(job.scheduler).name != "sync":
         raise ValueError(
             "round_deadline_s bounds the sync barrier; scheduler "
             f"{job.scheduler!r} has no barrier to bound")
@@ -579,7 +610,7 @@ def _validate_down(job: FederatedJob) -> None:
             "the server materialize only the aggregate sum, while "
             "down_compression requires it to track what each site holds "
             "— disable one of them")
-    if _buffered(job):
+    if _buffered(job) or _any_tier_buffered(job):
         raise ValueError(
             "buffered-async sites pull whichever global version is "
             "newest out of the keep_globals ring, not a per-site "
@@ -627,10 +658,18 @@ def _validate_stacked(job: FederatedJob) -> None:
             "secure_agg masks real uploads between distrusting "
             "participants — there is no wire to protect inside the "
             "stacked simulator; run it on transport='thread' or 'tcp'")
-    if _pods(job) and job.strategy not in ("fedavg", "fedprox"):
-        raise ValueError(
-            "a pods topology needs a centrally-aggregated strategy "
-            f"(fedavg/fedprox), not {job.strategy!r}")
+    topo = job.topo
+    if topo.is_pods:
+        topo.validate(job.task.sites)
+        if job.strategy not in ("fedavg", "fedprox"):
+            raise ValueError(
+                "a pods topology needs a centrally-aggregated strategy "
+                f"(fedavg/fedprox), not {job.strategy!r}")
+        if _buffered(job) or _any_tier_buffered(job):
+            raise ValueError(
+                "the stacked simulator runs pods synchronously at both "
+                "tiers; buffered per-tier compositions run on the "
+                "thread/tcp transports")
     if _buffered(job) and job.strategy != "fedavg":
         raise ValueError("buffered-async scheduling currently supports "
                          f"fedavg only, not {job.strategy!r}")
@@ -644,7 +683,8 @@ def _validate_stacked(job: FederatedJob) -> None:
 
 class StackedTransport(Transport):
     """Single-process simulator: every site's state in one [S, N] buffer.
-    A job with a codec in either direction takes the compressed rounds."""
+    A job with a codec in either direction takes the compressed rounds, a
+    buffered scheduler the buffered rounds."""
 
     name = "stacked"
 
@@ -660,6 +700,13 @@ class StackedTransport(Transport):
         scheduler = resolve_scheduler(job.scheduler)
         codec, down_codec = job.codecs()
         from repro_torch.core import round_engine
+        if isinstance(scheduler, BufferedScheduler):
+            # int8 staleness past the decode ring takes the reference's host loop
+            run = (round_engine.run_buffered_host
+                   if codec.name != "none" and scheduler.max_staleness >= KEEP_GLOBALS_DEFAULT
+                   else round_engine.run_buffered)
+            return run(job, job.task.build(), scheduler, rounds, codec,
+                       init_params=init_params, on_round=on_round)
         if codec.name != "none" or down_codec.name != "none":
             return round_engine.run_compressed(
                 job, job.task.build(), scheduler, rounds, codec,
@@ -671,10 +718,6 @@ class StackedTransport(Transport):
 
 
 # -- socket transports (real Peer / AggregationServer) -------------------------
-
-
-def _pods(job: FederatedJob) -> bool:
-    return str(job.topology).startswith("pods")
 
 
 def _site_store(job: FederatedJob, site_id: int):
@@ -731,11 +774,23 @@ def _run_site(job: FederatedJob, site_id: int, agg_addr, coord_addr, rounds: int
     with the round's first local batch and validates on its last, and
     writes the merged row.  Its ``step_s`` includes that exchange.
 
+    Under a pods topology ``agg_addr`` maps each site to its pod's server,
+    and the site's barrier counts its pod's active members.  Under a
+    buffered scheduler at its tier, an upload carries the round of the
+    global the site last pulled (FedBuff's staleness anchor) and the site
+    then pulls whatever global is newest (``want = 0``).
+
     With a ``checkpoint_dir`` the site keeps its own store and, resumed at
     ``start_round > 0``, reloads round ``start_round - 1``; with a
     ``lease_ttl`` it holds a lease, and a late joiner adopts the join
     reply's global."""
     from repro_torch.comms.peer import Peer
+    if isinstance(agg_addr, dict):          # pods: this site's pod server
+        agg_addr = tuple(agg_addr[site_id])
+    # the scheduler a site meets is its aggregation point's (the intra tier)
+    buffered = isinstance(job.tier_schedulers()[0], BufferedScheduler)
+    pod_of = job.topo.pod_of(job.task.sites)
+    pod_members = pod_of == pod_of[site_id]
     dev = job.torch_device
     bundle = job.task.build()
     prox = job.strategy == "fedprox"
@@ -758,20 +813,20 @@ def _run_site(job: FederatedJob, site_id: int, agg_addr, coord_addr, rounds: int
                  if codec.name != "none" and pairing else None)
     down = down_codec.name != "none"
     edge = WirePlan.of(layout, getattr(codec, "chunk", 1024), align_for(dev), dev, port=True)
+    pull = GlobalPull(down, plan=edge)  # its reference: the last decoded download
     peer = Peer(site_id, wire=job.wire)
     sa = None                    # secure aggregation: this site's upload masker
     sa_bytes = sa_raw = sa_count = 0
     if job.secure_agg:
         from repro_torch.privacy import SecureAggClient
         sa = SecureAggClient(job.mask_secret, "site", site_id)
-        sa_weight = float(job.federation().case_weights()[site_id])
+        sa_weight = (1.0 if job.topo.intra == "uniform"
+                     else float(job.federation().case_weights()[site_id]))
     losses: List[float] = []
     times: List[Tuple[float, float]] = []        # (batch_s, step_s) a round
     base_round = start_round     # server round of the global this site holds
     stale_uploads = rejected_uploads = 0
     reference: Optional[torch.Tensor] = None     # last pulled global, port layout
-    down_ref = None              # last decoded download (wire layout, device)
-    down_acked: Optional[int] = None
     store = _site_store(job, site_id) if job.checkpoint_dir else None
     zeros = torch.zeros(layout.n, dtype=torch.float32, device=dev)
     hb = None
@@ -794,9 +849,9 @@ def _run_site(job: FederatedJob, site_id: int, agg_addr, coord_addr, rounds: int
                 reference = t["reference"] if lmeta.get("has_reference") else None
                 comp.residual = t["residual"] if lmeta.get("has_residual") else None
             if down and lmeta.get("has_down_ref"):
-                down_ref = unravel(t["down_ref"], edge.wire)
+                pull.ref = unravel(t["down_ref"], edge.wire)
                 acked = lmeta.get("down_acked")
-                down_acked = int(acked) if acked is not None else None
+                pull.acked = int(acked) if acked is not None else None
         if job.lease_ttl and agg_addr is not None:
             from repro_torch.comms.membership import HeartbeatClient
             hb = HeartbeatClient(site_id, lambda k, m: peer.request(agg_addr, k, m),
@@ -850,28 +905,27 @@ def _run_site(job: FederatedJob, site_id: int, agg_addr, coord_addr, rounds: int
                 losses.append(float("nan"))
             times.append((t1 - t0, time.perf_counter() - t1))
             if agg_addr is not None and me_active:
+                upload_round, want = edge_rounds(buffered, r, base_round)
                 flat = _wire_row(state, adv, one)
                 cmeta = None
                 if sa is not None:
-                    # masked against the round's scheduled participants (every
+                    # masked against the round's scheduled barrier peers (every
                     # site replays the schedule; the server repairs any of
                     # them that never arrives)
                     payload = edge.host_tree(flat)
                     sa_raw += tree_payload_nbytes(payload)
-                    payload, cmeta = sa.encode(payload, sa_weight, np.flatnonzero(masks[r]), r)
+                    payload, cmeta = sa.encode(payload, sa_weight,
+                                               np.flatnonzero(masks[r] & pod_members), r)
                     sa_bytes += tree_payload_nbytes(payload)
                     sa_count += 1
                 elif comp is not None:
-                    # a reference older than the server's window is gone
-                    # there: re-send dense rather than an unfoldable delta
-                    if reference is not None and r + 1 - base_round >= KEEP_GLOBALS_DEFAULT:
-                        reference = None
-                    payload, cmeta = comp.encode(unravel(flat, layout), reference)
-                    cmeta["base_round"] = base_round if reference is not None else 0
+                    payload, cmeta = comp.encode_against(unravel(flat, layout), reference,
+                                                         base_round, upload_round)
                 else:
                     payload = edge.host_tree(flat)
-                ack = peer.upload(agg_addr, payload, r + 1,
-                                  active_sites=int(masks[r].sum()), meta_extra=cmeta)
+                ack = peer.upload(agg_addr, payload, upload_round,
+                                  active_sites=int(masks[r][pod_members].sum()),
+                                  meta_extra=cmeta)
                 if ack.get("rejected"):
                     # the server refused the fold: drop the residual, or it
                     # would re-inject the rejected content next round
@@ -880,16 +934,11 @@ def _run_site(job: FederatedJob, site_id: int, agg_addr, coord_addr, rounds: int
                         comp.residual = None
                 elif ack.get("stale"):
                     stale_uploads += 1
-                g, dmeta = peer.download(agg_addr, r + 1, with_meta=True, down=down,
-                                         acked_round=down_acked)
-                if g is not None:
-                    if down:
-                        down_ref = decode_download(g, dmeta, down_ref, plan=edge)
-                        down_acked = int(dmeta["round"])
-                        gflat = edge.to_port(ravel(down_ref))
-                    else:
-                        gflat = edge.to_port(edge.decode(g))
-                    base_round = int(dmeta["round"])
+                # buffered rounds have no barrier: pull the newest global
+                g, pulled = pull.pull(peer, agg_addr, want)
+                if g is not None:        # None only before a buffer first finalizes
+                    gflat = edge.to_port(ravel(g) if down else edge.decode(g))
+                    base_round = pulled
                     if comp is not None:
                         reference = gflat
                     state["params"][0].copy_(gflat)   # AdamW's moments are kept
@@ -903,13 +952,13 @@ def _run_site(job: FederatedJob, site_id: int, agg_addr, coord_addr, rounds: int
                     "reference": reference if reference is not None else zeros,
                     "residual": (comp.residual if comp is not None and comp.residual is not None
                                  else zeros),
-                    "down_ref": ravel(down_ref) if down_ref is not None else zeros,
+                    "down_ref": ravel(pull.ref) if pull.ref is not None else zeros,
                     "anchor": state["strategy"]["global"] if prox else zeros},
                     meta={"base_round": base_round,
                           "has_reference": reference is not None,
                           "has_residual": comp is not None and comp.residual is not None,
-                          "has_down_ref": down_ref is not None,
-                          "down_acked": down_acked})
+                          "has_down_ref": pull.ref is not None,
+                          "down_acked": pull.acked})
         streams = [c for c in (comp, peer_comp) if c is not None]
         return {"losses": losses, "times": times, "stale_uploads": stale_uploads,
                 "rejected_uploads": rejected_uploads,
@@ -974,7 +1023,9 @@ class _SocketTransport(Transport):
 
     A centrally aggregated strategy (fedavg, fedprox) gets an
     :class:`~repro_torch.comms.coordinator.AggregationServer` on the job's
-    device (with a ``SecureAggState`` under ``secure_agg``), a pairing
+    device (with a ``SecureAggState`` under ``secure_agg``), or under a pods
+    topology a :class:`~repro_torch.comms.pods.PodTransport` (a server a
+    pod, a root, a leader thread a pod; ``comm`` split by tier); a pairing
     strategy (gcml) a ``CoordinationServer``, ``individual`` neither.
     The history is assembled from the sites' reports after the run: a
     round's ``wall_s`` is the run's mean (the driver does not see remote
@@ -986,6 +1037,8 @@ class _SocketTransport(Transport):
     def execute(self, job: FederatedJob, rounds: int, init_params=None,
                 on_round=None, resume: bool = False) -> JobResult:
         # the reference's guards, word for word, before any NotPorted
+        scheduler = resolve_scheduler(job.scheduler)
+        topo = job.topo
         if job.shard_sites:
             raise ValueError("shard_sites=True shards the stacked "
                              "simulator's [S, N] buffer; socket transports "
@@ -998,12 +1051,12 @@ class _SocketTransport(Transport):
         if strategy.needs_pairing and job.max_dropout:
             raise ValueError("gossip under dropout needs coordinated status "
                              "updates; run it on the stacked transport")
-        if _pods(job) and job.strategy not in ("fedavg", "fedprox"):
+        if topo.is_pods and job.strategy not in ("fedavg", "fedprox"):
             raise ValueError(
                 "a pods topology needs a centrally-aggregated strategy "
                 f"(fedavg/fedprox), not {job.strategy!r}")
         if job.secure_agg:
-            if _buffered(job):
+            if _any_tier_buffered(job):
                 raise ValueError(
                     "secure aggregation cancels pairwise masks at a sync "
                     "barrier over the round's scheduled participants; "
@@ -1020,16 +1073,17 @@ class _SocketTransport(Transport):
                     f"uploads (fedavg/fedprox), not {job.strategy!r}")
         _validate_robustness(job)
         _validate_down(job)
-        if job.round_deadline_s is not None and _pods(job):
-            raise ValueError(
-                "round_deadline_s bounds the flat star's sync "
-                "barrier; per-tier pod deadlines are not wired — "
-                "use topology='flat'")
+        if job.round_deadline_s is not None:
+            if topo.is_pods:
+                raise ValueError(
+                    "round_deadline_s bounds the flat star's sync "
+                    "barrier; per-tier pod deadlines are not wired — "
+                    "use topology='flat'")
+            scheduler = SyncScheduler(round_deadline_s=job.round_deadline_s)
         job.check_ported(self.name)
         if on_round is not None:
             raise ValueError("on_round needs the stacked transport: a socket "
                              "driver does not see the sites' rounds")
-        scheduler = SyncScheduler(round_deadline_s=job.round_deadline_s)
         fed = job.federation()
         num_sites = fed.num_sites
         dev = job.torch_device
@@ -1051,9 +1105,25 @@ class _SocketTransport(Transport):
             build.build(["quantize_int8", "dequantize_int8", "fedagg", "trimmed_mean"])
         recorder = job.recorder(rounds, num_sites)
         from repro_torch.comms.coordinator import AggregationServer, CoordinationServer
-        servers, agg, agg_addr, coord_addr = [], None, None, None
+        servers, agg, pod_stack, agg_addr, coord_addr = [], None, None, None, None
         try:
-            if not strategy.needs_pairing and job.strategy != "individual":
+            if topo.is_pods:
+                from repro_torch.comms.pods import PodTransport
+                intra_s, inter_s = job.tier_schedulers()
+                pod_stack = PodTransport(
+                    topo, num_sites, list(fed.case_weights()), job.masks(rounds), intra_s,
+                    inter_s, io_timeout=job.io_timeout, wire=job.wire,
+                    lease_ttl=job.lease_ttl, start_round=start_round,
+                    initial_global=initial_global, ckpt_store=recorder.store,
+                    ckpt_every=job.ckpt_every, codec=codec,
+                    error_feedback=job.error_feedback, aggregator=job.aggregator,
+                    max_upload_norm=job.max_upload_norm,
+                    down_codec=down_codec if down else None, initial_down=initial_down,
+                    mask_secret=job.mask_secret if job.secure_agg else None,
+                    device=dev).start()
+                servers.append(pod_stack)
+                agg_addr = pod_stack.site_addrs()
+            elif not strategy.needs_pairing and job.strategy != "individual":
                 sa_state = None
                 if job.secure_agg:
                     from repro_torch.privacy import SecureAggState
@@ -1082,9 +1152,13 @@ class _SocketTransport(Transport):
                 srv.stop()
         per_site = dict(results)
         dead = {i: p["error"] for i, p in per_site.items() if "error" in p}
+        if pod_stack is not None and pod_stack.leader_errors:
+            dead = {**dead, **{f"pod-leader-{p}": e
+                               for p, e in pod_stack.leader_errors.items()}}
         if dead:
-            # elastic (lease_ttl set): a dead site already left the barriers
-            if job.lease_ttl is None:
+            # elastic (lease_ttl set): a dead site already left the barriers;
+            # a dead pod leader (infrastructure) still fails the job
+            if job.lease_ttl is None or not all(isinstance(k, int) for k in dead):
                 raise RuntimeError(f"site workers failed: {dead}")
             if job.verbose:
                 print(f"elastic: finishing without failed sites {sorted(dead)}")
@@ -1094,7 +1168,10 @@ class _SocketTransport(Transport):
         site_raw = sum(p.get("upload_raw_bytes", 0) for p in per_site.values())
         site_count = sum(p.get("upload_count", 0) for p in per_site.values())
         comm = None
-        if agg is not None:
+        if pod_stack is not None:            # two tiers: the per-tier split
+            comm = {**pod_stack.comm(codec.name, down_codec.name),
+                    "site_payload_bytes": site_payload, "upload_raw_bytes": site_raw}
+        elif agg is not None:
             snap = agg.stats.snapshot()
             up_b = snap.get("upload", {}).get("in_bytes", 0)
             down_b = snap.get("download", {}).get("out_bytes", 0)
@@ -1149,10 +1226,11 @@ class _SocketTransport(Transport):
         if recorder.store is not None:       # the final global, in the wire's layout
             from repro_torch import convert
             recorder.store.save("global", rounds - 1, convert.to_reference(global_params))
+        rejected = (pod_stack.rejected_uploads if pod_stack is not None
+                    else agg.rejected_uploads if agg is not None else 0)
         return recorder.result(global_params, transport=self.name, scheduler=scheduler.name,
                                comm=comm, resumed_from=resumed_from,
-                               rejected_uploads=agg.rejected_uploads if agg else 0,
-                               privacy=job.privacy_report(rounds))
+                               rejected_uploads=rejected, privacy=job.privacy_report(rounds))
 
     def _run_workers(self, job, num_sites, agg_addr, coord_addr, rounds, start_round,
                      init_params):

@@ -434,16 +434,18 @@ class UploadCompressor:
     """One site's upload encoder: delta against the last pulled global, the
     error-feedback residual carried across rounds, and the codec.
 
-    The site's trees are the port's (conv weights OIDHW) on its device;
-    the payload is the reference's layout on the host (:class:`WirePlan`).
-    The residual ``u - deQ(Q(u))`` is computed on the device from the
-    device q and scales.  ``raw_bytes``/``encoded_bytes`` count fp32 and
-    payload bytes."""
+    The site's trees are the port's (conv weights OIDHW) on its device
+    (``port=False``: trees already in the wire's layout, as a pod leader's
+    partials are); the payload is the reference's layout on the host
+    (:class:`WirePlan`).  The residual ``u - deQ(Q(u))`` is computed on the
+    device from the device q and scales.  ``raw_bytes``/``encoded_bytes``
+    count fp32 and payload bytes."""
 
-    def __init__(self, codec: Codec, error_feedback: bool = True):
+    def __init__(self, codec: Codec, error_feedback: bool = True, port: bool = True):
         self.codec = codec
         self.error_feedback = error_feedback
-        self.residual: Optional[torch.Tensor] = None     # [N], the port's layout
+        self.port = port
+        self.residual: Optional[torch.Tensor] = None     # [N], the trees' layout
         self.raw_bytes = 0
         self.encoded_bytes = 0
         self.encodes = 0
@@ -452,7 +454,7 @@ class UploadCompressor:
         from repro_torch.core.agg_engine import ravel, tree_layout
         dev = ravel(params_tree).device
         return WirePlan.of(tree_layout(params_tree), getattr(self.codec, "chunk", 1024),
-                           align_for(dev), dev, port=True)
+                           align_for(dev), dev, port=self.port)
 
     def encode(self, params_tree: Any, reference: Any = None
                ) -> Tuple[Any, Dict[str, Any]]:
@@ -477,6 +479,61 @@ class UploadCompressor:
         self.encoded_bytes += tree_payload_nbytes(enc)
         self.encodes += 1
         return enc, {"compression": self.codec.name, "delta": delta}
+
+    def encode_against(self, params_tree: Any, reference: Any, base_round: int,
+                       upload_round: int) -> Tuple[Any, Dict[str, Any]]:
+        """An edge's upload for server round ``upload_round``: a delta
+        against ``reference``, the global of server round ``base_round``,
+        or dense once ``upload_round`` is ``KEEP_GLOBALS_DEFAULT`` or more
+        past it (the server no longer keeps that global to decode
+        against).  The meta carries ``base_round`` (0 for a dense upload)."""
+        if reference is not None and upload_round - base_round >= KEEP_GLOBALS_DEFAULT:
+            reference = None
+        payload, meta = self.encode(params_tree, reference)
+        meta["base_round"] = base_round if reference is not None else 0
+        return payload, meta
+
+
+def edge_rounds(buffered: bool, r: int, base_round: int) -> Tuple[int, int]:
+    """``(upload_round, want)`` of an edge (a site, or a pod leader) in loop
+    round ``r`` whose last pulled global is server round ``base_round``: a
+    sync server's round ``r + 1`` both ways; under a buffered scheduler the
+    upload carries the round after that pull (FedBuff's staleness anchor)
+    and the pull takes whatever global is newest (``want = 0``)."""
+    return (base_round + 1, 0) if buffered else (r + 1, r + 1)
+
+
+class GlobalPull:
+    """An edge's downloads of the global.  With a compressed downlink it
+    keeps the decode reference (its last decoded download: the wire's
+    layout on ``plan``'s device) and the round it acknowledges, so the
+    server can send the next download as a delta.  ``plan`` may be None:
+    it is then built from the first download, in the wire's layout on
+    ``device``."""
+
+    def __init__(self, down: bool, plan: Optional[WirePlan] = None, chunk: int = 1024,
+                 device=None):
+        self.down, self.plan, self.chunk, self.device = down, plan, chunk, device
+        self.ref: Any = None
+        self.acked: Optional[int] = None
+
+    def pull(self, peer, addr, want: int) -> Tuple[Any, Optional[int]]:
+        """``(global, server round)``: the decoded tree under a compressed
+        downlink, else the payload as received; ``(None, None)`` while the
+        server has no global (a buffered server before its first fold)."""
+        g, meta = peer.download(addr, want, with_meta=True, down=self.down,
+                                acked_round=self.acked)
+        if g is None:
+            return None, None
+        if self.down:
+            if self.plan is None:
+                from repro_torch.core.agg_engine import tree_layout
+                dev = torch.device(self.device)
+                self.plan = WirePlan.of(tree_layout(g), self.chunk, align_for(dev), dev,
+                                        port=False)
+            g = self.ref = decode_download(g, meta, self.ref, plan=self.plan)
+            self.acked = int(meta["round"])
+        return g, int(meta["round"])
 
 
 class DownlinkCompressor:

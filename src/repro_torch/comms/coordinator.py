@@ -1,6 +1,6 @@
 """Coordination and aggregation services (paper Figs 3 and 4, Algorithm 1),
-ported from ``repro/comms/coordinator.py``: the aggregation server's sync
-branch and the coordination server.
+ported from ``repro/comms/coordinator.py``: the aggregation server and the
+coordination server.
 
 ``AggregationServer`` folds each site's upload into a streaming Eq. 1
 accumulator as it arrives (one fp32 model of memory, not one per site),
@@ -14,14 +14,19 @@ reference`` for a delta, the sanitation checks and the fold, all on the
 device.  The server works in the wire's layout throughout (the
 reference's: conv weights DHWIO) and never needs the port's.
 
-Ported: sync barrier rounds with Algorithm-2 dropout, the robust rules
+Ported: sync barrier rounds with Algorithm-2 dropout, buffered rounds
+(FedBuff: a late upload folds at its staleness discount, a new global
+every ``buffer_k`` folds, decode references kept by version), the robust
+rules
 (a per-round row buffer for the rank rules, ``normclip`` before the fold),
 upload sanitation (``max_upload_norm``, non-finite uploads), the round
 deadline, downlink compression with per-site held references on the
 device, leases and late joiners, server-side checkpoints, and secure
 aggregation: masked uploads move to the device as int64 words in one copy,
 fold there as a sum modulo 2^64, and are unmasked once the barrier closes
-(:mod:`repro_torch.privacy.secure_agg`).  Buffered scheduling is not.
+(:mod:`repro_torch.privacy.secure_agg`).  The pod tier's server
+(:class:`repro_torch.comms.pods.PodAggregationServer`) is this one with
+its round advanced by its leader.
 
 ``CoordinationServer`` is decentralized FL's coordinator: it never touches
 weights.  It tracks the sites' addresses and active status, pairs the
@@ -39,7 +44,6 @@ from typing import Any, Dict, List, Optional, Set
 import numpy as np
 import torch
 
-from repro_torch import NotPorted
 from repro_torch.comms import compression
 from repro_torch.comms.codec import encode_message
 from repro_torch.comms.membership import LeaseRegistry
@@ -75,11 +79,14 @@ class AggregationServer:
     a bounded history of recent globals), or, under downlink compression,
     against the server's held copy of that site's install.
 
-    The :class:`SyncScheduler` keeps barrier semantics: a straggler's
-    upload for an earlier round is acked ``{"stale": true}`` and not
-    folded; a site that sat out rounds and uploads ahead waits for the
-    server to catch up.  ``device`` is where the server decodes, folds and
-    keeps its globals: ``None`` means CUDA."""
+    When to aggregate and at what weight is the scheduler's: the
+    :class:`SyncScheduler` keeps barrier semantics (a straggler's upload
+    for an earlier round is acked ``{"stale": true}`` and not folded; a
+    site that sat out rounds and uploads ahead waits for the server to
+    catch up), a :class:`~repro_torch.core.session.BufferedScheduler`
+    admits late uploads at a discount and finalizes after ``buffer_k``
+    arrivals.  ``device`` is where the server decodes, folds and keeps its
+    globals: ``None`` means CUDA."""
 
     def __init__(self, host: str, port: int, num_sites: int,
                  case_weights: Optional[List[float]] = None,
@@ -103,8 +110,6 @@ class AggregationServer:
                 "aggregation's pairwise masks hide by design — use "
                 "normclip or fedavg with secure_agg")
         scheduler = scheduler or SyncScheduler()
-        if not isinstance(scheduler, SyncScheduler):
-            raise NotPorted("scheduler", repr(scheduler), "'sync'")
         self._rows: Dict[int, Any] = {}
         self.max_upload_norm = max_upload_norm
         self._rejected: Set[int] = set()
@@ -148,7 +153,7 @@ class AggregationServer:
         if self.registry is not None:
             self._reaper = threading.Thread(target=self._reap, daemon=True)
             self._reaper.start()
-        self.round_deadline_s = scheduler.round_deadline_s
+        self.round_deadline_s = getattr(scheduler, "round_deadline_s", None)
         self._first_fold_t: Optional[float] = None
         self._deadline_stop = threading.Event()
         self._deadline_thread: Optional[threading.Thread] = None
@@ -190,24 +195,28 @@ class AggregationServer:
                             timeout=self.download_timeout)
 
     def _finalize_buffer(self):
-        """Lock held.  The round's global: a masked round's unmasked
-        integer sum (repaired for scheduled-but-missing sites, decoded at
-        the weight total the uploads' meta carried), the rank rule over the
-        row buffer, or the normalized streaming sum."""
+        """Lock held.  ``(tree, weight)``: a masked round's unmasked integer
+        sum (repaired for scheduled-but-missing sites, decoded at the
+        weight total the uploads' meta carried), the rank rule over the row
+        buffer (weight: the row count), or the normalized streaming sum
+        (weight: the folded total)."""
         if self._masked_round is not None:
             tree = self.secure_agg.unmask(self._acc.finalize_int(), self._masked_round,
                                           set(self._folded), self._masked_weight)
+            w = self._masked_weight
             self._masked_weight, self._masked_round = 0.0, None
-            return tree
+            return tree, w
         if self.aggregator.rank_based:
             rows = [self._rows[s] for s in sorted(self._rows)]
             self._rows = {}
-            return robust_combine_trees(rows, self.aggregator)
-        return self._acc.finalize()
+            return robust_combine_trees(rows, self.aggregator), float(len(rows))
+        w = self._acc.weight_total
+        return self._acc.finalize(), w
 
     def _on_ready(self):
-        """Lock held.  Finalize into a new global and advance the round."""
-        tree = self._finalize_buffer()
+        """Lock held.  Finalize into a new global and advance the round
+        (the pod tier's server makes a partial for its leader instead)."""
+        tree, _ = self._finalize_buffer()
         if tree is not None:
             self._global = tree
         # (None when every upload of the round was rejected: the current

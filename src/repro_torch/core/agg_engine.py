@@ -22,8 +22,12 @@ modular int64 fold), the upload sanitation checks and
 :func:`robust_combine_trees` (the rank rules over a round's uploads,
 stacked into ``[k, N]``).
 
-Ported: the flat FedAvg path, the flat robust rules and the socket
-server's fold.  Pods are not (the job rejects that seam).
+Under a pods topology the same buffer reduces in two tiers
+(:meth:`AggregationEngine.reduce_pods_flat`): the per-pod partial means
+are one ``[P, S] x [S, N]`` product (plain PyTorch in fp32, as the
+reference leaves it to XLA), and the cross-pod combine is ``fedagg`` on
+the ``[P, N]`` partials.  A rank rule runs once a pod, on that pod's
+active members (:meth:`AggregationEngine.reduce_pods_robust`).
 """
 from __future__ import annotations
 
@@ -122,15 +126,21 @@ def parse_aggregator(spec) -> AggregatorSpec:
                      "trimmed:f | median | krum:f | normclip:c)")
 
 
-def _gram_fp32(x: torch.Tensor) -> torch.Tensor:
-    """``x @ x.T`` in full fp32 whatever the global TF32 setting: with TF32
-    the products keep about three digits, which can change Krum's pick."""
+def _matmul_fp32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` in full fp32 whatever the global TF32 setting (the job
+    turns TF32 on for convolutions): with TF32 the products keep about
+    three digits, which can change Krum's pick or a pod's partial."""
     prev = torch.get_float32_matmul_precision()
     torch.set_float32_matmul_precision("highest")
     try:
-        return x @ x.T
+        return a @ b
     finally:
         torch.set_float32_matmul_precision(prev)
+
+
+def _gram_fp32(x: torch.Tensor) -> torch.Tensor:
+    """``x @ x.T`` in full fp32 (Krum's distances)."""
+    return _matmul_fp32(x, x.T)
 
 
 def krum_index(flat: torch.Tensor, active, f: int) -> torch.Tensor:
@@ -394,11 +404,105 @@ class AggregationEngine:
             flat[i].copy_(gflat)
         return gflat
 
+    def reduce_pods_flat(self, flat: torch.Tensor, case_weights: torch.Tensor, active,
+                         pod_ids, num_pods: int, intra: str = "fedavg",
+                         inter: str = "fedavg",
+                         scale: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """Two-tier Eq. 1 on [S, N] -> [N]: the rows reduce by pod id into
+        per-pod partial means (a one-hot [P, S] x [S, N] product in fp32,
+        TF32 off, for any assignment), then the partials combine across
+        pods through :meth:`reduce_flat` (``fedagg`` on [P, N]).
+
+        ``intra``/``inter`` pick each tier's rule: ``fedavg`` weights by
+        case count, ``uniform`` weights the tier's active members equally.
+        ``scale`` (client sampling's ``1/pi``) multiplies each member's
+        weight, so the pod totals carry the scaled mass up.  A pod without
+        an active member has a zero partial at weight 0."""
+        dev = flat.device
+        act = torch.as_tensor(np.asarray(active, bool), device=dev).float()
+        w = act if intra == "uniform" else case_weights.float() * act
+        if scale is not None:
+            w = w * torch.as_tensor(scale, device=dev).float()
+        pods = torch.as_tensor(np.asarray(pod_ids), device=dev)
+        onehot = (pods[None, :] == torch.arange(num_pods, device=dev)[:, None]).float()
+        wp = onehot * w[None, :]                                # [P, S]
+        pod_tot = torch.sum(wp, dim=1)                          # [P]
+        pod_mean = _matmul_fp32(wp / (pod_tot[:, None] + _EPS), flat.float())
+        pod_w = (pod_tot > 0).float() if inter == "uniform" else pod_tot
+        return self.reduce_flat(pod_mean, pod_w / (torch.sum(pod_w) + _EPS))
+
+    def reduce_pods_robust(self, flat: torch.Tensor, active, pod_ids, num_pods: int,
+                           spec: AggregatorSpec, inter: str = "fedavg") -> torch.Tensor:
+        """A rank rule at the intra-pod tier: each pod combines its own
+        active members' rows (one ``trimmed_mean`` launch a pod for trimmed
+        and median, Krum's pick for krum; a pod of k members trims at most
+        ``(k - 1) // 2``), then the partials combine weighted by active
+        member count (``inter="uniform"``: active pods equally).  A pod with
+        no active member gives a zero row at weight 0."""
+        act = np.asarray(active, bool)
+        pods = np.asarray(pod_ids)
+        members = [(pods == p) & act for p in range(num_pods)]
+        pod_mean = torch.stack([self.reduce_robust_flat(flat, m, spec) for m in members])
+        cnt = torch.tensor([float(m.sum()) for m in members], device=flat.device)
+        pod_w = (cnt > 0).float() if inter == "uniform" else cnt
+        return self.reduce_flat(pod_mean, pod_w / (torch.sum(pod_w) + _EPS))
+
+    def _pods_global(self, flat, case_weights, active, pod_ids, num_pods, intra, inter,
+                     scale, spec: AggregatorSpec) -> torch.Tensor:
+        if spec.rank_based:
+            return self.reduce_pods_robust(flat, active, pod_ids, num_pods, spec, inter)
+        if spec.name == "normclip":
+            flat = clip_rows(flat, spec.c)
+        return self.reduce_pods_flat(flat, case_weights, active, pod_ids, num_pods,
+                                     intra, inter, scale=scale)
+
+    def aggregate_pods(self, params_stacked, case_weights: torch.Tensor, pod_ids,
+                       num_pods: int, active=None, intra: str = "fedavg",
+                       inter: str = "fedavg", scale: Optional[torch.Tensor] = None,
+                       aggregator: Optional[AggregatorSpec] = None):
+        """Two-tier Eq. 1 (or a rank rule at the intra tier; ``normclip``
+        clips rows before the weighted tiers) on a stacked tree.  Returns
+        (new stacked params, global params) with the active sites holding
+        the global."""
+        s = tree_leaves(params_stacked)[0].shape[0]
+        if active is None:
+            active = np.ones((s,), bool)
+        flat, layout = self.flatten(params_stacked)
+        gflat = self._pods_global(flat, case_weights, active, pod_ids, num_pods, intra,
+                                  inter, scale, aggregator or FEDAVG_SPEC)
+        global_params = self.unflatten(gflat, layout)
+        mask = torch.as_tensor(np.asarray(active, bool))
+        return (where_site(mask, broadcast_to_sites(global_params, s), params_stacked),
+                global_params)
+
+    def aggregate_hierarchical(self, params_stacked, case_weights: torch.Tensor,
+                               sites_per_pod: int, active=None):
+        """:meth:`aggregate_pods` with contiguous pods of ``sites_per_pod``
+        sites (pod p owns sites ``[p * sites_per_pod, (p + 1) * sites_per_pod)``)."""
+        s = tree_leaves(params_stacked)[0].shape[0]
+        if sites_per_pod <= 0 or s % sites_per_pod:
+            raise ValueError(f"sites_per_pod={sites_per_pod} does not "
+                             f"divide {s} sites; pass an explicit "
+                             "assignment via aggregate_pods instead")
+        return self.aggregate_pods(params_stacked, case_weights,
+                                   np.arange(s) // sites_per_pod, s // sites_per_pod, active)
+
     def aggregate_round(self, flat: torch.Tensor, round_inputs, ctx):
         """Strategy ``post_exchange`` entry on the round loop's [S, N]
-        buffer; returns (the buffer, updated in place, and the global row)."""
-        gflat = self.aggregate_flat(flat, ctx.case_weights, round_inputs["active"],
-                                    round_inputs.get("weight_scale"), ctx.aggregator)
+        buffer, flat or two-tier as ``ctx.topology`` says; returns (the
+        buffer, updated in place, and the global row)."""
+        topo = ctx.topology
+        if not topo.is_pods:
+            gflat = self.aggregate_flat(flat, ctx.case_weights, round_inputs["active"],
+                                        round_inputs.get("weight_scale"), ctx.aggregator)
+            return flat, gflat
+        active = np.asarray(round_inputs["active"], bool)
+        gflat = self._pods_global(flat, ctx.case_weights, active,
+                                  topo.pod_of(flat.shape[0]), topo.num_pods, topo.intra,
+                                  topo.inter, round_inputs.get("weight_scale"),
+                                  ctx.aggregator)
+        for i in np.flatnonzero(active):
+            flat[i].copy_(gflat)
         return flat, gflat
 
 
@@ -464,6 +568,11 @@ class StreamingAccumulator:
                 self._acc.add_(x)
             self._weight_total += float(weight)
             self.count += 1
+
+    @property
+    def weight_total(self) -> float:
+        """The folded weight so far (a pod's partial carries it up)."""
+        return self._weight_total
 
     @property
     def is_integer(self) -> bool:

@@ -41,6 +41,7 @@ from repro_torch.core.adversary import AdversaryPlan
 from repro_torch.core.agg_engine import FEDAVG_SPEC, AggregatorSpec, get_engine
 from repro_torch.core.stacking import broadcast_to_sites
 from repro_torch.core.strategies import base as strat_base
+from repro_torch.core.topology import FLAT, Topology
 # strategy modules self-register on import
 from repro_torch.core.strategies import fedavg as _f  # noqa: F401
 from repro_torch.core.strategies import fedprox as _p  # noqa: F401
@@ -64,6 +65,7 @@ class FLContext:
     # DCML step reads both from it rather than running the network twice
     forward_fn: Optional[Callable] = None
     dcml_lr: Optional[float] = None            # GCML's DCML SGD step size
+    topology: Topology = FLAT                  # flat, or two tiers of pods
 
     def scalar_loss_fn(self, params, batch):
         return self.loss_fn(params, batch)[0]

@@ -1,10 +1,10 @@
-"""Sync rounds on the stacked transport, ported from ``repro/core/round_engine.py``.
+"""Rounds on the stacked transport, ported from ``repro/core/round_engine.py``.
 
 The reference compiles chunks of rounds into one donated ``lax.scan``
-(``_run_sync_scan``, ``_run_compressed_scan``).  PyTorch runs eagerly, so
-the port's counterpart is a plain round loop: host numpy batches for the
-round are moved to the device, one round runs, and the per-site losses
-come back.
+(``_run_sync_scan``, ``_run_compressed_scan``, ``_run_buffered_scan``).
+PyTorch runs eagerly, so the port's counterpart is a plain round loop:
+host numpy batches for the round are moved to the device, one round
+runs, and the per-site losses come back.
 
 - :func:`run_sync`: uncompressed rounds of every ported strategy:
   FedAvg and FedProx under the job's combine rule (Eq. 1 or a robust
@@ -17,11 +17,24 @@ come back.
   delta plus the carried error-feedback residual) is quantized and folded
   by :func:`compressed_fold`, and with downlink compression each site
   installs its quantized delta against the model it holds
-  (:func:`down_install`).
+  (:func:`down_install`).  Under a pods topology the uploads are
+  quantized and dequantized (:func:`qdq`) and folded in two tiers
+  (``reduce_pods_flat``) instead of by the fused ``fedagg_dequant``.
+- :func:`run_buffered`: FedBuff rounds of FedAvg, dense or int8 (the
+  reference's buffered scan).  Sites train, then arrive in a seeded
+  order; each admitted arrival folds at its staleness discount, and the
+  buffer becomes a new global version every ``buffer_k`` folds.  Which
+  arrival folds, rejects or fires is a function of the masks and the
+  arrival orders only, so the host works the schedule out
+  (:func:`buffered_schedule`) and the card runs the folds.
+- :func:`run_buffered_host`: the reference's host loop for int8 with a
+  ``max_staleness`` past the decode ring: the wire codec a site and a
+  version-keyed ring of globals.
 
-Both follow the job's participation schedule (Algorithm-2 availability
-intersected with client sampling) and, when sampling thins it, multiply
-its ``1/pi`` factors into the Eq. 1 weights.
+All follow the job's participation schedule (Algorithm-2 availability,
+the pod tier's churn composed in, intersected with client sampling) and,
+when sampling thins it, multiply its ``1/pi`` factors into the Eq. 1
+weights.
 
 Each round's history holds its own times: ``batch_s`` (host batch
 generation and the copy to the device), ``step_s`` (the round on the
@@ -31,18 +44,20 @@ from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Callable, Dict, List, Optional, Sequence, Tuple
+from collections import OrderedDict
+from typing import Callable, Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from repro_torch import convert
-from repro_torch.comms.compression import (KEEP_GLOBALS_DEFAULT, Codec,
+from repro_torch.comms.compression import (KEEP_GLOBALS_DEFAULT, Codec, UploadCompressor,
                                            align_for, chunk_geom)
 from repro_torch.core import federation as F
-from repro_torch.core.agg_engine import (RavelLayout, get_engine,
-                                         normalized_weights, per_site_nbytes)
-from repro_torch.core.session import JobResult
+from repro_torch.core.agg_engine import (RavelLayout, StreamingAccumulator, get_engine,
+                                         normalized_weights, per_site_nbytes, ravel, unravel)
+from repro_torch.core.session import BufferedScheduler, JobResult
+from repro_torch.core.topology import simulated_pods_comm
 from repro_torch.core.stacking import broadcast_to_sites
 from repro_torch.core.strategies.base import get_strategy
 from repro_torch.kernels import ops
@@ -137,7 +152,10 @@ def run_sync(job, bundle, scheduler, rounds: int, init_params=None,
     _round_loop(job, bundle, ctx, masks, recorder, step, on_round, pooled=pooled)
     global_params = F.global_model(state, ctx)
     comm = None
-    if job.strategy in ("fedavg", "fedprox"):
+    if job.strategy in ("fedavg", "fedprox") and ctx.topology.is_pods:
+        comm = simulated_pods_comm(ctx.topology, masks,
+                                   per_site_nbytes(broadcast_to_sites(global_params, 1)))
+    elif job.strategy in ("fedavg", "fedprox"):
         nbytes = per_site_nbytes(broadcast_to_sites(global_params, 1))
         uploads = int(np.asarray(masks).sum())
         comm = {"upload_bytes": uploads * nbytes, "download_bytes": uploads * nbytes,
@@ -172,7 +190,9 @@ class ChunkPlan:
     gather in all.  ``leaves`` gives each leaf's place in the matrices:
     ``(group, first row, rows, width)``.  ``reorder=False`` reads every
     leaf in its own order, for a buffer that already holds the reference's
-    layout (the wire's)."""
+    layout (the wire's).  ``whole=True`` chunks the whole buffer as ONE
+    leaf (in the reference's element order), as the reference's buffered
+    rounds chunk their flat vector."""
 
     groups: Tuple[Tuple[int, int, torch.Tensor], ...]
     scatter: torch.Tensor
@@ -180,16 +200,22 @@ class ChunkPlan:
 
     @classmethod
     def of(cls, layout: RavelLayout, chunk: int, align: int,
-           device: torch.device, reorder: bool = True) -> "ChunkPlan":
+           device: torch.device, reorder: bool = True, whole: bool = False) -> "ChunkPlan":
         by_width: Dict[int, List[np.ndarray]] = {}
         places = []
+        leaves = []
         for shape, offset in zip(layout.shapes, layout.offsets):
-            n = int(np.prod(shape, dtype=np.int64))
-            rows, width = chunk_geom(n, chunk, align)
-            idx = np.arange(offset, offset + n, dtype=np.int64)
+            idx = np.arange(offset, offset + int(np.prod(shape, dtype=np.int64)),
+                            dtype=np.int64)
             order = convert.reference_order(shape) if reorder else None
             if order is not None:
                 idx = idx.reshape(shape).transpose(order).reshape(-1)
+            leaves.append(idx)
+        if whole:
+            leaves = [np.concatenate(leaves)]
+        for idx in leaves:
+            n = idx.size
+            rows, width = chunk_geom(n, chunk, align)
             parts = by_width.setdefault(width, [])
             places.append((width, sum(p.size for p in parts) // width, rows))
             parts.extend([idx, np.full(rows * width - n, layout.n, np.int64)])
@@ -232,6 +258,18 @@ def compressed_fold(u: torch.Tensor, w: torch.Tensor,
         g_mats.append(g)
         r_mats.append(r)
     return plan.unpack(g_mats), plan.unpack(r_mats)
+
+
+def qdq(u: torch.Tensor, plan: ChunkPlan) -> torch.Tensor:
+    """``deQ(Q(u))`` for every row of ``u`` [.., N], chunked by ``plan``:
+    one ``quantize_int8`` and one ``dequantize_int8`` launch per chunk
+    width (the plain versions on the CPU).  ``u - qdq(u)`` is the residual
+    that ``fedagg_dequant`` gives, bit for bit."""
+    out = []
+    for mat in plan.pack(u):
+        q, sc = ops.quantize_int8(mat.reshape(-1, mat.shape[-1]))
+        out.append(ops.dequantize_int8(q, sc).view(mat.shape))
+    return plan.unpack(out)
 
 
 def down_install(g: torch.Tensor, held: torch.Tensor, plan: ChunkPlan) -> torch.Tensor:
@@ -296,7 +334,13 @@ def run_compressed(job, bundle, scheduler, rounds: int, codec: Codec,
     FedProx trains its local half (``fedprox-local``): its Eq. 2 anchor
     starts at the initial model and is re-pinned to each round's exact
     global ``g``, one anchor for every site even when each installs its
-    own quantized copy, as the reference's engine broadcasts it."""
+    own quantized copy, as the reference's engine broadcasts it.
+
+    Under a pods topology every fold is two-tier (``reduce_pods_flat``:
+    the site uploads' dequantized values, the anchors and the dense
+    uploads alike), so the uploads go through :func:`qdq` and not the
+    fused ``fedagg_dequant``; ``comm`` gains the per-tier split of
+    :func:`~repro_torch.core.topology.simulated_pods_comm`."""
     prox = job.strategy == "fedprox"
     ctx = job.context(bundle, strategy="fedprox-local" if prox else "individual")
     state = _init_state(job, bundle, ctx, init_params)
@@ -320,31 +364,46 @@ def run_compressed(job, bundle, scheduler, rounds: int, codec: Codec,
     res = torch.zeros((s, n), dtype=torch.float32, device=dev)
     held = torch.zeros((s, n), dtype=torch.float32, device=dev) if down else None
     boot_mask = bootstrap_masks(masks, KEEP_GLOBALS_DEFAULT) if down else None
+    topo = job.topo
+    pod_ids = topo.pod_of(s) if topo.is_pods else None
 
     def step(r, batches):
         nonlocal state, ref, res, held
         active = np.asarray(masks[r], bool)
         state, metrics = fl_round(state, batches, F.make_round_inputs(ctx, active))
         params = state["params"]
-        w = normalized_weights(ctx.case_weights, active,
-                               None if wscale is None else wscale[r])
+        scale = None if wscale is None else wscale[r]
+        w = normalized_weights(ctx.case_weights, active, scale)
         act = torch.as_tensor(active, device=dev)[:, None]
+
+        def fold(x):                       # Eq. 1 over [S, N]: flat or two-tier
+            if pod_ids is None:
+                return engine.reduce_flat(x, w)
+            return engine.reduce_pods_flat(x, ctx.case_weights, active, pod_ids,
+                                           topo.num_pods, topo.intra, topo.inter, scale)
+
+        def up_fold(u):                    # (global delta, residual)
+            if pod_ids is None:
+                return compressed_fold(u, w, plan)
+            deq = qdq(u, plan)
+            return fold(deq), u - deq
+
         if down:
             boot = torch.as_tensor(boot_mask[r], device=dev)[:, None]
             # upload anchor: the site's own install; a bootstrap row is dense
             anchor = torch.where(boot, torch.zeros_like(held), held)
             if up:
-                gdelta, new_res = compressed_fold(params - anchor + res, w, plan)
+                gdelta, new_res = up_fold(params - anchor + res)
                 if error_feedback:
                     res = torch.where(act, new_res, res)
-                ref = engine.reduce_flat(anchor, w) + gdelta
+                ref = fold(anchor) + gdelta
             else:
-                ref = engine.reduce_flat(params, w)
+                ref = fold(params)
             inst = torch.where(boot, ref[None], down_install(ref, held, d_plan))
             held = torch.where(act, inst, held)
             rows = inst
         else:
-            gdelta, new_res = compressed_fold(params - ref[None] + res, w, plan)
+            gdelta, new_res = up_fold(params - ref[None] + res)
             if error_feedback:
                 res = torch.where(act, new_res, res)
             ref = ref + gdelta
@@ -380,6 +439,263 @@ def run_compressed(job, bundle, scheduler, rounds: int, codec: Codec,
             "compression": codec.name,
             "down_compression": down_codec.name if down else "none",
             "simulated": True}
+    if topo.is_pods:
+        comm.update(simulated_pods_comm(
+            topo, masks, dense, intra_upload_bytes=comm["upload_bytes"],
+            intra_download_bytes=comm["download_bytes"] if down else None,
+            compression=codec.name, down_compression=comm["down_compression"]))
     return recorder.result(engine.unflatten(ref, layout), transport="stacked",
+                           scheduler=scheduler.name, state=state, comm=comm,
+                           privacy=job.privacy_report(rounds))
+
+
+# ---------------------------------------------------------------------------
+# Buffered (FedBuff) rounds
+# ---------------------------------------------------------------------------
+
+
+def arrival_orders(masks: np.ndarray, seed: int) -> Tuple[np.ndarray, np.ndarray]:
+    """Buffered arrival permutations, one a round, padded with zeros past
+    the active count, and the active counts: one ``default_rng(seed + 13)``
+    drawn round by round, as the reference draws it."""
+    rng = np.random.default_rng(seed + 13)
+    rounds, num_sites = masks.shape
+    order = np.zeros((rounds, num_sites), np.int32)
+    n_act = np.zeros((rounds,), np.int32)
+    for r in range(rounds):
+        perm = rng.permutation(np.flatnonzero(masks[r])).astype(np.int32)
+        order[r, :len(perm)] = perm
+        n_act[r] = len(perm)
+    return order, n_act
+
+
+class Arrival(NamedTuple):
+    """One arrival of the buffered schedule: ``site`` uploads a model
+    trained on global version ``base`` (``tau`` versions old) and folds at
+    ``weight`` (case weight times discount, fp32); ``admit`` false means it
+    is too stale and resyncs to the current global; ``fire`` means the
+    buffer becomes global ``version`` right after this fold."""
+    site: int
+    base: int
+    tau: int
+    admit: bool
+    weight: np.float32
+    fire: bool
+    version: int
+
+
+def buffered_schedule(masks: np.ndarray, seed: int, scheduler: BufferedScheduler,
+                      case_weights: np.ndarray) -> Tuple[List[List[Arrival]], List[int]]:
+    """The reference's buffered scan, its integer half replayed on the host:
+    each round's arrivals (:class:`Arrival`) and the global version after
+    each round.  Staleness, admission, the buffer count and the version
+    depend on the masks and the arrival orders only, never on the data;
+    the discount is the scan's fp32 ``(1 + tau) ** -alpha``."""
+    order, n_act = arrival_orders(masks, seed)
+    num_sites = masks.shape[1]
+    base = np.zeros(num_sites, np.int64)
+    version = count = 0
+    cw = np.asarray(case_weights, np.float32)
+    alpha = np.float32(scheduler.alpha)
+    rounds, versions = [], []
+    for r in range(masks.shape[0]):
+        kmin = min(int(scheduler.buffer_k), max(int(n_act[r]), 1))
+        arrivals, uploaded = [], []
+        for j in range(int(n_act[r])):
+            site = int(order[r, j])
+            tau = version - int(base[site])
+            admit = 0 <= tau <= scheduler.max_staleness
+            disc = np.power(np.float32(1 + min(max(tau, 0), scheduler.max_staleness)), -alpha)
+            fire = False
+            if admit:
+                count += 1
+                uploaded.append(site)
+                fire = count >= kmin
+            if fire:
+                version += 1
+                count = 0
+            arrivals.append(Arrival(site, int(base[site]), tau, admit,
+                                    np.float32(cw[site] * disc), fire, version))
+            if not admit:
+                base[site] = version
+        base[uploaded] = version
+        rounds.append(arrivals)
+        versions.append(version)
+    return rounds, versions
+
+
+def fold_arrival(acc: torch.Tensor, decoded: torch.Tensor, weight: np.float32) -> torch.Tensor:
+    """One buffered arrival into the running sum, as the reference's scan
+    folds it: ``acc + weight * decoded`` in fp32, a product then a sum."""
+    return acc + decoded * torch.tensor(weight, device=acc.device)
+
+
+def run_buffered(job, bundle, scheduler: BufferedScheduler, rounds: int, codec: Codec,
+                 init_params=None,
+                 on_round: Optional[Callable[[int], None]] = None) -> JobResult:
+    """``rounds`` buffered FedAvg rounds, dense or int8 with a
+    ``max_staleness`` inside the decode ring (the reference's buffered
+    scan); arguments as :func:`run_sync`.
+
+    Every round the sites train under ``individual``; then the active
+    sites arrive in the round's seeded order (:func:`buffered_schedule`).
+    An admitted arrival folds ``acc += w * decoded`` at its case weight
+    times its staleness discount; a fire makes ``acc / sum w`` the new
+    global version; a too-stale site resyncs to the current global; at
+    the round's end every site that folded pulls the newest global.
+    Version 0 is the case-weighted mean of the initial rows (``fedagg``).
+
+    With int8 an arrival is its delta against the global of its version
+    (a ring of the last ``KEEP_GLOBALS_DEFAULT`` versions) plus its
+    error-feedback residual, quantized and dequantized on the reference's
+    flat layout (the whole vector as one leaf in the reference's element
+    order, ``align=1``): one ``quantize_int8`` and one ``dequantize_int8``
+    launch an arrival.  ``comm`` (int8 only) counts that layout's bytes a
+    fold and a dense download a fold; the history records each round's
+    ``version``."""
+    ctx = job.context(bundle, strategy="individual")
+    state = _init_state(job, bundle, ctx, init_params)
+    fl_round = F.build_fl_round(ctx)
+    layout = state["layout"]
+    masks, _ = _schedule(job, rounds, ctx.device)
+    recorder = job.recorder(rounds, ctx.fed.num_sites)
+    engine = get_engine()
+    dev = ctx.device
+    cw = ctx.case_weights
+    arrivals, versions = buffered_schedule(masks, job.seed, scheduler, cw.cpu().numpy())
+    compress = codec.name != "none"
+    error_feedback = bool(job.error_feedback)
+    keep = KEEP_GLOBALS_DEFAULT
+    s, n = state["params"].shape
+    g = engine.reduce_flat(state["params"], cw / torch.sum(cw))
+    acc = torch.zeros((n,), dtype=torch.float32, device=dev)
+    accw = np.float32(0.0)
+    if compress:
+        plan = ChunkPlan.of(layout, codec.chunk, 1, dev, whole=True)
+        ring = torch.zeros((keep, n), dtype=torch.float32, device=dev)
+        ring[0].copy_(g)
+        res = torch.zeros((s, n), dtype=torch.float32, device=dev)
+
+    def step(r, batches):
+        nonlocal state, g, acc, accw
+        state, metrics = fl_round(state, batches, F.make_round_inputs(ctx, masks[r]))
+        p = state["params"]
+        for a in arrivals[r]:
+            if not a.admit:                  # too stale: resync, no contribution
+                p[a.site].copy_(g)
+                continue
+            if compress:
+                anchor = ring[a.base % keep]
+                u = p[a.site] - anchor + res[a.site]
+                deq = qdq(u, plan)
+                if error_feedback:
+                    res[a.site] = u - deq
+                decoded = deq + anchor
+            else:
+                decoded = p[a.site]
+            acc = fold_arrival(acc, decoded, a.weight)
+            accw = np.float32(accw + a.weight)
+            if a.fire:
+                g = acc / torch.tensor(max(accw, np.float32(1e-12)), device=dev)
+                if compress:
+                    ring[a.version % keep].copy_(g)
+                acc = torch.zeros_like(acc)
+                accw = np.float32(0.0)
+        for site in {a.site for a in arrivals[r] if a.admit}:
+            p[site].copy_(g)                 # uploaders pull the newest global
+        return metrics["loss"], {"version": versions[r]}
+
+    _round_loop(job, bundle, ctx, masks, recorder, step, on_round)
+    comm = None
+    if compress:
+        folds = sum(a.admit for rnd in arrivals for a in rnd)
+        rows_f, c_f = chunk_geom(n, codec.chunk, 1)
+        enc = rows_f * c_f + rows_f * 4          # the flat layout's payload bytes
+        down_b = folds * 4 * n
+        comm = {"upload_bytes": folds * enc, "upload_raw_bytes": folds * n * 4,
+                "download_bytes": down_b, "total_bytes": folds * enc + down_b,
+                "upload_count": folds, "download_count": folds,
+                "compression": codec.name, "down_compression": "none",
+                "simulated": True}
+    return recorder.result(engine.unflatten(g, layout), transport="stacked",
+                           scheduler=scheduler.name, state=state, comm=comm,
+                           privacy=job.privacy_report(rounds))
+
+
+def run_buffered_host(job, bundle, scheduler: BufferedScheduler, rounds: int,
+                      codec: Codec, init_params=None,
+                      on_round: Optional[Callable[[int], None]] = None) -> JobResult:
+    """Buffered FedAvg with int8 uploads whose ``max_staleness`` reaches
+    past the decode ring (the reference's host loop,
+    ``StackedTransport._execute_buffered``); arguments as :func:`run_sync`.
+
+    Each round the active sites arrive in the order of one
+    ``default_rng(seed + 13)``; each arrival is its site's
+    :class:`~repro_torch.comms.compression.UploadCompressor` encode (the
+    wire's per-leaf layout, delta against the global of its version, or
+    dense when that version left the ring of ``KEEP_GLOBALS_DEFAULT``
+    globals), decoded and folded into a
+    :class:`~repro_torch.core.agg_engine.StreamingAccumulator` at its case
+    weight times its discount; ``ready`` finalizes a new version.  ``comm``
+    is the compressors' counters and a dense download an upload."""
+    ctx = job.context(bundle, strategy="individual")
+    state = _init_state(job, bundle, ctx, init_params)
+    fl_round = F.build_fl_round(ctx)
+    layout = state["layout"]
+    masks, _ = _schedule(job, rounds, ctx.device)
+    recorder = job.recorder(rounds, ctx.fed.num_sites)
+    engine = get_engine()
+    s, n = state["params"].shape
+    case_w = np.asarray(job.federation().case_weights())
+    acc = StreamingAccumulator()
+    order_rng = np.random.default_rng(job.seed + 13)
+    version = 0
+    base_version = np.zeros(s, np.int64)
+    g = engine.reduce_flat(state["params"], ctx.case_weights / torch.sum(ctx.case_weights))
+    comps = [UploadCompressor(codec, job.error_feedback) for _ in range(s)]
+    edge = comps[0].plan(unravel(g, layout))
+    globals_by_version: "OrderedDict[int, torch.Tensor]" = OrderedDict({0: g})
+
+    def step(r, batches):
+        nonlocal state, g, version
+        state, metrics = fl_round(state, batches, F.make_round_inputs(ctx, masks[r]))
+        p = state["params"]
+        active_idx = np.flatnonzero(masks[r])
+        uploaded: List[int] = []
+        for site in order_rng.permutation(active_idx):
+            site = int(site)
+            discount = scheduler.discount(version - int(base_version[site]))
+            if discount is None:                     # too stale: resync only
+                p[site].copy_(g)
+                base_version[site] = version
+                continue
+            ref = globals_by_version.get(int(base_version[site]))
+            enc, cmeta = comps[site].encode(unravel(p[site], layout),
+                                            None if ref is None else unravel(ref, layout))
+            decoded = edge.to_port(edge.decode(enc))
+            if cmeta.get("delta"):
+                decoded = decoded + ref
+            acc.fold(unravel(decoded, layout), float(case_w[site]) * discount, owned=True)
+            uploaded.append(site)
+            if scheduler.ready(acc.count, len(active_idx)):
+                g = ravel(acc.finalize())
+                version += 1
+                globals_by_version[version] = g
+                while len(globals_by_version) > KEEP_GLOBALS_DEFAULT:
+                    globals_by_version.popitem(last=False)
+        for site in uploaded:                        # pull the newest global
+            p[site].copy_(g)
+            base_version[site] = version
+        return metrics["loss"], {"version": version}
+
+    _round_loop(job, bundle, ctx, masks, recorder, step, on_round)
+    uploads = sum(c.encodes for c in comps)
+    up_bytes = sum(c.encoded_bytes for c in comps)
+    comm = {"upload_bytes": up_bytes, "upload_raw_bytes": sum(c.raw_bytes for c in comps),
+            "download_bytes": uploads * 4 * n, "download_raw_bytes": uploads * 4 * n,
+            "total_bytes": up_bytes + uploads * 4 * n,
+            "upload_count": uploads, "download_count": uploads,
+            "compression": codec.name, "down_compression": "none", "simulated": True}
+    return recorder.result(engine.unflatten(g, layout), transport="stacked",
                            scheduler=scheduler.name, state=state, comm=comm,
                            privacy=job.privacy_report(rounds))

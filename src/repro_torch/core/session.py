@@ -1,23 +1,33 @@
 """Scheduler seam and round bookkeeping, ported from ``repro/core/session.py``.
 
-Ported: the scheduler seam (a :class:`RoundScheduler` decides whether
-an upload is admitted and at what weight, and when the buffered uploads
-become a new global) with the sync barrier scheduler, the deterministic
-Algorithm-2 mask replay (flat topology), the job result (with the socket
-transports' ``comm`` split) and a recorder that keeps the per-round
-history and, with a ``checkpoint_dir``, a checkpoint store.  Buffered
-scheduling and pod-tier churn are not ported.
+A :class:`RoundScheduler` decides, for every upload an aggregation point
+sees, whether it is admitted and at what weight (``discount``), and when
+the buffered uploads become a new global (``ready``):
+
+  * :class:`SyncScheduler`: the barrier round; only uploads for the round
+    being collected are admitted, and it closes once every active site
+    has reported.
+  * :class:`BufferedScheduler`: FedBuff-style buffered rounds (Nguyen et
+    al. 2022): a new global after ``buffer_k`` uploads, a late upload
+    admitted at ``(1 + tau)^(-alpha)``, one staler than ``max_staleness``
+    rejected (its site resyncs to the current global).
+
+Both fold into the streaming accumulator, which normalizes by the folded
+weight total.  :func:`availability_masks` replays the Algorithm-2 chain,
+composed with the pod tier's under a pods topology, so every participant
+agrees on the schedule without talking; :class:`JobResult` and
+:class:`RoundRecorder` are the history and checkpoint bookkeeping every
+transport shares.
 """
 from __future__ import annotations
 
 import time
 from dataclasses import dataclass
 from pathlib import Path
-from typing import Any, Dict, List, Optional, Union
+from typing import Any, Dict, List, Optional, Sequence, Union
 
 import numpy as np
 
-from repro_torch import NotPorted
 from repro_torch.core.dropout import SiteAvailability
 
 
@@ -58,30 +68,79 @@ class SyncScheduler(RoundScheduler):
         return buffered >= expected
 
 
-def scheduler_name(spec: Union[str, SyncScheduler, None]) -> str:
-    """The name of a scheduler spec, unresolved: buffered rounds are not
-    ported, but the guards that refuse their compositions are."""
-    if spec is None or isinstance(spec, SyncScheduler):
-        return "sync"
-    if spec in ("sync", "buffered"):
-        return spec
-    raise KeyError(f"unknown scheduler {spec!r}; known: ['buffered', 'sync']")
+@dataclass
+class BufferedScheduler(RoundScheduler):
+    """FedBuff-style K-of-S buffered aggregation with a staleness discount.
+
+    ``buffer_k``      -- aggregate once this many uploads are buffered
+                         (clamped to the active count).
+    ``alpha``         -- staleness exponent: weight ~ (1 + tau)^(-alpha).
+    ``max_staleness`` -- uploads more than this many versions old are
+                         rejected; their site resyncs without contributing.
+    """
+
+    buffer_k: int = 2
+    alpha: float = 0.5
+    max_staleness: int = 4
+
+    name = "buffered"
+
+    def discount(self, staleness: int) -> Optional[float]:
+        if staleness < 0 or staleness > self.max_staleness:
+            return None
+        return float((1.0 + staleness) ** (-self.alpha))
+
+    def ready(self, buffered: int, expected: int) -> bool:
+        return buffered >= min(self.buffer_k, max(expected, 1))
+
+    def staleness_weights(self, staleness: Sequence[int]) -> np.ndarray:
+        """Normalized buffer weights for uploads at the given staleness
+        values (what the accumulator's normalization produces)."""
+        weights = []
+        for tau in staleness:
+            w = self.discount(int(tau))
+            if w is None:
+                raise ValueError(f"staleness {tau} outside "
+                                 f"[0, {self.max_staleness}]")
+            weights.append(w)
+        d = np.asarray(weights, dtype=np.float64)
+        return (d / d.sum()).astype(np.float32)
 
 
-def resolve_scheduler(spec: Union[str, SyncScheduler, None]) -> SyncScheduler:
-    if spec is None or spec == "sync":
+_SCHEDULERS = {"sync": SyncScheduler, "buffered": BufferedScheduler}
+
+
+def resolve_scheduler(spec: Union[str, RoundScheduler, None]) -> RoundScheduler:
+    if spec is None:
         return SyncScheduler()
-    if isinstance(spec, SyncScheduler):
+    if isinstance(spec, RoundScheduler):
         return spec
-    raise NotPorted("scheduler", f"{spec!r}", "'sync'")
+    try:
+        return _SCHEDULERS[spec]()
+    except KeyError:
+        raise KeyError(f"unknown scheduler {spec!r}; known: {sorted(_SCHEDULERS)}")
 
 
 def availability_masks(num_sites: int, max_dropout: int, seed: int,
-                       rounds: int) -> np.ndarray:
+                       rounds: int, topology=None, pod_dropout: int = 0) -> np.ndarray:
     """[rounds, num_sites] bool active masks from the Algorithm-2 chain;
-    every replay with the same arguments gets the same schedule."""
+    every replay with the same arguments gets the same schedule.
+
+    With a pods topology and ``pod_dropout > 0`` a second chain runs at the
+    pod tier (:func:`~repro_torch.core.topology.pod_availability_masks`) and
+    the two compose by intersection.  On a round where the intersection is
+    empty the pod tier's churn wins: the active pods' sites participate
+    (an empty round would stall a barrier and zero the Eq. 1 weights)."""
     chain = SiteAvailability(num_sites, max_dropout, seed=seed)
-    return np.stack([chain.step() for _ in range(rounds)])
+    masks = np.stack([chain.step() for _ in range(rounds)])
+    if topology is not None and pod_dropout:
+        from repro_torch.core.topology import pod_availability_masks
+        pod_masks = pod_availability_masks(topology, num_sites, pod_dropout, seed, rounds)
+        combined = masks & pod_masks
+        empty = ~combined.any(axis=1)
+        combined[empty] = pod_masks[empty]
+        masks = combined
+    return masks
 
 
 @dataclass

@@ -80,9 +80,9 @@ def test_job_runs_on_cuda_by_default_and_raises_without_it(monkeypatch):
 # a case whose seam has since been ported names another seam still
 # unported, under the id it always had
 @pytest.mark.parametrize("seam,kw", [
-    ("scheduler", dict(scheduler="buffered")),
-    pytest.param("topology", dict(strategy="fedprox", transport="thread", topology="pods:2"),
-                 id="strategy-kw1"),
+    pytest.param("dp", dict(scheduler="buffered", dp_clip=1.0), id="scheduler-kw0"),
+    pytest.param("dp", dict(strategy="fedprox", transport="thread", topology="pods:2",
+                            dp_clip=1.0), id="strategy-kw1"),
     ("compression", dict(compression="fp8")),
     ("down_compression", dict(down_compression="topk-fixed")),
     ("dp", dict(dp_clip=1.0)),
@@ -90,8 +90,9 @@ def test_job_runs_on_cuda_by_default_and_raises_without_it(monkeypatch):
     ("adversary", dict(adversary="noise:1:1")),
     pytest.param("dp", dict(strategy="fedprox", aggregator="median", transport="thread",
                             dp_clip=1.0), id="strategy-kw7"),
-    ("topology", dict(topology="pods:2", aggregator="median")),
-    ("topology", dict(topology="pods:2")),
+    pytest.param("dp", dict(topology="pods:2", aggregator="median", dp_clip=1.0),
+                 id="topology-kw8"),
+    pytest.param("device_data", dict(topology="pods:2", device_data=True), id="topology-kw9"),
     ("shard_sites", dict(shard_sites=True)),
     ("task", dict(task=TaskConfig(kind="tokens"))),
     pytest.param("compression", dict(compression="fp8", strategy="gcml", transport="tcp"),
@@ -126,11 +127,50 @@ def test_refused_compositions_raise_the_reference_value_error(kw, frag):
         FederatedJob(task=TaskConfig(**TASK), rounds=1, device="cpu", **kw).run()
 
 
+def _pods(mod, **kw):
+    return dict(topology=mod.Topology.pods(2, **kw))
+
+
+# the reference's refused compositions of the topology and buffered seams on
+# the stacked transport, in its order of checks: (kw from the package's
+# topology module, the message fragment)
+REFUSED_TIERS = [
+    (lambda m: dict(pod_dropout=1), "pod_dropout requires a pods topology"),
+    (lambda m: dict(topology="pods:2", pod_dropout=2), "must be < num_pods"),
+    (lambda m: dict(topology="pods:4"), "leaves empty pods"),
+    (lambda m: dict(topology=m.Topology.pods(2, assignment=(0, 0, 0))), "pod 1 has no sites"),
+    (lambda m: dict(topology="pods:2", scheduler="buffered"), "synchronously at both tiers"),
+    (lambda m: _pods(m, inter_scheduler="buffered"), "synchronously at both tiers"),
+    (lambda m: _pods(m, intra_scheduler="buffered"), "synchronously at both tiers"),
+    (lambda m: dict(aggregator="median", **_pods(m, inter_scheduler="buffered")),
+     "side by side"),
+    (lambda m: dict(down_compression="int8", **_pods(m, intra_scheduler="buffered")),
+     "needs scheduler='sync'"),
+    (lambda m: dict(topology="pods:2", strategy="individual"), "centrally-aggregated"),
+    (lambda m: dict(scheduler="buffered", round_deadline_s=1.0), "no barrier to bound"),
+    (lambda m: dict(topology="pods", rounds=1), "needs a pod count"),
+]
+
+
+@pytest.mark.parametrize("make,frag", REFUSED_TIERS, ids=[f for _, f in REFUSED_TIERS])
+def test_refused_tier_compositions_raise_the_reference_value_error(make, frag):
+    from repro.core import topology as jtopo
+    from repro_torch.core import topology as ttopo
+    with pytest.raises(ValueError, match=frag):
+        JJob(task=JTask(**TASK), rounds=1).replace(**make(jtopo)).run()
+    with pytest.raises(ValueError, match=frag):
+        FederatedJob(task=TaskConfig(**TASK), rounds=1, device="cpu").replace(
+            **make(ttopo)).run()
+
+
 # fields of the reference's job and task that name an unported seam:
-# (field, a value other than the default, the seam NotPorted names)
+# (field, a value other than the default, the seam NotPorted names; None:
+# the seam has since been ported, and the value is the reference's
+# ValueError on its own)
 FIELDS = [
     ("dp_clip", 1.0, "dp"), ("dp_noise_multiplier", 1.0, "dp"),
-    ("pod_dropout", 1, "topology"), ("device_data", True, "device_data"),
+    pytest.param("pod_dropout", 1, None, id="pod_dropout-1-topology"),
+    ("device_data", True, "device_data"),
     ("dp_delta", 1e-6, "dp"), ("dp_mode", "per-example", "dp"),
     ("round_engine", "loop", "round_engine"),
     ("chunk_rounds", 2, "round_engine"), ("ckpt_every", 5, "checkpoint"),
@@ -160,6 +200,11 @@ def test_reference_fields_take_their_defaults_and_refuse_other_values(name, othe
                            **{name: _default(JJob, name)})
         bad = job.replace(**{name: other})
     job.check_ported()
+    if seam is None:
+        with pytest.raises(ValueError, match="requires a pods topology"):
+            bad.run()
+        bad.replace(topology="pods:2").check_ported()
+        return
     with pytest.raises(NotPorted) as err:
         bad.run()
     assert err.value.seam == seam

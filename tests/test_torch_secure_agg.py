@@ -97,6 +97,59 @@ def test_client_encode_words_equal_the_reference(me, participants, rnd, weight):
     assert encode_message("upload", gmeta, got) == jencode("upload", wmeta, want)
 
 
+@pytest.mark.parametrize("me,participants,rnd", [(0, [0, 1], 0), (1, [0, 1, 2], 4), (2, [2], 1)])
+def test_pod_tier_encode_and_unmask_equal_the_reference(me, participants, rnd):
+    """The cross-pod tier: a leader's masked partial (ids are pod ids, the
+    streams keyed by the tier "pod") and the root's unmask of the folded
+    leaders, a missing pod repaired."""
+    tree = _tree(10 + me)
+    got, gmeta = SecureAggClient("s3cret", "pod", me).encode(tree, 0.5, participants, rnd)
+    want, wmeta = JClient("s3cret", "pod", me).encode(tree, 0.5, participants, rnd)
+    assert gmeta == wmeta and gmeta["tier"] == "pod"
+    jleaves = jax.tree.leaves(want, is_leaf=lambda x: hasattr(x, "data"))
+    for a, b in zip(_words(got), [np.asarray(x.data["v"]) for x in jleaves]):
+        np.testing.assert_array_equal(a, b)
+    masks = np.zeros((rnd + 1, 3), bool)
+    masks[rnd, participants] = True
+    words = [torch.from_numpy(w) for w in _words(got)]
+    want_state, got_state = JState("s3cret", "pod", masks), SecureAggState("s3cret", "pod", masks)
+    jw = want_state.unmask([w.numpy().view(np.uint64) for w in words], rnd, {me}, 0.5)
+    tw = got_state.unmask(words, rnd, {me}, 0.5)
+    for a, b in zip(tw, jw):
+        np.testing.assert_array_equal(a.numpy(), b)
+    assert got_state.recovered == want_state.recovered
+    np.testing.assert_allclose(tw[0].numpy(), tree["bias"], rtol=0, atol=1e-6)
+
+
+def test_thread_pods_secure_agg_job_matches_the_plain_pods_job(monkeypatch):
+    """Secure aggregation at both tiers: every upload on the wire (the
+    sites' to their pod servers, the leaders' partials to the root) is
+    masked, and the job's global is the plain pods job's within the socket
+    jobs' bound (the GroupNorm-fed conv biases within ``lr * rounds``)."""
+    violations, uploads = [], []
+
+    def spy(kind, meta, tree):
+        if kind == "upload":
+            uploads.append(meta.get("tier"))
+            violations.extend(x for x in tree_leaves(tree) if not isinstance(x, MaskedTensor))
+        return encode_message(kind, meta, tree)
+
+    job = FederatedJob(task=TaskConfig(**{**TINY, "sites": 4}), rounds=3, device=CPU,
+                       transport="thread", topology="pods:2", max_dropout=1, seed=1)
+    plain = job.run()
+    monkeypatch.setattr(transport_mod, "encode_message", spy)
+    masked = job.replace(secure_agg=True).run()
+    masks = job.masks(3)
+    pods_active = sum(int(m[:2].any()) + int(m[2:].any()) for m in masks)
+    assert not violations
+    assert uploads.count("site") == int(masks.sum()) and uploads.count("pod") == pods_active
+    assert masked.privacy == {"secure_agg": True, "mechanism": "none"}
+    assert masked.comm["cross_pod_upload_bytes"] > plain.comm["cross_pod_upload_bytes"]
+    np.testing.assert_allclose(masked.losses, plain.losses, rtol=1e-4)
+    assert_globals_close(convert.to_reference(masked.global_params),
+                         convert.to_reference(plain.global_params), 1e-3 * 3)
+
+
 @pytest.mark.parametrize("folded", [[0, 1, 2], [0, 2], [1]], ids=["all", "one-missing",
                                                                   "two-missing"])
 def test_unmask_bit_equal_the_reference(folded):

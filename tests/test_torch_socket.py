@@ -597,10 +597,11 @@ def test_individual_and_robust_socket_jobs_run():
 # had); the refused compositions raise the reference's ValueError on both
 # packages
 UNPORTED = [
-    ("scheduler", dict(scheduler="buffered")),
-    pytest.param("topology", dict(strategy="fedprox", topology="pods:2"), id="strategy-kw1"),
+    pytest.param("dp", dict(scheduler="buffered", dp_clip=1.0), id="scheduler-kw0"),
+    pytest.param("dp", dict(strategy="fedprox", topology="pods:2", dp_clip=1.0),
+                 id="strategy-kw1"),
     pytest.param("compression", dict(strategy="gcml", compression="fp8"), id="strategy-kw2"),
-    ("topology", dict(topology="pods:2")),
+    pytest.param("compression", dict(topology="pods:2", compression="fp8"), id="topology-kw3"),
     pytest.param("dp", dict(secure_agg=True, dp_clip=1.0), id="secure_agg-kw4"),
     ("dp", dict(dp_clip=1.0)),
     ("compression", dict(compression="fp8")),
@@ -625,6 +626,10 @@ REFUSED = [
     (dict(secure_agg=True, scheduler="buffered"), "masks would never cancel"),
     (dict(round_deadline_s=1.0, topology="pods:2"), "per-tier pod deadlines"),
     (dict(aggregator="median", compression="int8"), "plaintext fp32 uploads"),
+    (dict(topology="pods:2", scheduler="buffered", secure_agg=True), "masks would never cancel"),
+    (dict(topology="pods:2", scheduler="buffered", aggregator="trimmed:1"), "side by side"),
+    (dict(scheduler="buffered", down_compression="int8"), "needs scheduler='sync'"),
+    (dict(topology="pods:2", strategy="gcml"), "centrally-aggregated"),
 ]
 
 
