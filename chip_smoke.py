@@ -125,6 +125,19 @@ Phases, each of which fails the run (non-zero exit) if it goes wrong:
    transport ``pods:2`` int8, a buffered root, and secure aggregation at
    both tiers (each partial and global the fixed point of its inputs); then
    8^3 jobs on tcp and with a whole pod offline;
+17. the fp8 and top-k codecs at full width (``run_codecs`` states each
+   check): stacked FedAvg with fp8 both ways (the last round's fp8 qdq
+   bit-equal to the CPU's at every chunk-width group, bytes the host
+   formula's, ``fedagg`` twice a round, each fold within its fp32 bound),
+   ``topk-fixed`` both ways (every leaf's kept entries, and a built tie
+   leaf's, bit-equal to the CPU rule; round 0 dense), ``topk-sparse``
+   uploads on the host loop against the ``topk-fixed`` scan (round 0 from
+   the same bits, deterministic cuDNN; the wire's kept entries the
+   twin's), the thread transport with fp8 uploads and ``topk-fixed``
+   downloads (every decode on the card bit-equal to the host's; held to
+   its stacked twin), int8 uploads with fp8 downloads (the int8 kernels'
+   launches), and the fp8 qdq and top-k selection timed as plain PyTorch
+   call sites beside their bytes bound;
 9. the fourth slice's paths: serving the token models at full width
    through ``launch/serve.py`` (prefill, then greedy decode, fp32
    weights from a seed, TF32 off): gemma3-1b (26 layers, 4 x 1024
@@ -145,9 +158,9 @@ Phases, each of which fails the run (non-zero exit) if it goes wrong:
    off: the greedy tokens must be equal and the logits within
    rtol=atol=1e-4.
 
-Phases 11-16 run after phase 8, before 9.  Every kernel's launch count is
+Phases 11-17 run after phase 8, before 9.  Every kernel's launch count is
 zeroed just before each of phases 3-5b, 7, each path of 9 and each
-full-width job of 11-13, 15 and 16, and read just after; each of 11-16
+full-width job of 11-13 and 15-17, and read just after; each of 11-17
 prints its seconds.  The second-to-last line is a
 JSON object with one entry per kernel; the last line is ``{"ok": true,
 "device": {...}}``.  Without
@@ -2436,6 +2449,302 @@ def run_pods_and_buffered(torch, FederatedJob, TaskConfig, build, task, flat_mai
     return launches
 
 
+# -- the fp8 and top-k codecs (phase 17) ----------------------------------------
+
+FP8_BYTES = 6_892_415                    # one model, fp8, align=1 on every device
+TOPK_BYTES = 5_476_088                   # one model, top-k at fraction 0.1
+TIE_LEAF = 1 << 20                       # a built leaf of tied magnitudes
+
+
+def _fold_spy(torch):
+    """Records every ``AggregationEngine.reduce_flat`` call: (rows, weights)
+    and its result."""
+    from repro_torch.core.agg_engine import AggregationEngine
+    return _Spy(AggregationEngine, "reduce_flat", pre=lambda a, k: (a[1].clone(), a[2].clone()),
+                post=lambda a, k, o: o.clone())
+
+
+def _hold_folds(torch, what: str, folds) -> float:
+    """Every recorded ``fedagg`` fold within ``(S + 3) * 2^-24 * sum w|x|``
+    of the exact (float64) fold of its rows; returns the worst share of
+    the bound."""
+    worst = 0.0
+    for (rows, w), got in folds:
+        worst = max(worst, _rounding_check(torch, what, rows, w, got, rows.shape[0] + 3))
+    return worst
+
+
+def _expect_bytes(what: str, res, up: list, down: list) -> None:
+    """Each round's upload and download bytes, and ``comm``'s totals."""
+    for r, h in enumerate(res.history):
+        _require(h["upload_bytes"] == up[r] and h["download_bytes"] == down[r],
+                 f"{what}: round {r} bytes {h['upload_bytes']}/{h['download_bytes']}, the host "
+                 f"formula's {up[r]}/{down[r]}")
+    _require(res.comm["upload_bytes"] == sum(up) and res.comm["download_bytes"] == sum(down),
+             f"{what}: comm {res.comm}")
+    print(f"{what}: bytes a round up {up}, down {down}: the host formula's")
+
+
+def run_fp8_stacked(torch, FederatedJob, TaskConfig, build, task) -> dict:
+    """Phase 17a: stacked FedAvg with fp8 uploads and downloads at full
+    width, 2 rounds (the twin of the reference's bidirectional compressed
+    scan).  The last round's fp8 qdq of the uploads, every chunk-width
+    group of it (align 1), is bit-equal to the port's own CPU qdq of the
+    same rows copied to the host; the bytes are the host formula's (round
+    0 bootstraps the downloads dense); ``fedagg`` runs twice a round (the
+    anchors' fold and the dequantized uploads' fold), each fold within its
+    fp32 bound of the exact fold of its rows, and the global is their sum
+    bit for bit."""
+    from repro_torch.core import round_engine
+    cpu = torch.device("cpu")
+    with _fold_spy(torch) as folds, \
+            _Spy(round_engine, "qdq_fp8", pre=lambda a, k: (a[0].clone(), a[1]),
+                 post=lambda a, k, o: o.clone()) as qdqs:
+        res, launches, job = _run_job(torch, FederatedJob, TaskConfig, build, task, FULL_N,
+                                      "17a fp8 both ways", compression="fp8",
+                                      down_compression="fp8")
+    sites = task["sites"]
+    _expect_launches("17a fp8 both ways", launches, {"fedagg": 2 * ROUNDS})
+    _expect_bytes("17a fp8 both ways", res, [sites * FP8_BYTES] * ROUNDS,
+                  [sites * DENSE_BYTES] + [sites * FP8_BYTES] * (ROUNDS - 1))
+    (u, plan), deq = qdqs.calls[-2]             # the last round's uploads (then its install)
+    host_plan = round_engine.ChunkPlan.of(_layout_of(TaskConfig, task), 1024, 1, cpu)
+    want = round_engine.qdq_fp8(u.cpu(), host_plan)
+    _require(_bits_equal(torch, deq.cpu(), want), "17a: the card's fp8 qdq differs from the CPU's")
+    groups = [(w, rows) for w, rows, _ in plan.groups]
+    worst = _hold_folds(torch, "17a fold", folds.calls)
+    g = _flat(torch, res.global_params)
+    _require(torch.equal(g, folds.calls[-2][1] + folds.calls[-1][1]),
+             "17a: the global is not the anchors' fold plus the uploads' fold")
+    print(f"17a: fp8 qdq of {u.shape[0]} site rows bit-equal to the CPU's at every chunk-width "
+          f"group (width, rows) {groups}; {len(folds.calls)} fedagg folds within {worst:.3f} of "
+          f"their fp32 bounds; the global their last round's sum")
+    return launches
+
+
+def run_topk_stacked(torch, FederatedJob, TaskConfig, build, task) -> dict:
+    """Phase 17b: stacked FedAvg with ``topk-fixed`` uploads and downloads
+    at full width, 2 rounds.  The kept entries of every leaf of every site
+    row (the last round's uploads and installs) are bit-equal to the CPU's
+    rule on the same rows copied to the host, and so are those of a built
+    leaf of tied magnitudes (4 rows of 2^20, values on a grid of 1/8);
+    round 0's uploads and downloads are dense, round 1's the top-k
+    payload; ``fedagg`` twice a round, each within its fp32 bound."""
+    from repro_torch.comms.compression import TopKPlan
+    cpu = torch.device("cpu")
+    with _fold_spy(torch) as folds, \
+            _Spy(TopKPlan, "mask", pre=lambda a, k: a[1].clone(),
+                 post=lambda a, k, o: o.clone()) as masks:
+        res, launches, job = _run_job(torch, FederatedJob, TaskConfig, build, task, FULL_N,
+                                      "17b topk-fixed both ways", compression="topk-fixed",
+                                      down_compression="topk-fixed")
+    sites = task["sites"]
+    _expect_launches("17b topk-fixed both ways", launches, {"fedagg": 2 * ROUNDS})
+    _expect_bytes("17b topk-fixed both ways", res,
+                  [sites * DENSE_BYTES] + [sites * TOPK_BYTES] * (ROUNDS - 1),
+                  [sites * DENSE_BYTES] + [sites * TOPK_BYTES] * (ROUNDS - 1))
+    layout = _layout_of(TaskConfig, task)
+    sizes = tuple(int(math.prod(sh)) for sh in layout.shapes)
+    host = TopKPlan.of(sizes, 0.1, cpu)
+    for x, got in masks.calls[-2:]:
+        _require(torch.equal(got.cpu(), host.mask(x.cpu())),
+                 "17b: the card's kept entries differ from the CPU rule's")
+        _require(int(got.sum()) == x.shape[0] * host.kept, "17b: not k kept a leaf")
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    tie = torch.randint(-8, 9, (4, TIE_LEAF), device="cuda", generator=gen).float() / 8
+    tplan = TopKPlan.of((TIE_LEAF,), 0.1, "cuda")
+    got = tplan.mask(tie)
+    want = TopKPlan.of((TIE_LEAF,), 0.1, cpu).mask(tie.cpu())
+    _require(torch.equal(got.cpu(), want), "17b: the tie leaf's kept entries differ")
+    worst = _hold_folds(torch, "17b fold", folds.calls)
+    print(f"17b: kept entries of {len(sizes)} leaves x {sites} rows (uploads and installs) and "
+          f"of a {tuple(tie.shape)} tie leaf ({int((tie.abs() == 0.875).sum())} entries at one "
+          f"magnitude) bit-equal to the CPU rule; {len(folds.calls)} fedagg folds within "
+          f"{worst:.3f} of their fp32 bounds")
+    return launches
+
+
+def run_topk_sparse_host(torch, FederatedJob, TaskConfig, build, task) -> dict:
+    """Phase 17c: ``topk-sparse`` uploads through the host loop, against the
+    ``topk-fixed`` scan with uploads only, both 2 rounds at full width with
+    cuDNN's deterministic algorithms, so round 0 trains the same bits in
+    both.  Round 0 (dense bootstrap uploads in both): the host loop's
+    decoded uploads are the scan's rows bit for bit, and each global lies
+    within its fp32 bound of the exact mean of those rows (the scan's
+    ``fedagg``, the host loop's streaming fold).  Round 1: the host loop's
+    global within its bound of the exact fold of its decoded uploads; each
+    upload's top-k wire encode keeps the entries the scan's twin keeps, the
+    same values bit for bit.  Launches: ``fedagg`` once in the host loop
+    (the initial global), once a round in the scan."""
+    from repro_torch.comms.compression import TopKFixedCodec, WirePlan
+    from repro_torch.core import round_engine
+    from repro_torch.core.agg_engine import StreamingAccumulator, ravel
+    torch.backends.cudnn.deterministic = True
+    try:
+        with _fold_spy(torch) as scan_folds:
+            scan, scan_l, job = _run_job(torch, FederatedJob, TaskConfig, build, task, FULL_N,
+                                         "17c topk-fixed uploads (scan)",
+                                         compression="topk-fixed")
+        with _Spy(StreamingAccumulator, "fold",
+                  pre=lambda a, k: (ravel(a[1]).clone(), float(a[2]))) as host_folds, \
+                _Spy(WirePlan, "encode_topk", pre=lambda a, k: a[1].clone(),
+                     post=lambda a, k, o: o[1]().clone()) as encodes:
+            host, host_l, _ = _run_job(torch, FederatedJob, TaskConfig, build, task, FULL_N,
+                                       "17c topk-sparse uploads (host loop)",
+                                       compression="topk-sparse")
+    finally:
+        torch.backends.cudnn.deterministic = False
+    sites = task["sites"]
+    _expect_launches("17c topk-fixed uploads (scan)", scan_l, {"fedagg": ROUNDS})
+    _expect_launches("17c topk-sparse uploads (host loop)", host_l, {"fedagg": 1})
+    _require(host.comm["upload_bytes"] == scan.comm["upload_bytes"] ==
+             sites * (DENSE_BYTES + TOPK_BYTES), f"17c: comm {host.comm} / {scan.comm}")
+    w = torch.as_tensor(job.federation().case_weights(), device="cuda")
+    w = w / w.sum()
+    (rows0, _), g0_scan = scan_folds.calls[0]
+    # a round folds each site into its pod's accumulator, then the pod into
+    # the root (one pod: the flat topology)
+    _require(len(host_folds.calls) == ROUNDS * (sites + 1),
+             f"17c: {len(host_folds.calls)} streaming folds")
+    rows0_host = torch.stack([f[0][0] for f in host_folds.calls[:sites]])
+    _require(torch.equal(rows0, rows0_host), "17c: round 0's uploads differ between the paths")
+    r_scan = _rounding_check(torch, "17c scan round 0", rows0, w, g0_scan, sites + 3)
+    # the host loop's round-0 global is what its sites pulled: their round-1
+    # uploads are deltas against it, so rebuild it from the fold's inputs
+    acc = StreamingAccumulator()
+    for (x, wt), _ in host_folds.calls[:sites]:
+        acc.fold({"x": x.clone()}, wt, owned=True)
+    g0_host = acc.finalize()["x"]
+    r_host = _rounding_check(torch, "17c host round 0", rows0_host, w, g0_host, 2 * sites + 2)
+    rows1 = torch.stack([f[0][0] for f in host_folds.calls[sites + 1: 2 * sites + 1]])
+    r_last = _rounding_check(torch, "17c host round 1", rows1, w, _flat(torch, host.global_params),
+                             2 * sites + 2)
+    twin = round_engine.DeviceCodec(TopKFixedCodec(), _layout_of(TaskConfig, task),
+                                    torch.device("cuda"))
+    for u, deq in encodes.calls:
+        _require(torch.equal(twin.deq(u[None])[0], deq),
+                 "17c: the wire's top-k and the scan's twin keep different entries")
+    gap = (g0_scan - g0_host).abs()
+    print(f"17c: round 0's uploads the same bits on both paths; round-0 globals within "
+          f"{r_scan:.3f} (scan) and {r_host:.3f} (host loop) of their fp32 bounds, apart by at "
+          f"most {float(gap.max()):.3e}; round 1's host global within {r_last:.3f}; "
+          f"{len(encodes.calls)} wire encodes keep the twin's entries bit for bit")
+    return host_l
+
+
+def run_mixed_int8_fp8(torch, FederatedJob, TaskConfig, build, task) -> dict:
+    """Phase 17e: int8 uploads with fp8 downloads at full width, 2 rounds:
+    the int8 fold runs its kernels (``quantize_int8`` and ``fedagg_dequant``
+    once a chunk width a round), the anchors' fold ``fedagg`` once a round,
+    the fp8 installs plain PyTorch (no ``dequant_install``)."""
+    groups = len(_chunk_plan_groups(TaskConfig, task))
+    res, launches, _ = _run_job(torch, FederatedJob, TaskConfig, build, task, FULL_N,
+                                "17e int8 up, fp8 down", compression="int8",
+                                down_compression="fp8")
+    _expect_launches("17e int8 up, fp8 down", launches,
+                     {"quantize_int8": groups * ROUNDS, "fedagg_dequant": groups * ROUNDS,
+                      "fedagg": ROUNDS})
+    sites = task["sites"]
+    _expect_bytes("17e int8 up, fp8 down", res, [sites * INT8_BYTES] * ROUNDS,
+                  [sites * DENSE_BYTES] + [sites * FP8_BYTES] * (ROUNDS - 1))
+    return launches
+
+
+def _chunk_plan_groups(TaskConfig, task):
+    import torch
+    from repro_torch.core.round_engine import ChunkPlan
+    return ChunkPlan.of(_layout_of(TaskConfig, task), 1024, 128, torch.device("cpu")).groups
+
+
+def run_codec_sockets(torch, FederatedJob, TaskConfig, build, task) -> dict:
+    """Phase 17d: the thread transport at full width, fp8 uploads and
+    ``topk-fixed`` downloads, 2 rounds, against its stacked twin.  Every
+    message decoded on the card (the uploads at the server, the downloads
+    at the sites) is bit-equal to its decode on the host; the payload bytes
+    are the stacked job's; the served global (the mean of the sites' final
+    models, on both transports) is held to the stacked job's by phase 5b's
+    rule, but for the top-k boundary: where the two folds' round-off moves
+    a magnitude across a leaf's k-th, one install keeps an entry the other
+    drops, so up to 1e-3 of the elements may lie outside (their count is
+    printed).  No kernel runs: fp8 and top-k are plain PyTorch."""
+    from repro_torch.comms import compression
+    torch.backends.cudnn.allow_tf32 = True
+    kw = dict(compression="fp8", down_compression="topk-fixed")
+    stacked, _, job = _run_job(torch, FederatedJob, TaskConfig, build, task, FULL_N,
+                               "17d stacked twin", **kw)
+    from repro_torch.core.agg_engine import get_engine
+    from repro_torch.kernels import ref
+    cw = torch.as_tensor(job.federation().case_weights(), device="cuda")
+    served = get_engine().unflatten(ref.fedagg_ref(stacked.state["params"], cw / cw.sum()),
+                                    stacked.state["layout"])
+    with _Spy(compression, "_decode", pre=lambda a, k: (a[0], a[1], a[2]),
+              post=lambda a, k, o: o[0].clone()) as decodes:
+        res, launches, _ = _run_job(torch, FederatedJob, TaskConfig, build, task, FULL_N,
+                                    "17d thread fp8 up, topk-fixed down", transport="thread",
+                                    **kw)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    cpu = torch.device("cpu")
+    n_dec = 0
+    for (tree, layout, dev), flat in decodes.calls:
+        if torch.device(dev).type != "cuda":
+            continue
+        host, _ = compression._decode(tree, layout, cpu)
+        _require(_bits_equal(torch, flat.cpu(), host), "17d: a card decode differs from the host's")
+        n_dec += 1
+    sites = task["sites"]
+    _require(n_dec == 2 * sites * ROUNDS, f"17d: {n_dec} card decodes, not {2 * sites * ROUNDS}")
+    _require(res.comm["site_payload_bytes"] == stacked.comm["upload_bytes"]
+             and res.comm["download_payload_bytes"] == stacked.comm["download_bytes"],
+             f"17d: comm {res.comm} against the stacked {stacked.comm}")
+    _expect_launches("17d thread fp8 up, topk-fixed down", launches, {})
+    worst, outside = _outside(res.global_params, served)
+    n_out = sum(bad for _, _, bad, _ in outside)
+    print(f"17d: {n_dec} decodes on the card bit-equal to the host's; wall_s a round "
+          f"{[round(h['wall_s'], 4) for h in res.history]}, peak memory {peak:.2f} GiB; served "
+          f"globals apart by at most {worst:.3e}, {n_out} of {FULL_N} elements outside rtol "
+          f"2e-3, atol 2e-4")
+    _require(n_out <= 1e-3 * FULL_N, f"17d: {n_out} elements outside the socket bound")
+    return launches
+
+
+def time_plain_codecs(torch, TaskConfig, task) -> list:
+    """The fp8 qdq and the top-k selection as one call site each at the
+    stacked path's shape (4 site rows of the full-width model, the port's
+    layout in and out), plain PyTorch on the card: CUDA-graph replays, as
+    the kernels are timed, beside the bytes bound (each input read once,
+    each output written once)."""
+    from repro_torch.comms.compression import Fp8Codec, TopKFixedCodec
+    from repro_torch.core.round_engine import DeviceCodec
+    mem_rate = peaks(torch.cuda.get_device_name(0))[0]
+    layout = _layout_of(TaskConfig, task)
+    dev = torch.device("cuda")
+    u = torch.randn((task["sites"], layout.n), device=dev,
+                    generator=torch.Generator(device=dev).manual_seed(3)) * 0.05
+    rows = []
+    for name, codec in (("fp8 qdq", Fp8Codec()), ("top-k selection", TopKFixedCodec())):
+        twin = DeviceCodec(codec, layout, dev)
+        nbytes = 2 * u.numel() * 4
+        ms, eager = time_ms(lambda: twin.deq(u))
+        bound = 1e3 * nbytes / mem_rate
+        rows.append({"name": name, "shape": list(u.shape), "ms": ms, "eager_ms": eager,
+                     "bound_ms": bound, "bound_by": "bytes"})
+        print(f"{name} [{u.shape[0]}, {u.shape[1]}] plain PyTorch: {ms:.4f} ms (eager "
+              f"{eager:.4f} ms), bytes bound {bound:.4f} ms ({nbytes / 1e6:.1f} MB at "
+              f"{mem_rate / 1e12:.2f} TB/s), {bound / ms:.1%} of it")
+    return rows
+
+
+def run_codecs(torch, FederatedJob, TaskConfig, build, task) -> dict:
+    """Phase 17: the fp8 and top-k codecs at full width (a-e), and the two
+    plain call sites' times; returns each path's launches."""
+    jobs = (torch, FederatedJob, TaskConfig, build, task)
+    out = {"17a": run_fp8_stacked(*jobs), "17b": run_topk_stacked(*jobs),
+           "17c": run_topk_sparse_host(*jobs), "17d": run_codec_sockets(*jobs),
+           "17e": run_mixed_int8_fp8(*jobs)}
+    print(json.dumps({"plain_codecs": time_plain_codecs(torch, TaskConfig, task)}))
+    return out
+
+
 def _flash_inputs(torch, dev, case, dtype, gen):
     b, hq, hkv, lq, lk, d = case[:6]
     return (torch.randn(b, hq, lq, d, device=dev, generator=gen).to(dtype),
@@ -2844,6 +3153,7 @@ def main() -> int:
     p16 = _timed("16 (two-tier pods and buffered rounds)", run_pods_and_buffered, *jobs,
                  build, OPENKBP_TASK, main_result, int8_comm)
     del main_result
+    p17 = _timed("17 (fp8 and top-k codecs)", run_codecs, *jobs, build, OPENKBP_TASK)
     serving_launches = run_serving_paths(torch, build)
     check_small_serving(torch, build)
 
@@ -2854,6 +3164,7 @@ def main() -> int:
     # printed their own above)
     print(f"launches on phase 15's paths: {p15}")
     print(f"launches on phase 16's paths: {p16}")
+    print(f"launches on phase 17's paths: {p17}")
     print(smi)
     path_of = {"fedagg": main_launches, "quantize_int8": int8_launches,
                "fedagg_dequant": int8_launches, "dequant_install": int8_launches,

@@ -12,19 +12,21 @@ Ported so far: the SA-Net dose and segmentation tasks; on the stacked
 transport, sync rounds of the paper's strategy set: ``fedavg`` (Eq. 1),
 ``fedprox`` (Eq. 2), the ``individual`` and ``pooled`` baselines and
 ``gcml`` (gossip pairs and regional DCML, Eq. 3), FedAvg and FedProx
-uncompressed or with int8 uploads and/or downloads
-(``compression="int8"``, ``down_compression="int8"``), and buffered FedAvg
-rounds (``scheduler="buffered"`` or a ``BufferedScheduler``: FedBuff's
-K-of-S fold with a staleness discount, dense or int8); the socket deployment
+uncompressed or with compressed uploads and/or downloads
+(``compression=``, ``down_compression=``: ``"int8"``, ``"fp8"``,
+``"topk-sparse"``, ``"topk-fixed"``), and buffered FedAvg rounds
+(``scheduler="buffered"`` or a ``BufferedScheduler``: FedBuff's K-of-S fold
+with a staleness discount, dense or compressed), under either
+``round_engine`` (:class:`StackedTransport`); the socket deployment
 (``transport="thread" | "tcp"``: one site a thread or a process, real TCP
 round trips to an :class:`~repro_torch.comms.coordinator.AggregationServer`
 on the job's device, ``strategy="fedavg" | "fedprox" | "individual"``, sync
-or buffered rounds, int8 both ways, secure aggregation (``secure_agg=True``:
+or buffered rounds, every codec both ways, secure aggregation (``secure_agg=True``:
 pairwise masked fixed-point uploads), the wire's auth/TLS/streaming/faults,
 leases, ``round_deadline_s``, ``max_upload_norm`` and ``run(resume=True)``
 from a ``checkpoint_dir``; and ``strategy="gcml"`` serverless: a
 :class:`~repro_torch.comms.coordinator.CoordinationServer` pairs the sites
-and they push models to each other directly, dense or int8); two-tier pods
+and they push models to each other directly, dense or compressed); two-tier pods
 on both transports (``topology="pods:K"`` or a ``Topology``, whole-pod churn
 with ``pod_dropout``; on sockets a server a pod, leaders that re-upload
 their pod's partial to a root, per-tier schedulers and secure aggregation at
@@ -58,8 +60,8 @@ import numpy as np
 import torch
 
 from repro_torch import NotPorted
-from repro_torch.comms.compression import (KEEP_GLOBALS_DEFAULT, Codec, GlobalPull,
-                                           UploadCompressor, WirePlan, align_for, codec_name,
+from repro_torch.comms.compression import (Codec, GlobalPull,
+                                           UploadCompressor, WirePlan, align_for,
                                            decode_upload, edge_rounds, resolve_codec,
                                            tree_payload_nbytes)
 from repro_torch.comms.transport import WireConfig
@@ -273,7 +275,9 @@ class FederatedJob:
     io_timeout: float = 120.0
     wire: Any = field(default_factory=WireConfig)
     lease_ttl: Optional[float] = None
-    # the reference's compiled round engine; the port runs a round loop
+    # the stacked transport's engine: "auto"/"scan" the on-device twins,
+    # "loop" the host loops (StackedTransport); chunk_rounds is the
+    # reference's scan chunk, accepted and changing nothing here
     round_engine: str = "auto"
     chunk_rounds: Optional[int] = None
     device_data: bool = False
@@ -381,9 +385,8 @@ class FederatedJob:
         self.task.model_config()        # raises for unported task kinds
 
     def codecs(self) -> Tuple[Codec, Codec]:
-        """The (upload, download) codecs; ``none`` or ``int8``."""
-        return (resolve_codec(self.compression, "compression"),
-                resolve_codec(self.down_compression, "down_compression"))
+        """The resolved (upload, download) codecs."""
+        return resolve_codec(self.compression), resolve_codec(self.down_compression)
 
     def participation(self, rounds: int) -> Tuple[np.ndarray, np.ndarray]:
         """``(participate, scale)``: the [rounds, S] bool participation
@@ -467,16 +470,15 @@ class FederatedJob:
                              log_every=self.log_every, num_sites=num_sites,
                              checkpoint_dir=self.checkpoint_dir)
 
-    def run(self, rounds: Optional[int] = None, init_params=None,
-            on_round: Optional[Callable[[int], None]] = None,
-            resume: bool = False) -> JobResult:
-        """Execute the federation.  ``init_params`` (one unstacked
-        parameter tree) replaces the seeded initialization; ``on_round(r)``
-        is called after each round, outside its timed span (the stacked
-        transport only: a socket driver does not see rounds).
-        ``resume=True`` (socket transports, with a ``checkpoint_dir``)
-        re-enters from the newest round that the server's store and every
-        site's own store share."""
+    def run(self, rounds: Optional[int] = None, resume: bool = False, *, init_params=None,
+            on_round: Optional[Callable[[int], None]] = None) -> JobResult:
+        """Execute the federation.  ``resume=True`` (socket transports, with
+        a ``checkpoint_dir``) re-enters from the newest round that the
+        server's store and every site's own store share; the positions of
+        ``rounds`` and ``resume`` are the reference's.  ``init_params`` (one
+        unstacked parameter tree) replaces the seeded initialization;
+        ``on_round(r)`` is called after each round, outside its timed span
+        (the stacked transport only: a socket driver does not see rounds)."""
         return resolve_transport(self.transport).execute(
             self, self.rounds if rounds is None else rounds,
             init_params=init_params, on_round=on_round, resume=resume)
@@ -487,7 +489,6 @@ class FederatedJob:
 # must hold its dataclass default.
 SEAM_FIELDS = {
     "dp_delta": "dp", "dp_mode": "dp",
-    "round_engine": "round_engine", "chunk_rounds": "round_engine",
     "task.arch": "task", "task.reduced": "task", "task.seq": "task",
 }
 
@@ -538,7 +539,7 @@ def _validate_robustness(job: FederatedJob) -> None:
         raise ValueError("the pooled centralized baseline has no "
                          "federation to attack or robustly aggregate")
     sites = job.task.sites
-    if (spec.robust or plan is not None) and codec_name(job.compression) != "none":
+    if (spec.robust or plan is not None) and resolve_codec(job.compression).name != "none":
         raise ValueError(
             "robust aggregation and the adversary harness operate on "
             "plaintext fp32 uploads; delta-quantized uploads would fold "
@@ -596,7 +597,7 @@ def _validate_down(job: FederatedJob) -> None:
     """The reference's composition guards for download compression: the
     download codec needs a server that tracks one reference trajectory
     per site."""
-    if codec_name(job.down_compression) == "none":
+    if resolve_codec(job.down_compression).name == "none":
         return
     if job.strategy not in ("fedavg", "fedprox"):
         raise ValueError(
@@ -673,7 +674,7 @@ def _validate_stacked(job: FederatedJob) -> None:
     if _buffered(job) and job.strategy != "fedavg":
         raise ValueError("buffered-async scheduling currently supports "
                          f"fedavg only, not {job.strategy!r}")
-    if (not _buffered(job) and codec_name(job.compression) != "none"
+    if (not _buffered(job) and resolve_codec(job.compression).name != "none"
             and job.strategy not in ("fedavg", "fedprox")):
         raise ValueError(
             "compression on the stacked transport currently supports "
@@ -683,8 +684,19 @@ def _validate_stacked(job: FederatedJob) -> None:
 
 class StackedTransport(Transport):
     """Single-process simulator: every site's state in one [S, N] buffer.
-    A job with a codec in either direction takes the compressed rounds, a
-    buffered scheduler the buffered rounds."""
+
+    ``round_engine`` picks the rounds, as the reference's does: ``"auto"``
+    and ``"scan"`` run the on-device twins of the reference's scan engine
+    (:func:`~repro_torch.core.round_engine.engine_for`: the sync rounds;
+    the compressed rounds for int8, fp8 and ``topk-fixed``; the buffered
+    rounds, dense or int8/fp8 inside the decode ring), ``"loop"`` the host
+    loops that drive the wire codec (the sync rounds, which are the same
+    loop; :func:`~repro_torch.core.round_engine.run_compressed_host`;
+    :func:`~repro_torch.core.round_engine.run_buffered_host`).  A job the
+    twins cannot run (``topk-sparse`` either way, buffered top-k, buffered
+    staleness past the ring) takes the host loop under ``"auto"`` and
+    raises the reference's ``ValueError`` under ``"scan"``.
+    ``chunk_rounds`` changes nothing: the port's rounds are not chunked."""
 
     name = "stacked"
 
@@ -694,25 +706,30 @@ class StackedTransport(Transport):
         _validate_down(job)
         _validate_stacked(job)
         job.check_ported()
+        if job.round_engine not in ("auto", "scan", "loop"):
+            raise ValueError(f"unknown round_engine {job.round_engine!r}; "
+                             "known: auto, scan, loop")
         if resume:
             raise NotPorted("checkpoint", "run(resume=True) on the stacked transport",
                             "resume on transport='thread' or 'tcp'")
         scheduler = resolve_scheduler(job.scheduler)
         codec, down_codec = job.codecs()
         from repro_torch.core import round_engine
-        if isinstance(scheduler, BufferedScheduler):
-            # int8 staleness past the decode ring takes the reference's host loop
-            run = (round_engine.run_buffered_host
-                   if codec.name != "none" and scheduler.max_staleness >= KEEP_GLOBALS_DEFAULT
-                   else round_engine.run_buffered)
-            return run(job, job.task.build(), scheduler, rounds, codec,
-                       init_params=init_params, on_round=on_round)
-        if codec.name != "none" or down_codec.name != "none":
-            return round_engine.run_compressed(
-                job, job.task.build(), scheduler, rounds, codec,
-                down_codec=down_codec, init_params=init_params, on_round=on_round)
-        return round_engine.run_sync(job, job.task.build(), scheduler, rounds,
-                                     init_params=init_params, on_round=on_round)
+        from repro_torch.kernels import build, ops
+        run = None if job.round_engine == "loop" else round_engine.engine_for(
+            scheduler, codec, down_codec)
+        if run is None:
+            if job.round_engine == "scan":
+                raise ValueError(
+                    f"round_engine='scan' cannot run this job (codec "
+                    f"{codec.name!r} / scheduler {scheduler.name!r} take "
+                    "the host path); use round_engine='auto' or 'loop'")
+            run = round_engine.host_loop_for(scheduler, codec, down_codec)
+        compile_s = build.prepare(job.torch_device, ops.FL_KERNELS)
+        res = run(job, job.task.build(), scheduler, rounds, codec, down_codec,
+                  init_params=init_params, on_round=on_round)
+        res.compile_s = compile_s
+        return res
 
 
 
@@ -1062,7 +1079,7 @@ class _SocketTransport(Transport):
                     "barrier over the round's scheduled participants; "
                     "buffered-async folds partial subsets, so the masks "
                     "would never cancel")
-            if codec_name(job.compression) != "none":
+            if resolve_codec(job.compression).name != "none":
                 raise ValueError(
                     "secure aggregation uploads fixed-point masked "
                     "integers; quantizing that ciphertext would corrupt "
@@ -1098,11 +1115,10 @@ class _SocketTransport(Transport):
         down = down_codec.name != "none"
         if down and resumed_from is not None:
             initial_down = _socket_down_refs(job, resumed_from, num_sites)
-        if dev.type == "cuda":
-            # every kernel a site or the server launches, built once here
-            # (the build is also safe when processes race on it)
-            from repro_torch.kernels import build
-            build.build(["quantize_int8", "dequantize_int8", "fedagg", "trimmed_mean"])
+        # every kernel a site or the server launches, built and loaded once
+        # here (the build is also safe when processes race on it)
+        from repro_torch.kernels import build, ops
+        compile_s = build.prepare(dev, ops.FL_KERNELS)
         recorder = job.recorder(rounds, num_sites)
         from repro_torch.comms.coordinator import AggregationServer, CoordinationServer
         servers, agg, pod_stack, agg_addr, coord_addr = [], None, None, None, None
@@ -1229,7 +1245,7 @@ class _SocketTransport(Transport):
         rejected = (pod_stack.rejected_uploads if pod_stack is not None
                     else agg.rejected_uploads if agg is not None else 0)
         return recorder.result(global_params, transport=self.name, scheduler=scheduler.name,
-                               comm=comm, resumed_from=resumed_from,
+                               comm=comm, compile_s=compile_s, resumed_from=resumed_from,
                                rejected_uploads=rejected, privacy=job.privacy_report(rounds))
 
     def _run_workers(self, job, num_sites, agg_addr, coord_addr, rounds, start_round,

@@ -14,6 +14,12 @@ The port adds :func:`payload_span`: on receive the decoded arrays are
 zero-copy views into the frame, and the span they cover (with each
 array's byte offset in it) is what the device decode copies to the card
 in one transfer.
+
+An fp8 leaf's values go on the wire as the record the reference writes,
+dtype ``"float8_e4m3fn"``, one byte a value.  numpy resolves that name
+only through ``ml_dtypes``, which the port does not use: it holds the
+values as their bits, a uint8 array of type :class:`E4M3Bits`, and the
+device decode views them as ``torch.float8_e4m3fn``.
 """
 from __future__ import annotations
 
@@ -31,6 +37,25 @@ _HDR = struct.Struct("<4sI")
 #: Wire protocol generation, sent in every channel's ``hello``; a server of
 #: another generation refuses the connection with a typed error.
 PROTOCOL_VERSION = 1
+
+#: The wire's dtype name of an fp8 array (the reference's ``str(dtype)``).
+FP8_DTYPE = "float8_e4m3fn"
+
+
+class E4M3Bits(np.ndarray):
+    """float8_e4m3fn values held as their bits: a uint8 array whose wire
+    record names ``float8_e4m3fn``.  Make one with :func:`e4m3_bits`."""
+
+
+def e4m3_bits(a) -> E4M3Bits:
+    """A view of the uint8 bits ``a`` (or of an ``ml_dtypes`` float8_e4m3fn
+    array) as :class:`E4M3Bits`."""
+    a = np.asarray(a)
+    if a.dtype != np.uint8:
+        if a.dtype.name != FP8_DTYPE:
+            raise ValueError(f"not float8_e4m3fn bits: {a.dtype}")
+        a = a.view(np.uint8)
+    return a.view(E4M3Bits)
 
 
 def chunk_spans(total: int, size: int) -> List[Tuple[int, int]]:
@@ -97,7 +122,7 @@ def _flatten(obj: Any, prefix: str, leaves: List[Tuple[str, np.ndarray]]):
     if isinstance(obj, (list, tuple)):
         sk = [_flatten(v, f"{prefix}/{i}", leaves) for i, v in enumerate(obj)]
         return {"__list__": sk} if isinstance(obj, list) else {"__tuple__": sk}
-    arr = np.asarray(obj)
+    arr = obj if isinstance(obj, E4M3Bits) else np.asarray(obj)
     leaves.append((prefix, arr))
     return {"__leaf__": len(leaves) - 1}
 
@@ -135,7 +160,7 @@ def encode_message(kind: str, meta: Dict[str, Any], tree: Any = None) -> bytes:
     offset = 0
     for _name, arr in leaves:
         buf = np.ascontiguousarray(arr)   # promotes 0-d to 1-d; keep arr.shape
-        records.append({"dtype": str(buf.dtype),
+        records.append({"dtype": FP8_DTYPE if isinstance(arr, E4M3Bits) else str(buf.dtype),
                         "shape": list(arr.shape), "offset": offset})
         payload.write(buf.tobytes())
         offset += buf.nbytes
@@ -166,9 +191,11 @@ def decode_message(data: bytes, *, writable: bool = False
         count = 1
         for d in rec["shape"]:
             count *= d
-        arr = np.frombuffer(data, dtype=np.dtype(rec["dtype"]), count=count,
-                            offset=base + rec["offset"]).reshape(tuple(rec["shape"]))
-        leaves.append(arr.copy() if writable else arr)
+        fp8 = rec["dtype"] == FP8_DTYPE
+        arr = np.frombuffer(data, dtype=np.uint8 if fp8 else np.dtype(rec["dtype"]),
+                            count=count, offset=base + rec["offset"]).reshape(tuple(rec["shape"]))
+        arr = arr.copy() if writable else arr
+        leaves.append(arr.view(E4M3Bits) if fp8 else arr)
     tree = _unflatten(header["skeleton"], leaves) if header["skeleton"] is not None else None
     return header["kind"], header["meta"], tree
 

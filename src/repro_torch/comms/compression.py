@@ -1,32 +1,48 @@
-"""The int8 wire codec, ported from ``repro/comms/compression.py``.
+"""The wire codecs, ported from ``repro/comms/compression.py``.
 
 Uploads (and, with downlink compression, broadcasts) ride a codec seam.
 The socket deployment's halves are here too: :class:`UploadCompressor`
 (a site's delta, error feedback and codec), :func:`decode_upload`,
 :class:`DownlinkCompressor` (the server's per-site held references) and
 :func:`decode_download`, all on the device of the trees they are given.
-Ported: ``none`` and ``int8`` (per-chunk absmax int8, 4x smaller than
-fp32).  ``fp8`` and the top-k sparsifiers raise
-:class:`~repro_torch.NotPorted`; they are never swapped for int8.
+The codecs are the reference's:
+
+- ``none``: the uncompressed model;
+- ``int8``: per-chunk absmax int8, 4x smaller than fp32;
+- ``fp8``: per-chunk absmax float8_e4m3fn (absmax to 448, round to
+  nearest even), 4x smaller;
+- ``topk`` (spec ``topk`` or ``topk-sparse``) and ``topk-fixed``: the
+  largest-magnitude ``ceil(fraction * n)`` entries of each leaf, exact
+  (a uint32 index and an fp32 value each).  A sparsifier's first upload
+  of a run goes dense (``dense_bootstrap``).
 
 Quantization granularity is a contiguous chunk of the flattened leaf (one
 fp32 scale per chunk), laid out by :func:`chunk_geom`, the one geometry
 rule that the wire codec and the round engine's on-device codec share, so
-scales and byte counts agree by construction.  The layout follows the
+scales and byte counts agree by construction.  The int8 layout follows the
 device, as the reference's follows its backend: a CUDA tensor is chunked
 at ``align=128`` and quantized by the CUDA kernel, a CPU tensor at
 ``align=1`` by the kernel's plain version.  Either way the values are the
 reference numpy encoder's, bit for bit; only the padding, and so the byte
-count, differs.
+count, differs.  fp8 is chunked at ``align=1`` everywhere, as the
+reference chunks it (:meth:`Codec.align`), and is plain PyTorch on every
+device, as the reference's jnp twin is: it has no kernel.
+
+Top-k keeps, at the k-th magnitude, the entries of lower index in the
+reference's element order (the rule of the reference's ``lax.top_k``
+twin; its numpy codec breaks such ties arbitrarily), on the wire and in
+the round engine alike (:class:`TopKPlan`).
 
 A model crosses the wire in the reference's layout (conv weights DHWIO)
 through a :class:`WirePlan`: a site gathers its OIDHW buffer into the
-wire's element order at its edge, quantizes it in one launch per chunk
-width and copies it to the host once; every received message is copied
-to the device in one transfer and every int8 leaf of it decoded by ONE
-``dequantize_int8`` launch (:func:`decode_tree`).  ``Int8Codec`` itself
-encodes an array in the order it is given: a port model never goes to the
-wire through it.
+wire's element order at its edge, encodes it (one ``quantize_int8`` launch
+per chunk width for int8) and copies it to the host once; every received
+message is copied to the device in one transfer, every int8 leaf of it
+decoded by ONE ``dequantize_int8`` launch, every fp8 leaf by a multiply
+and every top-k leaf by a scatter on the device (:func:`decode_tree`).
+``Int8Codec``, ``Fp8Codec`` and ``TopKCodec`` themselves encode an array
+in the order they are given: a port model never goes to the wire through
+them.
 
 Importing this module imports no kernel: the kernels import
 :data:`MIN_SCALE` from here.
@@ -35,13 +51,12 @@ from __future__ import annotations
 
 import dataclasses
 import warnings
-from typing import Any, Dict, Optional, Tuple, Union
+from typing import Any, Callable, Dict, Optional, Tuple, Union
 
 import numpy as np
 import torch
 
-from repro_torch import NotPorted
-from repro_torch.comms.codec import MaskedTensor, QuantizedTensor, payload_span
+from repro_torch.comms.codec import MaskedTensor, QuantizedTensor, e4m3_bits, payload_span
 from repro_torch.tree import tree_leaves, tree_map
 
 # absmax-0 chunks quantize to 0 instead of dividing by 0: THE scale floor,
@@ -106,6 +121,10 @@ class Codec:
     def encode_tree(self, tree: Any) -> Any:
         return tree_map(self.encode_array, tree)
 
+    def align(self, device: torch.device) -> int:
+        """The chunk alignment of this codec's layout on ``device``."""
+        return 1
+
 
 @dataclasses.dataclass
 class NoneCodec(Codec):
@@ -123,6 +142,9 @@ class Int8Codec(Codec):
 
     name = "int8"
 
+    def align(self, device: torch.device) -> int:
+        return align_for(device)
+
     def encode_array(self, arr) -> QuantizedTensor:
         """Quantize one leaf where it lies: the CUDA kernel for a CUDA
         tensor, the plain version for a CPU one.  The payload is host numpy."""
@@ -132,6 +154,120 @@ class Int8Codec(Codec):
         q, s = ops.quantize_int8(mat.contiguous())
         return QuantizedTensor("int8", tuple(x.shape),
                                {"q": q.cpu().numpy(), "scale": s.cpu().numpy()})
+
+
+@dataclasses.dataclass
+class Fp8Codec(Codec):
+    """Per-chunk absmax float8_e4m3fn: each chunk's absmax maps to 448, the
+    cast rounds to nearest even; the same 4x as int8 on a log-spaced grid.
+    Chunked at ``align=1`` on every device, as the reference chunks it."""
+
+    chunk: int = 1024
+
+    name = "fp8"
+
+    def encode_array(self, arr) -> QuantizedTensor:
+        """Quantize one leaf where it lies (plain PyTorch); the payload is
+        host numpy, the values as :class:`~repro_torch.comms.codec.E4M3Bits`."""
+        from repro_torch.kernels import ref
+        x = torch.as_tensor(arr).float()
+        q, s = ref.quantize_fp8_ref(_as_chunks(x.reshape(-1), self.chunk))
+        return QuantizedTensor("fp8", tuple(x.shape),
+                               {"q": e4m3_bits(q.view(torch.uint8).cpu().numpy()),
+                                "scale": s.cpu().numpy()})
+
+
+@dataclasses.dataclass
+class TopKCodec(Codec):
+    """Magnitude top-k per leaf: the largest-|x| ``ceil(fraction * n)``
+    entries ride the wire exactly (uint32 index, fp32 value), the rest are
+    zeroed and error feedback re-injects them later.  A sparsifier must not
+    decimate a run's one full-model upload, so the bootstrap (no reference
+    global yet) goes dense."""
+
+    fraction: float = 0.1
+
+    name = "topk"
+    dense_bootstrap = True
+
+    def encode_array(self, arr) -> QuantizedTensor:
+        """Sparsify one leaf where it lies, by :class:`TopKPlan`'s rule."""
+        x = torch.as_tensor(arr).float()
+        flat = x.reshape(-1)
+        keep = TopKPlan.of((flat.numel(),), self.fraction, flat.device).mask(flat)
+        idx = keep.nonzero().reshape(-1)
+        return QuantizedTensor("topk", tuple(x.shape),
+                               {"idx": idx.to(torch.int32).cpu().numpy().view(np.uint32),
+                                "val": flat[idx].cpu().numpy()})
+
+
+@dataclasses.dataclass
+class TopKFixedCodec(TopKCodec):
+    """Top-k whose payload shapes depend on the leaf shapes alone (``k =
+    ceil(fraction * n)`` a leaf); on the wire it encodes exactly as
+    ``topk``.  The stacked transport runs it on the device
+    (:mod:`repro_torch.core.round_engine`), where ``topk-sparse`` takes the
+    host loop."""
+
+    name = "topk-fixed"
+
+
+def topk_count(fraction: float, n: int) -> int:
+    """Entries kept of an ``n``-element leaf: ``max(1, ceil(fraction * n))``
+    in float64, as the reference computes it; 0 for an empty leaf."""
+    return max(1, int(np.ceil(fraction * n))) if n else 0
+
+
+class TopKPlan:
+    """The top-k selection over leaves of sizes ``sizes`` laid end to end
+    in a ``[.., N]`` buffer.
+
+    In each leaf (and each row of a stacked buffer) the ``k`` entries of
+    largest magnitude are kept; at the k-th magnitude the entries of lower
+    index win (``lax.top_k``'s rule), so the kept set is a function of the
+    values alone, on every device.  One stable sort does it for every leaf:
+    the key is the leaf's number, then the magnitude's bits, which order
+    as the magnitudes do for non-negative floats, descending; the sort
+    leaves each leaf in its own range, and the first ``k`` of the range
+    are kept.  A leaf with ``k >= n`` is kept whole."""
+
+    _CACHE: Dict[Any, "TopKPlan"] = {}
+
+    def __init__(self, sizes: Tuple[int, ...], fraction: float, device: torch.device):
+        sizes_np = np.asarray(sizes, np.int64)
+        self.sizes = tuple(int(n) for n in sizes)
+        self.counts = tuple(topk_count(fraction, n) for n in self.sizes)
+        first = np.concatenate([[0], np.cumsum(sizes_np)[:-1]]).astype(np.int64)
+        leaf_of = np.repeat(np.arange(len(sizes_np)), sizes_np)
+        rank = np.arange(int(sizes_np.sum()), dtype=np.int64) - first[leaf_of]
+        self.first = torch.from_numpy(first).to(device)
+        self.leaf_of = torch.from_numpy(leaf_of).to(device)
+        self._keep = torch.from_numpy(rank < np.asarray(self.counts, np.int64)[leaf_of]).to(device)
+
+    @classmethod
+    def of(cls, sizes: Tuple[int, ...], fraction: float, device) -> "TopKPlan":
+        key = (tuple(sizes), float(fraction), str(torch.device(device)))
+        plan = cls._CACHE.get(key)
+        if plan is None:
+            plan = cls._CACHE[key] = cls(sizes, fraction, torch.device(device))
+        return plan
+
+    @property
+    def kept(self) -> int:
+        """Entries kept a row."""
+        return sum(self.counts)
+
+    def mask(self, x: torch.Tensor) -> torch.Tensor:
+        """[.., N] bool: the kept entries of every row of ``x``."""
+        bits = x.abs().contiguous().view(torch.int32).to(torch.int64)
+        key = self.leaf_of * (1 << 31) + ((1 << 31) - 1 - bits)
+        order = torch.sort(key, dim=-1, stable=True).indices
+        return torch.zeros(x.shape, dtype=torch.bool, device=x.device).scatter_(
+            -1, order, self._keep.expand(order.shape))
+
+    def local(self, kept: torch.Tensor) -> torch.Tensor:
+        """Each kept flat index's index within its own leaf."""
+        return kept - self.first[self.leaf_of[kept]]
 
 
 def _decode_int8(qt: QuantizedTensor, device) -> torch.Tensor:
@@ -144,47 +280,36 @@ def _decode_int8(qt: QuantizedTensor, device) -> torch.Tensor:
 
 
 def decode_array(leaf, *, device) -> torch.Tensor:
-    """Dequantize one leaf onto ``device``: a CUDA device launches the
-    ``dequantize_int8`` kernel, the CPU takes its plain version.  A plain
-    array passes through (moved to ``device``)."""
+    """Dequantize one leaf onto ``device``: int8 launches the
+    ``dequantize_int8`` kernel on a CUDA device (its plain version on the
+    CPU); fp8 and top-k decode as :func:`decode_flat` does.  A plain array
+    passes through (moved to ``device``)."""
     if isinstance(leaf, QuantizedTensor):
-        if leaf.codec != "int8":
+        if leaf.codec not in _DECODED:
             raise ValueError(f"unknown quantized-tensor codec {leaf.codec!r}")
-        return _decode_int8(leaf, device)
+        if leaf.codec == "int8":
+            return _decode_int8(leaf, device)
+        return decode_flat([leaf], device=device)[0].reshape(leaf.shape)
     return torch.as_tensor(leaf, device=device)
 
 
-_CODECS = {"none": NoneCodec, "int8": Int8Codec}
-_UNPORTED = ("fp8", "topk", "topk-sparse", "topk-fixed")
+_DECODED = ("int8", "fp8", "topk")
+_CODECS = {"none": NoneCodec, "int8": Int8Codec, "fp8": Fp8Codec,
+           "topk": TopKCodec, "topk-sparse": TopKCodec,
+           "topk-fixed": TopKFixedCodec}
 
 
-def codec_name(spec: Union[str, Codec, None]) -> str:
-    """The name of a codec spec, unresolved: the composition guards read it
-    before an unported codec raises, as the reference's do."""
-    if spec is None:
-        return "none"
-    if isinstance(spec, Codec):
-        return spec.name
-    if spec in _CODECS or spec in _UNPORTED:
-        return spec
-    raise KeyError(f"unknown compression codec {spec!r}; known: "
-                   f"{sorted(_CODECS) + list(_UNPORTED)}")
-
-
-def resolve_codec(spec: Union[str, Codec, None], seam: str = "compression") -> Codec:
-    """``None``, a name or a :class:`Codec` -> a :class:`Codec`.  The
-    reference's other codecs raise :class:`~repro_torch.NotPorted` naming
-    ``seam`` (the job field that asked for them)."""
+def resolve_codec(spec: Union[str, Codec, None]) -> Codec:
+    """``None``, a name or a :class:`Codec` -> a :class:`Codec`."""
     if spec is None:
         return NoneCodec()
     if isinstance(spec, Codec):
         return spec
-    if spec in _CODECS:
+    try:
         return _CODECS[spec]()
-    if spec in _UNPORTED:
-        raise NotPorted(seam, repr(spec), "'none', 'int8'")
-    raise KeyError(f"unknown compression codec {spec!r}; known: "
-                   f"{sorted(_CODECS) + list(_UNPORTED)}")
+    except KeyError:
+        raise KeyError(f"unknown compression codec {spec!r}; known: "
+                       f"{sorted(_CODECS)}")
 
 
 # ---------------------------------------------------------------------------
@@ -199,10 +324,12 @@ class WirePlan:
     :meth:`to_wire` / :meth:`to_port` gather between them and the wire's
     element order (leaves in flatten order, each in the reference's
     layout); ``port=False``: the buffers already hold the wire's order.
-    :meth:`encode` quantizes a buffer leaf by leaf as the reference's
-    codec does (one ``quantize_int8`` launch per chunk width),
-    :meth:`dequantize` decodes that encode on the device in one launch, and
-    :meth:`decode` a received message of the model."""
+    :meth:`encode` quantizes a buffer to int8 leaf by leaf as the
+    reference's codec does (one ``quantize_int8`` launch per chunk width),
+    :meth:`dequantize` decodes that encode on the device in one launch,
+    :meth:`encode_with` encodes with any codec, and :meth:`decode` decodes a
+    received message of the model.  ``chunk`` and ``align`` are the
+    codec's (:meth:`Codec.align`)."""
 
     _CACHE: Dict[Any, "WirePlan"] = {}
 
@@ -248,10 +375,12 @@ class WirePlan:
         return plan
 
     def to_wire(self, flat: torch.Tensor) -> torch.Tensor:
-        return flat if self._to_wire is None else flat.index_select(0, self._to_wire)
+        """A ``[.., N]`` buffer in the wire's element order."""
+        return flat if self._to_wire is None else flat.index_select(-1, self._to_wire)
 
     def to_port(self, flat: torch.Tensor) -> torch.Tensor:
-        return flat if self._to_port is None else flat.index_select(0, self._to_port)
+        """A ``[.., N]`` buffer in the wire's order back in the plan's."""
+        return flat if self._to_port is None else flat.index_select(-1, self._to_port)
 
     def host_tree(self, flat: torch.Tensor):
         """The dense wire tree of a buffer: one gather into the wire's order,
@@ -294,6 +423,63 @@ class WirePlan:
                                     s_all.view(torch.uint8), out)
         return self.to_port(out)
 
+    def encode_with(self, flat: torch.Tensor, codec: Codec) -> Tuple[Any, Callable[[], torch.Tensor]]:
+        """``(tree, deq)``: the wire tree of a buffer under ``codec`` (int8,
+        fp8 or top-k) and a function that gives ``deQ(Q(flat))`` in this
+        plan's buffer layout (the error-feedback residual's other term)."""
+        if codec.name == "int8":
+            tree, q_all, s_all = self.encode(flat)
+            return tree, lambda: self.dequantize(q_all, s_all)
+        if codec.name == "fp8":
+            return self.encode_fp8(flat)
+        if codec.name in ("topk", "topk-fixed"):
+            return self.encode_topk(flat, codec.fraction)
+        raise ValueError(f"no wire encoder for codec {codec.name!r}")
+
+    def encode_fp8(self, flat: torch.Tensor) -> Tuple[Any, Callable[[], torch.Tensor]]:
+        """The fp8 wire tree of a buffer (each leaf's q as
+        :class:`~repro_torch.comms.codec.E4M3Bits` and its scales, views into
+        ONE host copy), quantized per chunk width on the device, and its
+        ``deq`` (see :meth:`encode_with`)."""
+        from repro_torch.kernels import ref
+        from repro_torch.tree import tree_unflatten
+        qs, ss = zip(*[ref.quantize_fp8_ref(m) for m in self.chunks.pack(flat.detach())])
+        q_all = torch.cat([q.reshape(-1).view(torch.uint8) for q in qs])
+        host = torch.cat([q_all, torch.cat(ss).view(torch.uint8)]).cpu().numpy()
+        hq, hs = host[: self.q_bytes], host[self.q_bytes:].view(np.float32)
+        leaves = [QuantizedTensor("fp8", sh, {
+            "q": e4m3_bits(hq[qo: qo + rows * width].reshape(rows, width)),
+            "scale": hs[ro: ro + rows]})
+            for (qo, ro, rows, width), sh in zip(self._places, self.wire.shapes)]
+        return (tree_unflatten(self.wire.treedef, leaves),
+                lambda: self.chunks.unpack([q.float() * s[:, None] for q, s in zip(qs, ss)]))
+
+    def topk_plan(self, fraction: float) -> "TopKPlan":
+        """The top-k selection over this model's leaves in the wire's order."""
+        return TopKPlan.of(tuple(int(np.prod(sh, dtype=np.int64)) for sh in self.wire.shapes),
+                           fraction, self.device)
+
+    def encode_topk(self, flat: torch.Tensor, fraction: float
+                    ) -> Tuple[Any, Callable[[], torch.Tensor]]:
+        """The top-k wire tree of a buffer (each leaf's ascending uint32
+        indices and exact fp32 values, views into ONE host copy), selected
+        in the wire's element order by :class:`TopKPlan`, and its ``deq``
+        (see :meth:`encode_with`)."""
+        from repro_torch.tree import tree_unflatten
+        tp = self.topk_plan(fraction)
+        w = self.to_wire(flat.detach())
+        keep = tp.mask(w)
+        kept = keep.nonzero().reshape(-1)                   # ascending
+        vals = w.index_select(0, kept)
+        idx = tp.local(kept).to(torch.int32)
+        host = torch.cat([idx.view(torch.uint8), vals.view(torch.uint8)]).cpu().numpy()
+        hi, hv = host[: 4 * kept.numel()].view(np.uint32), host[4 * kept.numel():].view(np.float32)
+        bounds = np.cumsum((0,) + tp.counts)
+        leaves = [QuantizedTensor("topk", sh, {"idx": hi[a:b], "val": hv[a:b]})
+                  for sh, a, b in zip(self.wire.shapes, bounds[:-1], bounds[1:])]
+        return (tree_unflatten(self.wire.treedef, leaves),
+                lambda: self.to_port(torch.where(keep, w, torch.zeros_like(w))))
+
 
 def host_tree(tree: Any) -> Any:
     """A device tree (views of one fp32 buffer) as numpy leaves on the host:
@@ -315,12 +501,54 @@ def _as_device(span: np.ndarray, device: torch.device) -> torch.Tensor:
     return host.clone() if device.type == "cpu" else host.to(device)
 
 
+def _typed(buf: torch.Tensor, offset: int, count: int, dtype: torch.dtype) -> torch.Tensor:
+    """``count`` values of ``dtype`` at byte ``offset`` of a uint8 buffer
+    (copied first when the offset is not a multiple of the item size)."""
+    size = torch.empty((), dtype=dtype).element_size()
+    src = buf[offset: offset + count * size]
+    return (src if offset % size == 0 else src.clone()).view(dtype)
+
+
+def _leaf_arrays(x) -> Tuple[list, tuple]:
+    """``(arrays, geometry)`` of one received leaf, checked: the arrays in
+    the order :func:`_decode` reads them."""
+    if isinstance(x, QuantizedTensor):
+        if x.codec in ("int8", "fp8"):
+            q, s = np.asarray(x.data["q"]), np.asarray(x.data["scale"])
+            if x.codec == "fp8":
+                q = e4m3_bits(q)
+            want = np.int8 if x.codec == "int8" else np.uint8
+            if q.dtype != want or q.ndim != 2 or s.dtype != np.float32 \
+                    or s.shape != q.shape[:1]:
+                raise ValueError(f"malformed {x.codec} leaf: q {q.dtype} {q.shape}, "
+                                 f"scale {s.dtype} {s.shape}")
+            return [q, s], (x.codec,) + q.shape
+        if x.codec == "topk":
+            idx, val = np.asarray(x.data["idx"]), np.asarray(x.data["val"])
+            size = int(np.prod(x.shape, dtype=np.int64))
+            if idx.dtype != np.uint32 or val.dtype != np.float32 or idx.ndim != 1 \
+                    or idx.shape != val.shape or (idx.size and int(idx.max()) >= size):
+                raise ValueError(f"malformed topk leaf: idx {idx.dtype} {idx.shape}, "
+                                 f"val {val.dtype} {val.shape} for {size} entries")
+            return [idx, val], ("topk", idx.size)
+        raise ValueError(f"unknown quantized-tensor codec {x.codec!r}")
+    if isinstance(x, MaskedTensor):
+        # masked words fold as integers (privacy.secure_agg), never decode
+        raise ValueError("a masked leaf in a plaintext message")
+    a = np.asarray(x)
+    if a.dtype.kind != "f":
+        raise ValueError(f"not a float leaf: {a.dtype}")
+    return [a], ("dense", a.dtype.name)
+
+
 def _decode(tree, layout, device: torch.device, last=None):
     """``(flat, table)``: every leaf of a received tree decoded into ONE
     fp32 buffer on ``device`` at ``layout``'s offsets.  ``table`` is the
-    message's int8 table with its key (payload offsets and leaf geometry);
-    ``last``, a table from an earlier message, is used again where the key
-    is the same."""
+    message's decode table with its key (payload offsets and leaf
+    geometry); ``last``, a table from an earlier message, is used again
+    where the key is the same.  int8 leaves decode in one grouped
+    ``dequantize_int8`` launch, fp8 leaves as ``q * scale`` and top-k leaves
+    by a scatter into zeros, all on the device."""
     from repro_torch.kernels import ops
     from repro_torch.kernels.quantize import Int8Table
     leaves, arrays, geom = tree_leaves(tree), [], []
@@ -330,47 +558,40 @@ def _decode(tree, layout, device: torch.device, last=None):
     for x, shape in zip(leaves, layout.shapes):
         if tuple(x.shape) != shape:
             raise ValueError(f"a leaf of shape {tuple(x.shape)} where the model has {shape}")
-        if isinstance(x, QuantizedTensor):
-            if x.codec != "int8":
-                raise ValueError(f"unknown quantized-tensor codec {x.codec!r}")
-            q, s = np.asarray(x.data["q"]), np.asarray(x.data["scale"])
-            if q.dtype != np.int8 or q.ndim != 2 or s.dtype != np.float32 \
-                    or s.shape != q.shape[:1]:
-                raise ValueError(f"malformed int8 leaf: q {q.dtype} {q.shape}, "
-                                 f"scale {s.dtype} {s.shape}")
-            arrays += [q, s]
-            geom.append(q.shape)
-        elif isinstance(x, MaskedTensor):
-            # masked words fold as integers (privacy.secure_agg), never decode
-            raise ValueError("a masked leaf in a plaintext message")
-        else:
-            a = np.asarray(x)
-            if a.dtype.kind != "f":
-                raise ValueError(f"not a float leaf: {a.dtype}")
-            arrays.append(a)
-            geom.append(a.dtype.name)
+        parts, g = _leaf_arrays(x)
+        arrays += parts
+        geom.append(g)
     span, offsets = payload_span(arrays)
     key = (tuple(offsets), tuple(geom))
     if last is None or last[0] != key:
-        it, entries, dense = iter(offsets), [], []
+        it, entries, dense, fp8, topk = iter(offsets), [], [], [], []
         for g, shape, out_off in zip(geom, layout.shapes, layout.offsets):
             size = int(np.prod(shape, dtype=np.int64))
-            if isinstance(g, str):
-                dense.append((out_off, next(it), size, np.dtype(g)))
+            if g[0] == "dense":
+                dense.append((out_off, next(it), size, np.dtype(g[1])))
+            elif g[0] == "topk":
+                topk.append((next(it), next(it), g[1], size, out_off))
             else:
-                entries.append((next(it), next(it), g[0], g[1], size, out_off))
-        last = (key, Int8Table.of(entries), dense)
-    _, table, dense = last
+                (entries if g[0] == "int8" else fp8).append(
+                    (next(it), next(it), g[1], g[2], size, out_off))
+        last = (key, Int8Table.of(entries), dense, fp8, topk)
+    _, table, dense, fp8, topk = last
     buf = _as_device(span, device)
-    if (table.leaves == 0 and len(dense) == len(leaves) and span.nbytes == 4 * layout.n
+    if (table.leaves == 0 and not fp8 and not topk and len(dense) == len(leaves)
+            and span.nbytes == 4 * layout.n
             and all(dt == np.float32 and b == 4 * o for o, b, _, dt in dense)):
         return buf.view(torch.float32), last
     out = torch.empty(layout.n, dtype=torch.float32, device=device)
     ops.dequantize_int8_grouped(table, buf, buf, out)
     for out_off, b, size, dt in dense:
-        src = buf[b: b + size * dt.itemsize]
-        src = src if b % dt.itemsize == 0 else src.clone()
-        out[out_off: out_off + size] = src.view(_TORCH_DTYPES[dt.name]).float()
+        out[out_off: out_off + size] = _typed(buf, b, size, _TORCH_DTYPES[dt.name]).float()
+    for q_off, s_off, rows, width, size, out_off in fp8:
+        q = buf[q_off: q_off + rows * width].view(torch.float8_e4m3fn).view(rows, width)
+        deq = q.float() * _typed(buf, s_off, rows, torch.float32)[:, None]
+        out[out_off: out_off + size] = deq.reshape(-1)[:size]
+    for i_off, v_off, k, size, out_off in topk:
+        seg = out[out_off: out_off + size].zero_()
+        seg[_typed(buf, i_off, k, torch.int32).long()] = _typed(buf, v_off, k, torch.float32)
     return out, last
 
 
@@ -379,7 +600,8 @@ def decode_flat(tree, *, device) -> Tuple[torch.Tensor, Any]:
     fp32 buffer on ``device``, in flatten order at the leaves' logical
     shapes.  The arrays' bytes go to the device in one copy; every int8
     leaf is decoded by one ``dequantize_int8`` launch (its plain version
-    on the CPU); an all-fp32 tree is the copied bytes themselves.  A
+    on the CPU), the fp8 and top-k leaves by plain PyTorch on the device;
+    an all-fp32 tree is the copied bytes themselves.  A
     model's messages are decoded through its :meth:`WirePlan.decode`,
     which keeps the table for the next round."""
     from repro_torch.core.agg_engine import tree_layout
@@ -438,8 +660,9 @@ class UploadCompressor:
     (``port=False``: trees already in the wire's layout, as a pod leader's
     partials are); the payload is the reference's layout on the host
     (:class:`WirePlan`).  The residual ``u - deQ(Q(u))`` is computed on the
-    device from the device q and scales.  ``raw_bytes``/``encoded_bytes``
-    count fp32 and payload bytes."""
+    device.  A sparsifier's upload without a reference (the bootstrap) goes
+    dense, with meta ``compression: "none"``, and sets no residual.
+    ``raw_bytes``/``encoded_bytes`` count fp32 and payload bytes."""
 
     def __init__(self, codec: Codec, error_feedback: bool = True, port: bool = True):
         self.codec = codec
@@ -454,27 +677,28 @@ class UploadCompressor:
         from repro_torch.core.agg_engine import ravel, tree_layout
         dev = ravel(params_tree).device
         return WirePlan.of(tree_layout(params_tree), getattr(self.codec, "chunk", 1024),
-                           align_for(dev), dev, port=self.port)
+                           self.codec.align(dev), dev, port=self.port)
 
     def encode(self, params_tree: Any, reference: Any = None
                ) -> Tuple[Any, Dict[str, Any]]:
         """Encode one upload; returns ``(payload_tree, meta)``."""
         from repro_torch.core.agg_engine import ravel
         flat, plan = ravel(params_tree), self.plan(params_tree)
-        if self.codec.name == "none":
+        delta = reference is not None
+        if self.codec.name == "none" or (
+                not delta and getattr(self.codec, "dense_bootstrap", False)):
             payload = plan.host_tree(flat)
             nb = tree_payload_nbytes(payload)
             self.raw_bytes += nb
             self.encoded_bytes += nb
             self.encodes += 1
             return payload, {"compression": "none", "delta": False}
-        delta = reference is not None
         u = flat - ravel(reference) if delta else flat
         if self.error_feedback and self.residual is not None:
             u = u + self.residual
-        enc, q_all, s_all = plan.encode(u)
+        enc, deq = plan.encode_with(u, self.codec)
         if self.error_feedback:
-            self.residual = u - plan.dequantize(q_all, s_all)
+            self.residual = u - deq()
         self.raw_bytes += 4 * u.numel()
         self.encoded_bytes += tree_payload_nbytes(enc)
         self.encodes += 1
@@ -563,8 +787,8 @@ class DownlinkCompressor:
         from repro_torch.core.agg_engine import ravel, tree_layout, unravel
         g = ravel(global_tree)
         layout = tree_layout(global_tree)
-        plan = WirePlan.of(layout, getattr(self.codec, "chunk", 1024), align_for(g.device),
-                           g.device, port=False)
+        plan = WirePlan.of(layout, getattr(self.codec, "chunk", 1024),
+                           self.codec.align(g.device), g.device, port=False)
         dense_tree = (lambda: host_tree if host_tree is not None else plan.host_tree(g))
         if self.codec.name == "none":
             self._held[site] = [global_tree, int(round_index)]
@@ -580,8 +804,8 @@ class DownlinkCompressor:
             self.dense_sends += 1
             return dense_tree(), {"compression": "none", "delta": False}
         held = ravel(st[0])
-        enc, q_all, s_all = plan.encode(g - held)
-        new_held = held + plan.dequantize(q_all, s_all) if self.error_feedback else g
+        enc, deq = plan.encode_with(g - held, self.codec)
+        new_held = held + deq() if self.error_feedback else g
         self._held[site] = [unravel(new_held, layout), int(round_index)]
         self.raw_bytes += raw
         self.encoded_bytes += tree_payload_nbytes(enc)

@@ -137,7 +137,7 @@ class AggregationServer:
         self._globals: Dict[int, Any] = {}
         if self._global is not None:
             self._globals[self._round] = self._global
-        down_codec = compression.resolve_codec(down_compression, "down_compression")
+        down_codec = compression.resolve_codec(down_compression)
         self._down = (compression.DownlinkCompressor(down_codec)
                       if down_codec.name != "none" else None)
         if self._down is not None and initial_down:

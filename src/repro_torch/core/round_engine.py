@@ -10,26 +10,36 @@ runs, and the per-site losses come back.
   FedAvg and FedProx under the job's combine rule (Eq. 1 or a robust
   one) and adversary, the individual and pooled baselines, and GCML with
   the host's gossip pairings and its DCML and validation batches.
-- :func:`run_compressed`: FedAvg or FedProx with int8 uploads, downloads
-  or both.  Sites train under the strategy's local half (``individual``,
-  or ``fedprox-local`` with the Eq. 2 anchor re-pinned to each broadcast
-  global) and the loop does the exchange: every site's upload ``u`` (its
-  delta plus the carried error-feedback residual) is quantized and folded
-  by :func:`compressed_fold`, and with downlink compression each site
-  installs its quantized delta against the model it holds
-  (:func:`down_install`).  Under a pods topology the uploads are
-  quantized and dequantized (:func:`qdq`) and folded in two tiers
+- :func:`run_compressed`: FedAvg or FedProx with int8, fp8 or
+  ``topk-fixed`` uploads, downloads or both, through the codecs'
+  on-device twins (:class:`DeviceCodec`).  Sites train under the
+  strategy's local half (``individual``, or ``fedprox-local`` with the
+  Eq. 2 anchor re-pinned to each broadcast global) and the loop does the
+  exchange: every site's upload ``u`` (its delta plus the carried
+  error-feedback residual) is compressed and folded (int8:
+  :func:`compressed_fold`; fp8 and top-k: their dense rows through
+  ``fedagg``), and with downlink compression each site installs its
+  compressed delta against the model it holds (int8:
+  :func:`down_install`).  Under a pods topology the uploads are
+  compressed and decoded (int8: :func:`qdq`) and folded in two tiers
   (``reduce_pods_flat``) instead of by the fused ``fedagg_dequant``.
-- :func:`run_buffered`: FedBuff rounds of FedAvg, dense or int8 (the
-  reference's buffered scan).  Sites train, then arrive in a seeded
+- :func:`run_buffered`: FedBuff rounds of FedAvg, dense, int8 or fp8
+  (the reference's buffered scan).  Sites train, then arrive in a seeded
   order; each admitted arrival folds at its staleness discount, and the
   buffer becomes a new global version every ``buffer_k`` folds.  Which
   arrival folds, rejects or fires is a function of the masks and the
   arrival orders only, so the host works the schedule out
   (:func:`buffered_schedule`) and the card runs the folds.
-- :func:`run_buffered_host`: the reference's host loop for int8 with a
-  ``max_staleness`` past the decode ring: the wire codec a site and a
-  version-keyed ring of globals.
+- :func:`run_compressed_host`: the reference's host loop for sync
+  rounds, through the wire codec itself (``topk-sparse``, and
+  ``round_engine="loop"``).
+- :func:`run_buffered_host`: the reference's buffered host loop (a codec
+  with a ``max_staleness`` past the decode ring, the top-k codecs,
+  ``round_engine="loop"``): the wire codec a site and a version-keyed
+  ring of globals.
+
+:func:`engine_for` and :func:`host_loop_for` route a job as the
+reference's ``execute_stacked`` does.
 
 All follow the job's participation schedule (Algorithm-2 availability,
 the pod tier's churn composed in, intersected with client sampling) and,
@@ -51,8 +61,9 @@ import numpy as np
 import torch
 
 from repro_torch import convert
-from repro_torch.comms.compression import (KEEP_GLOBALS_DEFAULT, Codec, UploadCompressor,
-                                           align_for, chunk_geom)
+from repro_torch.comms.compression import (KEEP_GLOBALS_DEFAULT, Codec, DownlinkCompressor,
+                                           UploadCompressor, WirePlan, chunk_geom,
+                                           decode_download, topk_count)
 from repro_torch.core import federation as F
 from repro_torch.core.agg_engine import (RavelLayout, StreamingAccumulator, get_engine,
                                          normalized_weights, per_site_nbytes, ravel, unravel)
@@ -60,7 +71,7 @@ from repro_torch.core.session import BufferedScheduler, JobResult
 from repro_torch.core.topology import simulated_pods_comm
 from repro_torch.core.stacking import broadcast_to_sites
 from repro_torch.core.strategies.base import get_strategy
-from repro_torch.kernels import ops
+from repro_torch.kernels import ops, ref
 from repro_torch.tree import tree_map
 
 
@@ -105,7 +116,8 @@ def _schedule(job, rounds: int, device: torch.device):
     return masks, (torch.as_tensor(scale, device=device) if job.sampled else None)
 
 
-def run_sync(job, bundle, scheduler, rounds: int, init_params=None,
+def run_sync(job, bundle, scheduler, rounds: int, codec: Optional[Codec] = None,
+             down_codec: Optional[Codec] = None, init_params=None,
              on_round: Optional[Callable[[int], None]] = None) -> JobResult:
     """``rounds`` sync rounds of ``job`` under its strategy.
     ``init_params`` (one unstacked tree) replaces the seeded
@@ -286,6 +298,61 @@ def down_install(g: torch.Tensor, held: torch.Tensor, plan: ChunkPlan) -> torch.
     return plan.unpack(out)
 
 
+def qdq_fp8(u: torch.Tensor, plan: ChunkPlan) -> torch.Tensor:
+    """``deQ(Q(u))`` in fp8 for every row of ``u`` [.., N], chunked by
+    ``plan`` (the reference's ``_qdq_tree``: one call per chunk width),
+    plain PyTorch on every device, bit for bit the wire codec's."""
+    return plan.unpack([ref.quantize_dequantize_fp8_ref(m) for m in plan.pack(u)])
+
+
+class DeviceCodec:
+    """The stacked transport's twin of one wire codec (int8, fp8 or
+    ``topk-fixed``) over ``[S, N]`` buffers of the port's layout, the
+    reference's ``_qdq_tree`` / ``_topk_tree`` with the wire's geometry.
+
+    int8 is chunked at the device's alignment and runs the fused kernels
+    (:func:`compressed_fold`, :func:`down_install`); fp8 is chunked at
+    ``align=1`` and top-k selects in the reference's element order
+    (:class:`~repro_torch.comms.compression.TopKPlan` on the wire's
+    gather), both plain PyTorch, their dense rows folded by
+    ``reduce_flat`` (``fedagg``).  ``nbytes`` is one upload's payload."""
+
+    def __init__(self, codec: Codec, layout: RavelLayout, device: torch.device):
+        self.name = codec.name
+        if self.name == "topk-fixed":
+            self.wire = WirePlan.of(layout, 1024, 1, device, port=True)
+            self.topk = self.wire.topk_plan(codec.fraction)
+            self.nbytes = 8 * self.topk.kept
+        elif self.name in ("int8", "fp8"):
+            align = codec.align(device)
+            self.plan = ChunkPlan.of(layout, codec.chunk, align, device)
+            self.nbytes = encoded_nbytes(layout.shapes, codec.chunk, align)
+        else:
+            raise ValueError(f"no on-device twin for codec {self.name!r}")
+
+    def deq(self, u: torch.Tensor) -> torch.Tensor:
+        """``deQ(Q(u))`` of every row of ``u`` [S, N]."""
+        if self.name == "int8":
+            return qdq(u, self.plan)
+        if self.name == "fp8":
+            return qdq_fp8(u, self.plan)
+        w = self.wire.to_wire(u)
+        return self.wire.to_port(torch.where(self.topk.mask(w), w, torch.zeros_like(w)))
+
+    def fold(self, u: torch.Tensor, w: torch.Tensor, engine) -> Tuple[torch.Tensor, torch.Tensor]:
+        """``(sum_s w_s deQ(Q(u_s)), u - deQ(Q(u)))``."""
+        if self.name == "int8":
+            return compressed_fold(u, w, self.plan)
+        deq = self.deq(u)
+        return engine.reduce_flat(deq, w), u - deq
+
+    def install(self, g: torch.Tensor, held: torch.Tensor) -> torch.Tensor:
+        """``held + deQ(Q(g - held))`` for every row."""
+        if self.name == "int8":
+            return down_install(g, held, self.plan)
+        return held + self.deq(g[None] - held)
+
+
 def encoded_nbytes(shapes: Sequence[Tuple[int, ...]], chunk: int, align: int) -> int:
     """Wire payload bytes of ONE quantized model with leaves of ``shapes``:
     1-byte values plus an fp32 scale per chunk row."""
@@ -309,17 +376,25 @@ def bootstrap_masks(masks: np.ndarray, keep: int) -> np.ndarray:
     return boot
 
 
+def topk_nbytes(shapes: Sequence[Tuple[int, ...]], fraction: float) -> int:
+    """Wire payload bytes of ONE top-k model with leaves of ``shapes``: a
+    uint32 index and an fp32 value a kept entry."""
+    return sum(8 * topk_count(fraction, int(np.prod(sh, dtype=np.int64))) for sh in shapes)
+
+
 def run_compressed(job, bundle, scheduler, rounds: int, codec: Codec,
                    down_codec: Optional[Codec] = None, init_params=None,
                    on_round: Optional[Callable[[int], None]] = None) -> JobResult:
-    """``rounds`` sync FedAvg or FedProx rounds with int8 uploads
-    (``codec``), int8 downloads (``down_codec``) or both; arguments as
+    """``rounds`` sync FedAvg or FedProx rounds with int8, fp8 or
+    ``topk-fixed`` uploads (``codec``), downloads (``down_codec``) or both,
+    through the codecs' on-device twins (:class:`DeviceCodec`); arguments as
     :func:`run_sync`.
 
-    The chunk layout follows the job's device as the reference's follows
+    int8's chunk layout follows the job's device as the reference's follows
     its backend: ``align=128`` and the CUDA kernels on a card, ``align=1``
     and their plain versions on the CPU.  The values are the same under
-    both; the byte counts are each layout's own.
+    both; the byte counts are each layout's own.  fp8 is ``align=1`` on
+    both.
 
     Up only: ``u = params - ref + residual``, and the server's reference
     ``ref`` (the global model) advances by the fold.  With the downlink,
@@ -330,6 +405,9 @@ def run_compressed(job, bundle, scheduler, rounds: int, codec: Codec,
     bootstraps dense both ways.  Without the uplink, uploads are dense
     and ``g`` is the plain Eq. 1 fold.  The error-feedback residual is
     replaced on active rows only; inactive rows keep their weights.
+    ``topk-fixed`` uploads go dense (no codec, a zero residual) where the
+    wire's would: in round 0 up only, and on the bootstrap rows with the
+    downlink.
 
     FedProx trains its local half (``fedprox-local``): its Eq. 2 anchor
     starts at the initial model and is re-pinned to each round's exact
@@ -338,7 +416,7 @@ def run_compressed(job, bundle, scheduler, rounds: int, codec: Codec,
 
     Under a pods topology every fold is two-tier (``reduce_pods_flat``:
     the site uploads' dequantized values, the anchors and the dense
-    uploads alike), so the uploads go through :func:`qdq` and not the
+    uploads alike), so int8 uploads go through :func:`qdq` and not the
     fused ``fedagg_dequant``; ``comm`` gains the per-tier split of
     :func:`~repro_torch.core.topology.simulated_pods_comm`."""
     prox = job.strategy == "fedprox"
@@ -349,15 +427,12 @@ def run_compressed(job, bundle, scheduler, rounds: int, codec: Codec,
     masks, wscale = _schedule(job, rounds, ctx.device)
     recorder = job.recorder(rounds, ctx.fed.num_sites)
     engine = get_engine()
-    align = align_for(ctx.device)
     up = codec.name != "none"
     down = down_codec is not None and down_codec.name != "none"
     dev = ctx.device
-    plan = ChunkPlan.of(layout, codec.chunk, align, dev) if up else None
-    d_plan = None
-    if down:
-        d_plan = (plan if up and down_codec.chunk == codec.chunk
-                  else ChunkPlan.of(layout, down_codec.chunk, align, dev))
+    up_codec = DeviceCodec(codec, layout, dev) if up else None
+    d_codec = DeviceCodec(down_codec, layout, dev) if down else None
+    topk = codec.name == "topk-fixed"
     error_feedback = bool(job.error_feedback)
     s, n = state["params"].shape
     ref = torch.zeros((n,), dtype=torch.float32, device=dev)   # round 0: zeros
@@ -382,10 +457,15 @@ def run_compressed(job, bundle, scheduler, rounds: int, codec: Codec,
             return engine.reduce_pods_flat(x, ctx.case_weights, active, pod_ids,
                                            topo.num_pods, topo.intra, topo.inter, scale)
 
-        def up_fold(u):                    # (global delta, residual)
-            if pod_ids is None:
-                return compressed_fold(u, w, plan)
-            deq = qdq(u, plan)
+        def up_fold(u, dense=None):        # (global delta, residual)
+            # ``dense``: True (every row) or [S, 1] rows that skip the codec
+            if dense is True:
+                return fold(u), u - u
+            if pod_ids is None and dense is None:
+                return up_codec.fold(u, w, engine)
+            deq = up_codec.deq(u)
+            if dense is not None:
+                deq = torch.where(dense, u, deq)
             return fold(deq), u - deq
 
         if down:
@@ -393,17 +473,17 @@ def run_compressed(job, bundle, scheduler, rounds: int, codec: Codec,
             # upload anchor: the site's own install; a bootstrap row is dense
             anchor = torch.where(boot, torch.zeros_like(held), held)
             if up:
-                gdelta, new_res = up_fold(params - anchor + res)
+                gdelta, new_res = up_fold(params - anchor + res, boot if topk else None)
                 if error_feedback:
                     res = torch.where(act, new_res, res)
                 ref = fold(anchor) + gdelta
             else:
                 ref = fold(params)
-            inst = torch.where(boot, ref[None], down_install(ref, held, d_plan))
+            inst = torch.where(boot, ref[None], d_codec.install(ref, held))
             held = torch.where(act, inst, held)
             rows = inst
         else:
-            gdelta, new_res = up_fold(params - ref[None] + res)
+            gdelta, new_res = up_fold(params - ref[None] + res, True if topk and r == 0 else None)
             if error_feedback:
                 res = torch.where(act, new_res, res)
             ref = ref + gdelta
@@ -418,14 +498,18 @@ def run_compressed(job, bundle, scheduler, rounds: int, codec: Codec,
         return metrics["loss"], out
 
     # host-precomputed per-round wire bytes, as the reference counts them;
-    # a bootstrap download is the dense fp32 model
+    # a bootstrap download, and a top-k bootstrap upload, is the dense model
     dense = 4 * n                          # init_fl_state holds fp32 rows
-    up_bytes = encoded_nbytes(layout.shapes, codec.chunk, align) if up else dense
-    round_up = masks.sum(axis=1).astype(np.int64) * up_bytes
+    up_bytes = up_codec.nbytes if up else dense
     if down:
-        down_bytes = encoded_nbytes(layout.shapes, down_codec.chunk, align)
-        round_down = np.where(masks, np.where(boot_mask, dense, down_bytes), 0).sum(axis=1)
+        per_up = np.where(boot_mask, dense, up_bytes) if topk else np.full(masks.shape, up_bytes)
+        round_up = np.where(masks, per_up, 0).sum(axis=1).astype(np.int64)
+        round_down = np.where(masks, np.where(boot_mask, dense, d_codec.nbytes), 0).sum(axis=1)
     else:
+        per_round = np.full(rounds, up_bytes, np.int64)
+        if topk:
+            per_round[:1] = dense
+        round_up = masks.sum(axis=1).astype(np.int64) * per_round
         round_down = masks.sum(axis=1).astype(np.int64) * dense
 
     _round_loop(job, bundle, ctx, masks, recorder, step, on_round)
@@ -445,6 +529,128 @@ def run_compressed(job, bundle, scheduler, rounds: int, codec: Codec,
             intra_download_bytes=comm["download_bytes"] if down else None,
             compression=codec.name, down_compression=comm["down_compression"]))
     return recorder.result(engine.unflatten(ref, layout), transport="stacked",
+                           scheduler=scheduler.name, state=state, comm=comm,
+                           privacy=job.privacy_report(rounds))
+
+
+def run_compressed_host(job, bundle, scheduler, rounds: int, codec: Codec,
+                        down_codec: Optional[Codec] = None, init_params=None,
+                        on_round: Optional[Callable[[int], None]] = None) -> JobResult:
+    """Sync FedAvg or FedProx rounds with any codec in either direction
+    through the wire codec itself, the reference's host loop
+    (``StackedTransport._execute_compressed``, without its checkpoints):
+    the path of ``topk-sparse``, and of ``round_engine="loop"``; arguments
+    as :func:`run_sync`.
+
+    Every active site's trained row is encoded by its own
+    :class:`~repro_torch.comms.compression.UploadCompressor` (the wire's
+    layout, a delta against the last broadcast global, or with the downlink
+    against the site's own install; dense past the ``KEEP_GLOBALS_DEFAULT``
+    window, and a sparsifier's bootstrap dense), decoded on the device and
+    folded into its pod's
+    :class:`~repro_torch.core.agg_engine.StreamingAccumulator` at its case
+    weight (1 under ``intra="uniform"``, times the sampling factor); the
+    pods' partials fold into the root at their folded weight (1 under
+    ``inter="uniform"``), the flat topology being one pod.  With a download
+    codec a :class:`~repro_torch.comms.compression.DownlinkCompressor`
+    encodes each active site's install against what it holds, in the
+    wire's layout, and the site decodes it; else each active site installs
+    the global.  FedProx's Eq. 2 anchor is the exact global.  ``comm`` is
+    the compressors' counters."""
+    prox = job.strategy == "fedprox"
+    ctx = job.context(bundle, strategy="fedprox-local" if prox else "individual")
+    state = _init_state(job, bundle, ctx, init_params)
+    fl_round = F.build_fl_round(ctx)
+    layout = state["layout"]
+    masks = job.masks(rounds)
+    wscale = job.weight_scale(rounds) if job.sampled else None
+    recorder = job.recorder(rounds, ctx.fed.num_sites)
+    s, n = state["params"].shape
+    topo = job.topo
+    pod_of = topo.pod_of(s)
+    case_w = np.asarray(job.federation().case_weights())
+    comps = [UploadCompressor(codec, job.error_feedback) for _ in range(s)]
+    down = down_codec is not None and down_codec.name != "none"
+    keep = KEEP_GLOBALS_DEFAULT
+    server_down = DownlinkCompressor(down_codec) if down else None
+    g = ravel(F.global_model(state, ctx))
+    edge = comps[0].plan(unravel(g, layout))
+    d_plan = WirePlan.of(edge.wire, 1024, 1, ctx.device, port=False) if down else None
+    installs: List = [None] * s          # each site's decoded install, the wire's layout
+    acked: List[Optional[int]] = [None] * s
+    last_active = np.full(s, -keep, np.int64)
+    reference: Optional[torch.Tensor] = None        # the last broadcast global
+
+    def step(r, batches):
+        nonlocal state, g, reference
+        state, metrics = fl_round(state, batches, F.make_round_inputs(ctx, masks[r]))
+        p = state["params"]
+        active = [int(i) for i in np.flatnonzero(masks[r])]
+        pods = [StreamingAccumulator() for _ in range(topo.num_pods)]
+        root = StreamingAccumulator()
+        up_before = sum(c.encoded_bytes for c in comps)
+        down_before = server_down.encoded_bytes if down else 0
+        for site in active:
+            if down:    # anchored to its own install; dense past the window
+                up_ref = (None if r - int(last_active[site]) >= keep or installs[site] is None
+                          else edge.to_port(ravel(installs[site])))
+            else:
+                up_ref = reference
+            enc, cmeta = comps[site].encode(unravel(p[site], layout),
+                                            None if up_ref is None else unravel(up_ref, layout))
+            decoded = edge.to_port(edge.decode(enc))
+            if cmeta.get("delta"):
+                decoded = decoded + up_ref
+            w = 1.0 if topo.intra == "uniform" else float(case_w[site])
+            if wscale is not None:             # Horvitz-Thompson 1/pi factor
+                w *= float(wscale[r, site])
+            pods[int(pod_of[site])].fold(unravel(decoded, layout), w, owned=True)
+        for acc in pods:
+            if acc.count:
+                pw = 1.0 if topo.inter == "uniform" else acc.weight_total
+                root.fold(acc.finalize(), pw, owned=True)
+        if root.count:
+            g = reference = ravel(root.finalize())
+            if down:
+                # the socket server's order: advance the round clock, evict
+                # stale references, then serve this round's downloads
+                server_down.evict_stale(r + 1, keep)
+                gw = unravel(edge.to_wire(g), edge.wire)
+                for site in active:
+                    payload, dmeta = server_down.encode(site, gw, r + 1, acked_round=acked[site])
+                    installs[site] = decode_download(payload, dmeta, installs[site], plan=d_plan)
+                    acked[site] = r + 1
+                    p[site].copy_(edge.to_port(ravel(installs[site])))
+            else:
+                for site in active:
+                    p[site].copy_(g)
+            if prox:                               # the exact global, as the engine's
+                state = {**state, "strategy": {"global": g}}
+        last_active[masks[r]] = r
+        out = {"upload_bytes": sum(c.encoded_bytes for c in comps) - up_before}
+        if down:
+            out["download_bytes"] = server_down.encoded_bytes - down_before
+        return metrics["loss"], out
+
+    _round_loop(job, bundle, ctx, masks, recorder, step, on_round)
+    dense = 4 * n
+    uploads = sum(c.encodes for c in comps)
+    up_bytes = sum(c.encoded_bytes for c in comps)
+    down_bytes, down_raw, down_count = ((server_down.encoded_bytes, server_down.raw_bytes,
+                                         server_down.encodes) if down
+                                        else (uploads * dense, uploads * dense, uploads))
+    comm = {"upload_bytes": up_bytes, "upload_raw_bytes": sum(c.raw_bytes for c in comps),
+            "download_bytes": down_bytes, "download_raw_bytes": down_raw,
+            "total_bytes": up_bytes + down_bytes,
+            "upload_count": uploads, "download_count": down_count,
+            "compression": codec.name,
+            "down_compression": down_codec.name if down else "none", "simulated": True}
+    if topo.is_pods:
+        comm.update(simulated_pods_comm(
+            topo, masks, dense, intra_upload_bytes=up_bytes,
+            intra_download_bytes=down_bytes if down else None,
+            compression=codec.name, down_compression=comm["down_compression"]))
+    return recorder.result(unravel(g, layout), transport="stacked",
                            scheduler=scheduler.name, state=state, comm=comm,
                            privacy=job.privacy_report(rounds))
 
@@ -531,9 +737,9 @@ def fold_arrival(acc: torch.Tensor, decoded: torch.Tensor, weight: np.float32) -
 
 
 def run_buffered(job, bundle, scheduler: BufferedScheduler, rounds: int, codec: Codec,
-                 init_params=None,
+                 down_codec: Optional[Codec] = None, init_params=None,
                  on_round: Optional[Callable[[int], None]] = None) -> JobResult:
-    """``rounds`` buffered FedAvg rounds, dense or int8 with a
+    """``rounds`` buffered FedAvg rounds, dense, int8 or fp8 with a
     ``max_staleness`` inside the decode ring (the reference's buffered
     scan); arguments as :func:`run_sync`.
 
@@ -545,14 +751,14 @@ def run_buffered(job, bundle, scheduler: BufferedScheduler, rounds: int, codec: 
     the round's end every site that folded pulls the newest global.
     Version 0 is the case-weighted mean of the initial rows (``fedagg``).
 
-    With int8 an arrival is its delta against the global of its version
+    With a codec an arrival is its delta against the global of its version
     (a ring of the last ``KEEP_GLOBALS_DEFAULT`` versions) plus its
     error-feedback residual, quantized and dequantized on the reference's
     flat layout (the whole vector as one leaf in the reference's element
-    order, ``align=1``): one ``quantize_int8`` and one ``dequantize_int8``
-    launch an arrival.  ``comm`` (int8 only) counts that layout's bytes a
-    fold and a dense download a fold; the history records each round's
-    ``version``."""
+    order, ``align=1``): for int8 one ``quantize_int8`` and one
+    ``dequantize_int8`` launch an arrival, for fp8 :func:`qdq_fp8`.
+    ``comm`` (compressed only) counts that layout's bytes a fold and a dense
+    download a fold; the history records each round's ``version``."""
     ctx = job.context(bundle, strategy="individual")
     state = _init_state(job, bundle, ctx, init_params)
     fl_round = F.build_fl_round(ctx)
@@ -587,7 +793,7 @@ def run_buffered(job, bundle, scheduler: BufferedScheduler, rounds: int, codec: 
             if compress:
                 anchor = ring[a.base % keep]
                 u = p[a.site] - anchor + res[a.site]
-                deq = qdq(u, plan)
+                deq = qdq(u, plan) if codec.name == "int8" else qdq_fp8(u, plan)
                 if error_feedback:
                     res[a.site] = u - deq
                 decoded = deq + anchor
@@ -623,11 +829,12 @@ def run_buffered(job, bundle, scheduler: BufferedScheduler, rounds: int, codec: 
 
 
 def run_buffered_host(job, bundle, scheduler: BufferedScheduler, rounds: int,
-                      codec: Codec, init_params=None,
+                      codec: Codec, down_codec: Optional[Codec] = None, init_params=None,
                       on_round: Optional[Callable[[int], None]] = None) -> JobResult:
-    """Buffered FedAvg with int8 uploads whose ``max_staleness`` reaches
-    past the decode ring (the reference's host loop,
-    ``StackedTransport._execute_buffered``); arguments as :func:`run_sync`.
+    """Buffered FedAvg through the wire codec, the reference's host loop
+    (``StackedTransport._execute_buffered``): the path of a codec whose
+    ``max_staleness`` reaches past the decode ring, of the top-k codecs,
+    and of ``round_engine="loop"``; arguments as :func:`run_sync`.
 
     Each round the active sites arrive in the order of one
     ``default_rng(seed + 13)``; each arrival is its site's
@@ -636,8 +843,9 @@ def run_buffered_host(job, bundle, scheduler: BufferedScheduler, rounds: int,
     dense when that version left the ring of ``KEEP_GLOBALS_DEFAULT``
     globals), decoded and folded into a
     :class:`~repro_torch.core.agg_engine.StreamingAccumulator` at its case
-    weight times its discount; ``ready`` finalizes a new version.  ``comm``
-    is the compressors' counters and a dense download an upload."""
+    weight times its discount (a dense job folds the row itself); ``ready``
+    finalizes a new version.  ``comm`` (compressed only) is the
+    compressors' counters and a dense download an upload."""
     ctx = job.context(bundle, strategy="individual")
     state = _init_state(job, bundle, ctx, init_params)
     fl_round = F.build_fl_round(ctx)
@@ -652,6 +860,7 @@ def run_buffered_host(job, bundle, scheduler: BufferedScheduler, rounds: int,
     version = 0
     base_version = np.zeros(s, np.int64)
     g = engine.reduce_flat(state["params"], ctx.case_weights / torch.sum(ctx.case_weights))
+    compress = codec.name != "none"
     comps = [UploadCompressor(codec, job.error_feedback) for _ in range(s)]
     edge = comps[0].plan(unravel(g, layout))
     globals_by_version: "OrderedDict[int, torch.Tensor]" = OrderedDict({0: g})
@@ -669,12 +878,15 @@ def run_buffered_host(job, bundle, scheduler: BufferedScheduler, rounds: int,
                 p[site].copy_(g)
                 base_version[site] = version
                 continue
-            ref = globals_by_version.get(int(base_version[site]))
-            enc, cmeta = comps[site].encode(unravel(p[site], layout),
-                                            None if ref is None else unravel(ref, layout))
-            decoded = edge.to_port(edge.decode(enc))
-            if cmeta.get("delta"):
-                decoded = decoded + ref
+            if compress:
+                ref = globals_by_version.get(int(base_version[site]))
+                enc, cmeta = comps[site].encode(unravel(p[site], layout),
+                                                None if ref is None else unravel(ref, layout))
+                decoded = edge.to_port(edge.decode(enc))
+                if cmeta.get("delta"):
+                    decoded = decoded + ref
+            else:
+                decoded = p[site].clone()
             acc.fold(unravel(decoded, layout), float(case_w[site]) * discount, owned=True)
             uploaded.append(site)
             if scheduler.ready(acc.count, len(active_idx)):
@@ -691,11 +903,52 @@ def run_buffered_host(job, bundle, scheduler: BufferedScheduler, rounds: int,
     _round_loop(job, bundle, ctx, masks, recorder, step, on_round)
     uploads = sum(c.encodes for c in comps)
     up_bytes = sum(c.encoded_bytes for c in comps)
-    comm = {"upload_bytes": up_bytes, "upload_raw_bytes": sum(c.raw_bytes for c in comps),
-            "download_bytes": uploads * 4 * n, "download_raw_bytes": uploads * 4 * n,
-            "total_bytes": up_bytes + uploads * 4 * n,
-            "upload_count": uploads, "download_count": uploads,
-            "compression": codec.name, "down_compression": "none", "simulated": True}
+    comm = None
+    if compress:
+        comm = {"upload_bytes": up_bytes, "upload_raw_bytes": sum(c.raw_bytes for c in comps),
+                "download_bytes": uploads * 4 * n, "download_raw_bytes": uploads * 4 * n,
+                "total_bytes": up_bytes + uploads * 4 * n,
+                "upload_count": uploads, "download_count": uploads,
+                "compression": codec.name, "down_compression": "none", "simulated": True}
     return recorder.result(engine.unflatten(g, layout), transport="stacked",
                            scheduler=scheduler.name, state=state, comm=comm,
                            privacy=job.privacy_report(rounds))
+
+
+# ---------------------------------------------------------------------------
+# Routing: the reference's execute_stacked
+# ---------------------------------------------------------------------------
+
+
+RoundsFn = Callable[..., JobResult]
+
+
+def engine_for(scheduler, codec: Codec, down_codec: Codec) -> Optional[RoundsFn]:
+    """The rounds that run a stacked job on the device (the reference's
+    ``execute_stacked``), or None where the reference's returns None and
+    takes its host path: ``topk-sparse`` either way, a buffered top-k job,
+    a buffered codec whose ``max_staleness`` reaches past the decode
+    ring.  Each returned function takes ``(job, bundle, scheduler, rounds,
+    codec, down_codec, init_params=, on_round=)``; ``down_codec`` is refused
+    with a buffered scheduler before this."""
+    down = down_codec.name != "none"
+    if codec.name not in ("none", "int8", "fp8", "topk-fixed"):
+        return None
+    if down and down_codec.name not in ("int8", "fp8", "topk-fixed"):
+        return None
+    if isinstance(scheduler, BufferedScheduler):
+        past_ring = codec.name != "none" and scheduler.max_staleness >= KEEP_GLOBALS_DEFAULT
+        return None if past_ring or codec.name == "topk-fixed" else run_buffered
+    if codec.name != "none" or down:
+        return run_compressed
+    return run_sync
+
+
+def host_loop_for(scheduler, codec: Codec, down_codec: Codec) -> RoundsFn:
+    """The host loop that runs a stacked job through the wire codec (the
+    reference's retired per-round loops), as :func:`engine_for` returns."""
+    if isinstance(scheduler, BufferedScheduler):
+        return run_buffered_host
+    if codec.name != "none" or down_codec.name != "none":
+        return run_compressed_host
+    return run_sync

@@ -157,6 +157,9 @@ class JobResult:
     # transport; on the socket transports the server's framed bytes, with
     # the payload split (site_payload_bytes, download_payload_bytes)
     comm: Optional[Dict[str, Any]] = None
+    # seconds spent before round 0's timed span (the kernels' builds and
+    # loads on a card); 0.0 on the CPU
+    compile_s: float = 0.0
     # the checkpoint round a resumed run re-entered from (None: round 0)
     resumed_from: Optional[int] = None
     # uploads the socket server rejected (non-finite, norm outliers,
@@ -175,6 +178,16 @@ class JobResult:
         if not self.history:
             return float("nan")
         return self.history[-1]["loss"]
+
+    def to_dict(self) -> Dict[str, Any]:
+        """The reference's summary: its keys, in its order."""
+        return {"history": self.history, "final_loss": self.final_loss,
+                "wall_s": self.wall_s, "compile_s": self.compile_s,
+                "transport": self.transport,
+                "scheduler": self.scheduler, "comm": self.comm,
+                "resumed_from": self.resumed_from,
+                "privacy": self.privacy,
+                "rejected_uploads": self.rejected_uploads}
 
 
 class RoundRecorder:
@@ -217,11 +230,11 @@ class RoundRecorder:
                   f"active {n_active}/{self.num_sites}")
 
     def result(self, global_params, *, transport: str, scheduler: str,
-               state=None, comm=None, resumed_from: Optional[int] = None,
-               rejected_uploads: int = 0,
+               state=None, comm=None, compile_s: float = 0.0,
+               resumed_from: Optional[int] = None, rejected_uploads: int = 0,
                privacy: Optional[Dict[str, Any]] = None) -> JobResult:
         return JobResult(history=self.history, global_params=global_params,
                          wall_s=time.time() - self._t0, transport=transport,
-                         scheduler=scheduler, state=state, comm=comm,
+                         scheduler=scheduler, state=state, comm=comm, compile_s=compile_s,
                          resumed_from=resumed_from, rejected_uploads=rejected_uploads,
                          privacy=privacy)

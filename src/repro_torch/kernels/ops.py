@@ -38,7 +38,12 @@ KERNELS = {
                    "src/repro/kernels/mamba_scan.py:47"),
 }
 
-__all__ = ["Int8Table", "KERNELS", "dequant_install", "dequantize_int8",
+# the kernels a federated job can launch (a job builds and loads them before
+# its first round: ``build.prepare``)
+FL_KERNELS = ("fedagg", "quantize_int8", "dequantize_int8", "fedagg_dequant",
+              "dequant_install", "trimmed_mean")
+
+__all__ = ["FL_KERNELS", "Int8Table", "KERNELS", "dequant_install", "dequantize_int8",
            "dequantize_int8_grouped", "fedagg",
            "fedagg_dequant", "flash_attention", "mamba_scan", "masked_median",
            "quantize_int8", "rwkv6_scan", "trimmed_mean"]

@@ -88,6 +88,29 @@ def quantize_dequantize_ref(mat: torch.Tensor) -> torch.Tensor:
     return torch.clamp(torch.round(mat / scale), -_QMAX, _QMAX) * scale
 
 
+_FP8_MAX = 448.0
+
+
+def quantize_fp8_ref(mat: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """[..., C, c] fp32 -> (float8_e4m3fn values [..., C, c], fp32 per-row
+    scales [..., C]): each row's absmax maps to 448, e4m3's largest value,
+    and the cast rounds to nearest even.  ``x / scale`` may land a hair
+    above 448 (never past 464, where e4m3fn, which has no infinity, turns
+    to NaN): the cast rounds it back to 448."""
+    absmax = mat.abs().amax(dim=-1)
+    scale = torch.clamp_min(absmax / torch.full_like(absmax, _FP8_MAX), float(MIN_SCALE))
+    return (mat / scale[..., None]).to(torch.float8_e4m3fn), scale
+
+
+def quantize_dequantize_fp8_ref(mat: torch.Tensor) -> torch.Tensor:
+    """float8_e4m3fn quantize -> dequantize round trip over [..., C, c] fp32:
+    the reference's ``quantize_dequantize_fp8_ref`` (and its wire codec),
+    bit for bit.  Plain PyTorch on every device: the reference has no
+    kernel for it."""
+    q, scale = quantize_fp8_ref(mat)
+    return q.float() * scale[..., None]
+
+
 def trimmed_mean_ref(stacked: torch.Tensor, active: torch.Tensor, f: int) -> torch.Tensor:
     """Coordinate-wise trimmed mean over the active rows of [S, N] -> [N] fp32.
 

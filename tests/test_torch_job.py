@@ -83,8 +83,9 @@ def test_job_runs_on_cuda_by_default_and_raises_without_it(monkeypatch):
     pytest.param("dp", dict(scheduler="buffered", dp_clip=1.0), id="scheduler-kw0"),
     pytest.param("dp", dict(strategy="fedprox", transport="thread", topology="pods:2",
                             dp_clip=1.0), id="strategy-kw1"),
-    ("compression", dict(compression="fp8")),
-    ("down_compression", dict(down_compression="topk-fixed")),
+    pytest.param("dp", dict(compression="fp8", dp_noise_multiplier=1.0), id="compression-kw2"),
+    pytest.param("device_data", dict(down_compression="topk-fixed", device_data=True),
+                 id="down_compression-kw3"),
     ("dp", dict(dp_clip=1.0)),
     ("device_data", dict(device_data=True)),
     ("adversary", dict(adversary="noise:1:1")),
@@ -95,8 +96,8 @@ def test_job_runs_on_cuda_by_default_and_raises_without_it(monkeypatch):
     pytest.param("device_data", dict(topology="pods:2", device_data=True), id="topology-kw9"),
     ("shard_sites", dict(shard_sites=True)),
     ("task", dict(task=TaskConfig(kind="tokens"))),
-    pytest.param("compression", dict(compression="fp8", strategy="gcml", transport="tcp"),
-                 id="strategy-kw12"),
+    pytest.param("device_data", dict(compression="fp8", strategy="gcml", transport="tcp",
+                                     device_data=True), id="strategy-kw12"),
 ])
 def test_unported_seams_raise_a_typed_error(seam, kw):
     job = FederatedJob(task=TaskConfig(**TASK), rounds=1, device="cpu").replace(**kw)
@@ -166,14 +167,16 @@ def test_refused_tier_compositions_raise_the_reference_value_error(make, frag):
 # fields of the reference's job and task that name an unported seam:
 # (field, a value other than the default, the seam NotPorted names; None:
 # the seam has since been ported, and the value is the reference's
-# ValueError on its own)
+# ValueError on its own; "ported": the seam has since been ported and the
+# value runs)
 FIELDS = [
     ("dp_clip", 1.0, "dp"), ("dp_noise_multiplier", 1.0, "dp"),
     pytest.param("pod_dropout", 1, None, id="pod_dropout-1-topology"),
     ("device_data", True, "device_data"),
     ("dp_delta", 1e-6, "dp"), ("dp_mode", "per-example", "dp"),
-    ("round_engine", "loop", "round_engine"),
-    ("chunk_rounds", 2, "round_engine"), ("ckpt_every", 5, "checkpoint"),
+    pytest.param("round_engine", "loop", "ported", id="round_engine-loop-round_engine"),
+    pytest.param("chunk_rounds", 2, "ported", id="chunk_rounds-2-round_engine"),
+    ("ckpt_every", 5, "checkpoint"),
     ("task.arch", "gemma3-1b", "task"), ("task.reduced", False, "task"),
     ("task.seq", 32, "task"), ("checkpoint_dir", "ckpt", "checkpoint"),
     ("shard_sites", True, "shard_sites"),
@@ -200,6 +203,9 @@ def test_reference_fields_take_their_defaults_and_refuse_other_values(name, othe
                            **{name: _default(JJob, name)})
         bad = job.replace(**{name: other})
     job.check_ported()
+    if seam == "ported":          # the seam's behaviour: test_torch_codec_engine.py
+        bad.check_ported()
+        return
     if seam is None:
         with pytest.raises(ValueError, match="requires a pods topology"):
             bad.run()
@@ -224,8 +230,9 @@ def test_port_imports_neither_jax_nor_the_reference():
     for f in files:
         for mod in _imports(f):
             top = mod.split(".")[0]
-            assert top not in ("jax", "jaxlib", "repro"), f"{f}: imports {mod}"
+            assert top not in ("jax", "jaxlib", "repro", "ml_dtypes"), f"{f}: imports {mod}"
         assert "import jax" not in f.read_text(), f
+        assert "import ml_dtypes" not in f.read_text(), f
 
 
 def test_chip_smoke_refuses_to_run_without_cuda():
@@ -237,3 +244,48 @@ def test_chip_smoke_refuses_to_run_without_cuda():
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode != 0
     assert '"ok"' not in proc.stdout
+
+
+# -- the result surface (ROADMAP C8) ----------------------------------------------
+
+
+def test_job_result_to_dict_has_the_reference_keys_in_its_order():
+    from repro.core.session import JobResult as JResult
+    from repro_torch.core.session import JobResult
+    kw = dict(history=[{"loss": 1.0}], global_params=None, wall_s=1.0, transport="stacked",
+              scheduler="sync")
+    want, got = JResult(**kw).to_dict(), JobResult(**kw).to_dict()
+    assert list(got) == list(want)
+    assert got == want
+
+
+@pytest.mark.parametrize("transport", ["stacked", "thread", "tcp"])
+def test_compile_s_is_set_on_every_transport(transport):
+    """The seconds before round 0's timed span: the kernels' builds and
+    loads on a card, none on the CPU."""
+    res = FederatedJob(task=TaskConfig(kind="dose", sites=2, batch=1, volume=(8, 8, 8),
+                                       base_filters=4), rounds=1, device="cpu",
+                       transport=transport).run()
+    assert res.compile_s == 0.0 and res.to_dict()["compile_s"] == 0.0
+    assert res.transport == transport
+
+
+def test_run_takes_rounds_and_resume_by_position(tmp_path):
+    """``run(5, True)`` resumes, as the reference's does; ``init_params``
+    and ``on_round`` are keyword-only; the stacked transport still refuses
+    to resume."""
+    import inspect
+    params = inspect.signature(FederatedJob.run).parameters
+    assert [p for p in params if params[p].kind is inspect.Parameter.POSITIONAL_OR_KEYWORD] \
+        == ["self", "rounds", "resume"]
+    assert params["init_params"].kind is params["on_round"].kind is \
+        inspect.Parameter.KEYWORD_ONLY
+    job = FederatedJob(task=TaskConfig(kind="dose", sites=2, batch=1, volume=(8, 8, 8),
+                                       base_filters=4), device="cpu", transport="thread",
+                       checkpoint_dir=str(tmp_path), ckpt_every=1)
+    job.run(3)
+    res = job.run(5, True)
+    assert res.resumed_from == 2 and [h["round"] for h in res.history] == [3, 4]
+    with pytest.raises(NotPorted) as err:
+        job.replace(transport="stacked", checkpoint_dir=None, ckpt_every=10).run(3, True)
+    assert err.value.seam == "checkpoint"

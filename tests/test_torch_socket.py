@@ -600,12 +600,15 @@ UNPORTED = [
     pytest.param("dp", dict(scheduler="buffered", dp_clip=1.0), id="scheduler-kw0"),
     pytest.param("dp", dict(strategy="fedprox", topology="pods:2", dp_clip=1.0),
                  id="strategy-kw1"),
-    pytest.param("compression", dict(strategy="gcml", compression="fp8"), id="strategy-kw2"),
-    pytest.param("compression", dict(topology="pods:2", compression="fp8"), id="topology-kw3"),
+    pytest.param("dp", dict(strategy="gcml", compression="fp8", dp_clip=1.0),
+                 id="strategy-kw2"),
+    pytest.param("device_data", dict(topology="pods:2", compression="fp8", device_data=True),
+                 id="topology-kw3"),
     pytest.param("dp", dict(secure_agg=True, dp_clip=1.0), id="secure_agg-kw4"),
     ("dp", dict(dp_clip=1.0)),
-    ("compression", dict(compression="fp8")),
-    ("down_compression", dict(down_compression="topk-fixed")),
+    pytest.param("dp", dict(compression="fp8", dp_noise_multiplier=1.0), id="compression-kw6"),
+    pytest.param("device_data", dict(down_compression="topk-fixed", device_data=True),
+                 id="down_compression-kw7"),
 ]
 
 

@@ -187,7 +187,7 @@ def test_refused_strategy_compositions_raise_the_reference_value_error(kw, frag)
 @pytest.mark.parametrize("kw,seam", [
     pytest.param(dict(strategy="fedprox", transport="thread", topology="pods:2", dp_clip=1.0),
                  "dp", id="kw0-strategy"),
-    pytest.param(dict(strategy="gcml", transport="tcp", compression="fp8"), "compression",
+    pytest.param(dict(strategy="gcml", transport="tcp", compression="fp8", dp_clip=1.0), "dp",
                  id="kw1-strategy"),
     (dict(strategy="fedprox", device_data=True), "device_data"),
     pytest.param(dict(strategy="fedprox", topology="pods:2", device_data=True), "device_data",
