@@ -138,6 +138,19 @@ Phases, each of which fails the run (non-zero exit) if it goes wrong:
    its stacked twin), int8 uploads with fp8 downloads (the int8 kernels'
    launches), and the fp8 qdq and top-k selection timed as plain PyTorch
    call sites beside their bytes bound;
+18. checkpoint and resume, DP-SGD and the noise attack at full width
+   (``run_resume_and_dp`` states each check): one (site, step) DP noise
+   draw of the full model on the card against the CPU's (subkeys and
+   uniforms bit-equal, normals within 4 ulp; the plain draw timed beside
+   its bytes bound); DP-SGD FedAvg (per-site, C 0.5, sigma 0.8, 4 rounds)
+   killed after 3 rounds and resumed from round 2, and the same with int8
+   both ways, each resumed round bit-equal to the uninterrupted run's
+   (deterministic cuDNN), ``comm`` one round's, ``privacy`` the
+   accountant's epsilon for 4 rounds, the resumed round's launches exact;
+   ``noise:0.5:1`` under ``trimmed:1`` (each perturbed row the CPU's draw);
+   the thread transport with DP, held to the stacked job's first two
+   rounds by phase 5b's bound; then 8^3 resumes, refusals and DP jobs on
+   the card and the CPU;
 9. the fourth slice's paths: serving the token models at full width
    through ``launch/serve.py`` (prefill, then greedy decode, fp32
    weights from a seed, TF32 off): gemma3-1b (26 layers, 4 x 1024
@@ -158,9 +171,9 @@ Phases, each of which fails the run (non-zero exit) if it goes wrong:
    off: the greedy tokens must be equal and the logits within
    rtol=atol=1e-4.
 
-Phases 11-17 run after phase 8, before 9.  Every kernel's launch count is
+Phases 11-18 run after phase 8, before 9.  Every kernel's launch count is
 zeroed just before each of phases 3-5b, 7, each path of 9 and each
-full-width job of 11-13 and 15-17, and read just after; each of 11-17
+full-width job of 11-13 and 15-18, and read just after; each of 11-18
 prints its seconds.  The second-to-last line is a
 JSON object with one entry per kernel; the last line is ``{"ok": true,
 "device": {...}}``.  Without
@@ -176,6 +189,7 @@ import math
 import subprocess
 import sys
 import time
+import types
 from pathlib import Path
 
 ROUNDS = 2
@@ -2745,6 +2759,331 @@ def run_codecs(torch, FederatedJob, TaskConfig, build, task) -> dict:
     return out
 
 
+# -- checkpoint and resume, DP-SGD and the noise attack (phase 18) ---------------
+
+DP_KW = dict(dp_clip=0.5, dp_noise_multiplier=0.8)
+P18_ROUNDS = 4                          # 18a/b: the uninterrupted run's rounds
+P18_KILL = 3                            # ... the killed run's (carries at rounds 0, 2)
+NORMAL_ULP = 4                          # the port's normals against another device's
+
+
+def _ulps(torch, a, b):
+    """The ulp distance of two fp32 tensors (their ordered integer images),
+    on the CPU."""
+    def ordered(x):
+        i = x.detach().float().cpu().contiguous().view(torch.int32).long()
+        return torch.where(i < 0, -(i & 0x7FFFFFFF), i)
+    return (ordered(a) - ordered(b)).abs()
+
+
+def _ckpt_dir():
+    """A scratch checkpoint directory inside the checkout (removed after)."""
+    import tempfile
+    return tempfile.TemporaryDirectory(prefix=".p18-ckpt-", dir=Path(__file__).resolve().parent)
+
+
+def check_noise_tree(torch, TaskConfig, task) -> dict:
+    """One (site, step) DP noise draw of the full-width model (round 3, site
+    2, step 0 of 18a's stream) on the card against the same draw on the
+    CPU: the leaves' subkeys and the uniforms bit-equal, the normals within
+    ``NORMAL_ULP``; prints the share that is bit-equal.  Then the card's
+    draw timed as one plain call site (CUDA-graph replays) beside its bytes
+    bound (the fp32 noise written once; the subkeys are 8 bytes a leaf)."""
+    from repro_torch.core import prng
+    from repro_torch.privacy import dp
+    layout = _layout_of(TaskConfig, task)
+    cfg = dp.DPConfig(**{"clip": DP_KW["dp_clip"], "noise_multiplier": DP_KW["dp_noise_multiplier"]})
+    key = dp.site_step_key(dp.round_key(cfg, 3), 2, 0)
+    cpu, dev = torch.device("cpu"), torch.device("cuda")
+    n_leaves = len(layout.shapes)
+    keys = prng.split(key, n_leaves)
+    keys_dev = prng.split(key.to(dev), n_leaves)
+    _require(torch.equal(keys_dev.cpu(), keys), "18a: the leaves' subkeys differ card vs CPU")
+    draws = []
+    for d, k in ((cpu, keys), (dev, keys_dev)):
+        s = dp.LeafStream.of(layout.shapes, d)
+        b = prng.bits_at(k[:, 0][s.leaf], k[:, 1][s.leaf], s.counter)
+        draws.append((prng.uniform_from_bits(b, prng._NORMAL_LO, 1.0).cpu(), s.normal(k).cpu()))
+        del b
+    (u_cpu, n_cpu), (u_dev, n_dev) = draws
+    _require(torch.equal(u_cpu.view(torch.int32), u_dev.view(torch.int32)),
+             "18a: the noise's uniforms differ card vs CPU")
+    ulp = _ulps(torch, n_dev, n_cpu)
+    share = float((ulp == 0).double().mean())
+    _require(int(ulp.max()) <= NORMAL_ULP, f"18a: normals {int(ulp.max())} ulp apart")
+    print(f"18a noise tree ({n_leaves} leaves, {layout.n} normals): subkeys and uniforms "
+          f"bit-equal card vs CPU; normals within {int(ulp.max())} ulp, {share:.6%} bit-equal")
+    stream = dp.LeafStream.of(layout.shapes, dev)
+    mem_rate = peaks(torch.cuda.get_device_name(0))[0]
+    nbytes = 4 * layout.n + 8 * n_leaves
+    ms, eager = time_ms(lambda: stream.normal(keys_dev))
+    bound = 1e3 * nbytes / mem_rate
+    row = {"name": "threefry normal (one site-step's noise)", "shape": [layout.n], "ms": ms,
+           "eager_ms": eager, "bound_ms": bound, "bound_by": "bytes",
+           "bit_equal_share": share}
+    print(f"plain threefry normal [{layout.n}] (one site-step's DP noise): {ms:.4f} ms (eager "
+          f"{eager:.4f} ms), bytes bound {bound:.4f} ms ({nbytes / 1e6:.1f} MB at "
+          f"{mem_rate / 1e12:.2f} TB/s), {bound / ms:.2%} of it")
+    return row
+
+
+def _resume_pair(torch, FederatedJob, TaskConfig, build, task, what, **kw):
+    """18a/b: the uninterrupted ``P18_ROUNDS``-round job (``ckpt_every=1``
+    into its own directory, so every round's global is on disk), then the
+    same job killed after ``P18_KILL`` rounds (``ckpt_every=2``: carries at
+    rounds 0 and 2) and resumed, cuDNN deterministic.  The resumed round's
+    losses and the final global must be the uninterrupted run's bit for
+    bit, ``resumed_from`` 2, ``comm`` one round's and ``privacy`` the
+    accountant's epsilon for all ``P18_ROUNDS`` rounds.  Returns (the
+    uninterrupted result, its round-1 global, the resume's launches, the
+    engine tag written)."""
+    from repro_torch import convert
+    from repro_torch.checkpoint import CheckpointStore
+    from repro_torch.privacy import gaussian_epsilon
+    torch.backends.cudnn.deterministic = True
+    try:
+        with _ckpt_dir() as full_dir, _ckpt_dir() as kill_dir:
+            full, full_l, job = _run_job(torch, FederatedJob, TaskConfig, build, task, FULL_N,
+                                         f"{what} uninterrupted", rounds=P18_ROUNDS,
+                                         checkpoint_dir=full_dir, ckpt_every=1, **kw)
+            like = convert.to_reference(full.global_params)
+            g1, _ = CheckpointStore(Path(full_dir)).load("global", 1, like)
+            kill, kill_l, _ = _run_job(torch, FederatedJob, TaskConfig, build, task, FULL_N,
+                                       f"{what} killed after {P18_KILL}", rounds=P18_KILL,
+                                       checkpoint_dir=kill_dir, ckpt_every=2, **kw)
+            store = CheckpointStore(Path(kill_dir))
+            tag = store.meta("driver_state", 2)["engine"]
+            _require(store.saved_rounds("driver_state") == [0, 2],
+                     f"{what}: driver_state at {store.saved_rounds('driver_state')}")
+            job = FederatedJob(task=TaskConfig(**task), rounds=P18_ROUNDS,
+                               checkpoint_dir=kill_dir, ckpt_every=2, **kw)
+            torch.cuda.reset_peak_memory_stats()
+            build.reset_launches()
+            t0 = time.perf_counter()
+            res = job.run(resume=True)
+            wall = time.perf_counter() - t0
+            launches = {k: v for k, v in build.LAUNCHES.items() if v}
+    finally:
+        torch.backends.cudnn.deterministic = False
+    _strategy_history(res, f"{what} resumed")
+    print(f"{what} resumed: {len(res.history)} round in {wall:.1f} s with set-up, peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, comm {res.comm}, privacy "
+          f"{res.privacy}; tag {tag!r}; kernels launched {launches}")
+    _require(res.resumed_from == 2 and [h["round"] for h in res.history] == [3],
+             f"{what}: resumed_from {res.resumed_from}, rounds {[h['round'] for h in res.history]}")
+    same_loss = res.history[0]["per_site_loss"] == full.history[3]["per_site_loss"]
+    same_global = torch.equal(_flat(torch, res.global_params), _flat(torch, full.global_params))
+    print(f"{what}: resumed round 3 per-site losses {res.history[0]['per_site_loss']} against "
+          f"{full.history[3]['per_site_loss']}: bit-equal {same_loss}; final global bit-equal "
+          f"{same_global}")
+    _require(same_loss and same_global, f"{what}: the resumed run differs from the uninterrupted")
+    sites = task["sites"]
+    _require(res.comm["upload_count"] == sites, f"{what}: comm {res.comm} is not one round's")
+    eps = gaussian_epsilon(DP_KW["dp_noise_multiplier"], P18_ROUNDS, 1e-5)
+    _require(res.privacy == full.privacy and res.privacy["epsilon"] == eps
+             and res.privacy["steps"] == P18_ROUNDS,
+             f"{what}: privacy {res.privacy}, the accountant's epsilon {eps}")
+    _require(kill.comm["upload_count"] == P18_KILL * sites, f"{what}: killed comm {kill.comm}")
+    print(f"{what}: launches uninterrupted {full_l}, killed {kill_l}, resumed {launches}")
+    return full, g1, launches, tag
+
+
+def run_dp_resume(torch, FederatedJob, TaskConfig, build, task) -> dict:
+    """Phase 18a: DP-SGD FedAvg (per-site, C 0.5, sigma 0.8) at full width,
+    4 rounds, and its resume from round 2 (tag ``sync-scan``); the resumed
+    round runs ``fedagg`` twice (its exchange and the final global)."""
+    full, g1, launches, tag = _resume_pair(torch, FederatedJob, TaskConfig, build, task,
+                                           "18a dp fedavg", **DP_KW)
+    _require(tag == "sync-scan", f"18a: tag {tag!r}")
+    _expect_launches("18a resumed round", launches, {"fedagg": 2})
+    return {"launches": launches, "full": full, "global1": g1}
+
+
+def run_int8_resume(torch, FederatedJob, TaskConfig, build, task) -> dict:
+    """Phase 18b: the same DP job with int8 uploads and downloads (tag
+    ``compressed-scan-bidir``: the residuals and the installs restored);
+    the resumed round launches the four kernels of the int8 path."""
+    groups = len(_chunk_plan_groups(TaskConfig, task))
+    full, _, launches, tag = _resume_pair(torch, FederatedJob, TaskConfig, build, task,
+                                          "18b dp fedavg int8 both ways", compression="int8",
+                                          down_compression="int8", **DP_KW)
+    _require(tag == "compressed-scan-bidir", f"18b: tag {tag!r}")
+    _expect_launches("18b resumed round", launches,
+                     {"quantize_int8": 2 * groups, "fedagg_dequant": groups,
+                      "dequant_install": groups, "fedagg": 1})
+    return launches
+
+
+def run_noise_attack(torch, FederatedJob, TaskConfig, build, task) -> dict:
+    """Phase 18c: ``adversary="noise:0.5:1"`` under ``aggregator="trimmed:1"``
+    at full width, 2 rounds: each round's perturbed row is the clean row
+    plus 0.5 times the CPU's draw of the same (round, site) noise (within
+    ``NORMAL_ULP`` of each normal, plus the sum's rounding); ``trimmed_mean``
+    once a round, ``fedagg`` once (the final global)."""
+    from repro_torch.core.adversary import AdversaryPlan
+    with _Spy(AdversaryPlan, "perturb_rows",
+              pre=lambda a, k: (a[1].clone(), a[2].copy(), a[3], a[4]),
+              post=lambda a, k, o: a[1].clone()) as spy:
+        res, launches, job = _run_job(torch, FederatedJob, TaskConfig, build, task, FULL_N,
+                                      "18c noise:0.5:1 trimmed:1", adversary="noise:0.5:1",
+                                      aggregator="trimmed:1")
+    _expect_launches("18c noise:0.5:1 trimmed:1", launches,
+                     {"trimmed_mean": ROUNDS, "fedagg": 1})
+    plan = job.adversary_plan
+    cpu = torch.device("cpu")
+    shares = []
+    for (before, mask, rnd, layout), after in spy.calls:
+        _require(int(mask.sum()) == 1, f"18c: round {rnd} perturbs {int(mask.sum())} rows")
+        for i in range(mask.shape[0]):
+            if not mask[i]:
+                _require(torch.equal(after[i], before[i]), f"18c: honest row {i} changed")
+                continue
+            noise = plan.noise_row(rnd, i, layout, cpu)
+            x = before[i].cpu()
+            want = x + noise * 0.5
+            got = after[i].cpu()
+            bound = NORMAL_ULP * 2.0 ** -23 * (0.5 * noise.abs() + x.abs()) + 1e-12
+            _require(bool(((got - want).abs() <= bound).all()),
+                     f"18c: round {rnd} site {i}'s perturbed row differs from the CPU draw")
+            shares.append(float((got == want).double().mean()))
+    print(f"18c: {len(spy.calls)} rounds' perturbed rows within {NORMAL_ULP} ulp of each normal "
+          f"of the CPU draw; bit-equal shares {[round(s, 6) for s in shares]}")
+    return launches
+
+
+def run_dp_sockets(torch, FederatedJob, TaskConfig, build, task, stacked) -> dict:
+    """Phase 18d: the thread transport, DP per-site, 2 rounds at full
+    width, against 18a's uninterrupted first two rounds (its round-1
+    global from the checkpoint store) by phase 5b's socket bound: the
+    socket sites draw their stacked twins' noise by global site id.  No
+    kernel runs on the socket path."""
+    res, launches, job = _run_job(torch, FederatedJob, TaskConfig, build, task, FULL_N,
+                                  "18d thread dp", transport="thread", **DP_KW)
+    from repro_torch import convert
+    from repro_torch.tree import tree_map
+    g1 = tree_map(lambda t: t.to(_flat(torch, res.global_params).device),
+                  convert.from_reference(stacked["global1"]))
+    want = types.SimpleNamespace(global_params=g1, history=stacked["full"].history[:ROUNDS])
+    _held_to(torch, job, res, want, "18d thread dp against 18a's first two rounds", FULL_N)
+    for a, b in zip(res.history, want.history):
+        _require(all(math.isclose(x, y, rel_tol=1e-3) for x, y in
+                     zip(a["per_site_loss"], b["per_site_loss"])),
+                 f"18d: round {a['round']} per-site losses differ from 18a's")
+    _require(res.privacy == job.privacy_report(ROUNDS), f"18d: privacy {res.privacy}")
+    _expect_launches("18d thread dp", launches, {})
+    return launches
+
+
+def _hold_resume(torch, what, full, res) -> None:
+    _require(res.resumed_from == 2 and res.losses == full.losses[3:]
+             and torch.equal(_flat(torch, res.global_params), _flat(torch, full.global_params)),
+             f"small {what}: the resumed run differs from the uninterrupted")
+
+
+def check_small_resume_jobs(torch, FederatedJob, TaskConfig) -> None:
+    """Phase 18's tail at 8^3 (4 filters, 2 levels, 3 sites), TF32 off,
+    cuDNN deterministic: on the card, resume parity (5 rounds against 3 +
+    resume, ``ckpt_every=2``: bit for bit) on the ``"loop"`` engine,
+    ``topk-fixed``, fp8 both ways, the buffered scan and GCML (4 PanSeg
+    sites), each resumed run's losses within ``JOB_RTOL`` of the CPU's
+    resumed run; the refusals (another engine, another DP mechanism, the
+    buffered host loop, no ``checkpoint_dir``); a resume after the last
+    round runs none; DP per-example and DP under ``secure_agg`` on the
+    thread transport, card against CPU (losses ``JOB_RTOL``)."""
+    from repro_torch.core.session import BufferedScheduler
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    tiny = dict(batch=1, volume=(8, 8, 8), base_filters=4, num_levels=2)
+    dose = TaskConfig(kind="dose", sites=3, **tiny)
+    pan = TaskConfig(kind="seg", sites=4, in_channels=1, num_classes=2, **tiny)
+    base = dict(task=dose, rounds=5, ckpt_every=2, max_dropout=1)
+    cases = [("loop", dict(round_engine="loop")),
+             ("topk-fixed", dict(compression="topk-fixed")),
+             ("fp8 both ways", dict(compression="fp8", down_compression="fp8")),
+             ("buffered scan", dict(scheduler=BufferedScheduler(buffer_k=2))),
+             ("gcml", dict(strategy="gcml", task=pan)),
+             ("dp loop", dict(round_engine="loop", **DP_KW))]
+    try:
+        for what, kw in cases:
+            job = FederatedJob(**{**base, **kw})
+            full = job.run()
+            with _ckpt_dir() as d, _ckpt_dir() as c:
+                job.replace(checkpoint_dir=d).run(rounds=3)
+                res = job.replace(checkpoint_dir=d).run(resume=True)
+                job.replace(checkpoint_dir=c, device="cpu").run(rounds=3)
+                cpu = job.replace(checkpoint_dir=c, device="cpu").run(resume=True)
+            _hold_resume(torch, what, full, res)
+            _require(all(math.isclose(a, b, rel_tol=JOB_RTOL, abs_tol=1e-6) for a, b in
+                         zip(res.losses, cpu.losses)),
+                     f"small {what}: resumed losses card {res.losses} cpu {cpu.losses}")
+            print(f"small {what} resume: bit-equal to the uninterrupted run on the card; "
+                  f"losses card {res.losses} cpu {cpu.losses}")
+        refusals = [
+            ("another engine", dict(round_engine="loop"), dict(round_engine="scan"),
+             "written by engine 'sync-loop'"),
+            ("another DP mechanism", dict(DP_KW), dict(DP_KW, dp_noise_multiplier=0.3),
+             "DP settings"),
+            ("the buffered host loop", dict(scheduler=BufferedScheduler(buffer_k=2)),
+             dict(scheduler=BufferedScheduler(buffer_k=2), round_engine="loop"),
+             "not checkpointable")]
+        for what, first, then, frag in refusals:
+            with _ckpt_dir() as d:
+                FederatedJob(**{**base, **first}, checkpoint_dir=d).run(rounds=3)
+                try:
+                    FederatedJob(**{**base, **then}, checkpoint_dir=d).run(resume=True)
+                except ValueError as e:
+                    _require(frag in str(e), f"small refusal {what}: {e}")
+                    print(f"small refusal ({what}): ValueError: {e}")
+                else:
+                    _require(False, f"small refusal {what}: the resume ran")
+        try:
+            FederatedJob(**base).run(resume=True)
+        except ValueError as e:
+            _require("needs checkpoint_dir" in str(e), f"small resume without a directory: {e}")
+        else:
+            _require(False, "small resume without a directory ran")
+        with _ckpt_dir() as d:
+            done = FederatedJob(**{**base, "rounds": 3, "ckpt_every": 1}, checkpoint_dir=d)
+            first = done.run()
+            again = done.run(resume=True)
+        _require(again.resumed_from == 2 and again.history == []
+                 and math.isnan(again.final_loss)
+                 and torch.equal(_flat(torch, again.global_params),
+                                 _flat(torch, first.global_params)),
+                 "small resume after completion ran rounds")
+        print("small resume after completion: no round, the same global")
+        for what, kw in (("dp per-example", dict(task=dataclasses.replace(dose, batch=2),
+                                                 dp_mode="per-example", **DP_KW)),
+                         ("dp secure_agg thread", dict(transport="thread", secure_agg=True,
+                                                       max_dropout=0, **DP_KW))):
+            job = FederatedJob(**{**base, "rounds": 3, **kw})
+            gpu, cpu = job.run(), job.replace(device="cpu").run()
+            _require(all(math.isclose(a, b, rel_tol=JOB_RTOL, abs_tol=1e-6)
+                         for g, c in zip(gpu.history, cpu.history)
+                         for a, b in zip(g["per_site_loss"], c["per_site_loss"])),
+                     f"small {what}: losses card {gpu.losses} cpu {cpu.losses}")
+            _require(gpu.privacy == cpu.privacy == job.privacy_report(),
+                     f"small {what}: privacy {gpu.privacy}")
+            print(f"small {what}: losses card {gpu.losses} cpu {cpu.losses}; privacy "
+                  f"{gpu.privacy}")
+    finally:
+        torch.backends.cudnn.deterministic = False
+
+
+def run_resume_and_dp(torch, FederatedJob, TaskConfig, build, task) -> dict:
+    """Phase 18 (a-d at full width, the tail at 8^3) and the plain normal
+    draw's time; returns each full-width path's launches."""
+    jobs = (torch, FederatedJob, TaskConfig, build, task)
+    print(json.dumps({"plain_prng": check_noise_tree(torch, TaskConfig, task)}))
+    a = run_dp_resume(*jobs)
+    out = {"18a": a["launches"], "18b": run_int8_resume(*jobs),
+           "18c": run_noise_attack(*jobs), "18d": run_dp_sockets(*jobs, a)}
+    del a
+    check_small_resume_jobs(torch, FederatedJob, TaskConfig)
+    return out
+
+
 def _flash_inputs(torch, dev, case, dtype, gen):
     b, hq, hkv, lq, lk, d = case[:6]
     return (torch.randn(b, hq, lq, d, device=dev, generator=gen).to(dtype),
@@ -3154,6 +3493,8 @@ def main() -> int:
                  build, OPENKBP_TASK, main_result, int8_comm)
     del main_result
     p17 = _timed("17 (fp8 and top-k codecs)", run_codecs, *jobs, build, OPENKBP_TASK)
+    p18 = _timed("18 (checkpoint and resume, DP-SGD, the noise attack)", run_resume_and_dp,
+                 *jobs, build, OPENKBP_TASK)
     serving_launches = run_serving_paths(torch, build)
     check_small_serving(torch, build)
 
@@ -3165,6 +3506,7 @@ def main() -> int:
     print(f"launches on phase 15's paths: {p15}")
     print(f"launches on phase 16's paths: {p16}")
     print(f"launches on phase 17's paths: {p17}")
+    print(f"launches on phase 18's paths: {p18}")
     print(smi)
     path_of = {"fedagg": main_launches, "quantize_int8": int8_launches,
                "fedagg_dequant": int8_launches, "dequant_install": int8_launches,

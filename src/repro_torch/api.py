@@ -33,8 +33,13 @@ their pod's partial to a root, per-tier schedulers and secure aggregation at
 both tiers); the Byzantine-robust combine rules
 (``aggregator="trimmed:f" | "median" | "krum:f" | "normclip:c"``), the
 seeded adversary (``adversary="sign_flip:f" | "scale:c:f" |
-"label_flip:f"``) and client sampling (``sample="uniform:K" |
-"poisson:q"``).  Every other seam of the reference raises
+"noise:s:f" | "label_flip:f"``), client sampling (``sample="uniform:K" |
+"poisson:q"``), DP-SGD (``dp_clip``, ``dp_noise_multiplier``, ``dp_mode``
+per-site or per-example, the Renyi accountant's epsilon at ``dp_delta`` in
+``result.privacy``) on every transport, and on the stacked transport
+checkpoints (``checkpoint_dir``, ``ckpt_every``) and ``run(resume=True)``
+on every engine but the buffered host loop.  Every other seam of the
+reference raises
 :class:`repro_torch.NotPorted` naming it, and never runs something else;
 compositions the reference refuses raise its ``ValueError``, checked
 first, as the reference checks them.  Every field of the reference's
@@ -282,7 +287,7 @@ class FederatedJob:
     chunk_rounds: Optional[int] = None
     device_data: bool = False
     shard_sites: bool = False
-    checkpoint_dir: Optional[str] = None   # socket transports; with run(resume=True)
+    checkpoint_dir: Optional[str] = None   # checkpoints; run(resume=True) reads them
     ckpt_every: int = 10
     verbose: bool = False
     log_every: Optional[int] = None
@@ -315,17 +320,53 @@ class FederatedJob:
         auth secret when set, else a seed-derived default."""
         return self.wire.secret or f"fedkbp-mask:{self.seed}"
 
-    def privacy_report(self, rounds: Optional[int] = None) -> Optional[Dict[str, Any]]:
-        """``JobResult.privacy``: None when no privacy mechanism is on, the
-        mechanism's settings otherwise.  DP's accountant is not ported: a
-        job with DP raises :class:`~repro_torch.NotPorted` naming ``dp``."""
-        dp = self.dp_clip > 0 or self.dp_noise_multiplier > 0
-        if not dp and not self.secure_agg:
+    @property
+    def dp(self):
+        """The job's :class:`~repro_torch.privacy.DPConfig`, or None (off);
+        a noise multiplier without a clip raises its ``ValueError``."""
+        if self.dp_clip <= 0 and self.dp_noise_multiplier <= 0:
             return None
-        if dp:
-            raise NotPorted("dp", f"dp_clip={self.dp_clip}, "
-                                  f"noise={self.dp_noise_multiplier}", "off")
-        return {"secure_agg": True, "mechanism": "none"}
+        from repro_torch.privacy import DPConfig
+        return DPConfig(clip=self.dp_clip, noise_multiplier=self.dp_noise_multiplier,
+                        delta=self.dp_delta, mode=self.dp_mode, seed=self.seed)
+
+    def dp_tag(self) -> Optional[List[Any]]:
+        """The DP settings a checkpoint's meta records: a resume under
+        another mechanism refuses rather than splice two noise streams."""
+        dp = self.dp
+        if dp is None:
+            return None
+        return [dp.clip, dp.noise_multiplier, dp.mode, dp.seed]
+
+    def privacy_report(self, rounds: Optional[int] = None) -> Optional[Dict[str, Any]]:
+        """``JobResult.privacy``: None when no privacy mechanism is on, else
+        the mechanism's settings and, under DP, the accountant's epsilon for
+        the full logical run of ``rounds`` (a resumed run replays the same
+        noise stream and spends no new budget).  Under ``poisson:q``
+        sampling the accountant composes the subsampled Gaussian mechanism;
+        ``uniform:K`` keeps the dense accounting."""
+        dp = self.dp
+        if dp is None and not self.secure_agg:
+            return None
+        rep: Dict[str, Any] = {"secure_agg": bool(self.secure_agg)}
+        if dp is None:
+            rep["mechanism"] = "none"
+            return rep
+        from repro_torch.privacy import gaussian_epsilon
+        steps = (self.rounds if rounds is None else rounds) * self.local_steps
+        rep.update({
+            "mechanism": "dp-sgd", "mode": dp.mode, "clip": dp.clip,
+            "noise_multiplier": dp.noise_multiplier, "delta": dp.delta,
+            "steps": steps, "accountant": "rdp-gaussian",
+            "epsilon": gaussian_epsilon(dp.noise_multiplier, steps, dp.delta)})
+        sampler = self.sampler
+        if sampler.kind == "poisson" and self.sampled:
+            q = sampler.inclusion_probability(self.task.sites)
+            rep.update({
+                "sampling_rate": q, "accountant": "rdp-sgm-poisson",
+                "epsilon": gaussian_epsilon(dp.noise_multiplier, steps, dp.delta,
+                                            sampling_rate=q)})
+        return rep
 
     @property
     def sampler(self) -> ClientSampler:
@@ -352,23 +393,13 @@ class FederatedJob:
     def check_ported(self, transport: str = "stacked") -> None:
         """Raise :class:`~repro_torch.NotPorted` for the first seam that is
         set to something the port does not implement on ``transport``."""
-        plan = self.adversary_plan
-        socket = transport != "stacked"
-        strategies = (("fedavg", "fedprox", "individual", "gcml") if socket
+        strategies = (("fedavg", "fedprox", "individual", "gcml") if transport != "stacked"
                       else ("fedavg", "fedprox", "individual", "pooled", "gcml"))
         unported = [
             ("strategy", self.strategy not in strategies, self.strategy,
              ", ".join(repr(x) for x in strategies)),
-            ("dp", self.dp_clip > 0 or self.dp_noise_multiplier > 0,
-             f"dp_clip={self.dp_clip}, noise={self.dp_noise_multiplier}", "off"),
-            ("adversary", plan is not None and plan.kind == "noise", self.adversary,
-             "sign_flip, scale, label_flip"),
             ("device_data", self.device_data, "True", "False"),
             ("shard_sites", self.shard_sites, "True", "False"),
-            ("checkpoint", self.checkpoint_dir is not None and not socket,
-             self.checkpoint_dir, "None on the stacked transport"),
-            ("checkpoint", self.ckpt_every != 10 and not socket,
-             f"ckpt_every={self.ckpt_every}", "ckpt_every=10 on the stacked transport"),
         ]
         for seam, bad, got, ok in unported:
             if bad:
@@ -442,13 +473,15 @@ class FederatedJob:
 
     def context(self, bundle: Optional[TaskBundle] = None,
                 strategy: Optional[str] = None,
-                num_sites: Optional[int] = None) -> F.FLContext:
+                num_sites: Optional[int] = None, dp_site_base: int = 0) -> F.FLContext:
         """The round loop's view of this job; ``strategy`` overrides the
         job's (the compressed rounds and the socket sites train under
         ``individual``) and ``num_sites`` the federation's size (a socket
         site's 1-site view).  The topology rides along on the whole
         federation's view only: a socket site's tiering happens at its
-        aggregation point."""
+        aggregation point.  ``dp_site_base`` maps the view's site rows to
+        global site ids, so a socket site draws its stacked twin's DP
+        noise."""
         bundle = bundle or self.task.build()
         fed = self.federation(strategy, num_sites)
         device = self.torch_device
@@ -461,6 +494,7 @@ class FederatedJob:
             aggregator=self.aggregator_spec,
             topology=(self.topo if num_sites is None and self.strategy != "pooled"
                       else FLAT),
+            privacy=self.dp, dp_site_base=dp_site_base,
             # a local-only view (the compressed rounds) stays honest, as in
             # the reference
             adversary=self.adversary_plan if strategy is None else None)
@@ -468,13 +502,16 @@ class FederatedJob:
     def recorder(self, rounds: int, num_sites: int) -> RoundRecorder:
         return RoundRecorder(rounds, verbose=self.verbose,
                              log_every=self.log_every, num_sites=num_sites,
-                             checkpoint_dir=self.checkpoint_dir)
+                             checkpoint_dir=self.checkpoint_dir, ckpt_every=self.ckpt_every)
 
     def run(self, rounds: Optional[int] = None, resume: bool = False, *, init_params=None,
             on_round: Optional[Callable[[int], None]] = None) -> JobResult:
-        """Execute the federation.  ``resume=True`` (socket transports, with
-        a ``checkpoint_dir``) re-enters from the newest round that the
-        server's store and every site's own store share; the positions of
+        """Execute the federation.  ``resume=True`` (with a
+        ``checkpoint_dir``) re-enters from the newest checkpoint: on the
+        stacked transport the newest ``driver_state`` (the engine's whole
+        carry; nothing on disk is a fresh start), on the socket transports
+        the newest round that the server's store and every site's own store
+        share; the positions of
         ``rounds`` and ``resume`` are the reference's.  ``init_params`` (one
         unstacked parameter tree) replaces the seeded initialization;
         ``on_round(r)`` is called after each round, outside its timed span
@@ -488,7 +525,6 @@ class FederatedJob:
 # only an unported seam reads, with the seam that ``NotPorted`` names: each
 # must hold its dataclass default.
 SEAM_FIELDS = {
-    "dp_delta": "dp", "dp_mode": "dp",
     "task.arch": "task", "task.reduced": "task", "task.seq": "task",
 }
 
@@ -512,6 +548,19 @@ class Transport:
     def execute(self, job: FederatedJob, rounds: int, init_params=None,
                 on_round=None, resume: bool = False) -> JobResult:
         raise NotImplementedError
+
+
+def _driver_resume_round(job: FederatedJob, resume: bool) -> Optional[int]:
+    """The stacked transport's resume point: the newest ``driver_state``
+    checkpoint round, or None for a fresh start.  ``resume=True`` without a
+    ``checkpoint_dir`` has nothing to resume from and raises."""
+    if not resume:
+        return None
+    if not job.checkpoint_dir:
+        raise ValueError("run(resume=True) needs checkpoint_dir set")
+    from repro_torch.checkpoint import CheckpointStore
+    saved = CheckpointStore(Path(job.checkpoint_dir)).saved_rounds("driver_state")
+    return saved[-1] if saved else None
 
 
 def _buffered(job: FederatedJob) -> bool:
@@ -696,7 +745,9 @@ class StackedTransport(Transport):
     twins cannot run (``topk-sparse`` either way, buffered top-k, buffered
     staleness past the ring) takes the host loop under ``"auto"`` and
     raises the reference's ``ValueError`` under ``"scan"``.
-    ``chunk_rounds`` changes nothing: the port's rounds are not chunked."""
+    ``chunk_rounds`` changes nothing: the port's rounds are not chunked.
+    ``resume=True`` re-enters every engine but the buffered host loop from
+    its newest ``driver_state`` (:func:`_driver_resume_round`)."""
 
     name = "stacked"
 
@@ -709,9 +760,7 @@ class StackedTransport(Transport):
         if job.round_engine not in ("auto", "scan", "loop"):
             raise ValueError(f"unknown round_engine {job.round_engine!r}; "
                              "known: auto, scan, loop")
-        if resume:
-            raise NotPorted("checkpoint", "run(resume=True) on the stacked transport",
-                            "resume on transport='thread' or 'tcp'")
+        resume_round = _driver_resume_round(job, resume)
         scheduler = resolve_scheduler(job.scheduler)
         codec, down_codec = job.codecs()
         from repro_torch.core import round_engine
@@ -727,7 +776,7 @@ class StackedTransport(Transport):
             run = round_engine.host_loop_for(scheduler, codec, down_codec)
         compile_s = build.prepare(job.torch_device, ops.FL_KERNELS)
         res = run(job, job.task.build(), scheduler, rounds, codec, down_codec,
-                  init_params=init_params, on_round=on_round)
+                  init_params=init_params, on_round=on_round, resume_round=resume_round)
         res.compile_s = compile_s
         return res
 
@@ -742,15 +791,16 @@ def _site_store(job: FederatedJob, site_id: int):
     return CheckpointStore(Path(job.checkpoint_dir) / f"site{site_id}")
 
 
-def _wire_row(state, adv, one: np.ndarray) -> torch.Tensor:
-    """The site's row as it goes on the wire: under a parameter-flipping
-    adversary a perturbed copy (the site's own state stays honest, as on
-    the stacked transport), else the row itself."""
+def _wire_row(state, adv, site_id: int, rnd: int) -> torch.Tensor:
+    """The site's row as it goes on the wire in loop round ``rnd``: under a
+    parameter-flipping adversary a perturbed copy (the site's own state
+    stays honest, as on the stacked transport; the noise attack draws the
+    stacked row's noise by global site id), else the row itself."""
     flat = state["params"][0]
     if adv is None or not adv.flips_params:
         return flat
     flat = flat.clone()[None]
-    adv.perturb_rows(flat, one)
+    adv.perturb_rows(flat, np.ones(1, bool), rnd, state["layout"], sites=[site_id])
     return flat[0]
 
 
@@ -812,7 +862,7 @@ def _run_site(job: FederatedJob, site_id: int, agg_addr, coord_addr, rounds: int
     bundle = job.task.build()
     prox = job.strategy == "fedprox"
     ctx = job.context(bundle, strategy="fedprox-local" if prox else "individual",
-                      num_sites=1)
+                      num_sites=1, dp_site_base=site_id)
     params0 = init_params if init_params is not None else bundle.init_fn(job.seed)
     state = F.init_fl_state(ctx, tree_map(lambda t: torch.as_tensor(t).to(dev), params0))
     fl_round = F.build_fl_round(ctx)
@@ -903,7 +953,7 @@ def _run_site(job: FederatedJob, site_id: int, agg_addr, coord_addr, rounds: int
                 recv_of = {int(asg["partner"][j]): j for j in range(len(asg["partner"]))
                            if asg["is_receiver"][j]}
                 if asg["is_sender"][site_id]:
-                    payload, smeta = _p2p_payload(_wire_row(state, adv, one), edge, layout,
+                    payload, smeta = _p2p_payload(_wire_row(state, adv, site_id, r), edge, layout,
                                                   peer_comp)
                     peer.send_model(tuple(asg["addresses"][str(recv_of[site_id])]),
                                     payload, r + 1, meta_extra=smeta)
@@ -916,6 +966,9 @@ def _run_site(job: FederatedJob, site_id: int, agg_addr, coord_addr, rounds: int
                                      {k: v[0, -1] for k, v in b.items()}, layout)
                     state["params"][0].copy_(merged)
             if me_active or job.dropout_scenario == "disconnect":
+                # the DP stream's round is the loop round: a shut-down or
+                # late-joining site skips rounds, and its noise with them
+                state = {**state, "round": r}
                 state, metrics = fl_round(state, b, F.make_round_inputs(ctx, one))
                 losses.append(float(metrics["loss"][0]))
             else:                                    # workstation off
@@ -923,7 +976,7 @@ def _run_site(job: FederatedJob, site_id: int, agg_addr, coord_addr, rounds: int
             times.append((t1 - t0, time.perf_counter() - t1))
             if agg_addr is not None and me_active:
                 upload_round, want = edge_rounds(buffered, r, base_round)
-                flat = _wire_row(state, adv, one)
+                flat = _wire_row(state, adv, site_id, r)
                 cmeta = None
                 if sa is not None:
                     # masked against the round's scheduled barrier peers (every

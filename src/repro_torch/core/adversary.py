@@ -10,33 +10,32 @@ the buffer in place.
 
 Which sites are malicious is a pure function of ``(seed, num_sites)``,
 drawn from numpy exactly as the reference draws it, so the sets are
-bit-equal.
+bit-equal.  The noise attack draws from the reference's threefry chain
+``fold_in(fold_in(fold_in(key(seed + 60013), round), site), leaf)``
+through :mod:`repro_torch.core.prng`, each leaf at its reference shape, so
+a stacked row and a socket site's upload draw the same noise.
 
 Spec grammar (the last field is the malicious-site count f)::
 
     sign_flip:f      f sites upload -params
     scale:c:f        f sites upload c*params
-    noise:s:f        f sites upload params + s*N(0,1)   (not ported)
+    noise:s:f        f sites upload params + s*N(0,1)
     label_flip:f     f sites train on corrupted targets (floats negated,
                      int targets reversed along the last axis)
-
-The noise attack draws from a JAX threefry key chain; bit-equal noise
-needs a port of that generator, so it raises :class:`~repro_torch.NotPorted`.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional
+from typing import Dict, Optional, Sequence
 
 import numpy as np
 import torch
-
-from repro_torch import NotPorted
 
 # keys of a batch dict that count as training targets for label_flip
 TARGET_KEYS = ("dose", "labels", "tokens")
 
 _SELECT_SALT = 104729   # site-selection stream, disjoint from data/DP seeds
+_NOISE_SALT = 60013     # noise-attack key chain
 
 
 @dataclasses.dataclass(frozen=True)
@@ -66,18 +65,35 @@ class AdversaryPlan:
         mask[idx] = True
         return mask
 
-    def perturb_rows(self, flat: torch.Tensor, mask: np.ndarray) -> None:
+    def _round_key(self, rnd: int) -> torch.Tensor:
+        from repro_torch.core import prng
+        return prng.fold_in(prng.key(self.seed + _NOISE_SALT), int(rnd))
+
+    def noise_row(self, rnd: int, site: int, layout, device) -> torch.Tensor:
+        """The noise attack's [N] standard normals of ``site`` in round
+        ``rnd``, in the port's layout: leaf ``i`` (``layout``'s order, the
+        reference's leaf order) drawn at its reference shape from
+        ``fold_in(fold_in(round_key, site), i)``."""
+        from repro_torch.privacy.dp import leaf_noise
+        from repro_torch.core import prng
+        return leaf_noise(prng.fold_in(self._round_key(rnd), int(site)), layout.shapes, device)
+
+    def perturb_rows(self, flat: torch.Tensor, mask: np.ndarray, rnd: int = 0, layout=None,
+                     sites: Optional[Sequence[int]] = None) -> None:
         """Perturb the rows of the [S, N] buffer ``flat`` where ``mask`` is
         set, in place.  The caller passes ``malicious & active``, so an
-        inactive malicious site keeps its clean local state."""
-        if self.kind == "noise":
-            raise NotPorted("adversary", f"noise:{self.param:g}:{self.f}",
-                            "sign_flip, scale, label_flip")
+        inactive malicious site keeps its clean local state.  The noise
+        attack reads the round ``rnd``, the buffer's ``layout`` and each
+        row's global site id (``sites``, default the row index)."""
         for i in np.flatnonzero(mask):
             if self.kind == "sign_flip":
                 flat[i].neg_()
             elif self.kind == "scale":
                 flat[i].mul_(float(np.float32(self.param)))   # p * fp32(c)
+            elif self.kind == "noise":
+                site = int(i) if sites is None else int(sites[i])
+                noise = self.noise_row(rnd, site, layout, flat.device)
+                flat[i].add_(noise * float(np.float32(self.param)))   # p + fp32(s) * n
 
     def perturb_batches(self, batches: Dict[str, torch.Tensor],
                         mask: np.ndarray) -> Dict[str, torch.Tensor]:

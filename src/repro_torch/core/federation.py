@@ -18,7 +18,13 @@ from the job's precomputed schedule and :mod:`repro_torch.core.gossip`.
 A Byzantine adversary plan (``FLContext.adversary``) injects its faults
 where the reference does: label flips on the round's batches before
 ``pre_exchange``, parameter perturbations on the rows of malicious active
-sites after local training and before ``post_exchange``.
+sites after local training and before ``post_exchange`` (the ``noise``
+attack keyed off the carried round counter).
+
+DP-SGD (``FLContext.privacy``, a :class:`~repro_torch.privacy.dp.DPConfig`)
+replaces ``grad_clip`` in every site step: clipping and Gaussian noise
+keyed by ``(seed, fl_state["round"], dp_site_base + site, step)``, so the
+stream replays across engines, transports and a resume.
 
 The reference vmaps the site axis.  The port runs the sites one after
 another, which is the same math with one site's activations at a time
@@ -31,7 +37,7 @@ kernel then reads the buffer itself.
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Dict, Optional
+from typing import Any, Callable, Dict, Optional
 
 import numpy as np
 import torch
@@ -48,6 +54,7 @@ from repro_torch.core.strategies import fedprox as _p  # noqa: F401
 from repro_torch.core.strategies import gcml as _g  # noqa: F401
 from repro_torch.core.strategies import individual as _i  # noqa: F401
 from repro_torch.optim import Optimizer, apply_updates, clip_by_global_norm
+from repro_torch.privacy.dp import dp_gradients, round_key, site_step_key
 
 
 @dataclasses.dataclass
@@ -66,6 +73,11 @@ class FLContext:
     forward_fn: Optional[Callable] = None
     dcml_lr: Optional[float] = None            # GCML's DCML SGD step size
     topology: Topology = FLAT                  # flat, or two tiers of pods
+    # DP-SGD (a repro_torch.privacy.DPConfig) or None; dp_site_base maps
+    # this view's site rows to global site ids (a socket site's row 0 is
+    # its own id), so every transport draws the same noise
+    privacy: Optional[Any] = None
+    dp_site_base: int = 0
 
     def scalar_loss_fn(self, params, batch):
         return self.loss_fn(params, batch)[0]
@@ -121,23 +133,33 @@ def build_fl_round(ctx: FLContext):
     a strategy's own metrics (GCML's DCML losses) join it.
     """
     strategy = strat_base.get_strategy(ctx.fed.strategy)
+    dp = ctx.privacy
 
-    def site_train_step(row, opt, batch, layout, strat_ref):
-        params, leaves = layout.trainable(row)
-        loss, metrics = ctx.loss_fn(params, batch)
-        loss = loss + strategy.local_loss_extra(params, strat_ref, ctx)
-        g = layout.flat_grad(leaves, torch.autograd.grad(loss, leaves, allow_unused=True))
-        if ctx.grad_clip:
-            g, gnorm = clip_by_global_norm(g, ctx.grad_clip)
+    def site_train_step(row, opt, batch, layout, strat_ref, noise_key=None):
+        def lf(params, b):
+            loss, metrics = ctx.loss_fn(params, b)
+            return loss + strategy.local_loss_extra(params, strat_ref, ctx), metrics
+
+        if dp is not None:
+            # DP clipping replaces grad_clip: the clip norm is the
+            # mechanism's sensitivity
+            g, loss, metrics, gnorm = dp_gradients(lf, row, layout, batch, noise_key, dp)
         else:
-            gnorm = torch.zeros((), device=row.device)
+            params, leaves = layout.trainable(row)
+            loss, metrics = lf(params, batch)
+            g = layout.flat_grad(leaves, torch.autograd.grad(loss, leaves, allow_unused=True))
+            loss = loss.detach()
+            if ctx.grad_clip:
+                g, gnorm = clip_by_global_norm(g, ctx.grad_clip)
+            else:
+                gnorm = torch.zeros((), device=row.device)
         updates, opt = ctx.optimizer.update(g, opt, row)
-        row = apply_updates(row, updates)
-        return row, opt, {"loss": loss.detach(), "grad_norm": gnorm, **metrics}
+        return apply_updates(row, updates), opt, {"loss": loss, "grad_norm": gnorm, **metrics}
 
     def local_phase(fl_state, batches, active):
         flat, layout, opt = fl_state["params"], fl_state["layout"], fl_state["opt"]
         shutdown = ctx.fed.dropout_scenario == "shutdown"
+        rkey = None if dp is None else round_key(dp, fl_state["round"])
         losses = []
         for s in range(flat.shape[0]):
             # a fresh buffer: cuDNN picks its algorithms by the weights'
@@ -147,8 +169,9 @@ def build_fl_round(ctx: FLContext):
             site_opt = {"step": opt["step"][s], "mu": opt["mu"][s], "nu": opt["nu"][s]}
             for k in range(next(iter(batches.values())).shape[1]):
                 batch = {name: b[s, k] for name, b in batches.items()}
+                key = None if rkey is None else site_step_key(rkey, ctx.dp_site_base + s, k)
                 row, site_opt, m = site_train_step(row, site_opt, batch, layout,
-                                                   fl_state["strategy"])
+                                                   fl_state["strategy"], key)
             losses.append(m["loss"])
             if shutdown and not active[s]:
                 continue        # workstation off: the site's state is untouched
@@ -172,7 +195,8 @@ def build_fl_round(ctx: FLContext):
         if adv is not None and adv.flips_params:
             # what malicious ACTIVE sites expose to aggregation; the
             # exchange overwrites those rows, so it never persists
-            adv.perturb_rows(fl_state["params"], adv_mask & active)
+            adv.perturb_rows(fl_state["params"], adv_mask & active, fl_state["round"],
+                             fl_state["layout"])
         fl_state = strategy.post_exchange(fl_state, ri, ctx)
         fl_state = {**fl_state, "round": fl_state["round"] + 1}
         if "metrics" in fl_state:

@@ -49,6 +49,20 @@ weights.
 Each round's history holds its own times: ``batch_s`` (host batch
 generation and the copy to the device), ``step_s`` (the round on the
 device) and ``wall_s`` (both: the end-to-end round).
+
+With a ``checkpoint_dir`` every engine but the buffered host loop writes
+the reference's checkpoints on its ``ckpt_every`` grid (rounds ``r %
+ckpt_every == 0``, where the reference's scans cut their chunks): the
+global model (tag ``"global"``, the reference's layout) and the engine's
+carry (tag ``"driver_state"``, meta ``engine`` and ``dp``).  Given a
+``resume_round`` an engine checks both meta fields against the job
+(:func:`~repro_torch.core.session.check_engine_tag`,
+:func:`~repro_torch.core.session.check_privacy_tag`), reloads the carry
+and runs from the round after it; the engine tags are the reference's
+(``"sync-scan"`` / ``"sync-loop"``, ``"compressed-scan"`` /
+``"compressed-scan-bidir"``, ``"compressed-loop"`` /
+``"compressed-loop-bidir"``, ``"buffered-scan"``).  A resumed run's
+``comm`` counts only the rounds it ran.
 """
 from __future__ import annotations
 
@@ -67,7 +81,8 @@ from repro_torch.comms.compression import (KEEP_GLOBALS_DEFAULT, Codec, Downlink
 from repro_torch.core import federation as F
 from repro_torch.core.agg_engine import (RavelLayout, StreamingAccumulator, get_engine,
                                          normalized_weights, per_site_nbytes, ravel, unravel)
-from repro_torch.core.session import BufferedScheduler, JobResult
+from repro_torch.core.session import (BufferedScheduler, JobResult, check_engine_tag,
+                                      check_privacy_tag)
 from repro_torch.core.topology import simulated_pods_comm
 from repro_torch.core.stacking import broadcast_to_sites
 from repro_torch.core.strategies.base import get_strategy
@@ -82,11 +97,15 @@ def _sync(device: torch.device) -> None:
 
 def _round_loop(job, bundle, ctx, masks: np.ndarray, recorder,
                 step: Callable[[int, Dict[str, torch.Tensor]], Tuple[torch.Tensor, Dict]],
-                on_round: Optional[Callable[[int], None]], pooled: bool = False) -> None:
+                on_round: Optional[Callable[[int], None]], pooled: bool = False,
+                start: int = 0, global_fn: Optional[Callable] = None,
+                save: Optional[Callable[[int], None]] = None) -> None:
     """Run ``step(r, batches) -> (per-site losses, extra history keys)``
-    for every round, timing each one, and record it.  With ``pooled`` the
-    batches are the round's pooled view."""
-    for r in range(len(masks)):
+    for every round from ``start``, timing each one, and record it; then,
+    outside the timed span, the recorder saves ``global_fn()`` and
+    ``save(r)`` writes the engine's carry (each on the checkpoint grid).
+    With ``pooled`` the batches are the round's pooled view."""
+    for r in range(start, len(masks)):
         _sync(ctx.device)
         t0 = time.perf_counter()
         b = {k: torch.from_numpy(v).to(ctx.device)
@@ -96,9 +115,11 @@ def _round_loop(job, bundle, ctx, masks: np.ndarray, recorder,
         losses, extra = step(r, b)
         _sync(ctx.device)
         t2 = time.perf_counter()
-        recorder.record(r, losses.cpu().numpy(), masks[r],
+        recorder.record(r, losses.cpu().numpy(), masks[r], global_fn=global_fn,
                         extra={**extra, "batch_s": t1 - t0, "step_s": t2 - t1,
                                "wall_s": t2 - t0})
+        if save is not None:
+            save(r)
         if on_round is not None:
             on_round(r)
 
@@ -106,6 +127,62 @@ def _round_loop(job, bundle, ctx, masks: np.ndarray, recorder,
 def _init_state(job, bundle, ctx, init_params):
     params = init_params if init_params is not None else bundle.init_fn(job.seed)
     return F.init_fl_state(ctx, tree_map(lambda t: t.to(ctx.device), params))
+
+
+# ---------------------------------------------------------------------------
+# Checkpoints: the engines' carries on the ckpt_every grid
+# ---------------------------------------------------------------------------
+
+
+def _fl_tree(state) -> Dict:
+    """The FL state as a checkpoint tree: the rows, AdamW's moments and
+    steps, the strategy's state (FedProx's anchor) and the round counter."""
+    return {"params": state["params"], "opt": state["opt"], "strategy": state["strategy"],
+            "round": torch.tensor(int(state["round"]))}
+
+
+def _restore_fl(state, saved, device: torch.device) -> Dict:
+    """``state`` with a checkpoint tree's values (numpy leaves) copied in."""
+    state["params"].copy_(torch.from_numpy(np.asarray(saved["params"])))
+    for k, v in saved["opt"].items():
+        state["opt"][k].copy_(torch.from_numpy(np.asarray(v)))
+    strategy = tree_map(lambda v: _dev(v, device), saved["strategy"])
+    return {**state, "strategy": strategy, "round": int(saved["round"])}
+
+
+def _dev(x, device: torch.device) -> torch.Tensor:
+    return torch.from_numpy(np.asarray(x)).to(device)
+
+
+def _resume(job, recorder, tag: str, resume_round: Optional[int], like):
+    """``(saved tree or None, its meta, the first round to run)``: a resume
+    from ``driver_state`` round ``resume_round`` checks the engine tag and
+    the DP settings the checkpoint was written with (the reference's
+    messages) before loading into the structure of ``like``."""
+    if resume_round is None:
+        return None, {}, 0
+    meta = recorder.store.meta("driver_state", resume_round)
+    check_engine_tag(meta, tag)
+    check_privacy_tag(meta, job.dp_tag())
+    saved, _ = recorder.store.load("driver_state", resume_round, like)
+    return saved, meta, resume_round + 1
+
+
+def _saver(job, recorder, tag: str, tree_fn: Callable[[], Dict],
+           meta_fn: Optional[Callable[[], Dict]] = None) -> Callable[[int], None]:
+    """``save(r)``: the engine's carry ``tree_fn()`` as round ``r``'s
+    ``driver_state`` (on the grid only), tagged with the engine and the
+    job's DP settings."""
+    def save(r: int) -> None:
+        recorder.save_state(r, tree_fn, meta={"engine": tag, "dp": job.dp_tag(),
+                                              **(meta_fn() if meta_fn else {})})
+    return save
+
+
+def _reference_tree(fn: Callable) -> Callable:
+    """The recorder's ``global_fn``: the global model in the reference's
+    layout, as the socket transports save it."""
+    return lambda: convert.to_reference(fn())
 
 
 def _schedule(job, rounds: int, device: torch.device):
@@ -118,7 +195,8 @@ def _schedule(job, rounds: int, device: torch.device):
 
 def run_sync(job, bundle, scheduler, rounds: int, codec: Optional[Codec] = None,
              down_codec: Optional[Codec] = None, init_params=None,
-             on_round: Optional[Callable[[int], None]] = None) -> JobResult:
+             on_round: Optional[Callable[[int], None]] = None,
+             resume_round: Optional[int] = None) -> JobResult:
     """``rounds`` sync rounds of ``job`` under its strategy.
     ``init_params`` (one unstacked tree) replaces the seeded
     initialization, e.g. to start from parameters converted from the
@@ -133,7 +211,12 @@ def run_sync(job, bundle, scheduler, rounds: int, codec: Optional[Codec] = None,
     ``is_receiver``; its
     DCML batch is the round's local step 0 and its validation batch the
     last local step.  ``comm`` is the simulated wire volume of the
-    centrally aggregated strategies (fedavg, fedprox), None otherwise."""
+    centrally aggregated strategies (fedavg, fedprox), None otherwise.
+
+    ``resume_round`` re-enters from that round's checkpoint (the FL state,
+    tag ``"sync-loop"`` under ``round_engine="loop"``, else ``"sync-scan"``);
+    a pairing strategy first replays the draws of the rounds before, so the
+    gossip schedule continues where the dead run left off."""
     ctx = job.context(bundle)
     strategy = get_strategy(job.strategy)
     state = _init_state(job, bundle, ctx, init_params)
@@ -142,6 +225,13 @@ def run_sync(job, bundle, scheduler, rounds: int, codec: Optional[Codec] = None,
     pooled = job.strategy == "pooled"
     pair_rng = np.random.default_rng(job.seed)      # consumed round by round
     recorder = job.recorder(rounds, ctx.fed.num_sites)
+    tag = "sync-loop" if job.round_engine == "loop" else "sync-scan"
+    saved, _, start = _resume(job, recorder, tag, resume_round, {"fl_state": _fl_tree(state)})
+    if saved is not None:
+        state = _restore_fl(state, saved["fl_state"], ctx.device)
+        if strategy.needs_pairing:
+            for r in range(start):
+                F.make_round_inputs(ctx, masks[r], rng=pair_rng)
 
     def step(r, batches):
         nonlocal state
@@ -161,22 +251,25 @@ def run_sync(job, bundle, scheduler, rounds: int, codec: Optional[Codec] = None,
             extra["is_receiver"] = [bool(v) for v in ri["is_receiver"]]
         return metrics["loss"], extra
 
-    _round_loop(job, bundle, ctx, masks, recorder, step, on_round, pooled=pooled)
+    _round_loop(job, bundle, ctx, masks, recorder, step, on_round, pooled=pooled,
+                start=start, global_fn=_reference_tree(lambda: F.global_model(state, ctx)),
+                save=_saver(job, recorder, tag, lambda: {"fl_state": _fl_tree(state)}))
     global_params = F.global_model(state, ctx)
     comm = None
+    ran = masks[start:]
     if job.strategy in ("fedavg", "fedprox") and ctx.topology.is_pods:
-        comm = simulated_pods_comm(ctx.topology, masks,
+        comm = simulated_pods_comm(ctx.topology, ran,
                                    per_site_nbytes(broadcast_to_sites(global_params, 1)))
     elif job.strategy in ("fedavg", "fedprox"):
         nbytes = per_site_nbytes(broadcast_to_sites(global_params, 1))
-        uploads = int(np.asarray(masks).sum())
+        uploads = int(np.asarray(ran).sum())
         comm = {"upload_bytes": uploads * nbytes, "download_bytes": uploads * nbytes,
                 "total_bytes": 2 * uploads * nbytes, "upload_count": uploads,
                 "download_count": uploads, "compression": "none",
                 "down_compression": "none", "simulated": True}
     return recorder.result(global_params, transport="stacked",
                            scheduler=scheduler.name, state=state, comm=comm,
-                           privacy=job.privacy_report(rounds))
+                           resumed_from=resume_round, privacy=job.privacy_report(rounds))
 
 
 # ---------------------------------------------------------------------------
@@ -384,7 +477,8 @@ def topk_nbytes(shapes: Sequence[Tuple[int, ...]], fraction: float) -> int:
 
 def run_compressed(job, bundle, scheduler, rounds: int, codec: Codec,
                    down_codec: Optional[Codec] = None, init_params=None,
-                   on_round: Optional[Callable[[int], None]] = None) -> JobResult:
+                   on_round: Optional[Callable[[int], None]] = None,
+                   resume_round: Optional[int] = None) -> JobResult:
     """``rounds`` sync FedAvg or FedProx rounds with int8, fp8 or
     ``topk-fixed`` uploads (``codec``), downloads (``down_codec``) or both,
     through the codecs' on-device twins (:class:`DeviceCodec`); arguments as
@@ -418,7 +512,11 @@ def run_compressed(job, bundle, scheduler, rounds: int, codec: Codec,
     the site uploads' dequantized values, the anchors and the dense
     uploads alike), so int8 uploads go through :func:`qdq` and not the
     fused ``fedagg_dequant``; ``comm`` gains the per-tier split of
-    :func:`~repro_torch.core.topology.simulated_pods_comm`."""
+    :func:`~repro_torch.core.topology.simulated_pods_comm`.
+
+    Its carry (tag ``"compressed-scan"``, ``"compressed-scan-bidir"`` with
+    the downlink) is the FL state, the server's reference, the residuals
+    and, with the downlink, the installs each site holds."""
     prox = job.strategy == "fedprox"
     ctx = job.context(bundle, strategy="fedprox-local" if prox else "individual")
     state = _init_state(job, bundle, ctx, init_params)
@@ -441,6 +539,20 @@ def run_compressed(job, bundle, scheduler, rounds: int, codec: Codec,
     boot_mask = bootstrap_masks(masks, KEEP_GLOBALS_DEFAULT) if down else None
     topo = job.topo
     pod_ids = topo.pod_of(s) if topo.is_pods else None
+    tag = "compressed-scan-bidir" if down else "compressed-scan"
+
+    def carry():
+        c = {"fl_state": _fl_tree(state), "reference": ref, "residual": res}
+        if down:
+            c["held"] = held
+        return c
+
+    saved, _, start = _resume(job, recorder, tag, resume_round, carry())
+    if saved is not None:
+        state = _restore_fl(state, saved["fl_state"], dev)
+        ref, res = _dev(saved["reference"], dev), _dev(saved["residual"], dev)
+        if down:
+            held = _dev(saved["held"], dev)
 
     def step(r, batches):
         nonlocal state, ref, res, held
@@ -512,33 +624,38 @@ def run_compressed(job, bundle, scheduler, rounds: int, codec: Codec,
         round_up = masks.sum(axis=1).astype(np.int64) * per_round
         round_down = masks.sum(axis=1).astype(np.int64) * dense
 
-    _round_loop(job, bundle, ctx, masks, recorder, step, on_round)
-    uploads = int(masks.sum())
-    comm = {"upload_bytes": int(round_up.sum()),
+    _round_loop(job, bundle, ctx, masks, recorder, step, on_round, start=start,
+                global_fn=_reference_tree(lambda: engine.unflatten(ref, layout)),
+                save=_saver(job, recorder, tag, carry))
+    ran = masks[start:]
+    uploads = int(ran.sum())
+    up_total, down_total = int(round_up[start:].sum()), int(round_down[start:].sum())
+    comm = {"upload_bytes": up_total,
             "upload_raw_bytes": uploads * dense,
-            "download_bytes": int(round_down.sum()),
+            "download_bytes": down_total,
             "download_raw_bytes": uploads * dense,
-            "total_bytes": int(round_up.sum() + round_down.sum()),
+            "total_bytes": up_total + down_total,
             "upload_count": uploads, "download_count": uploads,
             "compression": codec.name,
             "down_compression": down_codec.name if down else "none",
             "simulated": True}
     if topo.is_pods:
         comm.update(simulated_pods_comm(
-            topo, masks, dense, intra_upload_bytes=comm["upload_bytes"],
+            topo, ran, dense, intra_upload_bytes=comm["upload_bytes"],
             intra_download_bytes=comm["download_bytes"] if down else None,
             compression=codec.name, down_compression=comm["down_compression"]))
     return recorder.result(engine.unflatten(ref, layout), transport="stacked",
                            scheduler=scheduler.name, state=state, comm=comm,
-                           privacy=job.privacy_report(rounds))
+                           resumed_from=resume_round, privacy=job.privacy_report(rounds))
 
 
 def run_compressed_host(job, bundle, scheduler, rounds: int, codec: Codec,
                         down_codec: Optional[Codec] = None, init_params=None,
-                        on_round: Optional[Callable[[int], None]] = None) -> JobResult:
+                        on_round: Optional[Callable[[int], None]] = None,
+                        resume_round: Optional[int] = None) -> JobResult:
     """Sync FedAvg or FedProx rounds with any codec in either direction
     through the wire codec itself, the reference's host loop
-    (``StackedTransport._execute_compressed``, without its checkpoints):
+    (``StackedTransport._execute_compressed``):
     the path of ``topk-sparse``, and of ``round_engine="loop"``; arguments
     as :func:`run_sync`.
 
@@ -556,7 +673,14 @@ def run_compressed_host(job, bundle, scheduler, rounds: int, codec: Codec,
     encodes each active site's install against what it holds, in the
     wire's layout, and the site decodes it; else each active site installs
     the global.  FedProx's Eq. 2 anchor is the exact global.  ``comm`` is
-    the compressors' counters."""
+    the compressors' counters.
+
+    Its carry (tag ``"compressed-loop"``, ``"compressed-loop-bidir"`` with
+    the downlink) is the FL state, the last broadcast global, each site's
+    residual (meta ``has_residual``) and, with the downlink, each site's
+    install and the round it acknowledged (meta ``down_acked``), which also
+    restores the server's held references; the sites' last rounds (the
+    dense-bootstrap window) are replayed from the masks."""
     prox = job.strategy == "fedprox"
     ctx = job.context(bundle, strategy="fedprox-local" if prox else "individual")
     state = _init_state(job, bundle, ctx, init_params)
@@ -580,6 +704,36 @@ def run_compressed_host(job, bundle, scheduler, rounds: int, codec: Codec,
     acked: List[Optional[int]] = [None] * s
     last_active = np.full(s, -keep, np.int64)
     reference: Optional[torch.Tensor] = None        # the last broadcast global
+    tag = "compressed-loop-bidir" if down else "compressed-loop"
+    zero = torch.zeros(n, dtype=torch.float32, device=ctx.device)
+
+    def carry():
+        c = {"fl_state": _fl_tree(state),
+             "reference": reference if reference is not None else zero,
+             "residuals": [cp.residual if cp.residual is not None else zero for cp in comps]}
+        if down:
+            c["down_refs"] = [t if t is not None else unravel(zero, edge.wire) for t in installs]
+        return c
+
+    def carry_meta():
+        meta = {"has_residual": [cp.residual is not None for cp in comps]}
+        if down:
+            meta["down_acked"] = list(acked)
+        return meta
+
+    saved, meta, start = _resume(job, recorder, tag, resume_round, carry())
+    if saved is not None:
+        state = _restore_fl(state, saved["fl_state"], ctx.device)
+        g = reference = _dev(saved["reference"], ctx.device)
+        for i, has in enumerate(meta.get("has_residual", [False] * s)):
+            if has:
+                comps[i].residual = _dev(saved["residuals"][i], ctx.device)
+        for i, a in enumerate(meta.get("down_acked", [None] * s) if down else []):
+            if a is not None:
+                server_down.restore(i, saved["down_refs"][i], int(a), device=ctx.device)
+                installs[i], acked[i] = server_down.held_state(i)[0], int(a)
+        for r in range(start):          # the bootstrap window is a function of the masks
+            last_active[masks[r]] = r
 
     def step(r, batches):
         nonlocal state, g, reference
@@ -632,7 +786,9 @@ def run_compressed_host(job, bundle, scheduler, rounds: int, codec: Codec,
             out["download_bytes"] = server_down.encoded_bytes - down_before
         return metrics["loss"], out
 
-    _round_loop(job, bundle, ctx, masks, recorder, step, on_round)
+    _round_loop(job, bundle, ctx, masks, recorder, step, on_round, start=start,
+                global_fn=_reference_tree(lambda: unravel(g, layout)),
+                save=_saver(job, recorder, tag, carry, carry_meta))
     dense = 4 * n
     uploads = sum(c.encodes for c in comps)
     up_bytes = sum(c.encoded_bytes for c in comps)
@@ -647,12 +803,12 @@ def run_compressed_host(job, bundle, scheduler, rounds: int, codec: Codec,
             "down_compression": down_codec.name if down else "none", "simulated": True}
     if topo.is_pods:
         comm.update(simulated_pods_comm(
-            topo, masks, dense, intra_upload_bytes=up_bytes,
+            topo, masks[start:], dense, intra_upload_bytes=up_bytes,
             intra_download_bytes=down_bytes if down else None,
             compression=codec.name, down_compression=comm["down_compression"]))
     return recorder.result(unravel(g, layout), transport="stacked",
                            scheduler=scheduler.name, state=state, comm=comm,
-                           privacy=job.privacy_report(rounds))
+                           resumed_from=resume_round, privacy=job.privacy_report(rounds))
 
 
 # ---------------------------------------------------------------------------
@@ -738,7 +894,8 @@ def fold_arrival(acc: torch.Tensor, decoded: torch.Tensor, weight: np.float32) -
 
 def run_buffered(job, bundle, scheduler: BufferedScheduler, rounds: int, codec: Codec,
                  down_codec: Optional[Codec] = None, init_params=None,
-                 on_round: Optional[Callable[[int], None]] = None) -> JobResult:
+                 on_round: Optional[Callable[[int], None]] = None,
+                 resume_round: Optional[int] = None) -> JobResult:
     """``rounds`` buffered FedAvg rounds, dense, int8 or fp8 with a
     ``max_staleness`` inside the decode ring (the reference's buffered
     scan); arguments as :func:`run_sync`.
@@ -758,7 +915,12 @@ def run_buffered(job, bundle, scheduler: BufferedScheduler, rounds: int, codec: 
     order, ``align=1``): for int8 one ``quantize_int8`` and one
     ``dequantize_int8`` launch an arrival, for fp8 :func:`qdq_fp8`.
     ``comm`` (compressed only) counts that layout's bytes a fold and a dense
-    download a fold; the history records each round's ``version``."""
+    download a fold; the history records each round's ``version``.
+
+    Its carry (tag ``"buffered-scan"``) is the FL state, the global, the
+    running sum and its weight and, with a codec, the version ring and the
+    residuals; which arrival folds or fires is the host schedule's, a
+    function of the masks."""
     ctx = job.context(bundle, strategy="individual")
     state = _init_state(job, bundle, ctx, init_params)
     fl_round = F.build_fl_round(ctx)
@@ -781,6 +943,21 @@ def run_buffered(job, bundle, scheduler: BufferedScheduler, rounds: int, codec: 
         ring = torch.zeros((keep, n), dtype=torch.float32, device=dev)
         ring[0].copy_(g)
         res = torch.zeros((s, n), dtype=torch.float32, device=dev)
+
+    def carry():
+        c = {"fl_state": _fl_tree(state), "global": g, "acc": acc,
+             "accw": torch.tensor(accw)}
+        if compress:
+            c["ring"], c["residual"] = ring, res
+        return c
+
+    saved, _, start = _resume(job, recorder, "buffered-scan", resume_round, carry())
+    if saved is not None:
+        state = _restore_fl(state, saved["fl_state"], dev)
+        g, acc = _dev(saved["global"], dev), _dev(saved["acc"], dev)
+        accw = np.float32(saved["accw"])
+        if compress:
+            ring, res = _dev(saved["ring"], dev), _dev(saved["residual"], dev)
 
     def step(r, batches):
         nonlocal state, g, acc, accw
@@ -811,10 +988,12 @@ def run_buffered(job, bundle, scheduler: BufferedScheduler, rounds: int, codec: 
             p[site].copy_(g)                 # uploaders pull the newest global
         return metrics["loss"], {"version": versions[r]}
 
-    _round_loop(job, bundle, ctx, masks, recorder, step, on_round)
+    _round_loop(job, bundle, ctx, masks, recorder, step, on_round, start=start,
+                global_fn=_reference_tree(lambda: engine.unflatten(g, layout)),
+                save=_saver(job, recorder, "buffered-scan", carry))
     comm = None
     if compress:
-        folds = sum(a.admit for rnd in arrivals for a in rnd)
+        folds = sum(a.admit for rnd in arrivals[start:] for a in rnd)
         rows_f, c_f = chunk_geom(n, codec.chunk, 1)
         enc = rows_f * c_f + rows_f * 4          # the flat layout's payload bytes
         down_b = folds * 4 * n
@@ -825,12 +1004,13 @@ def run_buffered(job, bundle, scheduler: BufferedScheduler, rounds: int, codec: 
                 "simulated": True}
     return recorder.result(engine.unflatten(g, layout), transport="stacked",
                            scheduler=scheduler.name, state=state, comm=comm,
-                           privacy=job.privacy_report(rounds))
+                           resumed_from=resume_round, privacy=job.privacy_report(rounds))
 
 
 def run_buffered_host(job, bundle, scheduler: BufferedScheduler, rounds: int,
                       codec: Codec, down_codec: Optional[Codec] = None, init_params=None,
-                      on_round: Optional[Callable[[int], None]] = None) -> JobResult:
+                      on_round: Optional[Callable[[int], None]] = None,
+                      resume_round: Optional[int] = None) -> JobResult:
     """Buffered FedAvg through the wire codec, the reference's host loop
     (``StackedTransport._execute_buffered``): the path of a codec whose
     ``max_staleness`` reaches past the decode ring, of the top-k codecs,
@@ -845,7 +1025,16 @@ def run_buffered_host(job, bundle, scheduler: BufferedScheduler, rounds: int,
     :class:`~repro_torch.core.agg_engine.StreamingAccumulator` at its case
     weight times its discount (a dense job folds the row itself); ``ready``
     finalizes a new version.  ``comm`` (compressed only) is the
-    compressors' counters and a dense download an upload."""
+    compressors' counters and a dense download an upload.
+
+    It saves the global on the checkpoint grid but no carry: a resume
+    raises the reference's ``ValueError`` (its mid-round accumulator is
+    not checkpointable)."""
+    if resume_round is not None:
+        raise ValueError(
+            "the buffered host loop carries a mid-round accumulator "
+            "that is not checkpointable; resume buffered jobs on "
+            "the scan engine (round_engine='auto')")
     ctx = job.context(bundle, strategy="individual")
     state = _init_state(job, bundle, ctx, init_params)
     fl_round = F.build_fl_round(ctx)
@@ -900,7 +1089,8 @@ def run_buffered_host(job, bundle, scheduler: BufferedScheduler, rounds: int,
             base_version[site] = version
         return metrics["loss"], {"version": version}
 
-    _round_loop(job, bundle, ctx, masks, recorder, step, on_round)
+    _round_loop(job, bundle, ctx, masks, recorder, step, on_round,
+                global_fn=_reference_tree(lambda: unravel(g, layout)))
     uploads = sum(c.encodes for c in comps)
     up_bytes = sum(c.encoded_bytes for c in comps)
     comm = None

@@ -17,7 +17,8 @@ weight total.  :func:`availability_masks` replays the Algorithm-2 chain,
 composed with the pod tier's under a pods topology, so every participant
 agrees on the schedule without talking; :class:`JobResult` and
 :class:`RoundRecorder` are the history and checkpoint bookkeeping every
-transport shares.
+transport shares, and :func:`check_engine_tag` / :func:`check_privacy_tag`
+guard a stacked resume.
 """
 from __future__ import annotations
 
@@ -190,15 +191,43 @@ class JobResult:
                 "rejected_uploads": self.rejected_uploads}
 
 
+def check_engine_tag(meta: Dict[str, Any], engine: str):
+    """Guard a ``driver_state`` resume: the checkpointed carry only fits
+    the engine path that wrote it."""
+    saved = meta.get("engine")
+    if saved != engine:
+        raise ValueError(
+            f"driver_state checkpoint was written by engine {saved!r} but "
+            f"this run resolves to {engine!r}; resume with the same "
+            "round_engine / compression / scheduler settings")
+
+
+def check_privacy_tag(meta: Dict[str, Any], dp_tag: Optional[List[Any]]):
+    """Guard a resume across DP settings: the noise stream is a pure
+    function of (seed, round, site, step) given the DP config, so
+    re-entering with another clip, sigma or mode would splice two
+    mechanisms into one trajectory (and void the accountant)."""
+    saved = meta.get("dp")
+    if saved is not None or dp_tag is not None:
+        if list(saved or []) != list(dp_tag or []):
+            raise ValueError(
+                f"driver_state checkpoint was written with DP settings "
+                f"{saved!r} but this run resolves to {dp_tag!r}; resume "
+                "with the same dp_clip / dp_noise_multiplier / dp_mode "
+                "/ seed")
+
+
 class RoundRecorder:
-    """Per-round history and progress printing."""
+    """Per-round history, progress printing and checkpointing."""
 
     def __init__(self, rounds: int, *, verbose: bool = False,
                  log_every: Optional[int] = None, num_sites: int = 1,
-                 checkpoint_dir: Optional[Union[str, Path]] = None):
+                 checkpoint_dir: Optional[Union[str, Path]] = None,
+                 ckpt_every: int = 10):
         self.rounds = rounds
         self.verbose = verbose
         self.log_every = log_every or max(rounds // 10, 1)
+        self.ckpt_every = ckpt_every
         self.num_sites = num_sites
         self.history: List[Dict[str, Any]] = []
         self.store = None
@@ -214,7 +243,9 @@ class RoundRecorder:
         return time.time() - self._t0
 
     def record(self, round_index: int, per_site_loss, active,
-               extra: Optional[Dict[str, Any]] = None):
+               global_fn=None, extra: Optional[Dict[str, Any]] = None):
+        """Append round ``round_index``'s history; on the ``ckpt_every``
+        grid, with a store, save ``global_fn()`` (tag ``"global"``)."""
         now = time.time()
         per_site = np.asarray(per_site_loss, dtype=np.float64).reshape(-1)
         loss = float(np.nanmean(per_site))
@@ -228,6 +259,17 @@ class RoundRecorder:
                              or round_index == self.rounds - 1):
             print(f"round {round_index:4d} loss {loss:.4f} "
                   f"active {n_active}/{self.num_sites}")
+        if (self.store and global_fn is not None
+                and round_index % self.ckpt_every == 0):
+            self.store.save("global", round_index, global_fn())
+
+    def save_state(self, round_index: int, state_fn,
+                   meta: Optional[Dict[str, Any]] = None):
+        """Save ``state_fn()`` (called only on the grid) as the resumable
+        engine state (tag ``"driver_state"``) on the ``ckpt_every`` grid;
+        ``meta["engine"]`` guards a resume across engines."""
+        if self.store and round_index % self.ckpt_every == 0:
+            self.store.save("driver_state", round_index, state_fn(), meta=meta)
 
     def result(self, global_params, *, transport: str, scheduler: str,
                state=None, comm=None, compile_s: float = 0.0,

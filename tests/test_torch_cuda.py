@@ -367,3 +367,20 @@ def test_small_generate_on_card_matches_cpu_and_launches_the_kernels(cuda_device
     assert gpu["decode_launches"] == {}
     assert torch.equal(gpu["tokens"].cpu(), cpu["tokens"])
     torch.testing.assert_close(gpu["logits"].cpu(), cpu["logits"], rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_threefry_stream_on_card_matches_cpu(cuda_device):
+    """The DP noise stream drawn on the card: the key chain, the bits and
+    the uniforms bit-equal to the CPU's, the normals within 4 ulp."""
+    from repro_torch.core import prng
+    from repro_torch.privacy import dp
+    cfg = dp.DPConfig(clip=0.5, noise_multiplier=0.8)
+    key = dp.site_step_key(dp.round_key(cfg, 3), 2, 0)
+    gpu_key = key.to(cuda_device)
+    assert torch.equal(prng.split(gpu_key, 7).cpu(), prng.split(key, 7))
+    assert torch.equal(prng.bits(gpu_key, (1001,)).cpu(), prng.bits(key, (1001,)))
+    assert torch.equal(prng.uniform(gpu_key, (1001,)).cpu(), prng.uniform(key, (1001,)))
+    a = prng.normal(gpu_key, (1 << 16,)).cpu().view(torch.int32).long()
+    b = prng.normal(key, (1 << 16,)).view(torch.int32).long()
+    assert int((a - b).abs().max()) <= 4

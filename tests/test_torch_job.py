@@ -80,18 +80,22 @@ def test_job_runs_on_cuda_by_default_and_raises_without_it(monkeypatch):
 # a case whose seam has since been ported names another seam still
 # unported, under the id it always had
 @pytest.mark.parametrize("seam,kw", [
-    pytest.param("dp", dict(scheduler="buffered", dp_clip=1.0), id="scheduler-kw0"),
-    pytest.param("dp", dict(strategy="fedprox", transport="thread", topology="pods:2",
-                            dp_clip=1.0), id="strategy-kw1"),
-    pytest.param("dp", dict(compression="fp8", dp_noise_multiplier=1.0), id="compression-kw2"),
+    pytest.param("device_data", dict(scheduler="buffered", dp_clip=1.0, device_data=True),
+                 id="scheduler-kw0"),
+    pytest.param("device_data", dict(strategy="fedprox", transport="thread", topology="pods:2",
+                                     dp_clip=1.0, device_data=True), id="strategy-kw1"),
+    pytest.param("shard_sites", dict(compression="fp8", dp_clip=1.0, dp_noise_multiplier=1.0,
+                                     shard_sites=True), id="compression-kw2"),
     pytest.param("device_data", dict(down_compression="topk-fixed", device_data=True),
                  id="down_compression-kw3"),
-    ("dp", dict(dp_clip=1.0)),
+    pytest.param("device_data", dict(dp_clip=1.0, device_data=True), id="dp-kw4"),
     ("device_data", dict(device_data=True)),
-    ("adversary", dict(adversary="noise:1:1")),
-    pytest.param("dp", dict(strategy="fedprox", aggregator="median", transport="thread",
-                            dp_clip=1.0), id="strategy-kw7"),
-    pytest.param("dp", dict(topology="pods:2", aggregator="median", dp_clip=1.0),
+    pytest.param("device_data", dict(adversary="noise:1:1", device_data=True),
+                 id="adversary-kw6"),
+    pytest.param("device_data", dict(strategy="fedprox", aggregator="median",
+                                     transport="thread", dp_clip=1.0, device_data=True),
+                 id="strategy-kw7"),
+    pytest.param("shard_sites", dict(topology="pods:2", dp_clip=1.0, shard_sites=True),
                  id="topology-kw8"),
     pytest.param("device_data", dict(topology="pods:2", device_data=True), id="topology-kw9"),
     ("shard_sites", dict(shard_sites=True)),
@@ -170,15 +174,18 @@ def test_refused_tier_compositions_raise_the_reference_value_error(make, frag):
 # ValueError on its own; "ported": the seam has since been ported and the
 # value runs)
 FIELDS = [
-    ("dp_clip", 1.0, "dp"), ("dp_noise_multiplier", 1.0, "dp"),
+    pytest.param("dp_clip", 1.0, "ported", id="dp_clip-1.0-dp"),
+    pytest.param("dp_noise_multiplier", 1.0, "ported", id="dp_noise_multiplier-1.0-dp"),
     pytest.param("pod_dropout", 1, None, id="pod_dropout-1-topology"),
     ("device_data", True, "device_data"),
-    ("dp_delta", 1e-6, "dp"), ("dp_mode", "per-example", "dp"),
+    pytest.param("dp_delta", 1e-6, "ported", id="dp_delta-1e-06-dp"),
+    pytest.param("dp_mode", "per-example", "ported", id="dp_mode-per-example-dp"),
     pytest.param("round_engine", "loop", "ported", id="round_engine-loop-round_engine"),
     pytest.param("chunk_rounds", 2, "ported", id="chunk_rounds-2-round_engine"),
-    ("ckpt_every", 5, "checkpoint"),
+    pytest.param("ckpt_every", 5, "ported", id="ckpt_every-5-checkpoint"),
     ("task.arch", "gemma3-1b", "task"), ("task.reduced", False, "task"),
-    ("task.seq", 32, "task"), ("checkpoint_dir", "ckpt", "checkpoint"),
+    pytest.param("task.seq", 32, "task", id="task.seq-32-task"),
+    pytest.param("checkpoint_dir", "ckpt", "ported", id="checkpoint_dir-ckpt-checkpoint"),
     ("shard_sites", True, "shard_sites"),
 ]
 
@@ -203,8 +210,8 @@ def test_reference_fields_take_their_defaults_and_refuse_other_values(name, othe
                            **{name: _default(JJob, name)})
         bad = job.replace(**{name: other})
     job.check_ported()
-    if seam == "ported":          # the seam's behaviour: test_torch_codec_engine.py
-        bad.check_ported()
+    if seam == "ported":          # the seam's behaviour: test_torch_codec_engine.py,
+        bad.check_ported()        # test_torch_dp.py, test_torch_resume.py
         return
     if seam is None:
         with pytest.raises(ValueError, match="requires a pods topology"):
@@ -272,8 +279,9 @@ def test_compile_s_is_set_on_every_transport(transport):
 
 def test_run_takes_rounds_and_resume_by_position(tmp_path):
     """``run(5, True)`` resumes, as the reference's does; ``init_params``
-    and ``on_round`` are keyword-only; the stacked transport still refuses
-    to resume."""
+    and ``on_round`` are keyword-only; the stacked transport resumes too,
+    and refuses to without a ``checkpoint_dir``, with the reference's
+    ``ValueError``."""
     import inspect
     params = inspect.signature(FederatedJob.run).parameters
     assert [p for p in params if params[p].kind is inspect.Parameter.POSITIONAL_OR_KEYWORD] \
@@ -286,6 +294,9 @@ def test_run_takes_rounds_and_resume_by_position(tmp_path):
     job.run(3)
     res = job.run(5, True)
     assert res.resumed_from == 2 and [h["round"] for h in res.history] == [3, 4]
-    with pytest.raises(NotPorted) as err:
+    stacked = job.replace(transport="stacked", checkpoint_dir=str(tmp_path / "stacked"))
+    stacked.run(3)
+    res = stacked.run(5, True)
+    assert res.resumed_from == 2 and [h["round"] for h in res.history] == [3, 4]
+    with pytest.raises(ValueError, match="needs checkpoint_dir set"):
         job.replace(transport="stacked", checkpoint_dir=None, ckpt_every=10).run(3, True)
-    assert err.value.seam == "checkpoint"

@@ -38,7 +38,7 @@ from repro.core import agg_engine as jagg  # noqa: E402
 from repro.core import sampling as jsamp  # noqa: E402
 from repro.core.session import availability_masks as j_availability  # noqa: E402
 from repro.kernels import robust as jrobust  # noqa: E402
-from repro_torch import NotPorted, convert  # noqa: E402
+from repro_torch import convert  # noqa: E402
 from repro_torch.api import FederatedJob, TaskConfig  # noqa: E402
 from repro_torch.core import adversary as tadv  # noqa: E402
 from repro_torch.core import agg_engine as tagg  # noqa: E402
@@ -279,11 +279,19 @@ def test_perturbations_match_reference(spec):
 
 
 def test_noise_attack_is_not_ported():
-    plan = tadv.parse_adversary("noise:1:1")
+    """The noise attack, once refused, now perturbs a row as the
+    reference's host twin perturbs the same site's upload (within 4 ulp of
+    each normal; ``test_torch_dp.py`` holds the stacked rows); an unmasked
+    row stays as it was."""
+    from repro_torch.core.agg_engine import tree_layout
+    plan, jplan = tadv.parse_adversary("noise:1:1", seed=2), jadv.parse_adversary("noise:1:1",
+                                                                              seed=2)
     assert plan.flips_params
-    with pytest.raises(NotPorted) as err:
-        plan.perturb_rows(torch.zeros(2, 3), np.array([True, False]))
-    assert err.value.seam == "adversary"
+    flat = torch.zeros(2, 3)
+    plan.perturb_rows(flat, np.array([False, True]), 5, tree_layout({"w": torch.zeros(3)}))
+    want = jplan.perturb_tree({"w": np.zeros(3, np.float32)}, 1, 5)["w"]
+    assert torch.equal(flat[0], torch.zeros(3))
+    np.testing.assert_allclose(flat[1].numpy(), want, rtol=4 * 2.0 ** -23, atol=0)
 
 
 # -- client sampling --------------------------------------------------------------

@@ -597,16 +597,19 @@ def test_individual_and_robust_socket_jobs_run():
 # had); the refused compositions raise the reference's ValueError on both
 # packages
 UNPORTED = [
-    pytest.param("dp", dict(scheduler="buffered", dp_clip=1.0), id="scheduler-kw0"),
-    pytest.param("dp", dict(strategy="fedprox", topology="pods:2", dp_clip=1.0),
-                 id="strategy-kw1"),
-    pytest.param("dp", dict(strategy="gcml", compression="fp8", dp_clip=1.0),
-                 id="strategy-kw2"),
+    pytest.param("device_data", dict(scheduler="buffered", dp_clip=1.0, device_data=True),
+                 id="scheduler-kw0"),
+    pytest.param("device_data", dict(strategy="fedprox", topology="pods:2", dp_clip=1.0,
+                                     device_data=True), id="strategy-kw1"),
+    pytest.param("device_data", dict(strategy="gcml", compression="fp8", dp_clip=1.0,
+                                     device_data=True), id="strategy-kw2"),
     pytest.param("device_data", dict(topology="pods:2", compression="fp8", device_data=True),
                  id="topology-kw3"),
-    pytest.param("dp", dict(secure_agg=True, dp_clip=1.0), id="secure_agg-kw4"),
-    ("dp", dict(dp_clip=1.0)),
-    pytest.param("dp", dict(compression="fp8", dp_noise_multiplier=1.0), id="compression-kw6"),
+    pytest.param("device_data", dict(secure_agg=True, dp_clip=1.0, device_data=True),
+                 id="secure_agg-kw4"),
+    pytest.param("device_data", dict(dp_clip=1.0, device_data=True), id="dp-kw5"),
+    pytest.param("device_data", dict(compression="fp8", dp_clip=1.0, dp_noise_multiplier=1.0,
+                                     device_data=True), id="compression-kw6"),
     pytest.param("device_data", dict(down_compression="topk-fixed", device_data=True),
                  id="down_compression-kw7"),
 ]
