@@ -151,6 +151,22 @@ Phases, each of which fails the run (non-zero exit) if it goes wrong:
    the thread transport with DP, held to the stacked job's first two
    rounds by phase 5b's bound; then 8^3 resumes, refusals and DP jobs on
    the card and the CPU;
+19. on-device batches, the sharded simulator and the training CLI
+   (``run_p19`` states each check): 4-site FedAvg at full width with
+   ``shard_sites=True`` against the same job dense (deterministic cuDNN;
+   globals by phase 5b's fold-noise rule, losses rtol 1e-4, bytes equal,
+   ``fedagg`` a round and a device counted); 64 sites under ``uniform:4``
+   and shutdown, plain and int8 (the never-sampled rows frozen bit for
+   bit, the last round's participants the round's global, ``k_cap`` the
+   packed maximum, ``quantize_int8``/``dequantize_int8`` once a chunk width
+   a round); ``device_data=True`` on OpenKBP with ``max_dropout=1`` and on
+   BraTS (a case drawn on the card against the CPU: masks and labels bit
+   for bit, CT and the volume within 4 ulp, the dose within its stated
+   bound; the Algorithm-2 chain card == CPU; the draw's ``batch_s``
+   beside phase 3's host ``batch_s``); then 8^3 jobs: the seven
+   sharded-vs-dense cases, ``device_data`` with GCML, FedProx, pods and
+   DP card vs CPU, a resume, the refusals, a thread job that ignores
+   ``device_data``, and ``launch/train.py`` on the card;
 9. the fourth slice's paths: serving the token models at full width
    through ``launch/serve.py`` (prefill, then greedy decode, fp32
    weights from a seed, TF32 off): gemma3-1b (26 layers, 4 x 1024
@@ -171,9 +187,9 @@ Phases, each of which fails the run (non-zero exit) if it goes wrong:
    off: the greedy tokens must be equal and the logits within
    rtol=atol=1e-4.
 
-Phases 11-18 run after phase 8, before 9.  Every kernel's launch count is
+Phases 11-19 run after phase 8, before 9.  Every kernel's launch count is
 zeroed just before each of phases 3-5b, 7, each path of 9 and each
-full-width job of 11-13 and 15-18, and read just after; each of 11-18
+full-width job of 11-13 and 15-19, and read just after; each of 11-19
 prints its seconds.  The second-to-last line is a
 JSON object with one entry per kernel; the last line is ``{"ok": true,
 "device": {...}}``.  Without
@@ -3084,6 +3100,416 @@ def run_resume_and_dp(torch, FederatedJob, TaskConfig, build, task) -> dict:
     return out
 
 
+# -- on-device batches, the sharded simulator and the CLI (phase 19) -------------
+
+P19_ROUNDS = 3                          # 19b, 19c
+P19_SITES = 64                          # 19b: the sites the rows hold
+DOSE_ATOL = 4 * 2.0 ** -23              # card vs CPU dose (in [0, 1]): exp's ulps
+CARD = "cuda"                           # phase 19's device (the CPU in a dry run of it)
+
+
+def _deterministic(torch, on: bool) -> None:
+    torch.backends.cudnn.deterministic = on
+    torch.backends.cudnn.benchmark = False
+
+
+def _sharded_launches(rounds: int, devices: int, pods: int = 1, final: bool = True) -> int:
+    """``fedagg`` on the sharded engine: a partial a pod a device and the
+    inter-pod combine each round, and with a dense global one a device at
+    the end."""
+    return rounds * (devices * pods + 1) + (devices if final else 0)
+
+
+def run_sharded_dense(torch, FederatedJob, TaskConfig, build, task) -> dict:
+    """Phase 19a: 4-site FedAvg at full width, 2 rounds, ``shard_sites=True``
+    against the same job dense (deterministic cuDNN): round 0's losses
+    equal, every round's within rtol 1e-4, the globals by phase 5b's
+    fold-noise rule (the two folds differ in order and normalization only),
+    ``upload_bytes`` equal, ``devices`` the card count, and ``fedagg`` as
+    :func:`_sharded_launches` counts it."""
+    _deterministic(torch, True)
+    try:
+        dense, _, job = _run_job(torch, FederatedJob, TaskConfig, build, task, FULL_N,
+                                 "19a dense fedavg")
+        shard, launches, _ = _run_job(torch, FederatedJob, TaskConfig, build, task, FULL_N,
+                                      "19a sharded fedavg", shard_sites=True)
+    finally:
+        _deterministic(torch, False)
+    devices = torch.cuda.device_count()
+    _require(shard.comm["sharded"] is True and shard.comm["devices"] == devices
+             and shard.comm["upload_bytes"] == dense.comm["upload_bytes"],
+             f"19a: comm {shard.comm} against {dense.comm}")
+    _require(dense.history[0]["per_site_loss"] == shard.history[0]["per_site_loss"],
+             "19a: round 0's losses differ")
+    for a, b in zip(shard.history, dense.history):
+        _require(all(math.isclose(x, y, rel_tol=1e-4) for x, y in
+                     zip(a["per_site_loss"], b["per_site_loss"])),
+                 f"19a: round {a['round']} losses {a['per_site_loss']} {b['per_site_loss']}")
+    worst, outside = _outside(shard.global_params, dense.global_params)
+    print(f"19a: sharded vs dense globals max |diff| {worst:.3e}, outside rtol 2e-3, atol "
+          f"2e-4: {outside}")
+    _require_fold_noise(job, worst, outside, "19a sharded vs dense")
+    _expect_launches("19a sharded fedavg", launches,
+                     {"fedagg": _sharded_launches(ROUNDS, devices)})
+    return launches
+
+
+def _many_sites(torch, FederatedJob, TaskConfig, build, task, what: str, **kw):
+    """19b's job: ``P19_SITES`` sites, ``uniform:4``, shutdown, ``P19_ROUNDS``
+    rounds, sharded; returns (result, launches, job, the inter-pod
+    combines' outputs, one a round: each round folds a partial a device,
+    then combines)."""
+    from repro_torch.core.agg_engine import get_engine
+    engine = type(get_engine())
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = False
+    job = FederatedJob(task=TaskConfig(**dict(task, sites=P19_SITES)), rounds=P19_ROUNDS,
+                       sample="uniform:4", dropout_scenario="shutdown", shard_sites=True, **kw)
+    torch.cuda.reset_peak_memory_stats()
+    build.reset_launches()
+    with _Spy(engine, "reduce_flat", post=lambda a, k, o: o.clone()) as spy:
+        t0 = time.perf_counter()
+        res = job.run()
+        wall = time.perf_counter() - t0
+    launches = {k: v for k, v in build.LAUNCHES.items() if v}
+    _strategy_history(res, what)
+    print(f"{what}: {P19_ROUNDS} rounds in {wall:.1f} s with set-up, peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, comm {res.comm}; kernels "
+          f"launched {launches}")
+    _require(sum(t.numel() for t in _leaves(res.global_params)) == FULL_N
+             and all(bool(torch.isfinite(t).all()) for t in _leaves(res.global_params)),
+             f"{what}: the global's size or a non-finite element")
+    per_round = torch.cuda.device_count() + 1
+    combines = [out for _, out in spy.calls[per_round - 1:per_round * P19_ROUNDS:per_round]]
+    return res, launches, job, combines
+
+
+def run_many_sites(torch, FederatedJob, TaskConfig, build, task) -> dict:
+    """Phase 19b: 64 sites (about 5.3 GB of rows, params and AdamW's
+    moments; 7.0 GB with int8's residuals), ``uniform:4`` under shutdown,
+    3 rounds, plain and with int8 uploads.  Every site that never
+    participates keeps its initial row and zero moments bit for bit; in the
+    plain run each last-round participant's row is that round's global
+    (the inter-pod combine's output) bit for bit; ``participants`` 4 and
+    ``k_cap`` the packed maximum each round, the NaN losses exactly the
+    non-participants'; ``fedagg`` as :func:`_sharded_launches` counts it and
+    under int8 ``quantize_int8`` and ``dequantize_int8`` once a chunk width
+    a round on each device that trains.  Prints the peak memory and
+    ``step_s``."""
+    import numpy as np
+    from repro_torch.core.round_engine import pack_participants
+    from repro_torch.core.agg_engine import get_engine
+    from repro_torch.core.stacking import broadcast_to_sites
+    devices = torch.cuda.device_count()
+    out = {}
+    groups = len(_chunk_plan_groups(TaskConfig, task))
+    for what, kw in (("19b 64 sites uniform:4", {}),
+                     ("19b 64 sites uniform:4 int8", dict(compression="int8"))):
+        res, launches, job, combines = _many_sites(torch, FederatedJob, TaskConfig, build, task,
+                                                   what, **kw)
+        participate, wscale = job.participation(P19_ROUNDS)
+        s_loc = -(-P19_SITES // devices)
+        packed = pack_participants(participate, wscale, np.zeros(P19_SITES, np.int32), s_loc,
+                                   devices)
+        k_cap = packed[-1]
+        busy = int(packed[1].any(axis=2).sum())      # (round, device) pairs that train
+        for h, row in zip(res.history, participate):
+            _require(h["participants"] == 4 and h["k_cap"] == k_cap
+                     and [not math.isfinite(v) for v in h["per_site_loss"]] == list(~row),
+                     f"{what}: round {h['round']} participants {h['participants']} k_cap "
+                     f"{h['k_cap']} (packed {k_cap}) or its NaN rows")
+        init, _ = get_engine().flatten(broadcast_to_sites(
+            job.task.build().init_fn(job.seed), 1))
+        init = init[0].to(res.state["params"].device)
+        never = np.flatnonzero(~participate.any(axis=0))
+        st = res.state
+        for i in never:
+            _require(torch.equal(st["params"][i], init) and not st["opt"]["mu"][i].any()
+                     and not st["opt"]["nu"][i].any() and int(st["opt"]["step"][i]) == 0,
+                     f"{what}: site {i} never participated and its row or moments moved")
+        last = np.flatnonzero(participate[-1])
+        if "compression" not in kw:
+            _require(len(combines) == P19_ROUNDS
+                     and all(torch.equal(st["params"][i], combines[-1]) for i in last),
+                     f"{what}: a last-round participant's row is not the round's global")
+            expect = {"fedagg": _sharded_launches(P19_ROUNDS, devices)}
+        else:
+            _require(all(torch.equal(st["params"][i], st["params"][last[0]]) for i in last),
+                     f"{what}: the last-round participants' rows differ")
+            expect = {"fedagg": _sharded_launches(P19_ROUNDS, devices, final=False),
+                      "quantize_int8": busy * groups, "dequantize_int8": busy * groups}
+        _expect_launches(what, launches, expect)
+        print(f"{what}: {len(never)} sites never participated, frozen bit for bit; "
+              f"k_cap {k_cap}; step_s {[round(h['step_s'], 4) for h in res.history]}; "
+              f"participants {[h['participants'] for h in res.history]}")
+        out[what] = launches
+        del res, st, combines
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def _round_keys(seed: int, r: int, device):
+    """Round ``r``'s ``device_data`` keys on ``device``: (k_av, k_pair,
+    k_data), as ``round_engine.run_sync`` draws them."""
+    from repro_torch.core import prng
+    data_key = prng.fold_in(prng.key(seed, device=device), 7)
+    return prng.split(prng.fold_in(data_key, r), 3)
+
+
+def _hold_case(torch, what, gen, k_data, n_cases: int, labels: bool):
+    """Case 0 of a round drawn on the card and on the CPU from the same key:
+    masks (labels) bit-equal, the float channels within ``NORMAL_ULP`` ulp
+    (the seg volume of its terms' magnitude), the dose within
+    ``DOSE_ATOL``; prints the bit-equal shares."""
+    from repro_torch.core import prng
+    cpu = torch.device("cpu")
+    draws = []
+    for dev in (torch.device(CARD), cpu):
+        keys = prng.split(k_data.to(dev), n_cases)[:1]
+        draws.append({k: v.cpu() for k, v in
+                      gen.traced_cases(keys, torch.zeros(1, dtype=torch.long, device=dev)).items()})
+    card, host = draws
+    if labels:
+        _require(torch.equal(card["labels"], host["labels"]), f"{what}: labels differ")
+        signal = host["labels"][..., None].float() * torch.tensor(
+            [0.5 + 0.25 * c for c in range(card["volume"].shape[-1])])
+        bound = NORMAL_ULP * 2.0 ** -23 * ((host["volume"] - signal).abs() + signal.abs())
+        _require(bool(((card["volume"] - host["volume"]).abs() <= bound).all()),
+                 f"{what}: the volume is beyond {NORMAL_ULP} ulp of its terms")
+        ulp = _ulps(torch, card["volume"], host["volume"])
+        print(f"{what}: labels bit-equal card vs CPU; volume within {NORMAL_ULP} ulp of its "
+              f"terms (max {int(ulp.max())} ulp of the sum), "
+              f"{float((ulp == 0).double().mean()):.6%} bit-equal")
+        return
+    _require(torch.equal(card["volume"][..., 1:], host["volume"][..., 1:])
+             and torch.equal(card["mask"], host["mask"]), f"{what}: a mask channel differs")
+    ulp = _ulps(torch, card["volume"][..., 0], host["volume"][..., 0])
+    _require(int(ulp.max()) <= NORMAL_ULP, f"{what}: CT {int(ulp.max())} ulp apart")
+    dose = float((card["dose"] - host["dose"]).abs().max())
+    _require(dose <= DOSE_ATOL, f"{what}: dose {dose:.3e} apart (bound {DOSE_ATOL:.3e})")
+    print(f"{what}: masks bit-equal card vs CPU ({card['volume'].shape[-1] - 1} channels and "
+          f"the body); CT within {int(ulp.max())} ulp, {float((ulp == 0).double().mean()):.6%} "
+          f"bit-equal; dose max |diff| {dose:.3e} (bound {DOSE_ATOL:.3e}), "
+          f"{float((card['dose'] == host['dose']).double().mean()):.6%} bit-equal")
+
+
+def time_case_draw(torch, gen, k_data, n_cases: int) -> dict:
+    """One 128^3 case of the on-device dose generator (``traced_cases``:
+    the threefry CT noise, the body, PTV and OAR spheres, the distance
+    field's dose) timed as one plain call site (CUDA-graph replays) beside
+    its bytes bound: its outputs (the volume's channels, the dose and the
+    mask, fp32) written once."""
+    from repro_torch.core import prng
+    dev = torch.device(CARD)
+    keys = prng.split(k_data.to(dev), n_cases)[:1]
+    sites = torch.zeros(1, dtype=torch.long, device=dev)
+    out = gen.traced_cases(keys, sites)
+    nbytes = 4 * sum(v[0].numel() for v in out.values())
+    del out
+    ms, eager = time_ms(lambda: gen.traced_cases(keys, sites))
+    mem_rate = peaks(torch.cuda.get_device_name(0))[0]
+    bound = 1e3 * nbytes / mem_rate
+    print(f"plain on-device dose case {list(gen.volume)}, {gen.in_channels} channels: "
+          f"{ms:.4f} ms (eager {eager:.4f} ms), bytes bound {bound:.4f} ms "
+          f"({nbytes / 1e6:.1f} MB at {mem_rate / 1e12:.2f} TB/s), {bound / ms:.2%} of it")
+    return {"name": "on-device dose case (traced_cases)", "shape": list(gen.volume),
+            "ms": ms, "eager_ms": eager, "bound_ms": bound, "bound_by": "bytes"}
+
+
+def run_device_data(torch, FederatedJob, TaskConfig, build, tasks, host_batch_s) -> dict:
+    """Phase 19c-d: ``device_data=True`` at full width.  19c: OpenKBP, 4
+    sites, FedAvg, ``max_dropout=1``, 3 rounds; one case of round 0 drawn
+    on the card and on the CPU (:func:`_hold_case`); the Algorithm-2 chain
+    of the job's keys on the card equal to the CPU's, its counts the
+    history's and ``comm``'s; ``batch_s`` (the on-device draw) beside
+    phase 3's host ``batch_s``; ``fedagg`` once a round and once at the end.
+    19d: BraTS, 1 round, one case's labels and volume card vs CPU."""
+    from repro_torch.core.dropout import availability_step_traced
+    dose, brats = tasks
+    res, launches, job = _run_job(torch, FederatedJob, TaskConfig, build, dose, FULL_N,
+                                  "19c device_data fedavg max_dropout=1", rounds=P19_ROUNDS,
+                                  max_dropout=1, device_data=True)
+    _expect_launches("19c device_data", launches, {"fedagg": P19_ROUNDS + 1})
+    bundle = job.task.build()
+    gen = bundle.traced_stacked.__self__
+    k_data = _round_keys(job.seed, 0, torch.device(CARD))[2]
+    _hold_case(torch, "19c round 0 case 0", gen, k_data, dose["sites"], False)
+    print(json.dumps({"plain_generator": time_case_draw(torch, gen, k_data, dose["sites"])}))
+    chains = []
+    for dev in (torch.device(CARD), torch.device("cpu")):
+        active = torch.ones(dose["sites"], dtype=torch.bool, device=dev)
+        rows = []
+        for r in range(P19_ROUNDS):
+            active = availability_step_traced(_round_keys(job.seed, r, dev)[0], active, 1)
+            rows.append(active.cpu().tolist())
+        chains.append(rows)
+    _require(chains[0] == chains[1], f"19c: active chains card {chains[0]} cpu {chains[1]}")
+    _require([sum(r) for r in chains[0]] == [h["active"] for h in res.history]
+             and res.comm["upload_count"] == sum(map(sum, chains[0])),
+             f"19c: the job's active counts {[h['active'] for h in res.history]} are not "
+             f"the chain's {chains[0]}")
+    print(f"19c: active chain card == CPU {chains[0]}; batch_s on the card "
+          f"{[round(h['batch_s'], 4) for h in res.history]} against phase 3's host "
+          f"{[round(v, 4) for v in host_batch_s]}")
+    seg, seg_l, seg_job = _run_job(torch, FederatedJob, TaskConfig, build, brats, BRATS_N,
+                                   "19d device_data brats", rounds=1, device_data=True)
+    _expect_launches("19d device_data brats", seg_l, {"fedagg": 2})
+    seg_bundle = seg_job.task.build()
+    _hold_case(torch, "19d round 0 case 0", seg_bundle.traced_stacked.__self__,
+               _round_keys(seg_job.seed, 0, torch.device(CARD))[2], brats["sites"],
+               True)
+    return {"19c": launches, "19d": seg_l,
+            "batch_s": [h["batch_s"] for h in res.history] + [seg.history[0]["batch_s"]]}
+
+
+def _small_pair(torch, FederatedJob, what, job, keys=("active", "partner", "is_receiver")):
+    """A small job on the card and on the CPU: ``keys`` equal, losses within
+    ``JOB_RTOL``; returns (card, CPU) results."""
+    gpu, cpu = job.run(), job.replace(device="cpu").run()
+    for g, c in zip(gpu.history, cpu.history):
+        for key in keys:
+            _require(g.get(key) == c.get(key), f"small {what}: {key} differs card vs CPU")
+        _require(all(math.isclose(a, b, rel_tol=JOB_RTOL, abs_tol=1e-6) or
+                     (math.isnan(a) and math.isnan(b))
+                     for a, b in zip(g["per_site_loss"], c["per_site_loss"])),
+                 f"small {what}: losses card {g['per_site_loss']} cpu {c['per_site_loss']}")
+    print(f"small {what}: {', '.join(keys)} equal card vs CPU; losses card {gpu.losses} "
+          f"cpu {cpu.losses}")
+    return gpu, cpu
+
+
+def check_small_p19_jobs(torch, FederatedJob, TaskConfig) -> None:
+    """Phase 19's tail at 8^3 (4 filters, 2 levels), TF32 off, cuDNN
+    deterministic: the reference's seven sharded-vs-dense cases (4 sites, 4
+    rounds) on the card, each sharded run against the dense one (globals
+    at the reference's tolerances but the GroupNorm-fed conv biases, held to
+    ``lr * rounds``; losses rtol 1e-4 where a site trained) and against its
+    CPU run; ``device_data`` with GCML (5 sites, ``max_dropout=2``:
+    partners and ``active`` bit-equal card vs CPU), FedProx, ``pods:2`` and
+    DP per-site, card vs CPU; a ``device_data`` resume bit-equal to its
+    uninterrupted run; both seams' refusals; a thread job with
+    ``device_data=True`` equal to the job without it; and the training CLI
+    (``launch/train.py``) on the card by default."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    _deterministic(torch, True)
+    tiny = dict(batch=1, volume=(8, 8, 8), base_filters=4, num_levels=2)
+    dose = TaskConfig(kind="dose", sites=4, **tiny)
+    try:
+        cases = [("fedavg", {}, 1e-5), ("fedprox", dict(strategy="fedprox"), 1e-5),
+                 ("pods", dict(topology="pods:2"), 1e-5),
+                 ("int8", dict(compression="int8"), 1e-4),
+                 ("int8-fedprox", dict(compression="int8", strategy="fedprox"), 1e-4),
+                 ("sampled-uniform", dict(sample="uniform:2", dropout_scenario="shutdown"), 1e-5),
+                 ("sampled-poisson-churn", dict(sample="poisson:0.6", max_dropout=1,
+                                                dropout_scenario="shutdown"), 1e-5)]
+        for what, kw, rtol in cases:
+            job = FederatedJob(task=dose, rounds=4, **kw)
+            dense = job.run()
+            shard, _ = _small_pair(torch, FederatedJob, f"sharded {what}",
+                                   job.replace(shard_sites=True),
+                                   keys=("active", "participants", "k_cap"))
+            _require(shard.comm["upload_bytes"] == dense.comm["upload_bytes"]
+                     and shard.comm["devices"] == torch.cuda.device_count(),
+                     f"small sharded {what}: comm {shard.comm}")
+            for hd, hs in zip(dense.history, shard.history):
+                _require(hd["active"] == hs["active"] == hs["participants"]
+                         and all(math.isclose(a, b, rel_tol=1e-4) for a, b in
+                                 zip(hd["per_site_loss"], hs["per_site_loss"])
+                                 if not math.isnan(b)),
+                         f"small sharded {what}: round {hs['round']} against dense")
+            worst = 0.0
+            for (path, a), (_, b) in zip(_paths(shard.global_params),
+                                         _paths(dense.global_params)):
+                d = float((a - b).abs().max())
+                if path.endswith(("/conv1/b", "/conv2/b")):
+                    _require(d <= job.lr * job.rounds, f"small sharded {what}: {path} {d:.3e}")
+                else:
+                    _require(bool(((a - b).abs() <= 10 * rtol + rtol * b.abs()).all()),
+                             f"small sharded {what}: {path} {d:.3e} from dense")
+                    worst = max(worst, d)
+            print(f"small sharded {what}: against dense max |diff| {worst:.3e} "
+                  f"(rtol {rtol:g}) outside the GroupNorm-fed biases")
+        pan = TaskConfig(kind="dose", sites=5, **tiny)
+        for what, task, kw in (("device_data gcml", pan, dict(strategy="gcml", max_dropout=2)),
+                               ("device_data fedprox", dose, dict(strategy="fedprox",
+                                                                  max_dropout=1)),
+                               ("device_data pods:2", dose, dict(topology="pods:2",
+                                                                 max_dropout=1)),
+                               ("device_data dp", dose, dict(max_dropout=1, **DP_KW))):
+            _small_pair(torch, FederatedJob, what,
+                        FederatedJob(task=task, rounds=3, device_data=True, **kw))
+        base = FederatedJob(task=dose, rounds=5, ckpt_every=2, max_dropout=2, device_data=True)
+        full = base.run()
+        with _ckpt_dir() as d:
+            base.replace(checkpoint_dir=d).run(rounds=3)
+            res = base.replace(checkpoint_dir=d).run(resume=True)
+        _hold_resume(torch, "device_data", full, res)
+        print("small device_data resume: bit-equal to the uninterrupted run on the card")
+        refusals = [(dict(device_data=True, compression="int8"), "device_data=True (on-device"),
+                    (dict(device_data=True, round_engine="loop"), "requires the scan engine"),
+                    (dict(device_data=True, sample="uniform:2"), "client sampling"),
+                    (dict(shard_sites=True, strategy="gcml"), "shard_sites=True supports"),
+                    (dict(shard_sites=True, compression="fp8"), "'none' or 'int8'"),
+                    (dict(shard_sites=True, max_dropout=1), "'shutdown' scenario"),
+                    (dict(shard_sites=True, transport="thread"), "shard_sites=True shards")]
+        for kw, frag in refusals:
+            try:
+                FederatedJob(task=dose, rounds=1, **kw).run()
+            except ValueError as e:
+                _require(frag in str(e), f"small refusal {kw}: {e}")
+            else:
+                _require(False, f"small refusal {kw}: the job ran")
+        print(f"small refusals: {len(refusals)} ValueErrors, the reference's messages")
+        thread = FederatedJob(task=TaskConfig(kind="dose", sites=2, **tiny), rounds=2,
+                              transport="thread")
+        plain, on = thread.run(), thread.replace(device_data=True).run()
+        _require(plain.losses == on.losses and plain.comm == on.comm
+                 and torch.equal(_flat(torch, plain.global_params),
+                                 _flat(torch, on.global_params)),
+                 "small thread device_data: differs from the job without it")
+        print(f"small thread job: device_data=True equal to the job without it "
+              f"(losses {on.losses})")
+        from repro_torch.launch import train
+        with _ckpt_dir() as d:
+            out = train.run(train.make_parser().parse_args(
+                ["--task", "dose", "--sites", "3", "--rounds", "2", "--volume", "8",
+                 "--base-filters", "4", "--batch", "1", "--quiet", "--out", d]))
+            written = json.loads((Path(d) / "train_fedavg.json").read_text())
+        _require(written["final_loss"] == out["final_loss"] and math.isfinite(out["final_loss"])
+                 and out["compile_s"] > 0.0,
+                 f"small CLI: {out['final_loss']} compile_s {out['compile_s']}")
+        print(f"small CLI on the card by default: final loss {out['final_loss']:.6f}, "
+              f"compile_s {out['compile_s']:.3f} (0.0 only on the CPU)")
+    finally:
+        _deterministic(torch, False)
+
+
+def _paths(tree, prefix=""):
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from _paths(tree[k], f"{prefix}/{k}")
+    elif isinstance(tree, list):
+        for i, v in enumerate(tree):
+            yield from _paths(v, f"{prefix}/{i}")
+    else:
+        yield prefix, tree
+
+
+def run_p19(torch, FederatedJob, TaskConfig, build, tasks, host_batch_s) -> dict:
+    """Phase 19 (a-d at full width, the tail at 8^3); returns each
+    full-width path's launches."""
+    dose, brats = tasks
+    jobs = (torch, FederatedJob, TaskConfig, build)
+    out = {"19a": _timed("19a (sharded vs dense)", run_sharded_dense, *jobs, dose)}
+    out.update(_timed("19b (64 sites, 4 trained a round)", run_many_sites, *jobs, dose))
+    out.update(_timed("19c-d (device_data)", run_device_data, *jobs, tasks, host_batch_s))
+    _timed("19 tail (small sharded, device_data, CLI jobs)", check_small_p19_jobs, torch,
+           FederatedJob, TaskConfig)
+    return out
+
+
 def _flash_inputs(torch, dev, case, dtype, gen):
     b, hq, hkv, lq, lk, d = case[:6]
     return (torch.randn(b, hq, lq, d, device=dev, generator=gen).to(dtype),
@@ -3489,12 +3915,15 @@ def main() -> int:
     _timed("15 (small tcp jobs: gcml, fedprox, secure_agg)", check_small_socket_seams, *jobs,
            build)
     del gossip
+    host_batch_s = [h["batch_s"] for h in main_result.history]
     p16 = _timed("16 (two-tier pods and buffered rounds)", run_pods_and_buffered, *jobs,
                  build, OPENKBP_TASK, main_result, int8_comm)
     del main_result
     p17 = _timed("17 (fp8 and top-k codecs)", run_codecs, *jobs, build, OPENKBP_TASK)
     p18 = _timed("18 (checkpoint and resume, DP-SGD, the noise attack)", run_resume_and_dp,
                  *jobs, build, OPENKBP_TASK)
+    p19 = _timed("19 (device_data, the sharded simulator, the CLI)", run_p19, *jobs, build,
+                 (OPENKBP_TASK, BRATS_TASK), host_batch_s)
     serving_launches = run_serving_paths(torch, build)
     check_small_serving(torch, build)
 
@@ -3507,6 +3936,7 @@ def main() -> int:
     print(f"launches on phase 16's paths: {p16}")
     print(f"launches on phase 17's paths: {p17}")
     print(f"launches on phase 18's paths: {p18}")
+    print(f"launches on phase 19's paths: {p19}")
     print(smi)
     path_of = {"fedagg": main_launches, "quantize_int8": int8_launches,
                "fedagg_dequant": int8_launches, "dequant_install": int8_launches,

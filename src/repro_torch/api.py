@@ -38,7 +38,12 @@ seeded adversary (``adversary="sign_flip:f" | "scale:c:f" |
 per-site or per-example, the Renyi accountant's epsilon at ``dp_delta`` in
 ``result.privacy``) on every transport, and on the stacked transport
 checkpoints (``checkpoint_dir``, ``ckpt_every``) and ``run(resume=True)``
-on every engine but the buffered host loop.  Every other seam of the
+on every engine but the buffered host loop, batches and round inputs
+drawn on the device (``device_data=True``: the reference's threefry
+stream) and the sharded many-site simulator (``shard_sites=True``: site
+rows in blocks over the devices, only each round's participants trained;
+the socket transports ignore ``device_data`` and refuse ``shard_sites``,
+as the reference's do).  Every other seam of the
 reference raises
 :class:`repro_torch.NotPorted` naming it, and never runs something else;
 compositions the reference refuses raise its ``ValueError``, checked
@@ -147,6 +152,10 @@ class TaskBundle:
     stacked: Callable[[int, int], Dict[str, np.ndarray]]  # (round, K) -> [S,K,B,…]
     sample: Callable[[int, int], Dict[str, np.ndarray]]   # (site, step) -> [B,…]
     forward_fn: Callable                                  # -> (loss, logits, labels), one forward
+    # (key, K, B) -> [S,K,B,…] tensors drawn on the key's device, the
+    # on-device data path (device_data=True); None when no traced generator
+    # applies (site_pools case recycling is host-only)
+    traced_stacked: Optional[Callable] = None
 
     def logits_fn(self, params, batch):
         """(logits, labels) for DCML's regions, from :attr:`forward_fn`."""
@@ -216,7 +225,8 @@ def _build_volume_task(task: TaskConfig) -> TaskBundle:
         model_cfg=scfg,
         stacked=lambda rnd, k: gen.stacked_batches(rnd, k, task.batch),
         sample=lambda site, step: gen.sample(site, step, task.batch),
-        forward_fn=forward_fn)
+        forward_fn=forward_fn,
+        traced_stacked=gen.traced_stacked_batches if task.site_pools is None else None)
 
 
 # ---------------------------------------------------------------------------
@@ -398,8 +408,6 @@ class FederatedJob:
         unported = [
             ("strategy", self.strategy not in strategies, self.strategy,
              ", ".join(repr(x) for x in strategies)),
-            ("device_data", self.device_data, "True", "False"),
-            ("shard_sites", self.shard_sites, "True", "False"),
         ]
         for seam, bad, got, ok in unported:
             if bad:
@@ -745,6 +753,11 @@ class StackedTransport(Transport):
     twins cannot run (``topk-sparse`` either way, buffered top-k, buffered
     staleness past the ring) takes the host loop under ``"auto"`` and
     raises the reference's ``ValueError`` under ``"scan"``.
+    ``shard_sites=True`` runs
+    :func:`~repro_torch.core.round_engine.execute_sharded` before any other
+    engine; ``device_data=True`` runs the sync rounds with on-device inputs
+    (:func:`~repro_torch.core.round_engine.run_sync`) and raises the
+    reference's ``ValueError`` wherever its scan engine would.
     ``chunk_rounds`` changes nothing: the port's rounds are not chunked.
     ``resume=True`` re-enters every engine but the buffered host loop from
     its newest ``driver_state`` (:func:`_driver_resume_round`)."""
@@ -756,7 +769,14 @@ class StackedTransport(Transport):
         _validate_robustness(job)
         _validate_down(job)
         _validate_stacked(job)
+        if job.sampled and job.device_data:
+            raise ValueError(
+                "client sampling precomputes its schedule host-side (a "
+                "pure function of (seed, round)); device_data=True "
+                "regenerates availability on device and would ignore it — "
+                "run sampled jobs with host batches")
         job.check_ported()
+        bundle = job.task.build()
         if job.round_engine not in ("auto", "scan", "loop"):
             raise ValueError(f"unknown round_engine {job.round_engine!r}; "
                              "known: auto, scan, loop")
@@ -765,20 +785,49 @@ class StackedTransport(Transport):
         codec, down_codec = job.codecs()
         from repro_torch.core import round_engine
         from repro_torch.kernels import build, ops
-        run = None if job.round_engine == "loop" else round_engine.engine_for(
-            scheduler, codec, down_codec)
-        if run is None:
-            if job.round_engine == "scan":
+        if job.shard_sites:
+            run = round_engine.execute_sharded
+        elif job.round_engine != "loop":
+            if job.device_data:
+                _validate_device_data(job, bundle, scheduler, codec, down_codec)
+            run = round_engine.engine_for(scheduler, codec, down_codec)
+            if run is None and job.round_engine == "scan":
                 raise ValueError(
                     f"round_engine='scan' cannot run this job (codec "
                     f"{codec.name!r} / scheduler {scheduler.name!r} take "
                     "the host path); use round_engine='auto' or 'loop'")
+        else:
+            run = None
+        if run is None:
+            if job.device_data:
+                raise ValueError("device_data=True requires the scan engine")
             run = round_engine.host_loop_for(scheduler, codec, down_codec)
         compile_s = build.prepare(job.torch_device, ops.FL_KERNELS)
-        res = run(job, job.task.build(), scheduler, rounds, codec, down_codec,
+        res = run(job, bundle, scheduler, rounds, codec, down_codec,
                   init_params=init_params, on_round=on_round, resume_round=resume_round)
         res.compile_s = compile_s
         return res
+
+
+def _validate_device_data(job: FederatedJob, bundle: TaskBundle, scheduler,
+                          codec: Codec, down_codec: Codec) -> None:
+    """The reference's refusals of ``device_data=True`` on its scan engine:
+    sync uncompressed rounds of a task with a traced generator, and the
+    site tier's churn only."""
+    if (isinstance(scheduler, BufferedScheduler) or codec.name != "none"
+            or down_codec.name != "none" or job.strategy == "pooled"
+            or bundle.traced_stacked is None):
+        raise ValueError(
+            "device_data=True (on-device batch generation) currently "
+            "supports sync uncompressed jobs whose task has a traced "
+            "generator (tokens, and dose/seg without site_pools); use "
+            "host batches for buffered scheduling or compressed "
+            "uploads/downloads")
+    if job.pod_dropout:
+        raise ValueError(
+            "device_data=True runs the Algorithm-2 chain on device, "
+            "which covers the site tier only; pod_dropout needs the "
+            "host-precomputed schedule (device_data=False)")
 
 
 

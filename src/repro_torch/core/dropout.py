@@ -11,12 +11,19 @@ Which site drops is uniform among active sites (which rejoins, among
 dropped sites).  Host-side numpy, consuming the reference's random stream
 draw for draw, so the same seed gives bit-equal masks.
 
+:func:`availability_step_traced` is the reference's on-device twin of one
+step, over JAX's threefry stream (:mod:`repro_torch.core.prng`): the same
+law, another stream, bit for bit the reference's for the same key.
+
 Scenarios (paper §III.C.2): ``disconnect`` (dropped sites train but do
 not exchange) and ``shutdown`` (dropped sites neither train nor exchange).
 """
 from __future__ import annotations
 
 import numpy as np
+import torch
+
+from repro_torch.core import prng
 
 
 class SiteAvailability:
@@ -60,3 +67,30 @@ class SiteAvailability:
                 elif u < 2 / 3:
                     self._rejoin_one()
         return self.active.copy()
+
+
+def availability_step_traced(key: torch.Tensor, active: torch.Tensor,
+                             max_dropout: int) -> torch.Tensor:
+    """One Algorithm-2 step on the device of ``key``: the previous round's
+    [S] bool mask ``active`` -> this round's.  The key splits into (the
+    step's uniform, the drop choice, the join choice); the site that drops
+    (joins) is the argmax of uniforms over the active (dropped) sites, the
+    first index winning a tie as in ``jnp.argmax``.  ``max_dropout == 0``
+    returns ``active`` itself."""
+    if max_dropout == 0:
+        return active
+    k_u, k_drop, k_join = prng.split(key, 3)
+    n = active.shape[0]
+    d = torch.sum(~active)
+    u = prng.uniform(k_u, ())
+    third = float(np.float32(1 / 3))
+    p_drop = torch.where(d == 0, 0.5, torch.where(d >= max_dropout, 0.0, third))
+    p_join = torch.where(d == 0, 0.0, torch.where(d >= max_dropout, 0.5, third))
+    do_drop = u < p_drop
+    do_join = (u >= p_drop) & (u < p_drop + p_join)
+    drop_idx = torch.argmax(torch.where(active, prng.uniform(k_drop, (n,)), -1.0))
+    join_idx = torch.argmax(torch.where(~active, prng.uniform(k_join, (n,)), -1.0))
+    new = active.clone()
+    new[drop_idx] = torch.where(do_drop, False, active[drop_idx])
+    new[join_idx] = torch.where(do_join, True, new[join_idx])
+    return new

@@ -13,7 +13,9 @@ One FL round (Figs 3/4, Algorithm 1):
      their local weights).
 
 Host-side per-round inputs (the active mask, the gossip pairing) come
-from the job's precomputed schedule and :mod:`repro_torch.core.gossip`.
+from the job's precomputed schedule and :mod:`repro_torch.core.gossip`;
+under ``device_data`` they are drawn on the device from JAX's threefry
+stream (:func:`make_round_inputs_traced`).
 
 A Byzantine adversary plan (``FLContext.adversary``) injects its faults
 where the reference does: label flips on the round's batches before
@@ -120,6 +122,23 @@ def make_round_inputs(ctx: FLContext, active: np.ndarray,
     if strat_base.get_strategy(ctx.fed.strategy).needs_pairing:
         rng = rng or np.random.default_rng(round_index)
         partner, is_recv, _ = pair_sites(active, rng)
+    return {"active": active, "partner": partner, "is_receiver": is_recv}
+
+
+def make_round_inputs_traced(ctx: FLContext, key: torch.Tensor,
+                             active: torch.Tensor) -> Dict[str, torch.Tensor]:
+    """:func:`make_round_inputs` drawn on the device of ``key``: this
+    round's [S] bool mask ``active`` (from
+    :func:`~repro_torch.core.dropout.availability_step_traced`) and, for a
+    pairing strategy, :func:`~repro_torch.core.gossip.pair_sites_traced`'s
+    pairing from ``key``; tensors on that device."""
+    s = ctx.fed.num_sites
+    active = torch.as_tensor(active, dtype=torch.bool, device=key.device)
+    partner = torch.arange(s, device=key.device)
+    is_recv = torch.zeros(s, dtype=torch.bool, device=key.device)
+    if strat_base.get_strategy(ctx.fed.strategy).needs_pairing:
+        from repro_torch.core.gossip import pair_sites_traced
+        partner, is_recv, _ = pair_sites_traced(key, active)
     return {"active": active, "partner": partner, "is_receiver": is_recv}
 
 

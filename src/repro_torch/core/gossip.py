@@ -11,14 +11,18 @@ gives the same pairs; the exchange consumes three arrays:
   * ``is_receiver``  -- bool mask of receiver sites
   * ``is_sender``    -- bool mask of sender sites
 
-The reference's ``pair_sites_traced`` draws from JAX's PRNG inside its
-compiled round engine and is not ported.
+:func:`pair_sites_traced` is the reference's on-device twin: the same
+law over JAX's threefry stream (:mod:`repro_torch.core.prng`), bit for bit
+the reference's pairs for the same key.
 """
 from __future__ import annotations
 
 from typing import Tuple
 
 import numpy as np
+import torch
+
+from repro_torch.core import prng
 
 
 def pair_sites(active: np.ndarray, rng: np.random.Generator
@@ -63,8 +67,25 @@ def ring_pairs(active: np.ndarray, round_index: int
     return partner, is_recv, is_send
 
 
-def pair_sites_traced(key, active):
-    """The reference's on-device pairing draws from JAX's PRNG inside its
-    compiled round engine; the port pairs on the host (:func:`pair_sites`)."""
-    from repro_torch import NotPorted
-    raise NotPorted("pair_sites_traced", "a traced pairing", "pair_sites on the host")
+def pair_sites_traced(key: torch.Tensor, active: torch.Tensor
+                      ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """:func:`pair_sites`'s law on the device of ``key``: the active sites
+    in a random order (a stable sort of uniforms, +2 on the inactive
+    sites' so they sort last), paired off consecutively, an odd one out
+    sitting the exchange out.  A pair is real when both of its sites are
+    active; the others are masked out.  Returns ``(partner, is_receiver,
+    is_sender)`` tensors."""
+    n = active.shape[0]
+    dev = key.device
+    noise = prng.uniform(key, (n,))
+    order = torch.argsort(torch.where(active, noise, noise + 2.0), stable=True)
+    pairs = n // 2                   # an odd site out joins neither role
+    senders, receivers = order[0:2 * pairs:2], order[1::2]
+    valid = (2 * torch.arange(pairs, device=dev) + 1) < torch.sum(active)
+    partner = torch.arange(n, device=dev)
+    partner[receivers[valid]] = senders[valid]
+    is_recv = torch.zeros(n, dtype=torch.bool, device=dev)
+    is_recv[receivers[valid]] = True
+    is_send = torch.zeros(n, dtype=torch.bool, device=dev)
+    is_send[senders[valid]] = True
+    return partner, is_recv, is_send

@@ -20,7 +20,8 @@ device:
   then multiplies by ``maxval - minval`` and adds ``minval``, each rounded
   on its own (``jax/_src/random.py`` ``_uniform``; XLA's CPU contracts the
   two into an FMA, which agrees wherever the span is a power of two, as
-  on ``[0, 1)`` and the normal's interval, the ranges the reference draws);
+  on ``[0, 1)`` and the normal's interval; :func:`uniform_fma_from_bits`
+  rounds the two once, as the traced generators' ranges need);
 - ``normal`` is ``sqrt(2) * erf_inv(u)`` for ``u`` uniform on
   ``(nextafter(-1, 0), 1)``, with XLA's single-precision ``erf_inv``:
   Giles' polynomial in ``w = -log1p(-u*u)``, each Horner step rounded
@@ -128,6 +129,28 @@ def uniform(k: torch.Tensor, shape: Sequence[int], minval: float = 0.0,
             maxval: float = 1.0) -> torch.Tensor:
     """``jax.random.uniform(k, shape, jnp.float32, minval, maxval)``."""
     return uniform_from_bits(bits(k, shape), minval, maxval)
+
+
+def keys_bits(keys: torch.Tensor, shape: Sequence[int]) -> torch.Tensor:
+    """``bits(k, shape)`` for each key of ``keys`` [G, 2] at once: [G, *shape]."""
+    ones = (1,) * len(shape)
+    return bits_at(keys[:, 0].reshape(-1, *ones), keys[:, 1].reshape(-1, *ones),
+                   _counter(shape, keys.device))
+
+
+def uniform_fma_from_bits(b: torch.Tensor, minval: float, maxval: float) -> torch.Tensor:
+    """fp32 uniforms on ``[minval, maxval)`` as XLA compiles
+    ``jax.random.uniform`` on the CPU: the multiply by the span and the
+    add of ``minval`` contracted into one fused multiply-add, rounded once.
+    The product and the sum are exact in float64 for spans and bounds
+    within a few binades of each other (23-bit fractions times a 24-bit
+    span), so the float64 result rounded to fp32 is the FMA's, on any
+    device.  :func:`uniform_from_bits` rounds twice; the two agree where
+    the span is a power of two."""
+    f = ((b >> 9) | _ONE_BITS).to(torch.int32).view(torch.float32) - 1.0
+    lo = float(np.float32(minval))
+    span = float(np.float32(maxval) - np.float32(minval))
+    return torch.clamp_min((f.double() * span + lo).float(), lo)
 
 
 # XLA's single-precision erf_inv (Giles 2010), highest degree first

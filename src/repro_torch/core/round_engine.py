@@ -9,7 +9,9 @@ runs, and the per-site losses come back.
 - :func:`run_sync`: uncompressed rounds of every ported strategy:
   FedAvg and FedProx under the job's combine rule (Eq. 1 or a robust
   one) and adversary, the individual and pooled baselines, and GCML with
-  the host's gossip pairings and its DCML and validation batches.
+  the host's gossip pairings and its DCML and validation batches; with
+  ``device_data`` the batches, the Algorithm-2 masks and the pairings are
+  drawn on the device from the reference's threefry keys.
 - :func:`run_compressed`: FedAvg or FedProx with int8, fp8 or
   ``topk-fixed`` uploads, downloads or both, through the codecs'
   on-device twins (:class:`DeviceCodec`).  Sites train under the
@@ -37,6 +39,9 @@ runs, and the per-site losses come back.
   with a ``max_staleness`` past the decode ring, the top-k codecs,
   ``round_engine="loop"``): the wire codec a site and a version-keyed
   ring of globals.
+- :func:`execute_sharded`: ``shard_sites=True``, the site rows in blocks
+  over the devices and only each round's participants trained and folded
+  (``fedagg`` a pod a device, then the inter-pod combine).
 
 :func:`engine_for` and :func:`host_loop_for` route a job as the
 reference's ``execute_stacked`` does.
@@ -99,17 +104,23 @@ def _round_loop(job, bundle, ctx, masks: np.ndarray, recorder,
                 step: Callable[[int, Dict[str, torch.Tensor]], Tuple[torch.Tensor, Dict]],
                 on_round: Optional[Callable[[int], None]], pooled: bool = False,
                 start: int = 0, global_fn: Optional[Callable] = None,
-                save: Optional[Callable[[int], None]] = None) -> None:
+                save: Optional[Callable[[int], None]] = None,
+                batches_fn: Optional[Callable[[int], Dict[str, torch.Tensor]]] = None) -> None:
     """Run ``step(r, batches) -> (per-site losses, extra history keys)``
-    for every round from ``start``, timing each one, and record it; then,
-    outside the timed span, the recorder saves ``global_fn()`` and
-    ``save(r)`` writes the engine's carry (each on the checkpoint grid).
-    With ``pooled`` the batches are the round's pooled view."""
+    for every round from ``start``, timing each one, and record it with
+    ``masks[r]`` (which ``step`` may write); then, outside the timed span,
+    the recorder saves ``global_fn()`` and ``save(r)`` writes the engine's
+    carry (each on the checkpoint grid).  The batches are the host
+    generator's, copied to the device (with ``pooled``, the round's pooled
+    view), or ``batches_fn(r)``'s, drawn on the device."""
     for r in range(start, len(masks)):
         _sync(ctx.device)
         t0 = time.perf_counter()
-        b = {k: torch.from_numpy(v).to(ctx.device)
-             for k, v in bundle.round_batches(r, job.local_steps, pooled).items()}
+        if batches_fn is not None:
+            b = batches_fn(r)
+        else:
+            b = {k: torch.from_numpy(v).to(ctx.device)
+                 for k, v in bundle.round_batches(r, job.local_steps, pooled).items()}
         _sync(ctx.device)
         t1 = time.perf_counter()
         losses, extra = step(r, b)
@@ -216,7 +227,18 @@ def run_sync(job, bundle, scheduler, rounds: int, codec: Optional[Codec] = None,
     ``resume_round`` re-enters from that round's checkpoint (the FL state,
     tag ``"sync-loop"`` under ``round_engine="loop"``, else ``"sync-scan"``);
     a pairing strategy first replays the draws of the rounds before, so the
-    gossip schedule continues where the dead run left off."""
+    gossip schedule continues where the dead run left off.
+
+    With ``job.device_data`` the round's inputs come from the device, as in
+    the reference's scan: from ``data_key = fold_in(key(seed), 7)`` each
+    round draws ``k_av, k_pair, k_data = split(fold_in(data_key, r), 3)``;
+    under ``max_dropout`` the carried active mask (all ones before round
+    0) takes one :func:`~repro_torch.core.dropout.availability_step_traced`
+    step on ``k_av``, the pairing comes from ``k_pair``
+    (:func:`~repro_torch.core.federation.make_round_inputs_traced`) and the
+    batches from ``bundle.traced_stacked(k_data, K, B)``, drawn on the
+    device inside ``batch_s``.  The history and ``comm`` count the masks
+    drawn, and the carry holds the active mask too."""
     ctx = job.context(bundle)
     strategy = get_strategy(job.strategy)
     state = _init_state(job, bundle, ctx, init_params)
@@ -226,19 +248,55 @@ def run_sync(job, bundle, scheduler, rounds: int, codec: Optional[Codec] = None,
     pair_rng = np.random.default_rng(job.seed)      # consumed round by round
     recorder = job.recorder(rounds, ctx.fed.num_sites)
     tag = "sync-loop" if job.round_engine == "loop" else "sync-scan"
-    saved, _, start = _resume(job, recorder, tag, resume_round, {"fl_state": _fl_tree(state)})
+    device_data = bool(job.device_data)
+    dev = ctx.device
+    if device_data:
+        from repro_torch.core import prng
+        from repro_torch.core.dropout import availability_step_traced
+        data_key = prng.fold_in(prng.key(job.seed, device=dev), 7)
+        active = torch.ones(ctx.fed.num_sites, dtype=torch.bool, device=dev)
+        masks = np.ones_like(masks)          # each round's row: its draw
+
+    def carry():
+        c = {"fl_state": _fl_tree(state)}
+        if device_data:
+            c["active"] = active
+        return c
+
+    saved, _, start = _resume(job, recorder, tag, resume_round, carry())
     if saved is not None:
-        state = _restore_fl(state, saved["fl_state"], ctx.device)
-        if strategy.needs_pairing:
+        state = _restore_fl(state, saved["fl_state"], dev)
+        if device_data:
+            active = _dev(saved["active"], dev)
+        elif strategy.needs_pairing:
             for r in range(start):
                 F.make_round_inputs(ctx, masks[r], rng=pair_rng)
 
+    def round_keys(r):
+        return prng.split(prng.fold_in(data_key, r), 3)
+
+    def device_batches(r):
+        return bundle.traced_stacked(round_keys(r)[2], job.local_steps, job.task.batch)
+
+    def device_inputs(r):
+        nonlocal active
+        k_av, k_pair, _ = round_keys(r)
+        if job.max_dropout:
+            active = availability_step_traced(k_av, active, job.max_dropout)
+        ri = {k: v.cpu().numpy() for k, v in
+              F.make_round_inputs_traced(ctx, k_pair, active).items()}
+        masks[r] = ri["active"]
+        return ri
+
     def step(r, batches):
         nonlocal state
-        # the pooled site trains every round; the availability mask counts
-        # the task's sites (the history's "active"), not the one row
-        ri = F.make_round_inputs(ctx, np.ones(1, bool) if pooled else masks[r],
-                                 rng=pair_rng)
+        if device_data:
+            ri = device_inputs(r)
+        else:
+            # the pooled site trains every round; the availability mask
+            # counts the task's sites (the history's "active"), not the row
+            ri = F.make_round_inputs(ctx, np.ones(1, bool) if pooled else masks[r],
+                                     rng=pair_rng)
         if strategy.needs_val_batch:
             ri["dcml_batch"] = {k: v[:, 0] for k, v in batches.items()}
             ri["val_batch"] = {k: v[:, -1] for k, v in batches.items()}
@@ -253,7 +311,8 @@ def run_sync(job, bundle, scheduler, rounds: int, codec: Optional[Codec] = None,
 
     _round_loop(job, bundle, ctx, masks, recorder, step, on_round, pooled=pooled,
                 start=start, global_fn=_reference_tree(lambda: F.global_model(state, ctx)),
-                save=_saver(job, recorder, tag, lambda: {"fl_state": _fl_tree(state)}))
+                save=_saver(job, recorder, tag, carry),
+                batches_fn=device_batches if device_data else None)
     global_params = F.global_model(state, ctx)
     comm = None
     ran = masks[start:]
@@ -1101,6 +1160,295 @@ def run_buffered_host(job, bundle, scheduler: BufferedScheduler, rounds: int,
                 "upload_count": uploads, "download_count": uploads,
                 "compression": codec.name, "down_compression": "none", "simulated": True}
     return recorder.result(engine.unflatten(g, layout), transport="stacked",
+                           scheduler=scheduler.name, state=state, comm=comm,
+                           privacy=job.privacy_report(rounds))
+
+
+# ---------------------------------------------------------------------------
+# The sharded engine: the [S, ...] site state in blocks over devices
+# ---------------------------------------------------------------------------
+
+
+def pack_participants(participate: np.ndarray, weight: np.ndarray, pod_of: np.ndarray,
+                      s_loc: int, num_devices: int):
+    """Each round's participants in fixed per-device slots, the reference's
+    ``_pack_participants``.  Sites live in contiguous blocks of ``s_loc``
+    rows a device, so a participant never moves between devices.  Returns
+    ``(lidx, valid, w, pod, gsite, k_cap)``, each array [rounds, D, k_cap]:
+    a device's participants fill its first slots in site order; a padded
+    slot has ``lidx == s_loc`` (past the block), weight 0, pod 0 and site
+    0."""
+    rounds = participate.shape[0]
+    dev_of = np.arange(participate.shape[1]) // s_loc
+    counts = [[int(np.sum(participate[r] & (dev_of == d)))
+               for d in range(num_devices)] for r in range(rounds)]
+    k_cap = max(1, max(max(c) for c in counts))
+    lidx = np.full((rounds, num_devices, k_cap), s_loc, np.int32)
+    valid = np.zeros((rounds, num_devices, k_cap), bool)
+    w = np.zeros((rounds, num_devices, k_cap), np.float32)
+    pod = np.zeros((rounds, num_devices, k_cap), np.int32)
+    gsite = np.zeros((rounds, num_devices, k_cap), np.int32)
+    for r in range(rounds):
+        for d in range(num_devices):
+            sites = np.flatnonzero(participate[r] & (dev_of == d))
+            k = len(sites)
+            lidx[r, d, :k] = sites - d * s_loc
+            valid[r, d, :k] = True
+            w[r, d, :k] = weight[r, sites]
+            pod[r, d, :k] = pod_of[sites]
+            gsite[r, d, :k] = sites
+    return lidx, valid, w, pod, gsite, k_cap
+
+
+def _refuse_sharded(job, scheduler, codec: Codec, down_codec: Optional[Codec],
+                    resume_round: Optional[int]) -> None:
+    """The reference's refusals of ``shard_sites=True``, in its order."""
+    if isinstance(scheduler, BufferedScheduler):
+        raise ValueError("shard_sites=True runs synchronous rounds only; "
+                         "buffered-async scheduling needs the dense engine")
+    if job.strategy not in ("fedavg", "fedprox"):
+        raise ValueError("shard_sites=True supports the centrally-"
+                         "aggregated strategies (fedavg/fedprox), not "
+                         f"{job.strategy!r}")
+    if codec.name not in ("none", "int8"):
+        raise ValueError("shard_sites=True supports compression 'none' or "
+                         f"'int8', not {codec.name!r}")
+    if down_codec is not None and down_codec.name != "none":
+        raise ValueError("shard_sites=True broadcasts the global through "
+                         "the mesh collective, not the download codec; run "
+                         "down_compression jobs on the dense engines")
+    if job.device_data:
+        raise ValueError("shard_sites=True generates only the sampled "
+                         "rows' batches host-side; device_data=True would "
+                         "regenerate all S on device")
+    if job.dp is not None:
+        raise ValueError("shard_sites=True does not thread DP-SGD noise "
+                         "keys yet; run dp jobs on the dense engines")
+    if resume_round is not None:
+        raise ValueError("shard_sites=True does not checkpoint its "
+                         "sharded carry; resume dense jobs instead")
+    thinned = job.sampled or job.max_dropout or job.pod_dropout
+    if thinned and job.dropout_scenario != "shutdown":
+        raise ValueError(
+            "shard_sites=True freezes non-participants entirely (they "
+            "neither train nor receive the broadcast), which is the "
+            "'shutdown' scenario; run sampled/dropout sharded jobs with "
+            "dropout_scenario='shutdown'")
+
+
+class _Block:
+    """One device's block of ``s_loc`` site rows: the parameters, AdamW's
+    moments and steps, under int8 the error-feedback residuals, and the
+    replicated FedProx anchor and int8 reference."""
+
+    def __init__(self, device: torch.device, one: torch.Tensor, s_loc: int, ctx,
+                 prox: bool, quant: bool):
+        self.device = device
+        self.ctx = dataclasses.replace(ctx, device=device,
+                                       case_weights=ctx.case_weights.to(device))
+        self.fl_round = F.build_fl_round(self.ctx)
+        one = one.to(device)
+        self.params = one[None].expand(s_loc, -1).contiguous()
+        self.opt = ctx.optimizer.init(self.params)
+        self.opt["step"] = torch.zeros((s_loc,), dtype=torch.int32, device=device)
+        self.anchor = one.clone() if prox else None
+        self.ref = torch.zeros_like(one) if quant else None
+        self.ef = torch.zeros_like(self.params) if quant else None
+
+
+def execute_sharded(job, bundle, scheduler, rounds: int, codec: Codec,
+                    down_codec: Optional[Codec] = None, init_params=None,
+                    on_round: Optional[Callable[[int], None]] = None,
+                    resume_round: Optional[int] = None,
+                    devices: Optional[Sequence[torch.device]] = None) -> JobResult:
+    """``shard_sites=True``: the stacked simulator with its [S, ...] site
+    state in contiguous blocks of ``s_loc`` rows over ``devices`` (default:
+    :func:`~repro_torch.launch.mesh.site_devices` of the job's device; a
+    list is for tests that lay a CPU run over several blocks), and only
+    each round's participants (``participate = sampled & available``)
+    trained: the reference's ``execute_sharded``.
+
+    A round on each device gathers the slab of its participants (at most
+    ``k_cap`` rows, :func:`pack_participants`) and trains it under
+    ``individual`` or ``fedprox-local`` (the anchor replicated on every
+    device) on host batches built for those sites only; the padded slots
+    hold zeros and train nothing.  Under int8 each upload is ``u = p - ref
+    + ef`` through :func:`qdq` at the device's chunk alignment.  Each
+    device folds its slab into one partial a pod (``fedagg`` with weights
+    ``onehot * w * valid``); the partials and their weight totals are
+    summed on the first device in device order, then the pod means and the
+    inter-pod combine (``fedagg`` on [P, N]) follow the reference, ``1e-12``
+    guards included.  The global (``ref`` plus it under int8) goes back to
+    every device and is installed on the participants only, with their
+    moments and residuals; the other rows stay as they were, bit for bit
+    (the ``"shutdown"`` scenario, hence the reference's refusal of thinned
+    ``"disconnect"`` jobs).  The history records ``participants`` and
+    ``k_cap``, with NaN losses on the rows that did not train.  The result's
+    global is ``ref`` under int8, else the Eq. 1 fold of every row at the
+    case weights (``fedagg`` a device, summed in device order); ``comm``
+    counts the reference's bytes and adds ``sharded``, ``devices`` and
+    ``k_cap``."""
+    _refuse_sharded(job, scheduler, codec, down_codec, resume_round)
+    from repro_torch.launch.mesh import site_devices
+    devs = list(devices) if devices is not None else site_devices(device=job.torch_device)
+    num_devices = len(devs)
+    num_sites = job.task.sites
+    s_loc = -(-num_sites // num_devices)
+    s_pad = s_loc * num_devices
+
+    participate, wscale = job.participation(rounds)
+    case_w = np.asarray(job.federation().case_weights(), np.float32)
+    topo = job.topo
+    if topo.is_pods:
+        topo.validate(num_sites)
+        num_pods = topo.num_pods
+        pod_of = np.asarray(topo.pod_of(num_sites), np.int32)
+        intra, inter = topo.intra, topo.inter
+    else:
+        # the flat fold is the 1-pod special case of the pod fold
+        num_pods, pod_of = 1, np.zeros(num_sites, np.int32)
+        intra, inter = "fedavg", "fedavg"
+    base_w = np.ones(num_sites, np.float32) if intra == "uniform" else case_w
+    lidx_a, valid_a, w_a, pod_a, gsite_a, k_cap = pack_participants(
+        participate, base_w[None] * wscale, pod_of, s_loc, num_devices)
+
+    quant = codec.name == "int8"
+    prox = job.strategy == "fedprox"
+    ctx = job.context(bundle, strategy="fedprox-local" if prox else "individual")
+    engine = get_engine()
+    error_feedback = bool(job.error_feedback)
+    steps = job.local_steps
+    one_tree = init_params if init_params is not None else bundle.init_fn(job.seed)
+    flat_one, layout = engine.flatten(broadcast_to_sites(one_tree, 1))
+    one = flat_one[0].contiguous()
+    n = one.numel()
+    blocks = [_Block(d, one, s_loc, ctx, prox, quant) for d in devs]
+    plans = [ChunkPlan.of(layout, codec.chunk, codec.align(d), d) for d in devs] if quant else None
+    lead = devs[0]
+    recorder = job.recorder(rounds, num_sites)
+    w_all = np.zeros(s_pad, np.float32)
+    w_all[:num_sites] = case_w / case_w.sum()
+    rnd = 0
+
+    def global_flat() -> torch.Tensor:
+        if quant:
+            return blocks[0].ref
+        total = None
+        for d, b in enumerate(blocks):
+            w = torch.from_numpy(w_all[d * s_loc:(d + 1) * s_loc]).to(b.device)
+            part = engine.reduce_flat(b.params, w).to(lead)
+            total = part if total is None else total + part
+        return total
+
+    def host_batches(r: int, d: int, k: int) -> Dict[str, torch.Tensor]:
+        rows = []
+        for site in gsite_a[r, d, :k]:
+            ks = [bundle.sample(int(site), r * steps + j) for j in range(steps)]
+            rows.append({key: np.stack([x[key] for x in ks]) for key in ks[0]})
+        return {key: torch.from_numpy(np.stack([x[key] for x in rows])).to(devs[d])
+                for key in rows[0]}
+
+    for r in range(rounds):
+        _sync(lead)
+        t0 = time.perf_counter()
+        counts = [int(valid_a[r, d].sum()) for d in range(num_devices)]
+        batches = [host_batches(r, d, k) if k else None for d, k in enumerate(counts)]
+        for d in devs:
+            _sync(d)
+        t1 = time.perf_counter()
+        losses = np.full(s_pad, np.nan, np.float64)
+        pod_num = pod_tot = None
+        trained = []
+        for d, (b, k) in enumerate(zip(blocks, counts)):
+            idx = torch.from_numpy(lidx_a[r, d, :k].astype(np.int64)).to(b.device)
+            slab = torch.zeros((k_cap, n), dtype=torch.float32, device=b.device)
+            new_opt, u = None, None
+            if k:
+                st = {"params": b.params.index_select(0, idx), "layout": layout,
+                      "opt": {key: v.index_select(0, idx) for key, v in b.opt.items()},
+                      "strategy": {"global": b.anchor} if prox else {}, "round": rnd}
+                st, metrics = b.fl_round(st, batches[d], {
+                    "active": np.ones(k, bool), "partner": np.arange(k),
+                    "is_receiver": np.zeros(k, bool)})
+                new_opt = st["opt"]
+                losses[d * s_loc + lidx_a[r, d, :k]] = metrics["loss"].cpu().numpy()
+                if quant:
+                    u = st["params"] - b.ref[None] + b.ef.index_select(0, idx)
+                    slab[:k] = qdq(u, plans[d])
+                else:
+                    slab[:k] = st["params"]
+            trained.append((idx, new_opt, u, slab[:k]))
+            wk = torch.from_numpy(w_a[r, d] * valid_a[r, d]).to(b.device)
+            pods = torch.from_numpy(pod_a[r, d]).to(b.device)
+            onehot = (pods[None, :] == torch.arange(num_pods, device=b.device)[:, None]).float()
+            wp = onehot * wk[None, :]                                   # [P, k_cap]
+            part = torch.stack([engine.reduce_flat(slab, wp[p]) for p in range(num_pods)])
+            tot = torch.sum(wp, dim=1)
+            part, tot = part.to(lead), tot.to(lead)
+            pod_num = part if pod_num is None else pod_num + part
+            pod_tot = tot if pod_tot is None else pod_tot + tot
+        pod_mean = pod_num / (pod_tot[:, None] + 1e-12)
+        pod_w = (pod_tot > 0).float() if inter == "uniform" else pod_tot
+        gflat = engine.reduce_flat(pod_mean, pod_w / (torch.sum(pod_w) + 1e-12))
+        for b, (idx, new_opt, u, vals) in zip(blocks, trained):
+            g = gflat.to(b.device)
+            if quant:
+                b.ref = b.ref + g
+                g = b.ref
+                if error_feedback and u is not None:
+                    b.ef.index_copy_(0, idx, u - vals)
+            if prox:
+                b.anchor = g
+            if new_opt is not None:
+                b.params.index_copy_(0, idx, g[None].expand(idx.numel(), -1))
+                for key, v in new_opt.items():
+                    b.opt[key].index_copy_(0, idx, v)
+        rnd += 1
+        for d in devs:
+            _sync(d)
+        t2 = time.perf_counter()
+        recorder.record(r, losses[:num_sites], participate[r],
+                        global_fn=_reference_tree(lambda: engine.unflatten(global_flat(), layout)),
+                        extra={"batch_s": t1 - t0, "step_s": t2 - t1, "wall_s": t2 - t0,
+                               "participants": int(participate[r].sum()), "k_cap": k_cap})
+        if on_round is not None:
+            on_round(r)
+
+    dense_nbytes = 4 * n
+    uploads = int(participate.sum())
+    if quant:
+        enc = encoded_nbytes(layout.shapes, codec.chunk, codec.align(lead))
+        comm = {"upload_bytes": uploads * enc,
+                "upload_raw_bytes": uploads * dense_nbytes,
+                "download_bytes": uploads * dense_nbytes,
+                "total_bytes": uploads * (enc + dense_nbytes),
+                "upload_count": uploads, "download_count": uploads,
+                "compression": codec.name, "down_compression": "none",
+                "simulated": True}
+        if topo.is_pods:
+            comm.update(simulated_pods_comm(topo, participate, dense_nbytes,
+                                            intra_upload_bytes=uploads * enc,
+                                            compression=codec.name))
+    elif topo.is_pods:
+        comm = simulated_pods_comm(topo, participate, dense_nbytes)
+    else:
+        comm = {"upload_bytes": uploads * dense_nbytes,
+                "download_bytes": uploads * dense_nbytes,
+                "total_bytes": 2 * uploads * dense_nbytes,
+                "upload_count": uploads, "download_count": uploads,
+                "compression": "none", "down_compression": "none",
+                "simulated": True}
+    comm.update({"sharded": True, "devices": num_devices, "k_cap": k_cap})
+
+    def rows(get) -> torch.Tensor:
+        parts = [get(b) for b in blocks]
+        whole = parts[0] if len(parts) == 1 else torch.cat([p.to(lead) for p in parts])
+        return whole[:num_sites]
+
+    state = {"params": rows(lambda b: b.params), "layout": layout,
+             "opt": {key: rows(lambda b, key=key: b.opt[key]) for key in blocks[0].opt},
+             "strategy": {"global": blocks[0].anchor} if prox else {}, "round": rnd}
+    return recorder.result(engine.unflatten(global_flat(), layout), transport="stacked",
                            scheduler=scheduler.name, state=state, comm=comm,
                            privacy=job.privacy_report(rounds))
 

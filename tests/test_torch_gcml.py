@@ -30,7 +30,7 @@ from repro.core import dcml as jdcml  # noqa: E402
 from repro.core import gossip as jgossip  # noqa: E402
 from repro.core.round_engine import _pairings as j_pairings  # noqa: E402
 from repro.core.strategies import gcml as jgcml  # noqa: E402
-from repro_torch import NotPorted, convert  # noqa: E402
+from repro_torch import convert  # noqa: E402
 from repro_torch.api import FederatedJob, TaskConfig  # noqa: E402
 from repro_torch.core import dcml as tdcml  # noqa: E402
 from repro_torch.core import federation as tfed  # noqa: E402
@@ -111,9 +111,13 @@ def test_round_pairings_equal_reference_and_traced_pairing_is_not_ported():
     fedavg = FederatedJob(task=TaskConfig(**PAN), device="cpu").context()
     ri = tfed.make_round_inputs(fedavg, masks[-1], rng=rng)
     assert np.array_equal(ri["partner"], np.arange(5)) and not ri["is_receiver"].any()
-    with pytest.raises(NotPorted) as err:
-        tgossip.pair_sites_traced(None, masks[0])
-    assert err.value.seam == "pair_sites_traced"
+    # the traced pairing, once not ported, is now the reference's bit for bit
+    # (tests/test_torch_device_data.py holds it over many keys)
+    key = jax.random.PRNGKey(3)
+    got = tgossip.pair_sites_traced(torch.as_tensor(np.asarray(key).astype(np.int64)),
+                                    torch.as_tensor(masks[0]))
+    for g, w in zip(got, jgossip.pair_sites_traced(key, jnp.asarray(masks[0]))):
+        assert np.array_equal(g.numpy(), np.asarray(w))
 
 
 # -- the contrastive KL and the DCML pieces ----------------------------------------------

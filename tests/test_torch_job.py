@@ -78,30 +78,34 @@ def test_job_runs_on_cuda_by_default_and_raises_without_it(monkeypatch):
 
 
 # a case whose seam has since been ported names another seam still
-# unported, under the id it always had
+# unported, under the id it always had (the device_data and shard_sites
+# cases keep their field and name the token task's seam)
+TOKENS = TaskConfig(**dict(TASK, kind="tokens"))
+
+
 @pytest.mark.parametrize("seam,kw", [
-    pytest.param("device_data", dict(scheduler="buffered", dp_clip=1.0, device_data=True),
+    pytest.param("task", dict(scheduler="buffered", dp_clip=1.0, device_data=True, task=TOKENS),
                  id="scheduler-kw0"),
-    pytest.param("device_data", dict(strategy="fedprox", transport="thread", topology="pods:2",
-                                     dp_clip=1.0, device_data=True), id="strategy-kw1"),
-    pytest.param("shard_sites", dict(compression="fp8", dp_clip=1.0, dp_noise_multiplier=1.0,
-                                     shard_sites=True), id="compression-kw2"),
-    pytest.param("device_data", dict(down_compression="topk-fixed", device_data=True),
+    pytest.param("task", dict(strategy="fedprox", transport="thread", topology="pods:2",
+                              dp_clip=1.0, device_data=True, task=TOKENS), id="strategy-kw1"),
+    pytest.param("task", dict(compression="fp8", dp_clip=1.0, dp_noise_multiplier=1.0,
+                              shard_sites=True, task=TOKENS), id="compression-kw2"),
+    pytest.param("task", dict(down_compression="topk-fixed", device_data=True, task=TOKENS),
                  id="down_compression-kw3"),
-    pytest.param("device_data", dict(dp_clip=1.0, device_data=True), id="dp-kw4"),
-    ("device_data", dict(device_data=True)),
-    pytest.param("device_data", dict(adversary="noise:1:1", device_data=True),
+    pytest.param("task", dict(dp_clip=1.0, device_data=True, task=TOKENS), id="dp-kw4"),
+    pytest.param("task", dict(device_data=True, task=TOKENS), id="device_data-kw5"),
+    pytest.param("task", dict(adversary="noise:1:1", device_data=True, task=TOKENS),
                  id="adversary-kw6"),
-    pytest.param("device_data", dict(strategy="fedprox", aggregator="median",
-                                     transport="thread", dp_clip=1.0, device_data=True),
-                 id="strategy-kw7"),
-    pytest.param("shard_sites", dict(topology="pods:2", dp_clip=1.0, shard_sites=True),
+    pytest.param("task", dict(strategy="fedprox", aggregator="median", transport="thread",
+                              dp_clip=1.0, device_data=True, task=TOKENS), id="strategy-kw7"),
+    pytest.param("task", dict(topology="pods:2", dp_clip=1.0, shard_sites=True, task=TOKENS),
                  id="topology-kw8"),
-    pytest.param("device_data", dict(topology="pods:2", device_data=True), id="topology-kw9"),
-    ("shard_sites", dict(shard_sites=True)),
+    pytest.param("task", dict(topology="pods:2", device_data=True, task=TOKENS),
+                 id="topology-kw9"),
+    pytest.param("task", dict(shard_sites=True, task=TOKENS), id="shard_sites-kw10"),
     ("task", dict(task=TaskConfig(kind="tokens"))),
-    pytest.param("device_data", dict(compression="fp8", strategy="gcml", transport="tcp",
-                                     device_data=True), id="strategy-kw12"),
+    pytest.param("task", dict(compression="fp8", strategy="gcml", transport="tcp",
+                              device_data=True, task=TOKENS), id="strategy-kw12"),
 ])
 def test_unported_seams_raise_a_typed_error(seam, kw):
     job = FederatedJob(task=TaskConfig(**TASK), rounds=1, device="cpu").replace(**kw)
@@ -177,7 +181,7 @@ FIELDS = [
     pytest.param("dp_clip", 1.0, "ported", id="dp_clip-1.0-dp"),
     pytest.param("dp_noise_multiplier", 1.0, "ported", id="dp_noise_multiplier-1.0-dp"),
     pytest.param("pod_dropout", 1, None, id="pod_dropout-1-topology"),
-    ("device_data", True, "device_data"),
+    pytest.param("device_data", True, "ported", id="device_data-True-device_data"),
     pytest.param("dp_delta", 1e-6, "ported", id="dp_delta-1e-06-dp"),
     pytest.param("dp_mode", "per-example", "ported", id="dp_mode-per-example-dp"),
     pytest.param("round_engine", "loop", "ported", id="round_engine-loop-round_engine"),
@@ -186,7 +190,7 @@ FIELDS = [
     ("task.arch", "gemma3-1b", "task"), ("task.reduced", False, "task"),
     pytest.param("task.seq", 32, "task", id="task.seq-32-task"),
     pytest.param("checkpoint_dir", "ckpt", "ported", id="checkpoint_dir-ckpt-checkpoint"),
-    ("shard_sites", True, "shard_sites"),
+    pytest.param("shard_sites", True, "ported", id="shard_sites-True-shard_sites"),
 ]
 
 
@@ -211,8 +215,8 @@ def test_reference_fields_take_their_defaults_and_refuse_other_values(name, othe
         bad = job.replace(**{name: other})
     job.check_ported()
     if seam == "ported":          # the seam's behaviour: test_torch_codec_engine.py,
-        bad.check_ported()        # test_torch_dp.py, test_torch_resume.py
-        return
+        bad.check_ported()        # test_torch_dp.py, test_torch_resume.py,
+        return                    # test_torch_device_data.py, test_torch_sharded.py
     if seam is None:
         with pytest.raises(ValueError, match="requires a pods topology"):
             bad.run()

@@ -594,23 +594,25 @@ def test_individual_and_robust_socket_jobs_run():
 
 # the unported socket seams name their seam (a case whose seam has since
 # been ported names another one still unported, under the id it always
-# had); the refused compositions raise the reference's ValueError on both
-# packages
+# had: the device_data cases keep the field, which the socket transports
+# ignore, and name the token task's seam); the refused compositions raise
+# the reference's ValueError on both packages
+TOKENS = TaskConfig(**dict(TINY, kind="tokens"))
 UNPORTED = [
-    pytest.param("device_data", dict(scheduler="buffered", dp_clip=1.0, device_data=True),
+    pytest.param("task", dict(scheduler="buffered", dp_clip=1.0, device_data=True, task=TOKENS),
                  id="scheduler-kw0"),
-    pytest.param("device_data", dict(strategy="fedprox", topology="pods:2", dp_clip=1.0,
-                                     device_data=True), id="strategy-kw1"),
-    pytest.param("device_data", dict(strategy="gcml", compression="fp8", dp_clip=1.0,
-                                     device_data=True), id="strategy-kw2"),
-    pytest.param("device_data", dict(topology="pods:2", compression="fp8", device_data=True),
-                 id="topology-kw3"),
-    pytest.param("device_data", dict(secure_agg=True, dp_clip=1.0, device_data=True),
+    pytest.param("task", dict(strategy="fedprox", topology="pods:2", dp_clip=1.0,
+                              device_data=True, task=TOKENS), id="strategy-kw1"),
+    pytest.param("task", dict(strategy="gcml", compression="fp8", dp_clip=1.0,
+                              device_data=True, task=TOKENS), id="strategy-kw2"),
+    pytest.param("task", dict(topology="pods:2", compression="fp8", device_data=True,
+                              task=TOKENS), id="topology-kw3"),
+    pytest.param("task", dict(secure_agg=True, dp_clip=1.0, device_data=True, task=TOKENS),
                  id="secure_agg-kw4"),
-    pytest.param("device_data", dict(dp_clip=1.0, device_data=True), id="dp-kw5"),
-    pytest.param("device_data", dict(compression="fp8", dp_clip=1.0, dp_noise_multiplier=1.0,
-                                     device_data=True), id="compression-kw6"),
-    pytest.param("device_data", dict(down_compression="topk-fixed", device_data=True),
+    pytest.param("task", dict(dp_clip=1.0, device_data=True, task=TOKENS), id="dp-kw5"),
+    pytest.param("task", dict(compression="fp8", dp_clip=1.0, dp_noise_multiplier=1.0,
+                              device_data=True, task=TOKENS), id="compression-kw6"),
+    pytest.param("task", dict(down_compression="topk-fixed", device_data=True, task=TOKENS),
                  id="down_compression-kw7"),
 ]
 
