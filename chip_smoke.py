@@ -185,12 +185,28 @@ Phases, each of which fails the run (non-zero exit) if it goes wrong:
 10. the five reduced token configs served on the card and on the CPU
    (the plain versions) from the same seeded weights and prompts, TF32
    off: the greedy tokens must be equal and the logits within
-   rtol=atol=1e-4.
+   rtol=atol=1e-4;
+20. the fourteenth slice's path, the token task's training: (a) the
+   attention backward (``flash_attention_bwd``, three fp32 kernels) alone
+   against its plain version at ragged shapes and smollm-135m's (q [4, 9,
+   2048, 64], k/v [4, 3, 2048, 64], causal), two launches bit-equal, the
+   forward's ``lse`` held to its plain version and its output bit-equal to
+   the serving call's, then timed beside its bound (five products of 2 D
+   flops a seen pair at the fp32 rate), the plain backward and SDPA's
+   backward alone; (b) smollm-135m at its published width trained by
+   4-site FedAvg for 2 rounds through ``FederatedJob.run`` (4 x 2048 tokens
+   a site step, random weights from a seed, fp32 matmuls): every leaf of
+   every site step has a gradient, 30 forward and 30 backward launches a
+   site step, then one site step's gradient held to the plain versions'
+   on the card, wq/wk/wv named; (c) small token jobs card vs CPU (stacked,
+   ``device_data``, thread, int8 both ways, per-example DP), a resume
+   bit-equal on the card, and rwkv6-7b and Jamba training on the card
+   refused with the scans' ``NotPorted``.
 
-Phases 11-19 run after phase 8, before 9.  Every kernel's launch count is
-zeroed just before each of phases 3-5b, 7, each path of 9 and each
-full-width job of 11-13 and 15-19, and read just after; each of 11-19
-prints its seconds.  The second-to-last line is a
+Phases 11-19 run after phase 8, before 9; phase 20 after 10.  Every
+kernel's launch count is zeroed just before each of phases 3-5b, 7, each
+path of 9 and each full-width job of 11-13 and 15-20, and read just after;
+each of 11-20 prints its seconds.  The second-to-last line is a
 JSON object with one entry per kernel; the last line is ``{"ok": true,
 "device": {...}}``.  Without
 CUDA, or outside a checkout of the repository, it exits non-zero and
@@ -3838,6 +3854,306 @@ def check_small_serving(torch, build) -> None:
                  f"{cfg.num_layers} layers")
 
 
+# -- the token task: the attention backward, smollm-135m FedAvg (phase 20) -------
+
+SMOLLM_ATTN = (4, 9, 3, 2048, 2048, 64)           # smollm-135m's training shape, per layer
+# the backward at ragged shapes: (batch, q heads, kv heads, Lq, Lk, D, causal,
+# window): no Lq or Lk a multiple of its 64-row tiles but one, Lq < Lk, GQA
+# groups 1 and 3 (and 2, 4), D 32, 64 and 128, windows inside and across tiles,
+# both masks, one query and one key
+BWD_CASES = [(1, 2, 2, 1, 1, 32, True, None), (2, 4, 2, 37, 37, 32, True, 17),
+             (1, 6, 2, 45, 70, 64, True, None), (3, 4, 1, 70, 99, 64, False, None),
+             (1, 9, 3, 50, 50, 64, True, None), (2, 3, 3, 100, 130, 32, True, 45),
+             (2, 6, 2, 200, 200, 64, True, 64), (1, 3, 1, 33, 600, 128, True, 512),
+             (2, 8, 2, 129, 129, 128, False, 17), (1, 9, 3, 300, 300, 64, False, 70),
+             (1, 3, 1, 64, 64, 32, True, None)]
+# The backward against its plain version, both fp32: each of dq, dk and dv is
+# a sum of up to G * Lq = 6,144 products (dk, dv at smollm's shape; dq sums
+# Lk) taken in another order (the kernel's FMA chains against the einsums'),
+# and p = exp(s - lse) carries the forward's lse, within FLASH_TOL of the
+# plain lse.  Random-walk rounding of such sums is about sqrt(6144) * 2^-24 =
+# 4.7e-6 of the largest partial sum, each side rounding on its own: rtol 1e-5,
+# and atol 1e-5 of the output's largest value (at least 1: one query against
+# one key gives dq = dk = 0 in exact arithmetic and rounding noise in each).
+BWD_RTOL = 1e-5
+SMOLLM_N = 134_515_008                             # smollm-135m's parameter count
+SMOLLM_LAYERS = 30
+SMOLLM_TASK = dict(kind="tokens", arch="smollm-135m", reduced=False, seq=2048, batch=4,
+                   sites=4)
+# one site step's gradient, the kernels against the plain versions on the card:
+# every leaf within GRAD_RTOL of its largest value (30 layers of attention,
+# each forward within FLASH_TOL and each backward within BWD_RTOL of the plain)
+GRAD_RTOL = 1e-4
+SMALL_TOKENS = dict(kind="tokens", arch="smollm-135m", sites=3, batch=2, seq=32)
+
+
+def _close_bwd(torch, got, want, what: str) -> float:
+    scale = float(want.abs().max()) if want.numel() else 0.0
+    torch.testing.assert_close(got, want, rtol=BWD_RTOL, atol=BWD_RTOL * max(scale, 1.0),
+                               msg=lambda m: f"{what}: {m}")
+    return float((got - want).abs().max()) if want.numel() else 0.0
+
+
+def check_flash_attention_bwd(torch, build, dev) -> dict:
+    """Phase 20a: the forward's ``lse`` against ``flash_attention_lse_ref``
+    and its output bit-equal to the serving call's (no ``lse``); the
+    backward against ``flash_attention_bwd_ref`` at ragged shapes and at
+    smollm-135m's, two launches bit-equal; the instances it has not got
+    refused; its resources; its time beside its bound, the plain backward's
+    and SDPA's backward alone; the forward at smollm's shape with and
+    without ``lse``, in turns.  Returns its kernels-line entry."""
+    import ctypes
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+    out5 = (ctypes.c_int * 5)()
+    fn = build.entry(fa.BWD_NAME, "flash_attention_bwd_resources",
+                     [ctypes.c_int64, ctypes.c_int64, ctypes.POINTER(ctypes.c_int)])
+    for d in fa.BWD_HEAD_DIMS:
+        for which, name in ((0, "dK/dV"), (1, "dQ")):
+            _require(fn(d, which, out5) == 0, f"flash_attention_bwd {name} D={d} resources")
+            regs, local, smem, threads, blocks = out5
+            print(f"flash_attention_bwd {name} D={d}: {regs} registers, local {local} B, "
+                  f"shared {smem} B, {threads} threads, {blocks} blocks an SM")
+    gen = torch.Generator(device=dev).manual_seed(20)
+    err, lse_err = 0.0, 0.0
+    for case in BWD_CASES + [SMOLLM_ATTN + (True, None)]:
+        causal, window = case[6:]
+        q, k, v = _flash_inputs(torch, dev, case, torch.float32, gen)
+        g = torch.randn(q.shape, device=dev, generator=gen)
+        out, lse = fa.flash_attention_cuda(q, k, v, causal, window, with_lse=True)
+        plain_out = fa.flash_attention_cuda(q, k, v, causal, window)
+        want_out, want_lse = ref.flash_attention_lse_ref(q, k, v, causal, window)
+        torch.cuda.synchronize()
+        _require(torch.equal(out, plain_out), f"flash_attention {case}: out with lse differs")
+        torch.testing.assert_close(lse, want_lse, **FLASH_TOL)
+        torch.testing.assert_close(out, want_out, **FLASH_TOL)
+        lse_err = max(lse_err, float((lse - want_lse).abs().max()))
+        got = fa.flash_attention_bwd_cuda(q, k, v, out, lse, g, causal, window)
+        again = fa.flash_attention_bwd_cuda(q, k, v, out, lse, g, causal, window)
+        torch.cuda.synchronize()
+        _require(all(torch.equal(a, b) for a, b in zip(got, again)),
+                 f"flash_attention_bwd {case}: two launches differ")
+        want = ref.flash_attention_bwd_ref(q, k, v, out, lse, g, causal, window)
+        err = max(err, *(_close_bwd(torch, a, w, f"flash_attention_bwd {case} d{n}")
+                         for n, a, w in zip("qkv", got, want)))
+    print(f"flash_attention: lse of {len(BWD_CASES) + 1} shapes within rtol=atol=1e-5 of the "
+          f"plain version (max |err| {lse_err:.3e}); out bit-equal with and without lse")
+    print(f"flash_attention_bwd: {len(BWD_CASES) + 1} shapes agree with the plain version "
+          f"(rtol {BWD_RTOL}, atol {BWD_RTOL} of the largest value; max |err| {err:.3e}); "
+          f"two launches bit-equal at each")
+    for dtype, d in ((torch.bfloat16, 64), (torch.float32, 256)):
+        q = torch.zeros(1, 2, 8, d, device=dev, dtype=dtype)
+        kv = torch.zeros(1, 1, 8, d, device=dev, dtype=dtype)
+        try:
+            fa.flash_attention_bwd_cuda(q, kv, kv, q, torch.zeros(1, 2, 8, device=dev), q)
+        except ValueError as e:
+            print(f"flash_attention_bwd {dtype} D={d}: refused ({e})")
+        else:
+            _require(False, f"flash_attention_bwd {dtype} D={d} was not refused")
+
+    b, hq, hkv, lq, lk, d = SMOLLM_ATTN
+    q, k, v = _flash_inputs(torch, dev, SMOLLM_ATTN, torch.float32, gen)
+    g = torch.randn(q.shape, device=dev, generator=gen)
+    out, lse = fa.flash_attention_cuda(q, k, v, True, None, with_lse=True)
+    pairs = int(_attn_mask(torch, dev, lq, lk, True, None).sum()) * b * hq
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    lib_out = F.scaled_dot_product_attention(*leaves, is_causal=True, enable_gqa=True)
+
+    def library():
+        return torch.autograd.grad(lib_out, leaves, g, retain_graph=True)
+    lib_err = max(float((a - w).abs().max()) for a, w in zip(
+        library(), ref.flash_attention_bwd_ref(q, k, v, out, lse, g, True, None)))
+    print(f"  scaled_dot_product_attention's backward vs the plain version: max |err| "
+          f"{lib_err:.3e}")
+    # the bound: five products of 2 D flops a seen (query, key) pair, as the
+    # forward's (row 7) at three TF32 products a flop, the card's fastest
+    # fp32-accurate rate; bytes: q, k, v, out, dout, lse read, dq, dk, dv
+    # written
+    flops = 5 * 2 * d * pairs
+    timing = measure(
+        torch, f"flash_attention_bwd {list(SMOLLM_ATTN)} fp32 causal",
+        lambda: fa.flash_attention_bwd_cuda(q, k, v, out, lse, g, True, None),
+        lambda: ref.flash_attention_bwd_ref(q, k, v, out, lse, g, True, None), None,
+        nbytes=4 * (4 * q.numel() + 4 * k.numel() + lse.numel()), flops=flops,
+        tf32_products=3)
+    fp32_rate = peaks(torch.cuda.get_device_name(0))[1]
+    print(f"flash_attention_bwd: this design's floor (its fp32 FMAs outside the tensor "
+          f"cores at {fp32_rate / 1e12:.1f} TFLOP/s), not a bound: "
+          f"{1e3 * flops / fp32_rate:.4f} ms")
+    for _ in range(3):
+        library()
+    # SDPA's backward runs on the stream its forward ran on, outside a graph
+    # capture, so it is timed eager: compare it with the kernel's eager_ms
+    timing["library_ms"] = _median_ms(library, 25)
+    timing["library_max_abs_err"] = lib_err
+    print(f"flash_attention_bwd: library (scaled_dot_product_attention's backward alone, "
+          f"fp32, eager) {timing['library_ms']:.4f} ms against the kernel's eager "
+          f"{timing['eager_ms']:.4f} ms")
+    fwd = {"plain": [], "lse": []}
+    for which in ("plain", "lse", "lse", "plain"):
+        fwd[which].append(time_ms(lambda: fa.flash_attention_cuda(
+            q, k, v, True, None, with_lse=which == "lse"))[0])
+    print(f"flash_attention {list(SMOLLM_ATTN)} fp32 causal, in turns: without lse "
+          f"{fwd['plain']} ms, with lse {fwd['lse']} ms")
+    return {"max_abs_err": err, **timing,
+            "forward_ms": {k: sorted(v) for k, v in fwd.items()}}
+
+
+def _flat_grad_spy():
+    """Wrap ``RavelLayout.flat_grad`` to record each call's leaves that got
+    no gradient; returns (the list of those, a function that undoes it)."""
+    from repro_torch.core import agg_engine
+    orig = agg_engine.RavelLayout.__dict__["flat_grad"]
+    missing = []
+
+    def spy(leaves, grads):
+        missing.extend(i for i, g in enumerate(grads) if g is None)
+        return orig.__func__(leaves, grads)
+    agg_engine.RavelLayout.flat_grad = staticmethod(spy)
+    return missing, lambda: setattr(agg_engine.RavelLayout, "flat_grad", orig)
+
+
+def _site_grads(torch, bundle, params, batch):
+    """One site step's loss and gradients (as the round loop takes them:
+    ``autograd.grad`` of the task's loss, ``allow_unused``)."""
+    from repro_torch.tree import tree_leaves, tree_unflatten, tree_map
+    leaves = [t.detach().requires_grad_() for t in tree_leaves(params)]
+    tree = tree_unflatten(tree_map(lambda t: None, params), leaves)
+    loss, _ = bundle.loss_fn(tree, batch)
+    return loss.detach(), torch.autograd.grad(loss, leaves, allow_unused=True)
+
+
+def run_smollm_fedavg(torch, FederatedJob, TaskConfig, build) -> dict:
+    """Phase 20b: smollm-135m at its published width (30 layers, d_model
+    576, 9/3 heads of 64, vocab 49152) trained by 4-site FedAvg for 2 sync
+    rounds, 4 x 2048 tokens a site step, random weights from seed 0, fp32
+    matmuls; every site step's gradient has every leaf (no ``None``
+    reaches ``flat_grad``); ``flash_attention`` and its backward launch 30
+    times a site step, ``fedagg`` as phase 3 counts it.  Then one site step's
+    gradient through the kernels against the same step through the plain
+    versions on the card (the Function's forward and backward swapped for
+    ``flash_attention_lse_ref`` and ``flash_attention_bwd_ref``), wq/wk/wv
+    named.  Returns the path's launches."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+    from repro_torch.tree import tree_map
+    missing, undo = _flat_grad_spy()
+    try:
+        result, launches, job = _run_job(torch, FederatedJob, TaskConfig, build, SMOLLM_TASK,
+                                         SMOLLM_N, "20b smollm-135m fedavg")
+    finally:
+        undo()
+    _require(not missing, f"20b: {len(missing)} leaves reached flat_grad with no gradient")
+    steps = SMOLLM_TASK["sites"] * ROUNDS
+    _expect_launches("20b smollm-135m fedavg", launches,
+                     {"flash_attention": SMOLLM_LAYERS * steps,
+                      "flash_attention_bwd": SMOLLM_LAYERS * steps, "fedagg": ROUNDS + 1})
+    print(f"20b: every leaf of every site step had a gradient ({steps} site steps); "
+          f"step_s {[round(h['step_s'], 4) for h in result.history]}, batch_s "
+          f"{[round(h['batch_s'], 4) for h in result.history]}, wall_s "
+          f"{[round(h['wall_s'], 4) for h in result.history]}")
+    del result
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    bundle = TaskConfig(**SMOLLM_TASK).build()
+    params = tree_map(lambda t: t.cuda(), bundle.init_fn(0))
+    batch = {"tokens": torch.from_numpy(bundle.stacked(0, 1)["tokens"][0, 0]).cuda()}
+    build.reset_launches()
+    loss, got = _site_grads(torch, bundle, params, batch)
+    kernel_launches = dict(build.LAUNCHES)
+    lse_cuda, bwd_cuda = fa._lse_cuda, fa.flash_attention_bwd_cuda
+    fa._lse_cuda, fa.flash_attention_bwd_cuda = ref.flash_attention_lse_ref, \
+        ref.flash_attention_bwd_ref
+    try:
+        build.reset_launches()
+        plain_loss, want = _site_grads(torch, bundle, params, batch)
+        plain_launches = {k: v for k, v in build.LAUNCHES.items() if v}
+    finally:
+        fa._lse_cuda, fa.flash_attention_bwd_cuda = lse_cuda, bwd_cuda
+    _require(kernel_launches.get("flash_attention_bwd", 0) == SMOLLM_LAYERS
+             and not plain_launches, f"20b: launches {kernel_launches} / {plain_launches}")
+    worst, attn = 0.0, {}
+    for (path, _), a, w in zip(_paths(params), got, want):
+        _require(a is not None and w is not None, f"20b: {path} got no gradient")
+        scale = float(w.abs().max())
+        rel = float((a - w).abs().max()) / max(scale, 1e-30)
+        worst = max(worst, rel)
+        _require(rel <= GRAD_RTOL, f"20b: {path} gradient {rel:.3e} of its largest value "
+                                   f"from the plain versions' (bound {GRAD_RTOL})")
+        if path.rsplit("/", 1)[-1] in ("wq", "wk", "wv"):
+            _require(scale > 0, f"20b: {path} has an all-zero gradient")
+            attn[path] = (scale, rel)
+    print(f"20b one site step: loss kernels {float(loss):.6f} plain {float(plain_loss):.6f}; "
+          f"{len(got)} leaves, worst gradient {worst:.3e} of its leaf's largest value "
+          f"(bound {GRAD_RTOL}); wq/wk/wv (largest |grad|, relative gap): {attn}")
+    return launches
+
+
+def check_small_token_jobs(torch, FederatedJob, TaskConfig, build) -> None:
+    """Phase 20c: small token jobs (reduced smollm-135m, 3 sites, 3 rounds)
+    on the card and on the CPU: stacked FedAvg, ``device_data=True``, the
+    thread transport, int8 both ways and per-example DP (the vmap rules),
+    losses within ``JOB_RTOL`` as phase 6 holds them, bytes each side's
+    own; a resume bit-equal on the card; rwkv6-7b and Jamba (reduced)
+    training on the card raise the scans' ``NotPorted``."""
+    from repro_torch import NotPorted
+    torch.backends.cuda.matmul.allow_tf32 = False
+    base = FederatedJob(task=TaskConfig(**SMALL_TOKENS), rounds=3)
+    for what, kw in (("stacked fedavg", {}), ("device_data", dict(device_data=True)),
+                     ("thread", dict(transport="thread")),
+                     ("int8 both ways", dict(compression="int8", down_compression="int8")),
+                     ("per-example dp", dict(dp_clip=0.5, dp_noise_multiplier=0.8,
+                                             dp_mode="per-example"))):
+        job = base.replace(**kw)
+        build.reset_launches()
+        gpu = job.run()
+        launched = {k: v for k, v in build.LAUNCHES.items() if v}
+        cpu = job.replace(device="cpu").run()
+        print(f"small token job {what}: losses cuda {gpu.losses} cpu {cpu.losses}; bytes "
+              f"cuda {gpu.comm['upload_bytes']} cpu {cpu.comm['upload_bytes']}; "
+              f"launched {launched}")
+        for g, c in zip(gpu.losses, cpu.losses):
+            _require(math.isclose(g, c, rel_tol=JOB_RTOL, abs_tol=1e-6),
+                     f"small token job {what}: cuda loss {g} != cpu loss {c}")
+        _require(launched.get("flash_attention_bwd", 0) > 0,
+                 f"small token job {what}: the backward kernel never ran")
+    with _ckpt_dir() as d:
+        full = base.replace(rounds=4).run()
+        job = base.replace(rounds=4, checkpoint_dir=d, ckpt_every=2)
+        job.run(rounds=3)
+        res = job.run(resume=True)
+    same = (res.resumed_from == 2 and res.history[-1]["per_site_loss"]
+            == full.history[-1]["per_site_loss"] and torch.equal(
+                _flat(torch, res.global_params), _flat(torch, full.global_params)))
+    print(f"small token resume: from {res.resumed_from}, round 3 losses "
+          f"{res.history[-1]['per_site_loss']} against {full.history[-1]['per_site_loss']}, "
+          f"bit-equal {same}")
+    _require(same, "small token resume: not bit-equal to the uninterrupted run")
+    for arch, seam in (("rwkv6-7b", "rwkv6_scan_bwd"), ("jamba-1.5-large-398b",
+                                                         "mamba_scan_bwd")):
+        try:
+            base.replace(task=TaskConfig(**dict(SMALL_TOKENS, arch=arch))).run()
+        except NotPorted as e:
+            _require(e.seam == seam, f"{arch}: NotPorted({e.seam!r}), not {seam!r}")
+            print(f"{arch} training on the card: {e}")
+        else:
+            _require(False, f"{arch} trained on the card with no backward kernel")
+
+
+def run_p20(torch, FederatedJob, TaskConfig, build) -> dict:
+    """Phase 20 (a, b at full width; c small jobs); returns the backward's
+    kernels-line entry and the path's launches."""
+    entry = _timed("20a (flash_attention_bwd alone)", check_flash_attention_bwd, torch, build,
+                   torch.device("cuda"))
+    launches = _timed("20b (smollm-135m 4-site fedavg)", run_smollm_fedavg, torch,
+                      FederatedJob, TaskConfig, build)
+    _timed("20c (small token jobs, card and CPU)", check_small_token_jobs, torch,
+           FederatedJob, TaskConfig, build)
+    return {"entry": entry, "launches": launches}
+
+
 def _leaves(tree):
     from repro_torch.tree import tree_leaves
     return tree_leaves(tree)
@@ -3926,6 +4242,9 @@ def main() -> int:
                  (OPENKBP_TASK, BRATS_TASK), host_batch_s)
     serving_launches = run_serving_paths(torch, build)
     check_small_serving(torch, build)
+    p20 = _timed("20 (the token task: the attention backward, smollm-135m fedavg, small "
+                 "token jobs)", run_p20, *jobs, build)
+    entries["flash_attention_bwd"] = p20["entry"]
 
     # each kernel's launches on the path that carries it: fedagg on the
     # first slice's path, the int8 fold and install on the second's, the
@@ -3937,11 +4256,12 @@ def main() -> int:
     print(f"launches on phase 17's paths: {p17}")
     print(f"launches on phase 18's paths: {p18}")
     print(f"launches on phase 19's paths: {p19}")
+    print(f"launches on phase 20b's path: {p20['launches']}")
     print(smi)
     path_of = {"fedagg": main_launches, "quantize_int8": int8_launches,
                "fedagg_dequant": int8_launches, "dequant_install": int8_launches,
                "dequantize_int8": socket_launches, "trimmed_mean": robust_launches,
-               **serving_launches}
+               **serving_launches, "flash_attention_bwd": p20["launches"]}
     kernels = []
     for name, (route, source, replaces) in ops.KERNELS.items():
         kernels.append({"name": name, "route": route, "source": source,

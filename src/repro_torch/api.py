@@ -8,7 +8,10 @@ transport:
     result = job.run()                  # on CUDA
     result = job.replace(device="cpu").run()
 
-Ported so far: the SA-Net dose and segmentation tasks; on the stacked
+Ported so far: the token task (``kind="tokens"``, the reference's
+default: next-token training of a ported architecture, attention
+differentiated through the flash-attention kernels) and the SA-Net dose
+and segmentation tasks; on the stacked
 transport, sync rounds of the paper's strategy set: ``fedavg`` (Eq. 1),
 ``fedprox`` (Eq. 2), the ``individual`` and ``pooled`` baselines and
 ``gcml`` (gossip pairs and regional DCML, Eq. 3), FedAvg and FedProx
@@ -43,14 +46,14 @@ drawn on the device (``device_data=True``: the reference's threefry
 stream) and the sharded many-site simulator (``shard_sites=True``: site
 rows in blocks over the devices, only each round's participants trained;
 the socket transports ignore ``device_data`` and refuse ``shard_sites``,
-as the reference's do).  Every other seam of the
-reference raises
+as the reference's do).  What is not ported (an architecture the
+registry has not got, MLA, the MoE ``dispatch``/``gather`` forms, a
+gradient through the WKV-6 or selective-scan kernel on the card) raises
 :class:`repro_torch.NotPorted` naming it, and never runs something else;
 compositions the reference refuses raise its ``ValueError``, checked
 first, as the reference checks them.  Every field of the reference's
 ``FederatedJob`` and ``TaskConfig`` exists here with its default, so a
-reference job spec builds this job; a field of an unported seam set to
-anything but its default raises ``NotPorted`` at ``run()``.
+reference job spec builds this job.
 
 ``device`` picks where the job runs: ``None`` means ``"cuda"``, which
 raises when CUDA is absent.  Nothing falls back to the CPU: pass
@@ -98,15 +101,14 @@ from repro_torch.tree import tree_map
 
 @dataclass(frozen=True)
 class TaskConfig:
-    """What the federation trains on.  ``kind`` in {tokens, dose, seg};
-    the port runs ``dose`` and ``seg``."""
+    """What the federation trains on.  ``kind`` in {tokens, dose, seg}."""
 
     kind: str = "tokens"
     sites: int = 4
     batch: int = 4                      # per-site batch per local step
     heterogeneity: float = 0.0          # non-IID knob (0 = IID)
     seed: int = 0                       # data seed (independent of job seed)
-    # -- tokens (not ported: the defaults only) ------------------------------
+    # -- tokens ------------------------------------------------------------
     arch: str = "smollm-135m"
     reduced: bool = True
     seq: int = 64
@@ -120,8 +122,13 @@ class TaskConfig:
     site_pools: Optional[Tuple[int, ...]] = None   # per-site distinct cases
 
     def model_config(self):
-        """The SA-Net config this task trains."""
+        """The model config this task trains (ModelConfig or SANetConfig);
+        an architecture the port has not got raises ``NotPorted("arch")``."""
         from repro_torch.models.sanet import SANetConfig
+        if self.kind == "tokens":
+            from repro_torch.configs.registry import get_arch
+            arch = get_arch(self.arch)
+            return arch.reduced() if self.reduced else arch.CONFIG
         if self.kind == "dose":
             return SANetConfig(in_channels=2 + self.num_oars, out_channels=1,
                                base_filters=self.base_filters,
@@ -131,13 +138,14 @@ class TaskConfig:
                                out_channels=self.num_classes,
                                base_filters=self.base_filters,
                                num_levels=self.num_levels, task="segmentation")
-        if self.kind == "tokens":
-            raise NotPorted("task", f"kind={self.kind!r}", "kind='dose' or 'seg'")
         raise ValueError(f"unknown task kind {self.kind!r}")
 
     def build(self) -> "TaskBundle":
-        self.model_config()             # raises for kinds the port does not run
-        return _build_volume_task(self)
+        if self.kind == "tokens":
+            return _build_token_task(self)
+        if self.kind in ("dose", "seg"):
+            return _build_volume_task(self)
+        raise ValueError(f"unknown task kind {self.kind!r}")
 
 
 @dataclass
@@ -183,6 +191,32 @@ class TaskBundle:
         ks = [self.sample(site, round_index * local_steps + k)
               for k in range(local_steps)]
         return {k: np.stack([x[k] for x in ks])[None] for k in ks[0]}
+
+
+def _build_token_task(task: TaskConfig) -> TaskBundle:
+    from repro_torch.data.synthetic import TokenTaskGenerator
+    from repro_torch.models import transformer as T
+    cfg = task.model_config()
+    gen = TokenTaskGenerator(vocab_size=cfg.vocab_size, num_sites=task.sites,
+                             heterogeneity=task.heterogeneity,
+                             num_codebooks=cfg.num_codebooks, seed=task.seed)
+
+    def forward_fn(params, batch):
+        # GCML's DCML regions: the next-token logits and their targets
+        tokens = batch["tokens"]
+        logits, aux = T.forward(params, tokens, cfg)
+        return (T.token_loss_of(logits, aux, tokens, cfg)[0], logits[:, :-1],
+                tokens[:, 1:])
+
+    return TaskBundle(
+        task=task,
+        loss_fn=lambda p, b: T.next_token_loss(p, b, cfg),
+        init_fn=lambda seed: T.init(torch.Generator().manual_seed(seed), cfg, "cpu"),
+        model_cfg=cfg,
+        stacked=lambda rnd, k: gen.stacked_batches(rnd, k, task.batch, task.seq),
+        sample=lambda site, step: {"tokens": gen.sample(site, step, task.batch, task.seq)},
+        forward_fn=forward_fn,
+        traced_stacked=lambda key, k, b: gen.traced_stacked_batches(key, k, b, task.seq))
 
 
 def _build_volume_task(task: TaskConfig) -> TaskBundle:
@@ -412,16 +446,11 @@ class FederatedJob:
         for seam, bad, got, ok in unported:
             if bad:
                 raise NotPorted(seam, str(got), ok)
-        for name, seam in SEAM_FIELDS.items():
-            owner, attr = (self.task, name[5:]) if name.startswith("task.") else (self, name)
-            value, default = getattr(owner, attr), _default(type(owner), attr)
-            if value != default:
-                raise NotPorted(seam, f"{name}={value!r}", f"{name}={default!r}")
         resolve_scheduler(self.scheduler)   # raises for an unknown name
         self.codecs()                   # raises for unported codecs
         if self.dropout_scenario not in ("disconnect", "shutdown"):
             raise ValueError(f"unknown dropout_scenario {self.dropout_scenario!r}")
-        self.task.model_config()        # raises for unported task kinds
+        self.task.model_config()        # raises for unported architectures
 
     def codecs(self) -> Tuple[Codec, Codec]:
         """The resolved (upload, download) codecs."""
@@ -527,20 +556,6 @@ class FederatedJob:
         return resolve_transport(self.transport).execute(
             self, self.rounds if rounds is None else rounds,
             init_params=init_params, on_round=on_round, resume=resume)
-
-
-# Fields of the reference's job (and, as ``task.<field>``, its task) that
-# only an unported seam reads, with the seam that ``NotPorted`` names: each
-# must hold its dataclass default.
-SEAM_FIELDS = {
-    "task.arch": "task", "task.reduced": "task", "task.seq": "task",
-}
-
-
-def _default(cls, name: str):
-    """The dataclass default of ``cls.name``."""
-    f = next(f for f in dataclasses.fields(cls) if f.name == name)
-    return f.default if f.default is not dataclasses.MISSING else f.default_factory()
 
 
 # ---------------------------------------------------------------------------
@@ -802,7 +817,7 @@ class StackedTransport(Transport):
             if job.device_data:
                 raise ValueError("device_data=True requires the scan engine")
             run = round_engine.host_loop_for(scheduler, codec, down_codec)
-        compile_s = build.prepare(job.torch_device, ops.FL_KERNELS)
+        compile_s = build.prepare(job.torch_device, ops.job_kernels(job.task.kind))
         res = run(job, bundle, scheduler, rounds, codec, down_codec,
                   init_params=init_params, on_round=on_round, resume_round=resume_round)
         res.compile_s = compile_s
@@ -1220,7 +1235,7 @@ class _SocketTransport(Transport):
         # every kernel a site or the server launches, built and loaded once
         # here (the build is also safe when processes race on it)
         from repro_torch.kernels import build, ops
-        compile_s = build.prepare(dev, ops.FL_KERNELS)
+        compile_s = build.prepare(dev, ops.job_kernels(job.task.kind))
         recorder = job.recorder(rounds, num_sites)
         from repro_torch.comms.coordinator import AggregationServer, CoordinationServer
         servers, agg, pod_stack, agg_addr, coord_addr = [], None, None, None, None

@@ -16,6 +16,8 @@ device:
 - ``bits(k, shape)`` hashes the 64-bit flat index of each element (its
   high and low words) and xors the two output words
   (``_threefry_random_bits_partitionable``);
+- ``randint`` combines two such streams modulo the span, as
+  ``jax.random.randint`` does for int32 (``_randint``);
 - ``uniform`` puts 23 of those bits in a float's mantissa, subtracts 1,
   then multiplies by ``maxval - minval`` and adds ``minval``, each rounded
   on its own (``jax/_src/random.py`` ``_uniform``; XLA's CPU contracts the
@@ -106,6 +108,29 @@ def _counter(shape: Sequence[int], device) -> torch.Tensor:
 def bits(k: torch.Tensor, shape: Sequence[int]) -> torch.Tensor:
     """``jax.random.bits(k, shape)`` (uint32 values in an int64 tensor)."""
     return bits_at(k[0], k[1], _counter(shape, k.device))
+
+
+def randint(k: torch.Tensor, shape: Sequence[int], minval: int, maxval: int) -> torch.Tensor:
+    """``jax.random.randint(k, shape, minval, maxval, jnp.int32)`` (int64
+    values), bit for bit, for Python int bounds in int32's range; for a
+    batch of keys ``k`` [G, 2], each key's draw: [G, *shape].
+
+    As ``jax/_src/random.py`` ``_randint``: two streams of 32 bits from
+    ``split(k)``, combined modulo ``span = maxval - minval`` (1 where
+    ``maxval <= minval``) as ``(hi % span) * m + lo % span``, ``m = (2**16 %
+    span)**2 % span``, every operation in uint32 with its wrap-around (so
+    ``m`` is 0 for a span past 2**16), then ``% span`` and ``+ minval``."""
+    lo_b, hi_b = int(np.int32(minval)), int(np.int32(maxval))
+    span = hi_b - lo_b if hi_b > lo_b else 1
+    # split(k)[0] and [1]; for a batch of keys [G, 2], each key's at once
+    k1, k2 = fold_in(k, 0), fold_in(k, 1)
+    if k.dim() == 1:
+        higher, lower = bits(k1, shape), bits(k2, shape)
+    else:
+        higher, lower = keys_bits(k1, shape), keys_bits(k2, shape)
+    mult = ((((2 ** 16) % span) ** 2) & MASK) % span     # 0 for a span past 2**16
+    offset = (((higher % span) * mult) & MASK) + lower % span
+    return (offset & MASK) % span + lo_b
 
 
 _ONE_BITS = int(np.array(1.0, np.float32).view(np.int32))

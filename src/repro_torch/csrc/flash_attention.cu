@@ -6,7 +6,10 @@
 // across them; it asserted that Lq and Lk divide the block sizes).
 //
 // q [B, Hq, Lq, D], k and v [B, Hkv, Lk, D], out [B, Hq, Lq, D], one dtype
-// (fp32 or bf16), contiguous and 16-byte aligned.  q head h reads kv head
+// (fp32 or bf16), contiguous and 16-byte aligned; lse, where not null, [B, Hq,
+// Lq] fp32, each row's log-sum-exp m + log(l) in the units of the scaled
+// scores, which the backward (flash_attention_bwd.cu) reads; serving passes
+// null and the kernel writes nothing more.  q head h reads kv head
 // h / (Hq / Hkv).  The queries are the last Lq positions: query row r sits at
 // key position r + Lk - Lq.  A key at position j is seen from position i if
 // j <= i (when causal) and j > i - window (when window > 0).  Scores are
@@ -292,7 +295,8 @@ __device__ __forceinline__ void accumulate(float (&o)[D / 8][4], const float (&p
 template <int D, typename T>
 __global__ void __launch_bounds__(kThreads)
 flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                       const T* __restrict__ v, T* __restrict__ out, int hq,
+                       const T* __restrict__ v, T* __restrict__ out,
+                       float* __restrict__ lse, int hq,
                        int hkv, int lq, int lk, int causal, int window,
                        float scale) {
   constexpr int S = row_stride<T>(D);
@@ -437,12 +441,12 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   if (half == 1) return;
   const float4 ml = park[32 * (D / 8)];
   const float m2[2] = {ml.x, ml.y}, l2[2] = {ml.z, ml.w};
-  float a[2], a2[2], denom[2];
+  float a[2], a2[2], denom[2], m_new[2];
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
-    const float m_new = fmaxf(m[h], m2[h]);
-    a[h] = expf(m[h] - m_new);
-    a2[h] = expf(m2[h] - m_new);
+    m_new[h] = fmaxf(m[h], m2[h]);
+    a[h] = expf(m[h] - m_new[h]);
+    a2[h] = expf(m2[h] - m_new[h]);
     denom[h] = fmaxf(l[h] * a[h] + l2[h] * a2[h], 1e-30f);
   }
   T* dst[2];
@@ -452,6 +456,7 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int row = w0 + g + 8 * h;
     ok[h] = row < nrows;
     dst[h] = out + (ok[h] ? row_base(row) : 0) + 2 * t;
+    if (lse != nullptr && ok[h] && t == 0) lse[row_base(row) / D] = m_new[h] + logf(denom[h]);
   }
 #pragma unroll
   for (int n = 0; n < D / 8; ++n) {
@@ -498,7 +503,7 @@ int resources(int* out) {
 }
 
 template <int D, typename T>
-int launch(const void* q, const void* k, const void* v, void* out, int64_t b,
+int launch(const void* q, const void* k, const void* v, void* out, void* lse, int64_t b,
            int64_t hq, int64_t hkv, int64_t lq, int64_t lk, int64_t causal,
            int64_t window, void* stream) {
   constexpr size_t smem = smem_bytes<D, T>();
@@ -510,13 +515,13 @@ int launch(const void* q, const void* k, const void* v, void* out, int64_t b,
   const float scale = (float)(1.0 / sqrt((double)D));
   kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(out), (int)hq, (int)hkv, (int)lq, (int)lk, (int)causal,
-      (int)window, scale);
+      static_cast<T*>(out), static_cast<float*>(lse), (int)hq, (int)hkv, (int)lq,
+      (int)lk, (int)causal, (int)window, scale);
   return (int)cudaGetLastError();
 }
 
 template <typename T>
-int dispatch(const void* q, const void* k, const void* v, void* out, int64_t b,
+int dispatch(const void* q, const void* k, const void* v, void* out, void* lse, int64_t b,
              int64_t hq, int64_t hkv, int64_t lq, int64_t lk, int64_t d,
              int64_t causal, int64_t window, void* stream) {
   if (b <= 0 || hq <= 0 || lq <= 0) return (int)cudaSuccess;
@@ -524,29 +529,33 @@ int dispatch(const void* q, const void* k, const void* v, void* out, int64_t b,
       lq * hq > 0x7fffffff || lk > 0x7fffffff || (lq * hq / kBlockM + 1) * b > 0x7fffffff)
     return (int)cudaErrorInvalidValue;
   switch (d) {
-    case 32: return launch<32, T>(q, k, v, out, b, hq, hkv, lq, lk, causal, window, stream);
-    case 64: return launch<64, T>(q, k, v, out, b, hq, hkv, lq, lk, causal, window, stream);
-    case 128: return launch<128, T>(q, k, v, out, b, hq, hkv, lq, lk, causal, window, stream);
-    case 256: return launch<256, T>(q, k, v, out, b, hq, hkv, lq, lk, causal, window, stream);
+    case 32:
+      return launch<32, T>(q, k, v, out, lse, b, hq, hkv, lq, lk, causal, window, stream);
+    case 64:
+      return launch<64, T>(q, k, v, out, lse, b, hq, hkv, lq, lk, causal, window, stream);
+    case 128:
+      return launch<128, T>(q, k, v, out, lse, b, hq, hkv, lq, lk, causal, window, stream);
+    case 256:
+      return launch<256, T>(q, k, v, out, lse, b, hq, hkv, lq, lk, causal, window, stream);
     default: return (int)cudaErrorInvalidValue;
   }
 }
 
 }  // namespace
 
-// window 0 means none; causal 0 or 1.
+// window 0 means none; causal 0 or 1; lse may be null.
 extern "C" int flash_attention_f32(const void* q, const void* k, const void* v,
-                                   void* out, int64_t b, int64_t hq, int64_t hkv,
+                                   void* out, void* lse, int64_t b, int64_t hq, int64_t hkv,
                                    int64_t lq, int64_t lk, int64_t d, int64_t causal,
                                    int64_t window, void* stream) {
-  return dispatch<float>(q, k, v, out, b, hq, hkv, lq, lk, d, causal, window, stream);
+  return dispatch<float>(q, k, v, out, lse, b, hq, hkv, lq, lk, d, causal, window, stream);
 }
 
 extern "C" int flash_attention_bf16(const void* q, const void* k, const void* v,
-                                    void* out, int64_t b, int64_t hq, int64_t hkv,
+                                    void* out, void* lse, int64_t b, int64_t hq, int64_t hkv,
                                     int64_t lq, int64_t lk, int64_t d, int64_t causal,
                                     int64_t window, void* stream) {
-  return dispatch<__nv_bfloat16>(q, k, v, out, b, hq, hkv, lq, lk, d, causal, window,
+  return dispatch<__nv_bfloat16>(q, k, v, out, lse, b, hq, hkv, lq, lk, d, causal, window,
                                  stream);
 }
 

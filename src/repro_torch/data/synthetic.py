@@ -1,8 +1,11 @@
-"""Synthetic volumetric batches, ported from ``repro/data/synthetic.py``.
+"""Synthetic batches, ported from ``repro/data/synthetic.py``.
 
 The host numpy generators of the reference, kept line for line so the
 same seed gives bit-equal batches:
 
+* ``TokenTaskGenerator``: language-model streams from a site-specific
+  markov rule over the vocabulary (``heterogeneity`` shifts each site's
+  transition bias);
 * ``DoseTaskGenerator``: OpenKBP-like, a CT-like background, spherical
   PTV and OAR masks, and a dose field that is an analytic function of the
   geometry;
@@ -53,6 +56,86 @@ def _consts(values, device) -> torch.Tensor:
     from the host, so a draw can be captured in a CUDA graph)."""
     return torch.cat([torch.full((1,), _f32(v), dtype=torch.float32, device=device)
                       for v in values])
+
+
+@dataclass
+class TokenTaskGenerator:
+    """Markov-ish token streams: ``t_{i+1} = (31 t_i + 17 + noise + bias) %
+    vocab``, the noise uniform on ``[0, max(vocab // 8, 8))`` and the bias
+    ``site_offsets[site] * heterogeneity``."""
+
+    vocab_size: int
+    num_sites: int
+    heterogeneity: float = 0.0          # 0 = IID
+    num_codebooks: int = 1
+    seed: int = 0
+
+    def __post_init__(self):
+        rng = np.random.default_rng(self.seed)
+        # each site draws from a site-biased unigram prior + shared bigram rule
+        self.site_offsets = rng.integers(0, self.vocab_size, self.num_sites)
+
+    def _site_rng(self, site: int, step: int):
+        return np.random.default_rng(
+            (self.seed * 1000003 + site * 10007 + step) % (2 ** 63))
+
+    def sample(self, site: int, step: int, batch: int, seq_len: int) -> np.ndarray:
+        """int32 ``[batch, seq_len]`` (``[..., num_codebooks]`` with
+        codebooks) from the site's stream at ``step``."""
+        rng = self._site_rng(site, step)
+        shape = (batch, seq_len, self.num_codebooks) if self.num_codebooks > 1 \
+            else (batch, seq_len)
+        v = self.vocab_size
+        base = rng.integers(0, v, (shape[0],) + shape[2:] if len(shape) > 2 else (shape[0],))
+        toks = np.zeros(shape, dtype=np.int32)
+        cur = base
+        bias = int(self.site_offsets[site] * self.heterogeneity)
+        # narrow noise keeps the bigram task learnable (entropy ~ln(v/8));
+        # heterogeneity shifts each site's transition BIAS, not the noise
+        width = max(v // 8, 8)
+        for i in range(seq_len):
+            drift = (cur * 31 + 17) % v
+            noise = rng.integers(0, width, drift.shape)
+            cur = (drift + noise + bias) % v
+            if len(shape) > 2:
+                toks[:, i, :] = cur
+            else:
+                toks[:, i] = cur
+        return toks
+
+    def stacked_batches(self, step: int, local_steps: int, per_site_batch: int,
+                        seq_len: int) -> Dict[str, np.ndarray]:
+        """[S, K, B, L(, C)] token batches for one FL round."""
+        out = np.stack([
+            np.stack([self.sample(s, step * local_steps + k, per_site_batch, seq_len)
+                      for k in range(local_steps)])
+            for s in range(self.num_sites)])
+        return {"tokens": out}
+
+    def traced_stacked_batches(self, key: torch.Tensor, local_steps: int,
+                               per_site_batch: int, seq_len: int) -> Dict[str, torch.Tensor]:
+        """int32 [S, K, B, L(, C)] batches drawn on the key's device from the
+        reference's threefry stream: ``split(key)`` into a start key and a
+        step key, the start tokens ``randint(start, [S, K, B(, C)], 0, v)``,
+        and step i's noise ``randint(split(step key, L)[i], ..., 0, width)``:
+        the reference's jitted draw bit for bit (its streams differ from the
+        numpy generator's, as in the reference)."""
+        v = self.vocab_size
+        width = max(v // 8, 8)
+        shape = (self.num_sites, local_steps, per_site_batch)
+        if self.num_codebooks > 1:
+            shape = shape + (self.num_codebooks,)
+        bias = torch.from_numpy((self.site_offsets * self.heterogeneity).astype(np.int32))
+        bias = bias.to(device=key.device, dtype=torch.int64).reshape(
+            (-1,) + (1,) * (len(shape) - 1))
+        k_base, k_steps = prng.split(key)
+        cur = prng.randint(k_base, shape, 0, v)
+        noise = prng.randint(prng.split(k_steps, seq_len), shape, 0, width)   # [L, *shape]
+        toks = torch.empty((seq_len,) + shape, dtype=torch.int32, device=key.device)
+        for i in range(seq_len):
+            cur = ((cur * 31 + 17) % v + noise[i] + bias) % v
+            toks[i] = cur
+        return {"tokens": toks.movedim(0, 3).contiguous()}
 
 
 class _Traced:

@@ -181,6 +181,27 @@ def require_aligned(fn: str, *tensors: torch.Tensor) -> None:
         raise ValueError(f"{fn}: tensors must start on a 16-byte boundary")
 
 
+def needs_grad(*tensors: torch.Tensor) -> bool:
+    """True where autograd will ask for the gradient of a call on
+    ``tensors``: grad mode on and one of them requires grad, or one of them
+    inside a ``torch.func`` transform (vmap, grad)."""
+    return ((torch.is_grad_enabled() and any(t.requires_grad for t in tensors))
+            or any(torch._C._functorch.is_functorch_wrapped_tensor(t) for t in tensors))
+
+
+def refuse_backward(kernel: str, *tensors: torch.Tensor) -> None:
+    """Raise :class:`~repro_torch.NotPorted` (seam ``<kernel>_bwd``) where
+    autograd would differentiate a call on ``tensors`` (:func:`needs_grad`).
+    The CUDA wrapper of a kernel that has no backward kernel calls it: the
+    kernel's output has no ``grad_fn``, so training through it would get
+    zero gradients without a word.  On the CPU the plain version is
+    differentiable PyTorch and its wrapper does not ask."""
+    if needs_grad(*tensors):
+        from repro_torch import NotPorted
+        raise NotPorted(f"{kernel}_bwd", f"a gradient through the CUDA {kernel} kernel",
+                        "training through its plain version on the CPU")
+
+
 def dispatch(fn: str, device: torch.device, plain: Callable, kernel: Callable, *args):
     """``plain(*args)`` for a CPU tensor, ``kernel(*args)`` for a CUDA one."""
     if device.type == "cpu":

@@ -1,4 +1,4 @@
-"""Causal GQA flash attention: the Hopper kernel's wrapper.
+"""Causal GQA flash attention and its gradient: the Hopper kernels' wrappers.
 
 ``flash_attention(q, k, v, causal=True, window=None)`` takes the
 reference kernel's layout, q ``[B, Hq, Lq, D]`` and k/v ``[B, Hkv, Lk,
@@ -13,30 +13,48 @@ this layout around the call.
 One CUDA kernel, ``csrc/flash_attention.cu``, for fp32 and bf16 and
 head dims 32, 64, 128 and 256: fp32 on the tensor cores as three TF32
 products, bf16 as one bf16 product, the q heads of a GQA group packed
-into one block's rows, K/V tiles staged asynchronously.  Dispatch is by
-the tensors' device and nothing else: CPU tensors take the plain version
-:func:`repro_torch.kernels.ref.flash_attention_ref`, CUDA tensors launch
-the kernel or raise.
+into one block's rows, K/V tiles staged asynchronously.  Asked for it,
+the kernel also writes each row's log-sum-exp (``lse``, fp32 ``[B, Hq,
+Lq]``); serving does not ask.
+
+The gradient: where autograd needs one (grad mode on and an input that
+requires grad, or a ``torch.func`` transform), the call goes through
+:class:`FlashAttention`, a ``torch.autograd.Function`` whose forward
+keeps ``lse`` and whose backward is ``csrc/flash_attention_bwd.cu``
+(fp32, head dims 32, 64 and 128: :func:`flash_attention_bwd`).  Both
+Functions carry a ``vmap`` rule that folds the mapped dimension into B,
+so ``torch.func.vmap(torch.func.grad(...))`` (per-example DP-SGD) runs
+the same kernels.  The reference has no backward kernel: XLA
+differentiates its plain attention.
+
+Dispatch is by the tensors' device and nothing else: CPU tensors take
+the plain versions (:func:`repro_torch.kernels.ref.flash_attention_ref`,
+``flash_attention_lse_ref``, ``flash_attention_bwd_ref``), CUDA tensors
+launch the kernels or raise.
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+from typing import Optional, Sequence, Tuple
 
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.ref import flash_attention_ref
+from repro_torch.kernels.ref import (flash_attention_bwd_ref, flash_attention_lse_ref,
+                                     flash_attention_ref)
 
 NAME = "flash_attention"
+BWD_NAME = "flash_attention_bwd"
 HEAD_DIMS = (32, 64, 128, 256)          # the kernel's template instances
+BWD_HEAD_DIMS = (32, 64, 128)           # the backward's (fp32 only)
 # the kernel's tiles (kBlockM and kBlockN in csrc/flash_attention.cu): packed
 # (query, head) rows a block, and keys a K/V stage, half of them a warp
 BLOCK_ROWS = 64
 BLOCK_KEYS = 32
 _ENTRY = {torch.float32: "flash_attention_f32", torch.bfloat16: "flash_attention_bf16"}
 _P, _I = ctypes.c_void_p, ctypes.c_int64
-_ARGS = [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P]
+_ARGS = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P]
+_BWD_ARGS = [_P] * 10 + [_I] * 8 + [_P]
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -63,9 +81,20 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError("flash_attention: q, k, v on different devices")
 
 
+def _check_bwd_instance(q: torch.Tensor) -> None:
+    """Raise for what the backward kernel has no instance of."""
+    if q.dtype != torch.float32:
+        raise ValueError(f"flash_attention_bwd: no {q.dtype} instance (fp32 only)")
+    if q.shape[-1] not in BWD_HEAD_DIMS:
+        raise ValueError(f"flash_attention_bwd: head dim {q.shape[-1]} not in "
+                         f"{BWD_HEAD_DIMS}")
+
+
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                         causal: bool = True, window: Optional[int] = None) -> torch.Tensor:
-    """Launch the CUDA kernel on PyTorch's current stream."""
+                         causal: bool = True, window: Optional[int] = None,
+                         with_lse: bool = False):
+    """Launch the CUDA kernel on PyTorch's current stream: ``out``, or
+    ``(out, lse)`` with ``with_lse``."""
     _check(q, k, v, window)
     build.require_cuda("flash_attention_cuda", q, k, v)
     build.require_aligned("flash_attention_cuda", q, k, v)
@@ -74,19 +103,138 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if d not in HEAD_DIMS:
         raise ValueError(f"flash_attention: head dim {d} not in {HEAD_DIMS}")
     out = torch.empty_like(q)
-    if out.numel() == 0:
-        return out
+    lse = torch.empty((b, hq, lq), dtype=torch.float32, device=q.device) if with_lse else None
+    if out.numel():
+        with torch.cuda.device(q.device):
+            build.launch(NAME, _ENTRY[q.dtype], _ARGS, q.data_ptr(), k.data_ptr(),
+                         v.data_ptr(), out.data_ptr(), 0 if lse is None else lse.data_ptr(),
+                         b, hq, hkv, lq, lk, d, int(causal),
+                         0 if window is None else int(window), build.stream())
+    return (out, lse) if with_lse else out
+
+
+def _lse_cuda(q, k, v, causal, window):
+    return flash_attention_cuda(q, k, v, causal, window, with_lse=True)
+
+
+def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                             out: torch.Tensor, lse: torch.Tensor, dout: torch.Tensor,
+                             causal: bool = True, window: Optional[int] = None
+                             ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Launch the backward (its three kernels: delta, dK/dV, dQ) on
+    PyTorch's current stream; one launch counted."""
+    _check(q, k, v, window)
+    _check_bwd_instance(q)
+    if out.shape != q.shape or dout.shape != q.shape or lse.shape != q.shape[:3]:
+        raise ValueError(f"flash_attention_bwd: out {tuple(out.shape)}, dout "
+                         f"{tuple(dout.shape)} and lse {tuple(lse.shape)} do not fit q "
+                         f"{tuple(q.shape)}")
+    if out.dtype != q.dtype or dout.dtype != q.dtype or lse.dtype != torch.float32:
+        raise TypeError("flash_attention_bwd: out and dout must be q's dtype and lse fp32")
+    dout = dout.contiguous()
+    build.require_cuda("flash_attention_bwd_cuda", q, k, v, out, lse, dout)
+    b, hq, lq, d = q.shape
+    hkv, lk = k.shape[1], k.shape[2]
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    if q.numel() == 0:
+        return dq, dk.zero_(), dv.zero_()
+    delta = torch.empty_like(lse)
     with torch.cuda.device(q.device):
-        build.launch(NAME, _ENTRY[q.dtype], _ARGS, q.data_ptr(), k.data_ptr(),
-                     v.data_ptr(), out.data_ptr(), b, hq, hkv, lq, lk, d,
-                     int(causal), 0 if window is None else int(window), build.stream())
+        build.launch(BWD_NAME, "flash_attention_bwd_f32", _BWD_ARGS,
+                     *(t.data_ptr() for t in (q, k, v, out, lse, dout, delta, dq, dk, dv)),
+                     b, hq, hkv, lq, lk, d, int(causal), 0 if window is None else int(window),
+                     build.stream())
+    return dq, dk, dv
+
+
+def flash_attention_bwd(q, k, v, out, lse, dout, causal: bool = True,
+                        window: Optional[int] = None):
+    """(dq, dk, dv) of :func:`flash_attention` from its inputs, its output,
+    its ``lse`` and the output's gradient: the plain version on CPU, the
+    kernel on CUDA."""
+    _check(q, k, v, window)
+    return build.dispatch(BWD_NAME, q.device, flash_attention_bwd_ref,
+                          flash_attention_bwd_cuda, q, k, v, out, lse, dout, causal, window)
+
+
+def _fold(info, in_dims: Sequence[Optional[int]], tensors):
+    """The tensors of a vmapped call with the mapped dimension moved to the
+    front (broadcast where unmapped) and folded into B."""
+    n = info.batch_size
+    out = []
+    for t, dim in zip(tensors, in_dims):
+        t = t.expand(n, *t.shape) if dim is None else t.movedim(dim, 0)
+        out.append(t.reshape(n * t.shape[1], *t.shape[2:]).contiguous())
     return out
+
+
+def _unfold(info, t: torch.Tensor) -> torch.Tensor:
+    return t.reshape(info.batch_size, t.shape[0] // info.batch_size, *t.shape[1:])
+
+
+class FlashAttentionBackward(torch.autograd.Function):
+    """The backward kernel as a Function, so that a vmapped backward (the
+    backward of a vmapped :class:`FlashAttention`) folds into one launch.
+    It has no derivative of its own."""
+
+    @staticmethod
+    def forward(q, k, v, out, lse, dout, causal, window):
+        return flash_attention_bwd(q, k, v, out, lse, dout, causal, window)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        pass
+
+    @staticmethod
+    def backward(ctx, *grads):
+        raise NotImplementedError("flash_attention: no second derivative")
+
+    @staticmethod
+    def vmap(info, in_dims, q, k, v, out, lse, dout, causal, window):
+        folded = _fold(info, in_dims[:6], (q, k, v, out, lse, dout))
+        grads = FlashAttentionBackward.apply(*folded, causal, window)
+        return tuple(_unfold(info, g) for g in grads), (0, 0, 0)
+
+
+class FlashAttention(torch.autograd.Function):
+    """``(out, lse)`` of the forward kernel; the gradient of ``out`` comes
+    from the backward kernel (``lse`` is not differentiable)."""
+
+    @staticmethod
+    def forward(q, k, v, causal, window):
+        return build.dispatch(NAME, q.device, flash_attention_lse_ref, _lse_cuda,
+                              q, k, v, causal, window)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        q, k, v, causal, window = inputs
+        out, lse = output
+        ctx.mark_non_differentiable(lse)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.causal, ctx.window = causal, window
+
+    @staticmethod
+    def backward(ctx, dout, _dlse):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = FlashAttentionBackward.apply(q, k, v, out, lse, dout, ctx.causal,
+                                                  ctx.window)
+        return dq, dk, dv, None, None
+
+    @staticmethod
+    def vmap(info, in_dims, q, k, v, causal, window):
+        out, lse = FlashAttention.apply(*_fold(info, in_dims[:3], (q, k, v)), causal, window)
+        return (_unfold(info, out), _unfold(info, lse)), (0, 0)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: Optional[int] = None) -> torch.Tensor:
     """[B, Hq, Lq, D] x [B, Hkv, Lk, D]^2 -> [B, Hq, Lq, D]: the plain
-    version on CPU, the kernel on CUDA."""
+    version on CPU, the kernel on CUDA; differentiable through
+    :class:`FlashAttention` wherever autograd or a transform needs it."""
     _check(q, k, v, window)
+    if build.needs_grad(q, k, v):
+        if q.device.type == "cuda":
+            _check_bwd_instance(q)          # refuse before the forward runs
+        return FlashAttention.apply(q, k, v, causal, window)[0]
     return build.dispatch(NAME, q.device, flash_attention_ref, flash_attention_cuda,
                           q, k, v, causal, window)

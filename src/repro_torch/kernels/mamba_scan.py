@@ -52,6 +52,7 @@ def _check(dt, b_mat, c_mat, x, log_a) -> None:
 def mamba_scan_cuda(dt, b_mat, c_mat, x, log_a) -> Tuple[torch.Tensor, torch.Tensor]:
     """Launch the CUDA kernel on PyTorch's current stream."""
     _check(dt, b_mat, c_mat, x, log_a)
+    build.refuse_backward(NAME, dt, b_mat, c_mat, x, log_a)
     build.require_cuda("mamba_scan_cuda", dt, b_mat, c_mat, x, log_a)
     bsz, l, di = dt.shape
     ds = log_a.shape[1]
@@ -70,7 +71,9 @@ def mamba_scan_cuda(dt, b_mat, c_mat, x, log_a) -> Tuple[torch.Tensor, torch.Ten
 
 def mamba_scan(dt, b_mat, c_mat, x, log_a) -> Tuple[torch.Tensor, torch.Tensor]:
     """(y [B, L, di], final state [B, di, ds] fp32): the plain version on
-    CPU, the kernel on CUDA."""
+    CPU, the kernel on CUDA.  The kernel has no backward yet: a CUDA call
+    that autograd would differentiate raises ``NotPorted`` (seam
+    ``mamba_scan_bwd``); the CPU trains through the plain version."""
     _check(dt, b_mat, c_mat, x, log_a)
     return build.dispatch(NAME, dt.device, mamba_scan_ref, mamba_scan_cuda,
                           dt, b_mat, c_mat, x, log_a)

@@ -8,7 +8,7 @@ version on a card.
 from __future__ import annotations
 
 from repro_torch.kernels.fedagg import dequant_install, fedagg, fedagg_dequant
-from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.kernels.flash_attention import flash_attention, flash_attention_bwd
 from repro_torch.kernels.mamba_scan import mamba_scan
 from repro_torch.kernels.quantize import (Int8Table, dequantize_int8,
                                           dequantize_int8_grouped, quantize_int8)
@@ -32,18 +32,43 @@ KERNELS = {
                      "src/repro/kernels/robust.py:71, src/repro/kernels/robust.py:100"),
     "flash_attention": ("cuda", "src/repro_torch/csrc/flash_attention.cu",
                         "src/repro/kernels/flash_attention.py:79"),
+    # the gradient of row 7: the reference has no TPU kernel for it (XLA
+    # differentiates its jnp attention, models/attention.py:155-166)
+    "flash_attention_bwd": ("cuda", "src/repro_torch/csrc/flash_attention_bwd.cu",
+                            "src/repro/models/attention.py:155"),
     "rwkv6_scan": ("cuda", "src/repro_torch/csrc/rwkv6_scan.cu",
                    "src/repro/kernels/rwkv6_scan.py:51"),
     "mamba_scan": ("cuda", "src/repro_torch/csrc/mamba_scan.cu",
                    "src/repro/kernels/mamba_scan.py:47"),
 }
 
+# the ``__global__`` functions of a kernel whose symbols are not the one
+# ``<name>_kernel``: the quantizer's vectorised and any-width kernels, the
+# backward's delta, dK/dV and dQ kernels
+_SYMBOLS = {"quantize_int8": r"quantize_int8_(?:vec|any)",
+            "flash_attention_bwd": r"flash_attention_bwd_(?:delta|dkdv|dq)_kernel"}
+
+
+def symbol_pattern(name: str) -> str:
+    """A regex matching the device symbols of kernel ``name`` (a key of
+    ``KERNELS``) in a profiler trace."""
+    return rf"\b{_SYMBOLS.get(name, name + '_kernel')}\b"
+
+
 # the kernels a federated job can launch (a job builds and loads them before
 # its first round: ``build.prepare``)
 FL_KERNELS = ("fedagg", "quantize_int8", "dequantize_int8", "fedagg_dequant",
               "dequant_install", "trimmed_mean")
 
+
+def job_kernels(kind: str) -> tuple:
+    """The kernels a federated job of task ``kind`` can launch: a token
+    job's models add the attention kernel and its backward."""
+    return FL_KERNELS + (("flash_attention", "flash_attention_bwd") if kind == "tokens" else ())
+
+
 __all__ = ["FL_KERNELS", "Int8Table", "KERNELS", "dequant_install", "dequantize_int8",
            "dequantize_int8_grouped", "fedagg",
-           "fedagg_dequant", "flash_attention", "mamba_scan", "masked_median",
-           "quantize_int8", "rwkv6_scan", "trimmed_mean"]
+           "fedagg_dequant", "flash_attention", "flash_attention_bwd", "mamba_scan",
+           "job_kernels", "masked_median",
+           "quantize_int8", "rwkv6_scan", "symbol_pattern", "trimmed_mean"]

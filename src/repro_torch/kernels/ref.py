@@ -144,6 +144,34 @@ def masked_median_ref(stacked: torch.Tensor, active: torch.Tensor) -> torch.Tens
 NEG_INF = -1e30
 
 
+def _seen(lq: int, lk: int, causal: bool, window: Optional[int], device) -> torch.Tensor:
+    """[Lq, Lk] bool: True where the query (at position ``i + Lk - Lq``)
+    sees the key."""
+    q_pos = torch.arange(lq, device=device) + (lk - lq)
+    k_pos = torch.arange(lk, device=device)
+    ok = torch.ones((lq, lk), dtype=torch.bool, device=device)
+    if causal:
+        ok &= k_pos[None, :] <= q_pos[:, None]
+    if window is not None:
+        ok &= k_pos[None, :] > q_pos[:, None] - window
+    return ok
+
+
+def _scores(q, k, causal, window):
+    """(masked fp32 scores [B, Hq, Lq, Lk], the mask, k's heads repeated
+    over the GQA group as a function)."""
+    b, hq, lq, d = q.shape
+    hkv, lk = k.shape[1], k.shape[2]
+    group = hq // hkv
+
+    def per_q_head(t):
+        return t.repeat_interleave(group, dim=1).float()
+
+    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), per_q_head(k)) * (d ** -0.5)
+    ok = _seen(lq, lk, causal, window, q.device)
+    return torch.where(ok, s, torch.full_like(s, NEG_INF)), ok, per_q_head
+
+
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         causal: bool = True, window: Optional[int] = None) -> torch.Tensor:
     """q [B, Hq, Lq, D]; k/v [B, Hkv, Lk, D] -> [B, Hq, Lq, D] in q's dtype.
@@ -152,22 +180,49 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     ``D ** -0.5``.  The queries are the last Lq positions; a key at
     position j is seen by the query at position i if ``j <= i`` (causal)
     and ``j > i - window`` (a sliding window); other scores are -1e30."""
+    s, _, per_q_head = _scores(q, k, causal, window)
+    p = torch.softmax(s, dim=-1)
+    return torch.einsum("bhqk,bhkd->bhqd", p, per_q_head(v)).to(q.dtype)
+
+
+def flash_attention_lse_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                            causal: bool = True, window: Optional[int] = None
+                            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`flash_attention_ref` and each row's log-sum-exp of the masked,
+    scaled scores (fp32 [B, Hq, Lq]): what the backward reads."""
+    s, _, per_q_head = _scores(q, k, causal, window)
+    lse = torch.logsumexp(s, dim=-1)
+    p = torch.exp(s - lse[..., None])
+    return torch.einsum("bhqk,bhkd->bhqd", p, per_q_head(v)).to(q.dtype), lse
+
+
+def flash_attention_bwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                            out: torch.Tensor, lse: torch.Tensor, dout: torch.Tensor,
+                            causal: bool = True, window: Optional[int] = None
+                            ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The gradient of :func:`flash_attention_ref`, written out: with
+    ``p = exp(s - lse)`` (0 where the masks hide a key), ``delta =
+    rowsum(dout * out)``, ``dp = dout v^T`` and ``ds = p (dp - delta)``,
+
+        dv = p^T dout,   dq = scale ds k,   dk = scale ds^T q,
+
+    dk and dv summed over the q heads of each GQA group.  Returns (dq, dk,
+    dv) in the dtypes of q, k, v."""
     b, hq, lq, d = q.shape
     hkv, lk = k.shape[1], k.shape[2]
+    s, ok, per_q_head = _scores(q, k, causal, window)
+    p = torch.where(ok, torch.exp(s - lse.float()[..., None]), torch.zeros_like(s))
+    g = dout.float()
+    delta = torch.sum(g * out.float(), dim=-1)
+    ds = p * (torch.einsum("bhqd,bhkd->bhqk", g, per_q_head(v)) - delta[..., None])
+    scale = d ** -0.5
+    dq = torch.einsum("bhqk,bhkd->bhqd", ds, per_q_head(k)) * scale
+    dk = torch.einsum("bhqk,bhqd->bhkd", ds, q.float()) * scale
+    dv = torch.einsum("bhqk,bhqd->bhkd", p, g)
     group = hq // hkv
-    kk = k.repeat_interleave(group, dim=1).float()
-    vv = v.repeat_interleave(group, dim=1).float()
-    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), kk) * (d ** -0.5)
-    q_pos = torch.arange(lq, device=q.device) + (lk - lq)
-    k_pos = torch.arange(lk, device=q.device)
-    ok = torch.ones((lq, lk), dtype=torch.bool, device=q.device)
-    if causal:
-        ok &= k_pos[None, :] <= q_pos[:, None]
-    if window is not None:
-        ok &= k_pos[None, :] > q_pos[:, None] - window
-    s = torch.where(ok, s, torch.full_like(s, NEG_INF))
-    p = torch.softmax(s, dim=-1)
-    return torch.einsum("bhqk,bhkd->bhqd", p, vv).to(q.dtype)
+    dk = dk.reshape(b, hkv, group, lk, d).sum(2)
+    dv = dv.reshape(b, hkv, group, lk, d).sum(2)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
 def rwkv6_scan_ref(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,

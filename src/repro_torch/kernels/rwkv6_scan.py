@@ -53,6 +53,7 @@ def _check(r, k, v, w, u) -> None:
 def rwkv6_scan_cuda(r, k, v, w, u) -> Tuple[torch.Tensor, torch.Tensor]:
     """Launch the CUDA kernel on PyTorch's current stream."""
     _check(r, k, v, w, u)
+    build.refuse_backward(NAME, r, k, v, w, u)
     u32 = u.float().contiguous()
     build.require_cuda("rwkv6_scan_cuda", r, k, v, w, u32)
     build.require_aligned("rwkv6_scan_cuda", r, k, v, w)
@@ -72,6 +73,8 @@ def rwkv6_scan_cuda(r, k, v, w, u) -> Tuple[torch.Tensor, torch.Tensor]:
 
 def rwkv6_scan(r, k, v, w, u) -> Tuple[torch.Tensor, torch.Tensor]:
     """(out [B, H, L, D], final state [B, H, D, D] fp32): the plain
-    version on CPU, the kernel on CUDA."""
+    version on CPU, the kernel on CUDA.  The kernel has no backward yet:
+    a CUDA call that autograd would differentiate raises ``NotPorted``
+    (seam ``rwkv6_scan_bwd``); the CPU trains through the plain version."""
     _check(r, k, v, w, u)
     return build.dispatch(NAME, r.device, rwkv6_scan_ref, rwkv6_scan_cuda, r, k, v, w, u)

@@ -1,10 +1,12 @@
 """Where one round of the main path spends its time on the card.
 
     python -m repro_torch.launch.profile_round [--trace DIR] [--int8]
-        [--aggregator SPEC] [--adversary SPEC]
+        [--aggregator SPEC] [--adversary SPEC] [--tokens]
 
 (with ``src`` on ``PYTHONPATH``).  Runs the full-width SA-Net dose FedAvg
-job (``configs/sanet_openkbp.OPENKBP_TASK``) for 2 rounds through
+job (``configs/sanet_openkbp.OPENKBP_TASK``; with ``--tokens``, the token
+task at smollm-135m's published width, ``TOKEN_TASK``: 4 sites, 4 x 2048
+tokens a site step) for 2 rounds through
 ``FederatedJob.run`` (with ``--int8``: int8 uploads and downloads,
 ``compression="int8", down_compression="int8"``; ``--aggregator`` and
 ``--adversary`` are the job's robust combine rule and adversary, e.g.
@@ -29,14 +31,20 @@ import torch
 
 from repro_torch.api import FederatedJob, TaskConfig
 from repro_torch.configs.sanet_openkbp import OPENKBP_TASK
-from repro_torch.kernels.ops import KERNELS
+from repro_torch.kernels.ops import KERNELS, symbol_pattern
 
+TOKEN_TASK = dict(kind="tokens", arch="smollm-135m", reduced=False, seq=2048, batch=4, sites=4)
 GROUPS = [  # (group, regex over the kernel name), first match wins
+    ("attention_bwd", symbol_pattern("flash_attention_bwd")),
+    ("attention", symbol_pattern("flash_attention")),
     ("int8_codec", r"quantize_int8|fedagg_dequant|dequant_install"),
     ("robust", r"trimmed_mean"),
     ("fedagg", r"fedagg"),
     ("batch_h2d", r"Memcpy HtoD"),      # the round's host batches (in batch_s)
-    ("conv", r"conv|cudnn|implicit|gemm|wgrad|dgrad|sm90|xmma|cutlass|winograd"),
+    ("conv", r"conv|cudnn|implicit|wgrad|dgrad|winograd"),
+    ("gemm", r"gemm|gemv|sm90|xmma|cutlass|splitK|Kernel2"),
+    ("softmax", r"softmax|LogSoftMax|SoftMax"),
+    ("embed_gather", r"index|gather|scatter|Indexing|embedding"),
     ("group_norm", r"group_norm|GroupNorm|RowwiseMoments|ComputeFused|Welford"),
     ("resize", r"upsample|interp|nearest"),
     ("reduce", r"reduce|Reduce|sum|mean"),
@@ -55,10 +63,10 @@ def group_of(name: str) -> str:
 
 def port_kernels(kernels) -> dict:
     """Device ms and calls of each of the port's own kernels, found by the
-    name of its ``__global__`` function (``<name>_kernel``)."""
+    names of its ``__global__`` functions (``ops.symbol_pattern``)."""
     out = {}
     for name in KERNELS:
-        hits = [v for n, v in kernels.items() if re.search(rf"\b{name}_kernel\b", n)]
+        hits = [v for n, v in kernels.items() if re.search(symbol_pattern(name), n)]
         out[name] = {"ms": sum(v[0] for v in hits) / 1e3, "calls": sum(v[1] for v in hits)}
     return out
 
@@ -72,6 +80,8 @@ def main(argv=None) -> int:
                     help="combine rule: fedavg | trimmed:f | median | krum:f | normclip:c")
     ap.add_argument("--adversary", default=None,
                     help="sign_flip:f | scale:c:f | label_flip:f (default: none)")
+    ap.add_argument("--tokens", action="store_true",
+                    help="the token task at smollm-135m's published width (TOKEN_TASK)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_round: needs a CUDA device")
@@ -88,7 +98,8 @@ def main(argv=None) -> int:
 
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     codec = "int8" if args.int8 else "none"
-    job = FederatedJob(task=TaskConfig(**OPENKBP_TASK), strategy="fedavg", rounds=2,
+    task = TOKEN_TASK if args.tokens else OPENKBP_TASK
+    job = FederatedJob(task=TaskConfig(**task), strategy="fedavg", rounds=2,
                        compression=codec, down_compression=codec,
                        aggregator=args.aggregator, adversary=args.adversary)
     with torch.profiler.profile(
@@ -113,7 +124,7 @@ def main(argv=None) -> int:
     busy_s = sum(groups.values()) / 1e6
     h = result.history[1]
     report = {
-        "device": torch.cuda.get_device_name(0), "task": OPENKBP_TASK,
+        "device": torch.cuda.get_device_name(0), "task": task,
         "compression": codec, "down_compression": codec,
         "aggregator": args.aggregator, "adversary": args.adversary,
         "round": 1, "batch_s": h["batch_s"], "step_s": h["step_s"],

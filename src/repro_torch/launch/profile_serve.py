@@ -29,12 +29,12 @@ from collections import defaultdict
 import torch
 
 from repro_torch.configs.registry import get_arch
-from repro_torch.kernels.ops import KERNELS
+from repro_torch.kernels.ops import KERNELS, symbol_pattern
 from repro_torch.launch import serve
 from repro_torch.models import transformer as T
 
 GROUPS = [  # (group, regex over the kernel name), first match wins
-    *[(name, rf"\b{name}_kernel\b") for name in KERNELS],
+    *[(name, symbol_pattern(name)) for name in KERNELS],
     ("gemm", r"gemm|gemv|sm90|xmma|cutlass|splitK|ampere|Kernel2"),
     ("softmax_reduce", r"softmax|reduce|Reduce|argmax|max|sum"),
     ("copy", r"copy|Memcpy|Memset|cat|CatArray|index|gather|scatter|transpose"),

@@ -6,12 +6,15 @@ this module only maps arguments onto it.  The flags and defaults are the
 reference's, plus ``--device`` (default: the card, as ``FederatedJob``;
 ``--device cpu`` runs on the CPU).  ``--dry-run`` resolves the job and
 prints the reference's dict without training.  ``--task tokens`` (the
-reference's default) raises ``NotPorted("task")`` when it runs, as the
-job does; for ``--task dose|seg`` the token-only flags (``--arch``,
-``--reduced``, ``--seq``) are not passed on, since no volumetric seam
-reads them.
+reference's default) trains next-token prediction of ``--arch`` (the
+published width, or ``--reduced``'s CPU-sized variant) on ``--seq``-token
+streams; an architecture the port has not got raises ``NotPorted("arch")``.
 
 Examples:
+  PYTHONPATH=src python -m repro_torch.launch.train --arch smollm-135m \
+      --reduced --sites 3 --rounds 2 --seq 32 --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.train --task tokens \
+      --arch smollm-135m --sites 4 --batch 4 --seq 2048 --rounds 2
   PYTHONPATH=src python -m repro_torch.launch.train --task dose \\
       --strategy fedavg --sites 4 --rounds 3 --device cpu
   PYTHONPATH=src python -m repro_torch.launch.train --task dose \\
@@ -33,13 +36,12 @@ from repro_torch.core.session import BufferedScheduler
 
 
 def run(args) -> dict:
-    token = (dict(arch=args.arch, reduced=args.reduced, seq=args.seq)
-             if args.task == "tokens" else {})
     task = TaskConfig(
-        kind=args.task, sites=args.sites, batch=args.batch,
+        kind=args.task, arch=args.arch, reduced=args.reduced,
+        sites=args.sites, batch=args.batch, seq=args.seq,
         volume=(args.volume,) * 3, base_filters=args.base_filters,
         num_levels=args.num_levels,
-        heterogeneity=args.het, seed=args.seed, **token)
+        heterogeneity=args.het, seed=args.seed)
     # tests may force-quiet a parsed namespace by setting args.verbose
     verbose = getattr(args, "verbose", None)
     if verbose is None:
@@ -239,8 +241,8 @@ def make_parser():
                          "(accepted; the port's rounds are not chunked)")
     ap.add_argument("--device-data", action="store_true", dest="device_data",
                     help="draw the synthetic batches and each round's "
-                         "inputs on the device (stacked transport; dose/seg "
-                         "without site_pools)")
+                         "inputs on the device (stacked transport; tokens, "
+                         "and dose/seg without site_pools)")
     ap.add_argument("--dry-run", action="store_true", dest="dry_run",
                     help="resolve and print the job, skip training")
     ap.add_argument("--auth-secret", default=None, dest="auth_secret",

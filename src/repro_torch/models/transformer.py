@@ -11,6 +11,9 @@
   (``scan_layers``, one dict per period position).  The reference runs the
   group with ``lax.scan``; here a loop over the repeats indexes the
   stacked leaves, so a reference tree converts leaf by leaf.
+* **Training**: :func:`next_token_loss`, the reference's mean next-token
+  cross-entropy plus the MoE aux term, through :func:`forward` (whose
+  attention layers differentiate through the flash-attention kernels).
 * **Serving**: :func:`prefill` returns logits of the last position and
   per-layer caches (KV ring buffers, RWKV and Mamba states);
   :func:`decode_step` advances one token.  Every layer's prefill mixer
@@ -294,6 +297,32 @@ def forward(params, tokens: torch.Tensor, cfg: ModelConfig, moe_impl: str = "den
                 aux = aux + a
     x = rmsnorm_apply(params["final_norm"], x, cfg.norm_eps)
     return unembed(params, x, cfg), aux
+
+
+# ---------------------------------------------------------------------------
+# Loss
+# ---------------------------------------------------------------------------
+
+
+def token_loss_of(logits: torch.Tensor, aux: torch.Tensor, tokens: torch.Tensor,
+                  cfg: ModelConfig, aux_coef: Optional[float] = None):
+    """:func:`next_token_loss` from the forward's ``(logits, aux)``."""
+    logp = torch.log_softmax(logits[:, :-1], dim=-1)
+    targets = tokens[:, 1:].long()                       # [B, L-1] or [B, L-1, K]
+    nll = -torch.gather(logp, -1, targets[..., None])[..., 0]
+    loss = torch.mean(nll)
+    coef = aux_coef if aux_coef is not None else (cfg.moe.router_aux_coef if cfg.moe else 0.0)
+    return loss + coef * aux, {"ce": loss, "aux": aux}
+
+
+def next_token_loss(params, batch, cfg: ModelConfig, moe_impl: str = "dense",
+                    aux_coef: Optional[float] = None):
+    """Mean next-token cross-entropy (+ the MoE load-balance aux term, at
+    ``aux_coef`` or the config's ``router_aux_coef``): ``(loss, {"ce",
+    "aux"})``.  With codebooks the mean runs over every codebook too."""
+    tokens = batch["tokens"]
+    logits, aux = forward(params, tokens, cfg, moe_impl=moe_impl)
+    return token_loss_of(logits, aux, tokens, cfg, aux_coef)
 
 
 # ---------------------------------------------------------------------------

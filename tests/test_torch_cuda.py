@@ -20,7 +20,10 @@ off on both sides, since sum orders differ and AdamW's first step
 amplifies noise on near-zero gradients.  The token kernels:
 ``flash_attention`` fp32 rtol=atol=1e-5 (a tiled online softmax, its
 products as three TF32 products on the tensor cores, against one fp32
-softmax over up to 1024 keys), bf16 2e-2; the scans (out or y,
+softmax over up to 1024 keys), bf16 2e-2; its backward (fp32, D <=
+128) rtol 1e-5 and atol 1e-5 of the plain backward's largest value
+(sums of up to G * Lq products in another order), bit-equal across two
+launches; the scans (out or y,
 and the final state) rtol 1e-5 and atol 1e-5 of the plain version's
 largest value, since each output sums D or ds terms in another order
 (``mamba_scan`` also takes its exp as ``ex2.approx``);
@@ -294,6 +297,34 @@ def test_flash_attention_kernel_matches_plain_on_card(cuda_device, case, dtype):
 def _close_scaled(got, want):
     scale = max(float(want.abs().max()) if want.numel() else 0.0, 1.0)
     torch.testing.assert_close(got.float(), want.float(), rtol=1e-5, atol=1e-5 * scale)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", [c for c in FLASH_SHAPES if c[5] <= 128],
+                         ids=lambda c: "-".join(map(str, c)))
+def test_flash_attention_backward_kernel_matches_plain_on_card(cuda_device, case):
+    """The forward's output has a grad_fn on the card; its backward launches
+    the backward kernel once, bit-equal across two launches, and holds the
+    plain backward within rtol 1e-5, atol 1e-5 of the largest value."""
+    b, hq, hkv, lq, lk, d, causal, window = case
+    gen = torch.Generator(device=cuda_device).manual_seed(lq * 5 + lk)
+    q = torch.randn(b, hq, lq, d, device=cuda_device, generator=gen).requires_grad_()
+    k, v = (torch.randn(b, hkv, lk, d, device=cuda_device, generator=gen).requires_grad_()
+            for _ in range(2))
+    g = torch.randn(b, hq, lq, d, device=cuda_device, generator=gen)
+    out = ops.flash_attention(q, k, v, causal=causal, window=window)
+    assert out.grad_fn is not None
+    before = build.LAUNCHES.get("flash_attention_bwd", 0)
+    got = torch.autograd.grad(out, (q, k, v), g, retain_graph=True)
+    again = torch.autograd.grad(out, (q, k, v), g)
+    torch.cuda.synchronize()
+    assert build.LAUNCHES["flash_attention_bwd"] == before + 2
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    o, lse = ref.flash_attention_lse_ref(q.detach(), k.detach(), v.detach(), causal, window)
+    want = ref.flash_attention_bwd_ref(q.detach(), k.detach(), v.detach(), out.detach(),
+                                       lse, g, causal, window)
+    for a, w in zip(got, want):
+        _close_scaled(a, w)
 
 
 @pytest.mark.cuda

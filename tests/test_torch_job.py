@@ -79,32 +79,34 @@ def test_job_runs_on_cuda_by_default_and_raises_without_it(monkeypatch):
 
 # a case whose seam has since been ported names another seam still
 # unported, under the id it always had (the device_data and shard_sites
-# cases keep their field and name the token task's seam)
-TOKENS = TaskConfig(**dict(TASK, kind="tokens"))
+# cases keep their field; since the token task was ported, they train an
+# architecture the port has not got and name the arch seam)
+TOKENS = TaskConfig(**dict(TASK, kind="tokens", arch="deepseek-v2-236b"))
 
 
 @pytest.mark.parametrize("seam,kw", [
-    pytest.param("task", dict(scheduler="buffered", dp_clip=1.0, device_data=True, task=TOKENS),
+    pytest.param("arch", dict(scheduler="buffered", dp_clip=1.0, device_data=True, task=TOKENS),
                  id="scheduler-kw0"),
-    pytest.param("task", dict(strategy="fedprox", transport="thread", topology="pods:2",
+    pytest.param("arch", dict(strategy="fedprox", transport="thread", topology="pods:2",
                               dp_clip=1.0, device_data=True, task=TOKENS), id="strategy-kw1"),
-    pytest.param("task", dict(compression="fp8", dp_clip=1.0, dp_noise_multiplier=1.0,
+    pytest.param("arch", dict(compression="fp8", dp_clip=1.0, dp_noise_multiplier=1.0,
                               shard_sites=True, task=TOKENS), id="compression-kw2"),
-    pytest.param("task", dict(down_compression="topk-fixed", device_data=True, task=TOKENS),
+    pytest.param("arch", dict(down_compression="topk-fixed", device_data=True, task=TOKENS),
                  id="down_compression-kw3"),
-    pytest.param("task", dict(dp_clip=1.0, device_data=True, task=TOKENS), id="dp-kw4"),
-    pytest.param("task", dict(device_data=True, task=TOKENS), id="device_data-kw5"),
-    pytest.param("task", dict(adversary="noise:1:1", device_data=True, task=TOKENS),
+    pytest.param("arch", dict(dp_clip=1.0, device_data=True, task=TOKENS), id="dp-kw4"),
+    pytest.param("arch", dict(device_data=True, task=TOKENS), id="device_data-kw5"),
+    pytest.param("arch", dict(adversary="noise:1:1", device_data=True, task=TOKENS),
                  id="adversary-kw6"),
-    pytest.param("task", dict(strategy="fedprox", aggregator="median", transport="thread",
+    pytest.param("arch", dict(strategy="fedprox", aggregator="median", transport="thread",
                               dp_clip=1.0, device_data=True, task=TOKENS), id="strategy-kw7"),
-    pytest.param("task", dict(topology="pods:2", dp_clip=1.0, shard_sites=True, task=TOKENS),
+    pytest.param("arch", dict(topology="pods:2", dp_clip=1.0, shard_sites=True, task=TOKENS),
                  id="topology-kw8"),
-    pytest.param("task", dict(topology="pods:2", device_data=True, task=TOKENS),
+    pytest.param("arch", dict(topology="pods:2", device_data=True, task=TOKENS),
                  id="topology-kw9"),
-    pytest.param("task", dict(shard_sites=True, task=TOKENS), id="shard_sites-kw10"),
-    ("task", dict(task=TaskConfig(kind="tokens"))),
-    pytest.param("task", dict(compression="fp8", strategy="gcml", transport="tcp",
+    pytest.param("arch", dict(shard_sites=True, task=TOKENS), id="shard_sites-kw10"),
+    pytest.param("arch", dict(task=TaskConfig(kind="tokens", arch="deepseek-v2-236b")),
+                 id="task-kw11"),
+    pytest.param("arch", dict(compression="fp8", strategy="gcml", transport="tcp",
                               device_data=True, task=TOKENS), id="strategy-kw12"),
 ])
 def test_unported_seams_raise_a_typed_error(seam, kw):
@@ -187,8 +189,9 @@ FIELDS = [
     pytest.param("round_engine", "loop", "ported", id="round_engine-loop-round_engine"),
     pytest.param("chunk_rounds", 2, "ported", id="chunk_rounds-2-round_engine"),
     pytest.param("ckpt_every", 5, "ported", id="ckpt_every-5-checkpoint"),
-    ("task.arch", "gemma3-1b", "task"), ("task.reduced", False, "task"),
-    pytest.param("task.seq", 32, "task", id="task.seq-32-task"),
+    pytest.param("task.arch", "gemma3-1b", "ported", id="task.arch-gemma3-1b-task"),
+    pytest.param("task.reduced", False, "ported", id="task.reduced-False-task"),
+    pytest.param("task.seq", 32, "ported", id="task.seq-32-task"),
     pytest.param("checkpoint_dir", "ckpt", "ported", id="checkpoint_dir-ckpt-checkpoint"),
     pytest.param("shard_sites", True, "ported", id="shard_sites-True-shard_sites"),
 ]
@@ -216,7 +219,8 @@ def test_reference_fields_take_their_defaults_and_refuse_other_values(name, othe
     job.check_ported()
     if seam == "ported":          # the seam's behaviour: test_torch_codec_engine.py,
         bad.check_ported()        # test_torch_dp.py, test_torch_resume.py,
-        return                    # test_torch_device_data.py, test_torch_sharded.py
+        return                    # test_torch_device_data.py, test_torch_sharded.py,
+                                  # test_torch_tokens.py
     if seam is None:
         with pytest.raises(ValueError, match="requires a pods topology"):
             bad.run()

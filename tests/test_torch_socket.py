@@ -595,24 +595,25 @@ def test_individual_and_robust_socket_jobs_run():
 # the unported socket seams name their seam (a case whose seam has since
 # been ported names another one still unported, under the id it always
 # had: the device_data cases keep the field, which the socket transports
-# ignore, and name the token task's seam); the refused compositions raise
+# ignore, and, since the token task was ported, train an architecture the
+# port has not got and name the arch seam); the refused compositions raise
 # the reference's ValueError on both packages
-TOKENS = TaskConfig(**dict(TINY, kind="tokens"))
+TOKENS = TaskConfig(**dict(TINY, kind="tokens", arch="deepseek-v2-236b"))
 UNPORTED = [
-    pytest.param("task", dict(scheduler="buffered", dp_clip=1.0, device_data=True, task=TOKENS),
+    pytest.param("arch", dict(scheduler="buffered", dp_clip=1.0, device_data=True, task=TOKENS),
                  id="scheduler-kw0"),
-    pytest.param("task", dict(strategy="fedprox", topology="pods:2", dp_clip=1.0,
+    pytest.param("arch", dict(strategy="fedprox", topology="pods:2", dp_clip=1.0,
                               device_data=True, task=TOKENS), id="strategy-kw1"),
-    pytest.param("task", dict(strategy="gcml", compression="fp8", dp_clip=1.0,
+    pytest.param("arch", dict(strategy="gcml", compression="fp8", dp_clip=1.0,
                               device_data=True, task=TOKENS), id="strategy-kw2"),
-    pytest.param("task", dict(topology="pods:2", compression="fp8", device_data=True,
+    pytest.param("arch", dict(topology="pods:2", compression="fp8", device_data=True,
                               task=TOKENS), id="topology-kw3"),
-    pytest.param("task", dict(secure_agg=True, dp_clip=1.0, device_data=True, task=TOKENS),
+    pytest.param("arch", dict(secure_agg=True, dp_clip=1.0, device_data=True, task=TOKENS),
                  id="secure_agg-kw4"),
-    pytest.param("task", dict(dp_clip=1.0, device_data=True, task=TOKENS), id="dp-kw5"),
-    pytest.param("task", dict(compression="fp8", dp_clip=1.0, dp_noise_multiplier=1.0,
+    pytest.param("arch", dict(dp_clip=1.0, device_data=True, task=TOKENS), id="dp-kw5"),
+    pytest.param("arch", dict(compression="fp8", dp_clip=1.0, dp_noise_multiplier=1.0,
                               device_data=True, task=TOKENS), id="compression-kw6"),
-    pytest.param("task", dict(down_compression="topk-fixed", device_data=True, task=TOKENS),
+    pytest.param("arch", dict(down_compression="topk-fixed", device_data=True, task=TOKENS),
                  id="down_compression-kw7"),
 ]
 

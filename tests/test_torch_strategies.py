@@ -184,20 +184,21 @@ def test_refused_strategy_compositions_raise_the_reference_value_error(kw, frag)
 
 # a case whose seam has since been ported names another seam still
 # unported, under the id it always had (the device_data and shard_sites
-# cases keep their field and name the token task's seam)
-TOKENS = TaskConfig(**dict(SEG, kind="tokens"))
+# cases keep their field; since the token task was ported, they train an
+# architecture the port has not got and name the arch seam)
+TOKENS = TaskConfig(**dict(SEG, kind="tokens", arch="deepseek-v2-236b"))
 
 
 @pytest.mark.parametrize("kw,seam", [
     pytest.param(dict(strategy="fedprox", transport="thread", topology="pods:2", dp_clip=1.0,
-                      device_data=True, task=TOKENS), "task", id="kw0-strategy"),
+                      device_data=True, task=TOKENS), "arch", id="kw0-strategy"),
     pytest.param(dict(strategy="gcml", transport="tcp", compression="fp8", dp_clip=1.0,
-                      device_data=True, task=TOKENS), "task", id="kw1-strategy"),
-    pytest.param(dict(strategy="fedprox", device_data=True, task=TOKENS), "task",
+                      device_data=True, task=TOKENS), "arch", id="kw1-strategy"),
+    pytest.param(dict(strategy="fedprox", device_data=True, task=TOKENS), "arch",
                  id="kw2-device_data"),
     pytest.param(dict(strategy="fedprox", topology="pods:2", device_data=True, task=TOKENS),
-                 "task", id="kw3-topology"),
-    pytest.param(dict(strategy="fedprox", dp_clip=1.0, shard_sites=True, task=TOKENS), "task",
+                 "arch", id="kw3-topology"),
+    pytest.param(dict(strategy="fedprox", dp_clip=1.0, shard_sites=True, task=TOKENS), "arch",
                  id="kw4-dp"),
 ])
 def test_unported_seams_of_the_strategies_raise_not_ported(kw, seam):
