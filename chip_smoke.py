@@ -3869,9 +3869,9 @@ BWD_CASES = [(1, 2, 2, 1, 1, 32, True, None), (2, 4, 2, 37, 37, 32, True, 17),
              (1, 3, 1, 64, 64, 32, True, None)]
 # The backward against its plain version, both fp32: each of dq, dk and dv is
 # a sum of up to G * Lq = 6,144 products (dk, dv at smollm's shape; dq sums
-# Lk) taken in another order (the kernel's FMA chains against the einsums'),
-# and p = exp(s - lse) carries the forward's lse, within FLASH_TOL of the
-# plain lse.  Random-walk rounding of such sums is about sqrt(6144) * 2^-24 =
+# Lk) taken in another order (the kernel's 3xTF32 products a 64-wide stage at
+# a time, added in fp32, against the einsums'), and p = exp(s - lse) carries
+# the forward's lse, within FLASH_TOL of the plain lse.  Random-walk rounding of such sums is about sqrt(6144) * 2^-24 =
 # 4.7e-6 of the largest partial sum, each side rounding on its own: rtol 1e-5,
 # and atol 1e-5 of the output's largest value (at least 1: one query against
 # one key gives dq = dk = 0 in exact arithmetic and rounding noise in each).
@@ -3901,7 +3901,9 @@ def check_flash_attention_bwd(torch, build, dev) -> dict:
     smollm-135m's, two launches bit-equal; the instances it has not got
     refused; its resources; its time beside its bound, the plain backward's
     and SDPA's backward alone; the forward at smollm's shape with and
-    without ``lse``, in turns.  Returns its kernels-line entry."""
+    without ``lse``, in turns, and with ``lse`` beside its own bound and
+    SDPA's forward.  Returns its kernels-line entry (the forward's numbers
+    at smollm's shape under ``forward``)."""
     import ctypes
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as fa
@@ -3977,10 +3979,10 @@ def check_flash_attention_bwd(torch, build, dev) -> dict:
         lambda: ref.flash_attention_bwd_ref(q, k, v, out, lse, g, True, None), None,
         nbytes=4 * (4 * q.numel() + 4 * k.numel() + lse.numel()), flops=flops,
         tf32_products=3)
-    fp32_rate = peaks(torch.cuda.get_device_name(0))[1]
-    print(f"flash_attention_bwd: this design's floor (its fp32 FMAs outside the tensor "
-          f"cores at {fp32_rate / 1e12:.1f} TFLOP/s), not a bound: "
-          f"{1e3 * flops / fp32_rate:.4f} ms")
+    tf32_rate = peaks(torch.cuda.get_device_name(0))[2]
+    print(f"flash_attention_bwd: this design's floor (seven products, s and dp twice, "
+          f"3 TF32 products a flop at {tf32_rate / 1e12:.0f} TFLOP/s), not a bound: "
+          f"{1e3 * 3 * flops * 7 / 5 / tf32_rate:.4f} ms")
     for _ in range(3):
         library()
     # SDPA's backward runs on the stream its forward ran on, outside a graph
@@ -3996,8 +3998,22 @@ def check_flash_attention_bwd(torch, build, dev) -> dict:
             q, k, v, True, None, with_lse=which == "lse"))[0])
     print(f"flash_attention {list(SMOLLM_ATTN)} fp32 causal, in turns: without lse "
           f"{fwd['plain']} ms, with lse {fwd['lse']} ms")
+    # row 7's forward as training calls it (with lse): two products of 2 D
+    # flops a seen pair at 3 TF32 products a flop; bytes: q, k, v read, out
+    # and lse written; SDPA's forward (fp32, GQA) timed in a graph beside it
+    forward = measure(
+        torch, f"flash_attention {list(SMOLLM_ATTN)} fp32 causal, with lse",
+        lambda: fa.flash_attention_cuda(q, k, v, True, None, with_lse=True),
+        lambda: ref.flash_attention_lse_ref(q, k, v, True, None),
+        lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True, enable_gqa=True),
+        nbytes=4 * (2 * q.numel() + 2 * k.numel() + lse.numel()), flops=2 * 2 * d * pairs,
+        tf32_products=3)
+    forward["library_max_abs_err"] = float((F.scaled_dot_product_attention(
+        q, k, v, is_causal=True, enable_gqa=True) - out).abs().max())
+    print(f"  scaled_dot_product_attention's forward vs the kernel's: max |err| "
+          f"{forward['library_max_abs_err']:.3e}")
     return {"max_abs_err": err, **timing,
-            "forward_ms": {k: sorted(v) for k, v in fwd.items()}}
+            "forward_ms": {k: sorted(v) for k, v in fwd.items()}, "forward": forward}
 
 
 def _flat_grad_spy():

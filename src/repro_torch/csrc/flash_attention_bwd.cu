@@ -9,45 +9,113 @@
 // gradient (kernels/flash_attention.py wraps both in a torch.autograd.Function).
 //
 // q, out, dout, dq [B, Hq, Lq, D]; k, v, dk, dv [B, Hkv, Lk, D]; lse and delta
-// [B, Hq, Lq]; fp32, contiguous.  q head h reads kv head h / (Hq / Hkv).  The
-// masks, positions and scale are the forward's: query row r sits at key
-// position r + Lk - Lq, a key at position j is seen from position i if j <= i
-// (causal) and j > i - window (window > 0), s = q.k * D^-0.5, and lse is the
-// forward's m + log(l) in those units, so p = exp(s - lse).  Then
+// [B, Hq, Lq]; fp32, contiguous, 16-byte aligned.  q head h reads kv head
+// h / (Hq / Hkv).  The masks, positions and scale are the forward's: query
+// row r sits at key position r + Lk - Lq, a key at position j is seen from
+// position i if j <= i (causal) and j > i - window (window > 0), s = q.k *
+// D^-0.5, and lse is the forward's m + log(l) in those units, so p = exp(s -
+// lse).  Then
 //   delta_i = sum_d dout_id out_id,   dp = dout v^T,   ds = p (dp - delta),
 //   dv = p^T dout,   dk = scale ds^T q,   dq = scale ds k.
 //
 // Bound: at smollm-135m's training shape (B 4, Hq 9, Hkv 3, L 2048, D 64,
 // causal) the five products of 2 L^2 D flops a head, halved by the mask, are
-// 48.3 GFLOP: 0.29 ms at an H100 SXM's 495 TFLOP/s of TF32 over three
+// 48.3 GFLOP: 0.2930 ms at an H100 SXM's 495 TFLOP/s of TF32 over three
 // products a flop (3xTF32, fp32-accurate, as the forward's bound counts);
-// its bytes (q, k, v, out, dout, lse in; dq, dk, dv out) are 101 MB, 0.03 ms
-// at 3.35 TB/s.  It is bound by operations.  This design's fp32 FMAs on the
-// CUDA cores (67 TFLOP/s) set a floor of 0.72 ms, 2.5 times the bound.
+// its bytes (q, k, v, out, dout, lse in; dq, dk, dv out) are 101 MB, 0.0301
+// ms at 3.35 TB/s.  It is bound by operations.  mma.sync itself reaches 318
+// TFLOP/s of TF32 on the card (64% of 495), and about 200 when each product
+// brings its share of a split (probe_mma_tf32.py; H100 80GB HBM3, 700 W):
+// the ceiling of any design built on it.
 //
-// Design: a simple, deterministic kernel, fp32 FMAs on the CUDA cores.
-// - Three kernels, launched in order on one stream by one entry point: delta
-//   (one warp a row), dK/dV (one block a key tile), dQ (one block a query
-//   tile).  dk and dv of a key tile sum over every query of every q head of
-//   its GQA group, so the dK/dV block walks them all and keeps both sums in
-//   registers; dq sums over keys, so the dQ block walks the key tiles.  No
-//   atomics: each output element is written once, by one thread, after a
-//   sum taken in a fixed order, and two launches give the same bits.  The
-//   cost is two products done twice (s and dp, recomputed by the dQ
-//   kernel): seven products where the bound counts five.
-// - Tiles of 64 queries by 64 keys in shared memory, rows padded by one word
-//   so that the 16 rows a warp reads at one column sit in 16 banks.  256
-//   threads as 16 x 16: a thread holds a 4 x 4 block of s, p, dp and ds
-//   (rows ty + 16 r, keys tx + 16 c) and a 4 x D/16 block of each output
-//   tile (rows ty + 16 r, columns tx + 16 c).  Every inner step reads 8
-//   words of shared memory for 16 FMAs, so shared memory bounds the kernel at
-//   about half the fp32 rate; the tensor cores (3xTF32, as the forward's) are
-//   for a later step.
-// - Whole tiles outside the masks are skipped: a key tile's query range and a
-//   query tile's key range follow from the causal and window bounds.  Key
-//   tiles that no query sees get zero dk and dv.  The grid puts the tiles
-//   with the most work first (key tiles from the left, query tiles from the
-//   right) across every batch and head.
+// What held the first design back: its five products ran as fp32
+// FMAs on the CUDA cores, each inner step reading 8 words of shared memory
+// for 16 FMAs, so shared memory capped it near half the 67 TFLOP/s fp32
+// rate: 3.03 ms at smollm's shape, 10% of the bound.  Its tiles were staged
+// by plain loads between barriers, so no copy overlapped the arithmetic.
+// This design takes 1.49 ms there (dK/dV 0.88, dQ 0.58, delta 0.02), 20%
+// of the bound (NVIDIA H100 80GB HBM3, 700 W; the first design 3.06 ms in
+// the same run).
+//
+// Design.
+// - Tensor cores, fp32 as 3xTF32, as flash_attention.cu does it: every
+//   product runs on mma.sync.m16n8k8 with tf32 operands and fp32
+//   accumulators; each fp32 operand x is split in registers into hi (x
+//   rounded as cvt.rna.tf32 rounds) and lo = x - hi, and each product is
+//   hi*lo + lo*hi + hi*hi (lo*lo dropped), the two small products first.
+//   One TF32 product misses the 1e-5 gate; three meet it
+//   (tests/test_torch_tf32_split_bwd.py emulates both on the CPU, in these
+//   kernels' tile and accumulation order).  mma.sync and not wgmma: wgmma
+//   reads tf32 operands K-major from shared memory only, so the split would
+//   need hi and lo copies of every tile there (twice the 105 KB a block
+//   stages at D 64, more than a block has at D 128) and Q/dO transposed
+//   copies for dK and dV; mma.sync splits in registers.  Splitting each
+//   staged tile once into hi and lo planes in shared memory instead (twice
+//   the bytes and the loads, none of the split's arithmetic in the inner
+//   loops) was slower on the card: dK/dV 0.961 ms against 0.871, dQ 0.712
+//   against 0.581 (H100 80GB HBM3, 700 W).  The loads, not the arithmetic,
+//   hold these loops.
+// - The tensor cores round each mma's sum toward zero, so a sum kept in
+//   their accumulators drifts: dk and dv kept there for a whole walk (1,152
+//   mma.sync in a chain at smollm's shape) came out 1.2e-4 of dk's 4.0 low
+//   on the card, beyond the gate.  So each stage's product is taken in fresh
+//   accumulators (12 mma.sync in a chain) and added to the running sums in
+//   fp32, rounded to nearest; s and dp (24 in a chain at D 64) start from
+//   zero each stage anyway.  The CPU rehearsal models the rounding.
+// - Three kernels on one stream, launched by one entry point: delta (one warp
+//   a row), dK/dV (one block a key tile), dQ (one block a query tile).  Both
+//   big kernels have the same shape: 8 warps, 4 row slices of 16 rows (the
+//   mma's M) by 2 column halves of 32 columns of each 64-wide stage; every
+//   warp keeps its own partial sums, and at the end the two halves of a
+//   slice meet in shared memory, half 0 adding half 1's.
+// - dK/dV with the keys on M.  A block owns 64 keys of one (batch, kv head)
+//   and walks the q heads of the GQA group, each over the query tiles that
+//   see its keys, in that fixed order.  A warp computes s^T = K Q^T and dp^T =
+//   V dO^T for its 16 keys and 32 queries, then p^T = 2^(s^T scale log2 e -
+//   lse log2 e) (ex2 on the special-function unit) and ds^T = p^T (dp^T -
+//   delta) in the accumulators' layout (lse and delta are per column), and
+//   feeds them as the A fragments of dv += p^T dO and dk += ds^T Q: the 8
+//   queries of each k step are taken in the order 0, 2, 4, 6, 1, 3, 5, 7, so
+//   the accumulators are the A fragment as they stand (the forward's P V
+//   trick) and nothing goes through shared memory.  K and V stay resident
+//   in shared memory (at D 128 the registers cannot hold them beside dk and
+//   dv); Q, dO, lse and delta arrive through a cp.async ring of 2 stages, so
+//   the next stage's copy runs under this one's products.  dk and dv (2 x
+//   D/8 x 4 sums a thread) stay in registers for the whole walk.
+// - dQ as the forward.  A block owns 64 queries of one (batch, q head); Q,
+//   dO, lse and delta are staged once, K and V tiles of 64 keys arrive
+//   through a cp.async ring of 2 stages.  A warp computes s = Q K^T and dp =
+//   dO V^T for its 16 queries and 32 keys, p and ds in place, and dq += ds K
+//   with ds as the A fragment.  It recomputes s and dp: seven products where
+//   the bound counts five (the floor of this count at 495 TFLOP/s is 0.41
+//   ms).  Taking dq from the dK/dV walk instead (five products) needs a sum
+//   over key tiles: atomics (an order that changes from launch to launch)
+//   or a partial dq a key tile summed in a fixed order by a second pass,
+//   about 0.3 GB of scratch a call at smollm's shape.  The port relies on
+//   two launches giving the same bits (chip_smoke.py phase 20a, bit-equal
+//   resumes), so the two products are paid instead.
+// - Deterministic: no atomics; every output element is written once, by
+//   one thread, after sums taken in a fixed order.
+// - Whole tiles outside the masks are skipped, as is a warp's quarter of a
+//   stage that no pair of it sees; a quarter that every pair of it sees
+//   skips the mask.  Key tiles that no query sees get zero dk and dv.  The
+//   grids put the blocks with the most work first (key tiles from the left,
+//   query tiles from the right) across every batch and head.  At smollm's
+//   shape the 384 dK/dV blocks are uneven (the longest walks 96 stages in
+//   0.53 ms alone); the card's dK/dV time grows from 0.88 ms at B 4 to 1.60
+//   at B 8, so the tail costs about a tenth.
+// - Rows are padded by 16 bytes (stride D + 4 words): the 8 rows x 4
+//   columns a fragment load touches, and the 4 row pairs x 8 columns of a
+//   B fragment of dv, dk and dq, fall on 32 distinct banks.
+// - Resources (cudaFuncGetAttributes on the card, H100 80GB HBM3): 256
+//   threads; dK/dV at D 64 219 registers, 105,472 shared bytes, 1 block an
+//   SM (capped at 2 blocks it spilled and ran 8% slower); dQ at D 64 128
+//   registers, 104,960 bytes, 2 blocks an SM; at D 128 255 (24 bytes of
+//   spill) and 212 registers, about 204 KB, 1 block.
+//   flash_attention_bwd_resources reports each instance.
+//
+// The tile sizes kKeys and kQueries are BWD_BLOCK_KEYS and BWD_BLOCK_QUERIES
+// in kernels/flash_attention.py, which the CPU rehearsal reads.
 //
 // Plain C interface, bound from Python with ctypes: pointers and the stream
 // as void*, sizes as int64; the entry returns cudaGetLastError() after its
@@ -59,23 +127,218 @@
 
 namespace {
 
-constexpr int kThreads = 256;               // 16 x 16
-constexpr int kTile = 64;                   // queries a query tile, keys a key tile
-constexpr int kSP = kTile + 1;              // row stride of a [64][64] tile
+constexpr int kWarps = 8;                   // 4 row slices x 2 column halves
+constexpr int kThreads = 32 * kWarps;
+constexpr int kKeys = 64;                   // keys a dK/dV block and a dQ stage
+constexpr int kQueries = 64;                // queries a dQ block and a dK/dV stage
+constexpr int kStages = 2;
+constexpr int kHalf = 32;                   // columns a warp takes from a stage
+constexpr int kNT = kHalf / 8;              // its 8-column tiles
+static_assert(kKeys == 2 * kHalf && kQueries == 2 * kHalf, "2 column halves a stage");
+static_assert(kKeys == 4 * 16 && kQueries == 4 * 16, "4 row slices of 16 a block");
 
+__host__ __device__ constexpr int row_stride(int d) { return d + 4; }
+// dQ blocks an SM that its register budget is set for (dK/dV's is one, for
+// its dk and dv sums): at D 64, two took dQ from 0.725 to 0.680 ms at
+// smollm's shape, and would take dK/dV from 1.006 to 1.091 (H100 80GB HBM3,
+// 700 W)
+__host__ __device__ constexpr int dq_min_blocks(int d) { return d <= 64 ? 2 : 1; }
+
+// K, V; a stage: Q, dO, lse, delta
 template <int D>
-constexpr size_t dkdv_smem() {              // K, V, Q, dO; P, dS; lse, delta
-  return sizeof(float) * ((size_t)4 * kTile * (D + 1) + 2 * kTile * kSP + 2 * kTile);
+__host__ __device__ constexpr size_t dkdv_smem() {
+  return sizeof(float) * ((size_t)2 * kKeys * row_stride(D) +
+                          kStages * ((size_t)2 * kQueries * row_stride(D) + 2 * kQueries));
 }
+// Q, dO, lse, delta; a stage: K, V
 template <int D>
-constexpr size_t dq_smem() {                // Q, dO, K, V; dS; lse, delta
-  return sizeof(float) * ((size_t)4 * kTile * (D + 1) + kTile * kSP + 2 * kTile);
+__host__ __device__ constexpr size_t dq_smem() {
+  return sizeof(float) * ((size_t)2 * kQueries * row_stride(D) + 2 * kQueries +
+                          (size_t)kStages * 2 * kKeys * row_stride(D));
+}
+// bytes the halves' merge parks: 128 threads' m outputs of D / 8 float4s
+__host__ __device__ constexpr size_t park_bytes(int m, int d) {
+  return (size_t)m * (d / 8) * 128 * 16;
 }
 
 struct Shape {
   int hq, hkv, lq, lk, causal, window;
   float scale;
 };
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool fill) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(src),
+               "r"(fill ? 16 : 0));
+}
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, bool fill) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s), "l"(src),
+               "r"(fill ? 4 : 0));
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// x = hi + lo: hi is x rounded to TF32 as cvt.rna.tf32.f32 rounds (add half
+// a TF32 ulp to the bits, clear the low 13); lo = x - hi is exact, and the
+// tensor cores read its top 19 bits.
+__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
+  hi = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+  lo = __float_as_uint(x - __uint_as_float(hi));
+}
+
+constexpr float kLog2e = 1.4426950408889634f;
+
+// 2^x on the special-function unit (relative error about 2^-22)
+__device__ __forceinline__ float ex2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2]) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0,%1,%2,%3}, "
+      "{%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// c0 = a0 b0^T and c1 = a1 b1^T over D, for the warp's 16 rows of a0, a1 and
+// the kHalf rows of b0, b1 (all shared memory, row stride D + 4): c[j] holds
+// rows g, g + 8 and columns 8 j + 2 t, 8 j + 2 t + 1.  Three TF32 products a
+// k step, the small ones first; the two results' 2 kNT accumulators are
+// independent chains, taken in turn.
+template <int D>
+__device__ __forceinline__ void gemm_nt2(float (&c0)[kNT][4], const float* a0, const float* b0,
+                                         float (&c1)[kNT][4], const float* a1, const float* b1,
+                                         int g, int t) {
+  constexpr int S = row_stride(D);
+#pragma unroll
+  for (int j = 0; j < kNT; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) c0[j][e] = c1[j][e] = 0.0f;
+#pragma unroll 2
+  for (int kk = 0; kk < D / 8; ++kk) {
+    uint32_t ah[2][4], al[2][4];
+#pragma unroll
+    for (int m = 0; m < 2; ++m) {
+      const float* pa = (m ? a1 : a0) + g * S + 8 * kk + t;
+      split(pa[0], ah[m][0], al[m][0]);
+      split(pa[8 * S], ah[m][1], al[m][1]);
+      split(pa[4], ah[m][2], al[m][2]);
+      split(pa[8 * S + 4], ah[m][3], al[m][3]);
+    }
+#pragma unroll
+    for (int j = 0; j < kNT; ++j)
+#pragma unroll
+      for (int m = 0; m < 2; ++m) {
+        const float* pb = (m ? b1 : b0) + (8 * j + g) * S + 8 * kk + t;
+        uint32_t bh[2], bl[2];
+        split(pb[0], bh[0], bl[0]);
+        split(pb[4], bh[1], bl[1]);
+        float (&c)[4] = m ? c1[j] : c0[j];
+        mma_tf32(c, ah[m], bl);
+        mma_tf32(c, al[m], bh);
+        mma_tf32(c, ah[m], bh);
+      }
+  }
+}
+
+// o += p x over the warp's kHalf columns of p (accumulators of gemm_nt2) and
+// the kHalf rows of x (shared memory): the k index t of an 8-column tile is
+// column 2 t and t + 4 is 2 t + 1, so p's accumulators are the A fragment as
+// they stand; x's rows are read in the same order.  Each 8-column block of o
+// takes the stage's product in a fresh accumulator and adds it to o in fp32,
+// rounded to nearest (the tensor cores round toward zero: see the header).
+template <int D>
+__device__ __forceinline__ void gemm_nn(float (&o)[D / 8][4], const float (&p)[kNT][4],
+                                        const float* x, int g, int t) {
+  constexpr int S = row_stride(D);
+  uint32_t ph[kNT][4], pl[kNT][4];
+#pragma unroll
+  for (int j = 0; j < kNT; ++j) {
+    split(p[j][0], ph[j][0], pl[j][0]);
+    split(p[j][2], ph[j][1], pl[j][1]);
+    split(p[j][1], ph[j][2], pl[j][2]);
+    split(p[j][3], ph[j][3], pl[j][3]);
+  }
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n) {
+    float c[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+#pragma unroll
+    for (int j = 0; j < kNT; ++j) {
+      const float* pb = x + (8 * j + 2 * t) * S + 8 * n + g;
+      uint32_t bh[2], bl[2];
+      split(pb[0], bh[0], bl[0]);
+      split(pb[S], bh[1], bl[1]);
+      mma_tf32(c, ph[j], bl);
+      mma_tf32(c, pl[j], bh);
+      mma_tf32(c, ph[j], bh);
+    }
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[n][e] += c[e];
+  }
+}
+
+// rows [r0, r0 + 64) of a [len, D] matrix into a [64][D + 4] tile by cp.async,
+// zeros past len
+template <int D>
+__device__ __forceinline__ void stage_rows(float* dst, const float* __restrict__ src, int r0,
+                                           int len) {
+  constexpr int kChunks = D / 4;            // 16-byte copies a row
+  for (int i = threadIdx.x; i < 64 * kChunks; i += kThreads) {
+    const int r = i / kChunks, c = (i % kChunks) * 4;
+    const bool ok = r0 + r < len;
+    cp_async16(dst + r * row_stride(D) + c, src + (int64_t)(ok ? r0 + r : 0) * D + c, ok);
+  }
+}
+
+// 64 values of a row vector from r0 by cp.async, zeros past len
+__device__ __forceinline__ void stage_vec(float* dst, const float* __restrict__ src, int r0,
+                                          int len) {
+  if (threadIdx.x < 64) {
+    const bool ok = r0 + (int)threadIdx.x < len;
+    cp_async4(dst + threadIdx.x, src + (ok ? r0 + threadIdx.x : 0), ok);
+  }
+}
+
+__device__ __forceinline__ bool seen(int qpos, int key, int lk, int causal, int window) {
+  return key < lk && (!causal || key <= qpos) && (window <= 0 || key > qpos - window);
+}
+
+// whether some pair of rows [q, q + nq) and keys [k, k + nk) can be seen
+__device__ __forceinline__ bool any_seen(int q, int nq, int k, int nk, const Shape& sh) {
+  const int offset = sh.lk - sh.lq;
+  const int qlast = min(q + nq, sh.lq) - 1;
+  return q < sh.lq && k < sh.lk && (!sh.causal || k <= qlast + offset) &&
+         (sh.window <= 0 || k + nk - 1 > q + offset - sh.window);
+}
+
+// whether every pair of rows [q, q + nq) and keys [k, k + nk) is seen
+__device__ __forceinline__ bool all_seen(int q, int nq, int k, int nk, const Shape& sh) {
+  const int offset = sh.lk - sh.lq;
+  return q + nq <= sh.lq && k + nk <= sh.lk && (!sh.causal || k + nk - 1 <= q + offset) &&
+         (sh.window <= 0 || k > q + nq - 1 + offset - sh.window);
+}
+
+// the queries [lo, hi) that can see a key in [k0, k0 + kKeys)
+__device__ __forceinline__ void query_range(int k0, const Shape& sh, int& lo, int& hi) {
+  const int offset = sh.lk - sh.lq;
+  lo = sh.causal ? max(0, k0 - offset) : 0;
+  hi = sh.window > 0 ? min(sh.lq, k0 + kKeys - 1 + sh.window - offset) : sh.lq;
+}
+
+// the keys [lo, hi) that a query in [q0, q0 + kQueries) can see
+__device__ __forceinline__ void key_range(int q0, const Shape& sh, int& lo, int& hi) {
+  const int offset = sh.lk - sh.lq;
+  const int last = min(q0 + kQueries, sh.lq) - 1;
+  lo = sh.window > 0 ? max(0, q0 + offset - sh.window + 1) : 0;
+  hi = sh.causal ? min(sh.lk, last + offset + 1) : sh.lk;
+}
 
 // delta[r] = sum_d dout[r][d] out[r][d]: one warp a row, 8 rows a block
 __global__ void __launch_bounds__(kThreads)
@@ -94,264 +357,243 @@ flash_attention_bwd_delta_kernel(const float* __restrict__ out,
   if (lane == 0) delta[row] = s;
 }
 
-// rows [r0, r0 + 64) of a [len, D] matrix into a [64][D + 1] tile, zeros past len
-template <int D>
-__device__ __forceinline__ void load_tile(float* dst, const float* __restrict__ src, int r0,
-                                          int len) {
-  const int n = min(kTile, len - r0) * D;
-  for (int i = threadIdx.x; i < kTile * D; i += kThreads)
-    dst[(i / D) * (D + 1) + i % D] = i < n ? src[(int64_t)r0 * D + i] : 0.0f;
-}
-
-__device__ __forceinline__ bool seen(int qpos, int key, int lk, int causal, int window) {
-  return key < lk && (!causal || key <= qpos) && (window <= 0 || key > qpos - window);
-}
-
-// For the thread's 4 x 4 block (query rows ty + 16 r of the query tile at q0,
-// keys tx + 16 c of the key tile at k0): p = exp(s - lse) and ds = p (dp -
-// delta), 0 where the masks hide the key or the row is past Lq.
-template <int D>
-__device__ __forceinline__ void probs(const float* qs, const float* dos, const float* ks,
-                                      const float* vs, const float* lse_s,
-                                      const float* delta_s, int q0, int k0, const Shape& sh,
-                                      float (&p)[4][4], float (&ds)[4][4]) {
-  constexpr int S = D + 1;
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-  float s[4][4], dp[4][4];
+// The two column halves of each row slice meet: half 1 parks its D/8 x 4
+// sums of each of M outputs in shared memory, half 0 adds them to its own.
+// Returns false for half 1, whose part is done.
+template <int D, int M>
+__device__ __forceinline__ bool merge_halves(float4* smem4, float (&acc)[M][D / 8][4]) {
+  const int tid = threadIdx.x & 127;        // slice * 32 + lane
+  __syncthreads();                          // every stage consumed
+  if (threadIdx.x >= 128) {
 #pragma unroll
-  for (int r = 0; r < 4; ++r)
+    for (int m = 0; m < M; ++m)
 #pragma unroll
-    for (int c = 0; c < 4; ++c) s[r][c] = dp[r][c] = 0.0f;
-#pragma unroll 4
-  for (int d = 0; d < D; ++d) {
-    float qa[4], ga[4], kb[4], vb[4];
-#pragma unroll
-    for (int r = 0; r < 4; ++r) {
-      qa[r] = qs[(ty + 16 * r) * S + d];
-      ga[r] = dos[(ty + 16 * r) * S + d];
-    }
-#pragma unroll
-    for (int c = 0; c < 4; ++c) {
-      kb[c] = ks[(tx + 16 * c) * S + d];
-      vb[c] = vs[(tx + 16 * c) * S + d];
-    }
-#pragma unroll
-    for (int r = 0; r < 4; ++r)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        s[r][c] = fmaf(qa[r], kb[c], s[r][c]);
-        dp[r][c] = fmaf(ga[r], vb[c], dp[r][c]);
-      }
+      for (int n = 0; n < D / 8; ++n)
+        smem4[(m * (D / 8) + n) * 128 + tid] =
+            make_float4(acc[m][n][0], acc[m][n][1], acc[m][n][2], acc[m][n][3]);
   }
-  const int offset = sh.lk - sh.lq;
+  __syncthreads();
+  if (threadIdx.x >= 128) return false;
 #pragma unroll
-  for (int r = 0; r < 4; ++r) {
-    const int i = ty + 16 * r, query = q0 + i;
-    const float l = lse_s[i], dl = delta_s[i];
+  for (int m = 0; m < M; ++m)
 #pragma unroll
-    for (int c = 0; c < 4; ++c) {
-      const bool ok = query < sh.lq && seen(query + offset, k0 + tx + 16 * c, sh.lk,
-                                            sh.causal, sh.window);
-      p[r][c] = ok ? expf(s[r][c] * sh.scale - l) : 0.0f;
-      ds[r][c] = p[r][c] * (dp[r][c] - dl);
+    for (int n = 0; n < D / 8; ++n) {
+      const float4 x = smem4[(m * (D / 8) + n) * 128 + tid];
+      acc[m][n][0] += x.x;
+      acc[m][n][1] += x.y;
+      acc[m][n][2] += x.z;
+      acc[m][n][3] += x.w;
     }
+  return true;
+}
+
+// the thread's rows g and g + 8 of a slice's D columns: 8 n + 2 t and + 1
+template <int D>
+__device__ __forceinline__ void store_rows(float* dst, int r0, int len,
+                                           const float (&acc)[D / 8][4], float mul, int g,
+                                           int t) {
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = r0 + g + 8 * h;
+    if (r >= len) continue;
+    float* p = dst + (int64_t)r * D + 2 * t;
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n)
+      *reinterpret_cast<float2*>(p + 8 * n) =
+          make_float2(acc[n][2 * h] * mul, acc[n][2 * h + 1] * mul);
   }
-}
-
-// the queries [lo, hi) that can see a key in [k0, k0 + 64)
-__device__ __forceinline__ void query_range(int k0, const Shape& sh, int& lo, int& hi) {
-  const int offset = sh.lk - sh.lq;
-  lo = sh.causal ? max(0, k0 - offset) : 0;
-  hi = sh.window > 0 ? min(sh.lq, k0 + kTile - 1 + sh.window - offset) : sh.lq;
-}
-
-// the keys [lo, hi) that a query in [q0, q0 + 64) can see
-__device__ __forceinline__ void key_range(int q0, const Shape& sh, int& lo, int& hi) {
-  const int offset = sh.lk - sh.lq;
-  const int last = min(q0 + kTile, sh.lq) - 1;
-  lo = sh.window > 0 ? max(0, q0 + offset - sh.window + 1) : 0;
-  hi = sh.causal ? min(sh.lk, last + offset + 1) : sh.lk;
 }
 
 // One block a (batch, kv head, key tile): dk and dv of its 64 keys, summed
 // over every query tile of every q head of the group that sees them.
 template <int D>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, 1)
 flash_attention_bwd_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
                                 const float* __restrict__ v, const float* __restrict__ dout,
                                 const float* __restrict__ lse,
                                 const float* __restrict__ delta, float* __restrict__ dk,
                                 float* __restrict__ dv, Shape sh) {
-  constexpr int S = D + 1, C = D / 16;
-  extern __shared__ float smem[];
-  float* ks = smem;
-  float* vs = ks + kTile * S;
-  float* qs = vs + kTile * S;
-  float* dos = qs + kTile * S;
-  float* ps = dos + kTile * S;
-  float* dss = ps + kTile * kSP;
-  float* lse_s = dss + kTile * kSP;
-  float* delta_s = lse_s + kTile;
+  constexpr int S = row_stride(D);
+  constexpr int kStage = 2 * kQueries * S + 2 * kQueries;   // Q, dO, lse, delta
+  static_assert(park_bytes(2, D) <= dkdv_smem<D>(), "dk and dv park in shared memory");
+  extern __shared__ float4 smem4[];
+  float* ks = reinterpret_cast<float*>(smem4);             // [kKeys][S]
+  float* vs = ks + kKeys * S;
+  float* ring = vs + kKeys * S;                            // [kStages][kStage]
 
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-  const int ntiles = (sh.lk + kTile - 1) / kTile;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int slice = warp & 3, half = warp >> 2;
+  const int g = lane >> 2, t = lane & 3;
+  const int ntiles = (sh.lk + kKeys - 1) / kKeys;
   const int nbh = gridDim.x / ntiles;
-  const int k0 = ((int)blockIdx.x / nbh) * kTile;       // the most-seen key tiles first
+  const int k0 = ((int)blockIdx.x / nbh) * kKeys;          // the most-seen key tiles first
   const int hk = (int)blockIdx.x % nbh % sh.hkv, b = (int)blockIdx.x % nbh / sh.hkv;
   const int group = sh.hq / sh.hkv;
+  const int offset = sh.lk - sh.lq;
   const int64_t kv_off = ((int64_t)b * sh.hkv + hk) * sh.lk * D;
-  load_tile<D>(ks, k + kv_off, k0, sh.lk);
-  load_tile<D>(vs, v + kv_off, k0, sh.lk);
-
-  float acc_k[4][C], acc_v[4][C];
-#pragma unroll
-  for (int r = 0; r < 4; ++r)
-#pragma unroll
-    for (int c = 0; c < C; ++c) acc_k[r][c] = acc_v[r][c] = 0.0f;
 
   int lo, hi;
   query_range(k0, sh, lo, hi);
-  const int t_lo = lo / kTile, t_hi = hi > lo ? (hi + kTile - 1) / kTile : t_lo;
-  for (int gh = 0; gh < group; ++gh) {
-    const int h = hk * group + gh;
-    const int64_t q_off = ((int64_t)b * sh.hq + h) * sh.lq;
-    for (int t = t_lo; t < t_hi; ++t) {
-      const int q0 = t * kTile;
-      __syncthreads();                      // the last tile's readers are done
-      load_tile<D>(qs, q + q_off * D, q0, sh.lq);
-      load_tile<D>(dos, dout + q_off * D, q0, sh.lq);
-      if (threadIdx.x < kTile) {
-        const bool ok = q0 + (int)threadIdx.x < sh.lq;
-        lse_s[threadIdx.x] = ok ? lse[q_off + q0 + threadIdx.x] : 0.0f;
-        delta_s[threadIdx.x] = ok ? delta[q_off + q0 + threadIdx.x] : 0.0f;
-      }
-      __syncthreads();
-      float p[4][4], ds[4][4];
-      probs<D>(qs, dos, ks, vs, lse_s, delta_s, q0, k0, sh, p, ds);
+  const int t_lo = lo / kQueries;
+  const int nt = hi > lo ? (hi + kQueries - 1) / kQueries - t_lo : 0;
+  const int steps = group * nt;             // (q head, query tile), heads outermost
+
+  auto load_stage = [&](int s) {
+    const int h = hk * group + s / nt, q0 = (t_lo + s % nt) * kQueries;
+    const int64_t row0 = ((int64_t)b * sh.hq + h) * sh.lq;
+    float* st = ring + (s % kStages) * kStage;
+    stage_rows<D>(st, q + row0 * D, q0, sh.lq);
+    stage_rows<D>(st + kQueries * S, dout + row0 * D, q0, sh.lq);
+    stage_vec(st + 2 * kQueries * S, lse + row0, q0, sh.lq);
+    stage_vec(st + 2 * kQueries * S + kQueries, delta + row0, q0, sh.lq);
+    cp_async_commit();
+  };
+
+  float acc[2][D / 8][4];                   // dk, dv
 #pragma unroll
-      for (int r = 0; r < 4; ++r)
+  for (int m = 0; m < 2; ++m)
 #pragma unroll
-        for (int c = 0; c < 4; ++c) {
-          ps[(ty + 16 * r) * kSP + tx + 16 * c] = p[r][c];
-          dss[(ty + 16 * r) * kSP + tx + 16 * c] = ds[r][c];
-        }
-      __syncthreads();
-      // dv[j] += p[:, j]^T dout, dk[j] += ds[:, j]^T q: the thread's keys are
-      // ty + 16 r, its columns tx + 16 c
-#pragma unroll 2
-      for (int i = 0; i < kTile; ++i) {
-        float pj[4], dj[4], g[C], x[C];
+    for (int n = 0; n < D / 8; ++n)
 #pragma unroll
-        for (int r = 0; r < 4; ++r) {
-          pj[r] = ps[i * kSP + ty + 16 * r];
-          dj[r] = dss[i * kSP + ty + 16 * r];
-        }
-#pragma unroll
-        for (int c = 0; c < C; ++c) {
-          g[c] = dos[i * S + tx + 16 * c];
-          x[c] = qs[i * S + tx + 16 * c];
-        }
-#pragma unroll
-        for (int r = 0; r < 4; ++r)
-#pragma unroll
-          for (int c = 0; c < C; ++c) {
-            acc_v[r][c] = fmaf(pj[r], g[c], acc_v[r][c]);
-            acc_k[r][c] = fmaf(dj[r], x[c], acc_k[r][c]);
-          }
-      }
-    }
+      for (int e = 0; e < 4; ++e) acc[m][n][e] = 0.0f;
+
+  const int kw = k0 + 16 * slice;           // the warp's first key
+  const int key[2] = {kw + g, kw + g + 8};
+  if (steps > 0) {
+    stage_rows<D>(ks, k + kv_off, k0, sh.lk);   // K and V join the first stage's group
+    stage_rows<D>(vs, v + kv_off, k0, sh.lk);
+    load_stage(0);
   }
-#pragma unroll
-  for (int r = 0; r < 4; ++r) {
-    const int key = k0 + ty + 16 * r;
-    if (key >= sh.lk) continue;
-    const int64_t o = kv_off + (int64_t)key * D;
-#pragma unroll
-    for (int c = 0; c < C; ++c) {
-      dk[o + tx + 16 * c] = acc_k[r][c] * sh.scale;
-      dv[o + tx + 16 * c] = acc_v[r][c];
+  for (int s = 0; s < steps; ++s) {
+    if (s + 1 < steps) {
+      load_stage(s + 1);                    // its stage was freed by the last barrier
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
     }
+    __syncthreads();                        // stage s visible to every thread
+    const int qw = (t_lo + s % nt) * kQueries + kHalf * half;   // the warp's first query
+    if (any_seen(qw, kHalf, kw, 16, sh)) {
+      const float* st = ring + (s % kStages) * kStage;
+      const float* qs = st + kHalf * half * S;
+      const float* dos = st + kQueries * S + kHalf * half * S;
+      const float* ls = st + 2 * kQueries * S + kHalf * half;
+      const float* dls = ls + kQueries;
+      float p[kNT][4], ds[kNT][4];
+      gemm_nt2<D>(p, ks + 16 * slice * S, qs, ds, vs + 16 * slice * S, dos, g, t);  // s^T, dp^T
+      const bool full = all_seen(qw, kHalf, kw, 16, sh);   // no mask inside
+#pragma unroll
+      for (int j = 0; j < kNT; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int col = 8 * j + 2 * t + (e & 1), query = qw + col;
+          float pe = ex2_approx(fmaf(p[j][e], sh.scale * kLog2e, -ls[col] * kLog2e));
+          if (!full && !(query < sh.lq && seen(query + offset, key[e >> 1], sh.lk, sh.causal,
+                                               sh.window)))
+            pe = 0.0f;
+          p[j][e] = pe;
+          ds[j][e] = pe * (ds[j][e] - dls[col]);
+        }
+      gemm_nn<D>(acc[1], p, dos, g, t);     // dv += p^T dO
+      gemm_nn<D>(acc[0], ds, qs, g, t);     // dk += ds^T Q
+    }
+    __syncthreads();                        // the stage is consumed
   }
+  if (!merge_halves<D, 2>(smem4, acc)) return;
+  store_rows<D>(dk + kv_off, kw, sh.lk, acc[0], sh.scale, g, t);
+  store_rows<D>(dv + kv_off, kw, sh.lk, acc[1], 1.0f, g, t);
 }
 
 // One block a (batch, q head, query tile): dq of its 64 queries, summed over
 // the key tiles they see.
 template <int D>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, dq_min_blocks(D))
 flash_attention_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
                               const float* __restrict__ v, const float* __restrict__ dout,
                               const float* __restrict__ lse, const float* __restrict__ delta,
                               float* __restrict__ dq, Shape sh) {
-  constexpr int S = D + 1, C = D / 16;
-  extern __shared__ float smem[];
-  float* qs = smem;
-  float* dos = qs + kTile * S;
-  float* ks = dos + kTile * S;
-  float* vs = ks + kTile * S;
-  float* dss = vs + kTile * S;
-  float* lse_s = dss + kTile * kSP;
-  float* delta_s = lse_s + kTile;
+  constexpr int S = row_stride(D);
+  static_assert(park_bytes(1, D) <= dq_smem<D>(), "dq parks in shared memory");
+  extern __shared__ float4 smem4[];
+  float* qs = reinterpret_cast<float*>(smem4);             // [kQueries][S]
+  float* dos = qs + kQueries * S;
+  float* ls = dos + kQueries * S;                          // lse, delta [kQueries]
+  float* ring = ls + 2 * kQueries;                         // [kStages][K, V][kKeys][S]
 
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-  const int ntiles = (sh.lq + kTile - 1) / kTile;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int slice = warp & 3, half = warp >> 2;
+  const int g = lane >> 2, t = lane & 3;
+  const int ntiles = (sh.lq + kQueries - 1) / kQueries;
   const int nbh = gridDim.x / ntiles;
-  const int q0 = (ntiles - 1 - (int)blockIdx.x / nbh) * kTile;   // the most keys first
+  const int q0 = (ntiles - 1 - (int)blockIdx.x / nbh) * kQueries;   // the most keys first
   const int h = (int)blockIdx.x % nbh % sh.hq, b = (int)blockIdx.x % nbh / sh.hq;
   const int hk = h / (sh.hq / sh.hkv);
-  const int64_t q_off = ((int64_t)b * sh.hq + h) * sh.lq;
+  const int offset = sh.lk - sh.lq;
+  const int64_t row0 = ((int64_t)b * sh.hq + h) * sh.lq;
   const int64_t kv_off = ((int64_t)b * sh.hkv + hk) * sh.lk * D;
-  load_tile<D>(qs, q + q_off * D, q0, sh.lq);
-  load_tile<D>(dos, dout + q_off * D, q0, sh.lq);
-  if (threadIdx.x < kTile) {
-    const bool ok = q0 + (int)threadIdx.x < sh.lq;
-    lse_s[threadIdx.x] = ok ? lse[q_off + q0 + threadIdx.x] : 0.0f;
-    delta_s[threadIdx.x] = ok ? delta[q_off + q0 + threadIdx.x] : 0.0f;
-  }
-
-  float acc[4][C];
-#pragma unroll
-  for (int r = 0; r < 4; ++r)
-#pragma unroll
-    for (int c = 0; c < C; ++c) acc[r][c] = 0.0f;
 
   int lo, hi;
   key_range(q0, sh, lo, hi);
-  const int t_lo = lo / kTile, t_hi = hi > lo ? (hi + kTile - 1) / kTile : t_lo;
-  for (int t = t_lo; t < t_hi; ++t) {
-    const int k0 = t * kTile;
-    __syncthreads();                        // the last tile's readers are done
-    load_tile<D>(ks, k + kv_off, k0, sh.lk);
-    load_tile<D>(vs, v + kv_off, k0, sh.lk);
-    __syncthreads();
-    float p[4][4], ds[4][4];
-    probs<D>(qs, dos, ks, vs, lse_s, delta_s, q0, k0, sh, p, ds);
+  const int t_lo = lo / kKeys;
+  const int nt = hi > lo ? (hi + kKeys - 1) / kKeys - t_lo : 0;
+
+  auto load_stage = [&](int s) {
+    const int kt = (t_lo + s) * kKeys;
+    float* st = ring + (s % kStages) * 2 * kKeys * S;
+    stage_rows<D>(st, k + kv_off, kt, sh.lk);
+    stage_rows<D>(st + kKeys * S, v + kv_off, kt, sh.lk);
+    cp_async_commit();
+  };
+
+  float acc[1][D / 8][4];
 #pragma unroll
-    for (int r = 0; r < 4; ++r)
+  for (int n = 0; n < D / 8; ++n)
 #pragma unroll
-      for (int c = 0; c < 4; ++c) dss[(ty + 16 * r) * kSP + tx + 16 * c] = ds[r][c];
-    __syncthreads();
-    // dq[i] += ds[i, :] k: the thread's queries are ty + 16 r, its columns tx + 16 c
-#pragma unroll 2
-    for (int j = 0; j < kTile; ++j) {
-      float dj[4], kj[C];
-#pragma unroll
-      for (int r = 0; r < 4; ++r) dj[r] = dss[(ty + 16 * r) * kSP + j];
-#pragma unroll
-      for (int c = 0; c < C; ++c) kj[c] = ks[j * S + tx + 16 * c];
-#pragma unroll
-      for (int r = 0; r < 4; ++r)
-#pragma unroll
-        for (int c = 0; c < C; ++c) acc[r][c] = fmaf(dj[r], kj[c], acc[r][c]);
+    for (int e = 0; e < 4; ++e) acc[0][n][e] = 0.0f;
+
+  const int qw = q0 + 16 * slice;           // the warp's first query
+  const int query[2] = {qw + g, qw + g + 8};
+  if (nt > 0) {
+    stage_rows<D>(qs, q + row0 * D, q0, sh.lq);   // Q, dO, lse, delta join the first group
+    stage_rows<D>(dos, dout + row0 * D, q0, sh.lq);
+    stage_vec(ls, lse + row0, q0, sh.lq);
+    stage_vec(ls + kQueries, delta + row0, q0, sh.lq);
+    load_stage(0);
+  }
+  for (int s = 0; s < nt; ++s) {
+    if (s + 1 < nt) {
+      load_stage(s + 1);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
     }
-  }
+    __syncthreads();
+    const int kw = (t_lo + s) * kKeys + kHalf * half;   // the warp's first key
+    if (any_seen(qw, 16, kw, kHalf, sh)) {
+      const float* kst = ring + (s % kStages) * 2 * kKeys * S + kHalf * half * S;
+      const float* vst = kst + kKeys * S;
+      const float l[2] = {ls[16 * slice + g] * kLog2e, ls[16 * slice + g + 8] * kLog2e};
+      const float dl[2] = {ls[kQueries + 16 * slice + g], ls[kQueries + 16 * slice + g + 8]};
+      float p[kNT][4], ds[kNT][4];
+      gemm_nt2<D>(p, qs + 16 * slice * S, kst, ds, dos + 16 * slice * S, vst, g, t);  // s, dp
+      const bool full = all_seen(qw, 16, kw, kHalf, sh);   // no mask inside
 #pragma unroll
-  for (int r = 0; r < 4; ++r) {
-    const int query = q0 + ty + 16 * r;
-    if (query >= sh.lq) continue;
-    const int64_t o = (q_off + query) * D;
+      for (int j = 0; j < kNT; ++j)
 #pragma unroll
-    for (int c = 0; c < C; ++c) dq[o + tx + 16 * c] = acc[r][c] * sh.scale;
+        for (int e = 0; e < 4; ++e) {
+          const int r = e >> 1, kk = kw + 8 * j + 2 * t + (e & 1);
+          float pe = ex2_approx(fmaf(p[j][e], sh.scale * kLog2e, -l[r]));
+          if (!full && !(query[r] < sh.lq &&
+                         seen(query[r] + offset, kk, sh.lk, sh.causal, sh.window)))
+            pe = 0.0f;
+          ds[j][e] = pe * (ds[j][e] - dl[r]);
+        }
+      gemm_nn<D>(acc[0], ds, kst, g, t);    // dq += ds K
+    }
+    __syncthreads();
   }
+  if (!merge_halves<D, 1>(smem4, acc)) return;
+  store_rows<D>(dq + row0 * D, qw, sh.lq, acc[0], sh.scale, g, t);
 }
 
 // Raise each instance's dynamic shared memory limit, once, so that no launch
@@ -401,7 +643,7 @@ int launch(const float* q, const float* k, const float* v, const float* out,
   const int64_t rows = b * sh.hq * sh.lq;
   flash_attention_bwd_delta_kernel<<<(unsigned)((rows + 7) / 8), kThreads, 0, stream>>>(
       out, dout, delta, rows, D);
-  const int64_t kt = (sh.lk + kTile - 1) / kTile, qt = (sh.lq + kTile - 1) / kTile;
+  const int64_t kt = (sh.lk + kKeys - 1) / kKeys, qt = (sh.lq + kQueries - 1) / kQueries;
   flash_attention_bwd_dkdv_kernel<D>
       <<<(unsigned)(kt * b * sh.hkv), kThreads, dkdv_smem<D>(), stream>>>(
           q, k, v, dout, lse, delta, dk, dv, sh);
@@ -422,7 +664,7 @@ extern "C" int flash_attention_bwd_f32(const void* q, const void* k, const void*
                                        void* stream) {
   if (b <= 0 || hq <= 0 || lq <= 0 || lk <= 0) return (int)cudaSuccess;
   if (hkv <= 0 || hq % hkv || lq > lk || window < 0 || lk > 0x7fffffff ||
-      b * hq * ((lq + kTile - 1) / kTile) > 0x7fffffff)
+      b * hq * ((lq + kQueries - 1) / kQueries) > 0x7fffffff)
     return (int)cudaErrorInvalidValue;
   const Shape sh{(int)hq, (int)hkv, (int)lq, (int)lk, (int)causal, (int)window,
                  (float)(1.0 / sqrt((double)d))};

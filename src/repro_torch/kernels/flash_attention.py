@@ -21,7 +21,8 @@ The gradient: where autograd needs one (grad mode on and an input that
 requires grad, or a ``torch.func`` transform), the call goes through
 :class:`FlashAttention`, a ``torch.autograd.Function`` whose forward
 keeps ``lse`` and whose backward is ``csrc/flash_attention_bwd.cu``
-(fp32, head dims 32, 64 and 128: :func:`flash_attention_bwd`).  Both
+(fp32, head dims 32, 64 and 128: :func:`flash_attention_bwd`; its five
+products on the tensor cores as three TF32 products, as the forward's).  Both
 Functions carry a ``vmap`` rule that folds the mapped dimension into B,
 so ``torch.func.vmap(torch.func.grad(...))`` (per-example DP-SGD) runs
 the same kernels.  The reference has no backward kernel: XLA
@@ -51,6 +52,11 @@ BWD_HEAD_DIMS = (32, 64, 128)           # the backward's (fp32 only)
 # (query, head) rows a block, and keys a K/V stage, half of them a warp
 BLOCK_ROWS = 64
 BLOCK_KEYS = 32
+# the backward's tiles (kKeys and kQueries in csrc/flash_attention_bwd.cu):
+# keys a dK/dV block and a dQ stage, queries a dQ block and a dK/dV stage;
+# each warp takes 16 rows and half of a stage's columns
+BWD_BLOCK_KEYS = 64
+BWD_BLOCK_QUERIES = 64
 _ENTRY = {torch.float32: "flash_attention_f32", torch.bfloat16: "flash_attention_bf16"}
 _P, _I = ctypes.c_void_p, ctypes.c_int64
 _ARGS = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P]
@@ -132,7 +138,10 @@ def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if out.dtype != q.dtype or dout.dtype != q.dtype or lse.dtype != torch.float32:
         raise TypeError("flash_attention_bwd: out and dout must be q's dtype and lse fp32")
     dout = dout.contiguous()
+    if dout.data_ptr() % 16:                # the kernel stages rows 16 bytes at a time
+        dout = dout.clone()
     build.require_cuda("flash_attention_bwd_cuda", q, k, v, out, lse, dout)
+    build.require_aligned("flash_attention_bwd_cuda", q, k, v)
     b, hq, lq, d = q.shape
     hkv, lk = k.shape[1], k.shape[2]
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
