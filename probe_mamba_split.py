@@ -87,7 +87,7 @@ def main() -> int:
         libs[name] = ctypes.CDLL(str(lib))
     _P, _I = ctypes.c_void_p, ctypes.c_int64
     for lib in libs.values():
-        lib.mamba_scan_f32.argtypes = [_P] * 7 + [_I] * 4 + [_P]
+        lib.mamba_scan_f32.argtypes = [_P] * 8 + [_I] * 4 + [_P]
         lib.mamba_scan_f32.restype = ctypes.c_int
         lib.mamba_scan_resources.argtypes = [_I, ctypes.POINTER(ctypes.c_int)]
         lib.mamba_scan_resources.restype = ctypes.c_int
@@ -99,7 +99,7 @@ def main() -> int:
         state = torch.empty(b, di, ds, device=dt.device)
         err = libs[name].mamba_scan_f32(
             dt.data_ptr(), bm.data_ptr(), cm.data_ptr(), x.data_ptr(), log_a.data_ptr(),
-            y.data_ptr(), state.data_ptr(), b, l, di, ds,
+            y.data_ptr(), state.data_ptr(), None, b, l, di, ds,
             torch.cuda.current_stream().cuda_stream)
         if err:
             raise RuntimeError(f"{name}: launch failed, CUDA error {err}")

@@ -436,7 +436,10 @@ class FederatedJob:
 
     def check_ported(self, transport: str = "stacked") -> None:
         """Raise :class:`~repro_torch.NotPorted` for the first seam that is
-        set to something the port does not implement on ``transport``."""
+        set to something the port does not implement on ``transport``, and
+        for a token job on the card whose model needs a backward kernel
+        instance the port lacks (``ops.check_backward_instances``), before
+        any kernel is built or batch drawn."""
         strategies = (("fedavg", "fedprox", "individual", "gcml") if transport != "stacked"
                       else ("fedavg", "fedprox", "individual", "pooled", "gcml"))
         unported = [
@@ -450,7 +453,10 @@ class FederatedJob:
         self.codecs()                   # raises for unported codecs
         if self.dropout_scenario not in ("disconnect", "shutdown"):
             raise ValueError(f"unknown dropout_scenario {self.dropout_scenario!r}")
-        self.task.model_config()        # raises for unported architectures
+        cfg = self.task.model_config()  # raises for unported architectures
+        if self.task.kind == "tokens" and self.torch_device.type == "cuda":
+            from repro_torch.kernels import ops
+            ops.check_backward_instances(cfg)   # the port trains in fp32
 
     def codecs(self) -> Tuple[Codec, Codec]:
         """The resolved (upload, download) codecs."""

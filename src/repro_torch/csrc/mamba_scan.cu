@@ -10,6 +10,10 @@
 //   s[i][n] = exp(dt_t[i] * A[i][n]) * s[i][n] + (dt_t[i] * x_t[i]) * B_t[n]
 //   y_t[i]  = sum_n s[i][n] * C_t[n]
 // and the final s is written out: the prefill hands it to the decode cache.
+// Asked for them (training: ckpt not null), it also writes s before every
+// kSteps-th step, ckpt [B, ceil(L / kSteps), di, ds] fp32, from which the
+// backward (mamba_scan_bwd.cu) recomputes each stage's states; the arithmetic
+// is the same either way, so y and state are bit-equal with and without them.
 //
 // The exp: exp(dt * A) is computed as ex2.approx.ftz.f32(dt * (A * log2 e)),
 // with A * log2 e kept in registers (A itself with the accurate expf).  At
@@ -190,7 +194,8 @@ __global__ void __launch_bounds__(Smem<G, NPER>::kThreadsB)
 mamba_scan_kernel(const float* __restrict__ dt, const float* __restrict__ bm,
                   const float* __restrict__ cm, const float* __restrict__ x,
                   const float* __restrict__ log_a, float* __restrict__ y,
-                  float* __restrict__ state, int l, int di, int ds, bool vec) {
+                  float* __restrict__ state, float* __restrict__ ckpt, int l, int di, int ds,
+                  bool vec) {
   using S = Smem<G, NPER>;
   constexpr int kChan = S::kChan, kT = S::kThreadsB;
   __shared__ __align__(16) S sm;
@@ -232,6 +237,13 @@ mamba_scan_kernel(const float* __restrict__ dt, const float* __restrict__ bm,
       load_stage(sm, next % kStages, dt, x, bm, cm, row_b + next * kSteps,
                  min(kSteps, l - next * kSteps), ch0, di, ds, vec);
     cp_async_commit();
+    if (ckpt != nullptr && live) {          // s before this stage's first step
+#pragma unroll
+      for (int n = 0; n < NPER; ++n) {
+        const int nn = g * NPER + n;
+        if (nn < ds) ckpt[((b * stages + k) * di + i) * ds + nn] = s[n];
+      }
+    }
     auto step = [&](int t) {
       const float dtv = sm.dt[buf][t][cl];
       const float drive = dtv * sm.x[buf][t][cl];
@@ -278,7 +290,7 @@ mamba_scan_kernel(const float* __restrict__ dt, const float* __restrict__ bm,
 
 template <int G, int NPER>
 int launch(const void* dt, const void* bm, const void* cm, const void* x,
-           const void* log_a, void* y, void* state, int64_t bsz, int64_t l,
+           const void* log_a, void* y, void* state, void* ckpt, int64_t bsz, int64_t l,
            int64_t di, int64_t ds, void* stream) {
   using S = Smem<G, NPER>;
   const bool aligned = ((reinterpret_cast<uintptr_t>(dt) | reinterpret_cast<uintptr_t>(x) |
@@ -290,7 +302,7 @@ int launch(const void* dt, const void* bm, const void* cm, const void* x,
       static_cast<const float*>(dt), static_cast<const float*>(bm),
       static_cast<const float*>(cm), static_cast<const float*>(x),
       static_cast<const float*>(log_a), static_cast<float*>(y),
-      static_cast<float*>(state), (int)l, (int)di, (int)ds, vec);
+      static_cast<float*>(state), static_cast<float*>(ckpt), (int)l, (int)di, (int)ds, vec);
   return (int)cudaGetLastError();
 }
 
@@ -317,15 +329,15 @@ int resources(int* out) {
 // <= 8: 2 x 4, <= 16: 2 x 8, <= 32: 4 x 8.
 extern "C" int mamba_scan_f32(const void* dt, const void* bm, const void* cm,
                               const void* x, const void* log_a, void* y, void* state,
-                              int64_t bsz, int64_t l, int64_t di, int64_t ds,
+                              void* ckpt, int64_t bsz, int64_t l, int64_t di, int64_t ds,
                               void* stream) {
   if (bsz <= 0 || di <= 0) return (int)cudaSuccess;
   if (l < 0 || ds < 1 || ds > 32 || bsz > 65535 || l > 0x7fffffff || di > 0x7fffffff)
     return (int)cudaErrorInvalidValue;
-  if (ds <= 4) return launch<2, 2>(dt, bm, cm, x, log_a, y, state, bsz, l, di, ds, stream);
-  if (ds <= 8) return launch<2, 4>(dt, bm, cm, x, log_a, y, state, bsz, l, di, ds, stream);
-  if (ds <= 16) return launch<2, 8>(dt, bm, cm, x, log_a, y, state, bsz, l, di, ds, stream);
-  return launch<4, 8>(dt, bm, cm, x, log_a, y, state, bsz, l, di, ds, stream);
+  if (ds <= 4) return launch<2, 2>(dt, bm, cm, x, log_a, y, state, ckpt, bsz, l, di, ds, stream);
+  if (ds <= 8) return launch<2, 4>(dt, bm, cm, x, log_a, y, state, ckpt, bsz, l, di, ds, stream);
+  if (ds <= 16) return launch<2, 8>(dt, bm, cm, x, log_a, y, state, ckpt, bsz, l, di, ds, stream);
+  return launch<4, 8>(dt, bm, cm, x, log_a, y, state, ckpt, bsz, l, di, ds, stream);
 }
 
 // For reports: the instance that takes ds; out[5] = registers, local bytes,

@@ -11,6 +11,11 @@
 //   out_t[j] = sum_i r_t[i] * (S[i][j] + u[i] * k_t[i] * v_t[j])
 //   S[i][j]  = w_t[i] * S[i][j] + k_t[i] * v_t[j]
 // and the final S is written out: the prefill hands it to the decode cache.
+// Asked for them (training: ckpt not null), it also writes the state before
+// every kSteps-th step, ckpt [B, H, ceil(L / kSteps), D, D] fp32, from which
+// the backward (rwkv6_scan_bwd.cu) recomputes each stage's states; the
+// arithmetic is the same either way, so out and state are bit-equal with and
+// without them.
 //
 // Bound: at rwkv6-7b's prefill (B 4, H 64, L 512, D 64, fp32) the kernel must
 // read r, k, v, w and write out (168 MB) and write the state (4.2 MB): 172 MB,
@@ -105,7 +110,7 @@ __global__ void __launch_bounds__(D * D / (4 * kCols))
 rwkv6_scan_kernel(const T* __restrict__ r, const T* __restrict__ k,
                   const T* __restrict__ v, const T* __restrict__ w,
                   const float* __restrict__ u, T* __restrict__ out,
-                  float* __restrict__ state, int h, int l) {
+                  float* __restrict__ state, float* __restrict__ ckpt, int h, int l) {
   constexpr int kRowGroups = D / 4;         // 4-row groups of S
   constexpr int kThreads = kRowGroups * (D / kCols);
   constexpr int kVec = 16 / (int)sizeof(T); // elements a 16-byte copy
@@ -152,6 +157,15 @@ rwkv6_scan_kernel(const T* __restrict__ r, const T* __restrict__ k,
       cp_async_wait<0>();
     }
     __syncthreads();                        // this group's inputs landed; part is free
+    if (ckpt != nullptr) {                  // the state before this group's first step
+      float* ck = ckpt + ((bh * ngroups + grp) * D + 4 * rg) * D + kCols * cg;
+#pragma unroll
+      for (int a = 0; a < 4; ++a)
+#pragma unroll
+        for (int c = 0; c < kCols; c += 4)
+          *reinterpret_cast<float4*>(ck + a * D + c) =
+              make_float4(s[a][c], s[a][c + 1], s[a][c + 2], s[a][c + 3]);
+    }
 #pragma unroll 2
     for (int t = 0; t < nt; ++t) {
       const float4 r4 = load4(in[buf][0] + t * D + 4 * rg);
@@ -242,7 +256,7 @@ int resources(int* out) {
 
 template <int D, typename T>
 int launch(const void* r, const void* k, const void* v, const void* w,
-           const void* u, void* out, void* state, int64_t b, int64_t h,
+           const void* u, void* out, void* state, void* ckpt, int64_t b, int64_t h,
            int64_t l, void* stream) {
   constexpr size_t smem = smem_bytes<D, T>();
   auto kernel = rwkv6_scan_kernel<D, T>;
@@ -251,19 +265,19 @@ int launch(const void* r, const void* k, const void* v, const void* w,
   kernel<<<(unsigned)(b * h), D * D / (4 * kCols), smem, (cudaStream_t)stream>>>(
       static_cast<const T*>(r), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<const T*>(w), static_cast<const float*>(u), static_cast<T*>(out),
-      static_cast<float*>(state), (int)h, (int)l);
+      static_cast<float*>(state), static_cast<float*>(ckpt), (int)h, (int)l);
   return (int)cudaGetLastError();
 }
 
 template <typename T>
 int dispatch(const void* r, const void* k, const void* v, const void* w,
-             const void* u, void* out, void* state, int64_t b, int64_t h,
+             const void* u, void* out, void* state, void* ckpt, int64_t b, int64_t h,
              int64_t l, int64_t d, void* stream) {
   if (b * h <= 0) return (int)cudaSuccess;
   if (l < 0 || b * h > 0x7fffffff || l > 0x7fffffff) return (int)cudaErrorInvalidValue;
   switch (d) {
-    case 32: return launch<32, T>(r, k, v, w, u, out, state, b, h, l, stream);
-    case 64: return launch<64, T>(r, k, v, w, u, out, state, b, h, l, stream);
+    case 32: return launch<32, T>(r, k, v, w, u, out, state, ckpt, b, h, l, stream);
+    case 64: return launch<64, T>(r, k, v, w, u, out, state, ckpt, b, h, l, stream);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -272,14 +286,16 @@ int dispatch(const void* r, const void* k, const void* v, const void* w,
 
 extern "C" int rwkv6_scan_f32(const void* r, const void* k, const void* v,
                               const void* w, const void* u, void* out, void* state,
-                              int64_t b, int64_t h, int64_t l, int64_t d, void* stream) {
-  return dispatch<float>(r, k, v, w, u, out, state, b, h, l, d, stream);
+                              void* ckpt, int64_t b, int64_t h, int64_t l, int64_t d,
+                              void* stream) {
+  return dispatch<float>(r, k, v, w, u, out, state, ckpt, b, h, l, d, stream);
 }
 
 extern "C" int rwkv6_scan_bf16(const void* r, const void* k, const void* v,
                                const void* w, const void* u, void* out, void* state,
-                               int64_t b, int64_t h, int64_t l, int64_t d, void* stream) {
-  return dispatch<__nv_bfloat16>(r, k, v, w, u, out, state, b, h, l, d, stream);
+                               void* ckpt, int64_t b, int64_t h, int64_t l, int64_t d,
+                               void* stream) {
+  return dispatch<__nv_bfloat16>(r, k, v, w, u, out, state, ckpt, b, h, l, d, stream);
 }
 
 // For reports: out[5] = registers, local bytes, shared bytes, threads, blocks an SM.

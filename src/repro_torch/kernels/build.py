@@ -28,7 +28,7 @@ import subprocess
 import threading
 import time
 from pathlib import Path
-from typing import Callable, Dict, Iterable, Sequence, Tuple
+from typing import Callable, Dict, Iterable, Optional, Sequence, Tuple
 
 import torch
 
@@ -189,17 +189,93 @@ def needs_grad(*tensors: torch.Tensor) -> bool:
             or any(torch._C._functorch.is_functorch_wrapped_tensor(t) for t in tensors))
 
 
-def refuse_backward(kernel: str, *tensors: torch.Tensor) -> None:
-    """Raise :class:`~repro_torch.NotPorted` (seam ``<kernel>_bwd``) where
-    autograd would differentiate a call on ``tensors`` (:func:`needs_grad`).
-    The CUDA wrapper of a kernel that has no backward kernel calls it: the
-    kernel's output has no ``grad_fn``, so training through it would get
-    zero gradients without a word.  On the CPU the plain version is
-    differentiable PyTorch and its wrapper does not ask."""
-    if needs_grad(*tensors):
+def fold(info, in_dims: Sequence[Optional[int]], tensors):
+    """For a ``torch.autograd.Function``'s ``vmap`` rule: the tensors of a
+    vmapped call with the mapped dimension moved to the front (broadcast
+    where unmapped) and folded into the batch dimension B."""
+    n = info.batch_size
+    out = []
+    for t, dim in zip(tensors, in_dims):
+        t = t.expand(n, *t.shape) if dim is None else t.movedim(dim, 0)
+        out.append(t.reshape(n * t.shape[1], *t.shape[2:]).contiguous())
+    return out
+
+
+def unfold(info, t: torch.Tensor) -> torch.Tensor:
+    """The inverse of :func:`fold` for one output: B split back into the
+    mapped dimension (in front) and the batch."""
+    return t.reshape(info.batch_size, t.shape[0] // info.batch_size, *t.shape[1:])
+
+
+def vmap_shared(fn: Callable, info, in_dims: Sequence[Optional[int]], args, shared: int,
+                name: str):
+    """A ``vmap`` rule for a Function whose ``args[shared]`` is a parameter
+    every batch row shares (the scans' u and log_a): every other tensor is
+    folded into B and ``fn`` called once.  A mapped shared parameter (a
+    model an example) raises :class:`~repro_torch.NotPorted`: per-example
+    DP-SGD, the port's only vmap, maps the batch and not the parameters.
+    Returns (outputs, out_dims)."""
+    if in_dims[shared] is not None:
         from repro_torch import NotPorted
-        raise NotPorted(f"{kernel}_bwd", f"a gradient through the CUDA {kernel} kernel",
-                        "training through its plain version on the CPU")
+        raise NotPorted(name, "a vmap over the shared parameter",
+                        "a vmap over the batch, the parameter shared")
+    rest = [i for i in range(len(args)) if i != shared]
+    folded = list(args)
+    for i, t in zip(rest, fold(info, [in_dims[i] for i in rest], [args[i] for i in rest])):
+        folded[i] = t
+    outs = tuple(unfold(info, t) for t in fn(*folded))
+    return outs, (0,) * len(outs)
+
+
+def scan_functions(cls_name: str, name: str, fwd: Callable, bwd: Callable, shared: int):
+    """The two ``torch.autograd.Function``s that carry a scan kernel and
+    its backward kernel (the WKV-6 and selective scans).
+
+    ``cls_name`` is the forward Function's (the backward's adds
+    ``Backward``) and ``name`` the kernel's.  ``fwd(*inputs)`` returns
+    ``(out, state, ckpt)``: the output, the final state and the states the
+    backward starts its stages from (not differentiable).  ``bwd(*inputs, ckpt, dout, dstate)`` returns the
+    inputs' gradients with that of ``inputs[shared]``, a parameter every
+    batch row shares, per batch row; the forward Function sums the rows,
+    so that a vmapped call (per-example DP-SGD) gives each example its
+    own.  Both carry a ``vmap`` rule (:func:`vmap_shared`); the backward
+    has no derivative of its own, and as a Function a vmapped backward
+    folds into one launch."""
+
+    def fwd_setup_context(ctx, inputs, output):
+        ckpt = output[2]
+        ctx.mark_non_differentiable(ckpt)
+        ctx.save_for_backward(*inputs, ckpt)
+
+    def fwd_backward(ctx, dout, dstate, _dckpt):
+        saved = ctx.saved_tensors
+        grads = list(backward_fn.apply(*saved, dout, dstate))
+        grads[shared] = grads[shared].sum(0).to(saved[shared].dtype)
+        return tuple(grads)
+
+    def bwd_backward(ctx, *grads):
+        raise NotImplementedError(f"{name}: no second derivative")
+
+    def fwd_vmap(info, in_dims, *inputs):
+        return vmap_shared(forward_fn.apply, info, in_dims, inputs, shared, name)
+
+    def bwd_vmap(info, in_dims, *args):
+        return vmap_shared(backward_fn.apply, info, in_dims, args, shared, name)
+
+    backward_fn = type(f"{cls_name}Backward", (torch.autograd.Function,), {
+        "__doc__": f"The backward kernel of {name} as a Function.",
+        "forward": staticmethod(bwd),
+        "setup_context": staticmethod(lambda ctx, inputs, output: None),
+        "backward": staticmethod(bwd_backward),
+        "vmap": staticmethod(bwd_vmap)})
+    forward_fn = type(cls_name, (torch.autograd.Function,), {
+        "__doc__": f"(out, state, ckpt) of {name}; out's and state's gradients "
+                   f"come from its backward kernel.",
+        "forward": staticmethod(fwd),
+        "setup_context": staticmethod(fwd_setup_context),
+        "backward": staticmethod(fwd_backward),
+        "vmap": staticmethod(fwd_vmap)})
+    return forward_fn, backward_fn
 
 
 def dispatch(fn: str, device: torch.device, plain: Callable, kernel: Callable, *args):

@@ -36,7 +36,7 @@ launch the kernels or raise.
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Sequence, Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -87,13 +87,14 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError("flash_attention: q, k, v on different devices")
 
 
-def _check_bwd_instance(q: torch.Tensor) -> None:
-    """Raise for what the backward kernel has no instance of."""
-    if q.dtype != torch.float32:
-        raise ValueError(f"flash_attention_bwd: no {q.dtype} instance (fp32 only)")
-    if q.shape[-1] not in BWD_HEAD_DIMS:
-        raise ValueError(f"flash_attention_bwd: head dim {q.shape[-1]} not in "
-                         f"{BWD_HEAD_DIMS}")
+def check_bwd_instance(dtype: torch.dtype, head_dim: int) -> None:
+    """Raise :class:`~repro_torch.NotPorted` (seam ``flash_attention_bwd``)
+    where the backward kernel has no instance for ``dtype`` and
+    ``head_dim``: it has fp32 at head dims 32, 64 and 128."""
+    if dtype != torch.float32 or head_dim not in BWD_HEAD_DIMS:
+        from repro_torch import NotPorted
+        raise NotPorted(BWD_NAME, f"a {dtype} gradient at head dim {head_dim} on the card",
+                        f"float32 at head dims {BWD_HEAD_DIMS}")
 
 
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -130,7 +131,7 @@ def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """Launch the backward (its three kernels: delta, dK/dV, dQ) on
     PyTorch's current stream; one launch counted."""
     _check(q, k, v, window)
-    _check_bwd_instance(q)
+    check_bwd_instance(q.dtype, q.shape[-1])
     if out.shape != q.shape or dout.shape != q.shape or lse.shape != q.shape[:3]:
         raise ValueError(f"flash_attention_bwd: out {tuple(out.shape)}, dout "
                          f"{tuple(dout.shape)} and lse {tuple(lse.shape)} do not fit q "
@@ -166,21 +167,6 @@ def flash_attention_bwd(q, k, v, out, lse, dout, causal: bool = True,
                           flash_attention_bwd_cuda, q, k, v, out, lse, dout, causal, window)
 
 
-def _fold(info, in_dims: Sequence[Optional[int]], tensors):
-    """The tensors of a vmapped call with the mapped dimension moved to the
-    front (broadcast where unmapped) and folded into B."""
-    n = info.batch_size
-    out = []
-    for t, dim in zip(tensors, in_dims):
-        t = t.expand(n, *t.shape) if dim is None else t.movedim(dim, 0)
-        out.append(t.reshape(n * t.shape[1], *t.shape[2:]).contiguous())
-    return out
-
-
-def _unfold(info, t: torch.Tensor) -> torch.Tensor:
-    return t.reshape(info.batch_size, t.shape[0] // info.batch_size, *t.shape[1:])
-
-
 class FlashAttentionBackward(torch.autograd.Function):
     """The backward kernel as a Function, so that a vmapped backward (the
     backward of a vmapped :class:`FlashAttention`) folds into one launch.
@@ -200,9 +186,9 @@ class FlashAttentionBackward(torch.autograd.Function):
 
     @staticmethod
     def vmap(info, in_dims, q, k, v, out, lse, dout, causal, window):
-        folded = _fold(info, in_dims[:6], (q, k, v, out, lse, dout))
+        folded = build.fold(info, in_dims[:6], (q, k, v, out, lse, dout))
         grads = FlashAttentionBackward.apply(*folded, causal, window)
-        return tuple(_unfold(info, g) for g in grads), (0, 0, 0)
+        return tuple(build.unfold(info, g) for g in grads), (0, 0, 0)
 
 
 class FlashAttention(torch.autograd.Function):
@@ -231,8 +217,9 @@ class FlashAttention(torch.autograd.Function):
 
     @staticmethod
     def vmap(info, in_dims, q, k, v, causal, window):
-        out, lse = FlashAttention.apply(*_fold(info, in_dims[:3], (q, k, v)), causal, window)
-        return (_unfold(info, out), _unfold(info, lse)), (0, 0)
+        out, lse = FlashAttention.apply(*build.fold(info, in_dims[:3], (q, k, v)), causal,
+                                        window)
+        return (build.unfold(info, out), build.unfold(info, lse)), (0, 0)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -243,7 +230,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     _check(q, k, v, window)
     if build.needs_grad(q, k, v):
         if q.device.type == "cuda":
-            _check_bwd_instance(q)          # refuse before the forward runs
+            check_bwd_instance(q.dtype, q.shape[-1])  # before the forward runs
         return FlashAttention.apply(q, k, v, causal, window)[0]
     return build.dispatch(NAME, q.device, flash_attention_ref, flash_attention_cuda,
                           q, k, v, causal, window)

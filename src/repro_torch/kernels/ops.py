@@ -7,13 +7,18 @@ version on a card.
 """
 from __future__ import annotations
 
+import torch
+
+from repro_torch.kernels import flash_attention as _fa
+from repro_torch.kernels import mamba_scan as _mamba
+from repro_torch.kernels import rwkv6_scan as _rwkv6
 from repro_torch.kernels.fedagg import dequant_install, fedagg, fedagg_dequant
 from repro_torch.kernels.flash_attention import flash_attention, flash_attention_bwd
-from repro_torch.kernels.mamba_scan import mamba_scan
+from repro_torch.kernels.mamba_scan import mamba_scan, mamba_scan_bwd
 from repro_torch.kernels.quantize import (Int8Table, dequantize_int8,
                                           dequantize_int8_grouped, quantize_int8)
 from repro_torch.kernels.robust import masked_median, trimmed_mean
-from repro_torch.kernels.rwkv6_scan import rwkv6_scan
+from repro_torch.kernels.rwkv6_scan import rwkv6_scan, rwkv6_scan_bwd
 
 # name -> (route, source in the repo, the TPU kernel it replaces: its def line)
 KERNELS = {
@@ -40,13 +45,21 @@ KERNELS = {
                    "src/repro/kernels/rwkv6_scan.py:51"),
     "mamba_scan": ("cuda", "src/repro_torch/csrc/mamba_scan.cu",
                    "src/repro/kernels/mamba_scan.py:47"),
+    # the gradients of rows 8 and 9: the reference has no TPU kernel for
+    # them (XLA differentiates its jnp scans)
+    "rwkv6_scan_bwd": ("cuda", "src/repro_torch/csrc/rwkv6_scan_bwd.cu",
+                       "src/repro/models/rwkv6.py:105"),
+    "mamba_scan_bwd": ("cuda", "src/repro_torch/csrc/mamba_scan_bwd.cu",
+                       "src/repro/models/mamba.py:86"),
 }
 
 # the ``__global__`` functions of a kernel whose symbols are not the one
 # ``<name>_kernel``: the quantizer's vectorised and any-width kernels, the
-# backward's delta, dK/dV and dQ kernels
+# backward's delta, dK/dV and dQ kernels, the selective scan's walk back
+# and its sum of the blocks' partials
 _SYMBOLS = {"quantize_int8": r"quantize_int8_(?:vec|any)",
-            "flash_attention_bwd": r"flash_attention_bwd_(?:delta|dkdv|dq)_kernel"}
+            "flash_attention_bwd": r"flash_attention_bwd_(?:delta|dkdv|dq)_kernel",
+            "mamba_scan_bwd": r"mamba_scan_bwd_(?:reduce_)?kernel"}
 
 
 def symbol_pattern(name: str) -> str:
@@ -61,14 +74,35 @@ FL_KERNELS = ("fedagg", "quantize_int8", "dequantize_int8", "fedagg_dequant",
               "dequant_install", "trimmed_mean")
 
 
+# the token models' kernels and their gradients
+TOKEN_KERNELS = ("flash_attention", "flash_attention_bwd", "rwkv6_scan", "rwkv6_scan_bwd",
+                 "mamba_scan", "mamba_scan_bwd")
+
+
 def job_kernels(kind: str) -> tuple:
     """The kernels a federated job of task ``kind`` can launch: a token
-    job's models add the attention kernel and its backward."""
-    return FL_KERNELS + (("flash_attention", "flash_attention_bwd") if kind == "tokens" else ())
+    job's models add the three token kernels and their backwards."""
+    return FL_KERNELS + (TOKEN_KERNELS if kind == "tokens" else ())
 
 
-__all__ = ["FL_KERNELS", "Int8Table", "KERNELS", "dequant_install", "dequantize_int8",
-           "dequantize_int8_grouped", "fedagg",
+def check_backward_instances(cfg, dtype: torch.dtype = torch.float32) -> None:
+    """Raise :class:`~repro_torch.NotPorted`, naming the backward kernel's
+    seam, where training the token model ``cfg`` on the card needs a
+    backward instance the port lacks: attention at the model's head dim in
+    ``dtype`` (the weights'), the WKV-6 scan at its head dim and the
+    selective scan at its ``d_state`` (both in fp32: their modules cast
+    their inputs).  Reads the config only; no card is needed."""
+    mixers = {spec.mixer for spec in cfg.layer_specs()}
+    if "attn" in mixers:
+        _fa.check_bwd_instance(dtype, cfg.resolved_head_dim)
+    if "rwkv6" in mixers:
+        _rwkv6.check_bwd_instance(torch.float32, cfg.rwkv.head_dim)
+    if "mamba" in mixers:
+        _mamba.check_bwd_instance(torch.float32, cfg.mamba.d_state)
+
+
+__all__ = ["FL_KERNELS", "Int8Table", "KERNELS", "TOKEN_KERNELS", "check_backward_instances",
+           "dequant_install", "dequantize_int8", "dequantize_int8_grouped", "fedagg",
            "fedagg_dequant", "flash_attention", "flash_attention_bwd", "mamba_scan",
-           "job_kernels", "masked_median",
-           "quantize_int8", "rwkv6_scan", "symbol_pattern", "trimmed_mean"]
+           "mamba_scan_bwd", "job_kernels", "masked_median", "quantize_int8", "rwkv6_scan",
+           "rwkv6_scan_bwd", "symbol_pattern", "trimmed_mean"]

@@ -16,7 +16,8 @@ matches it bit for bit.
 The token models' three kernels (flash attention, the WKV-6 scan, the
 selective scan) have their plain versions at the end: ports of the
 reference's oracles in ``repro/kernels/ref.py``, with the final states
-the serving caches need.
+the serving caches need, and the gradients of the three written out (the
+reference has no backward kernel: XLA differentiates its jnp versions).
 """
 from __future__ import annotations
 
@@ -266,3 +267,95 @@ def mamba_scan_ref(dt: torch.Tensor, b_mat: torch.Tensor, c_mat: torch.Tensor,
         ys.append(torch.einsum("bis,bs->bi", s, c_t))
     y = torch.stack(ys, dim=1) if ys else torch.zeros_like(dt, dtype=torch.float32)
     return y.to(dt.dtype), s
+
+
+def rwkv6_scan_bwd_ref(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
+                       u: torch.Tensor, dout: torch.Tensor,
+                       dstate: Optional[torch.Tensor] = None, rows: bool = False):
+    """The gradient of :func:`rwkv6_scan_ref` (from S = 0), written out.
+
+    With S_t the state after step t (S_{-1} = 0) and the adjoint G_t of
+    S_t, G_{L-1} = ``dstate`` (0 if None) and
+    G_{t-1} = diag(w_t) G_t + r_t dout_t^T:
+
+        dr_t = (S_{t-1} + diag(u) k_t v_t^T) dout_t
+        dk_t = G_t v_t + u * r_t (v_t . dout_t)
+        dv_t = G_t^T k_t + (sum_i u_i r_t,i k_t,i) dout_t
+        dw_t = rowsum(G_t * S_{t-1})
+        du   = sum_t r_t * k_t (v_t . dout_t)
+
+    Returns (dr, dk, dv, dw, du) in the dtypes of r, k, v, w, u; du is
+    [H, D], or each batch row's share [B, H, D] with ``rows`` (what a
+    per-example gradient needs: the batch rows are the examples)."""
+    b, h, l, d = r.shape
+    rr, kk, vv, ww, gg = (x.float() for x in (r, k, v, w, dout))
+    uu = u.float()[None]
+    s = torch.zeros((b, h, d, d), dtype=torch.float32, device=r.device)
+    before = []
+    for t in range(l):
+        before.append(s)
+        s = ww[:, :, t, :, None] * s + kk[:, :, t, :, None] * vv[:, :, t, None, :]
+    g = (torch.zeros((b, h, d, d), dtype=torch.float32, device=r.device)
+         if dstate is None else dstate.float())
+    dr, dk, dv, dw = (torch.empty((b, h, l, d), dtype=torch.float32, device=r.device)
+                      for _ in range(4))
+    du = torch.zeros((b, h, d), dtype=torch.float32, device=r.device)
+    for t in reversed(range(l)):
+        r_t, k_t, v_t, w_t, g_t = (x[:, :, t] for x in (rr, kk, vv, ww, gg))
+        vd = (v_t * g_t).sum(-1, keepdim=True)
+        dr[:, :, t] = torch.einsum("bhij,bhj->bhi", before[t], g_t) + uu * k_t * vd
+        dk[:, :, t] = torch.einsum("bhij,bhj->bhi", g, v_t) + uu * r_t * vd
+        dv[:, :, t] = (torch.einsum("bhij,bhi->bhj", g, k_t)
+                       + (uu * r_t * k_t).sum(-1, keepdim=True) * g_t)
+        dw[:, :, t] = (g * before[t]).sum(-1)
+        du = du + r_t * k_t * vd
+        g = w_t[..., :, None] * g + r_t[..., :, None] * g_t[..., None, :]
+    return (dr.to(r.dtype), dk.to(k.dtype), dv.to(v.dtype), dw.to(w.dtype),
+            (du if rows else du.sum(0)).to(u.dtype))
+
+
+def mamba_scan_bwd_ref(dt: torch.Tensor, b_mat: torch.Tensor, c_mat: torch.Tensor,
+                       x: torch.Tensor, log_a: torch.Tensor, dy: torch.Tensor,
+                       dstate: Optional[torch.Tensor] = None, rows: bool = False):
+    """The gradient of :func:`mamba_scan_ref`, written out.
+
+    With a_t = exp(dt_t A) (A = -exp(log_a), so dA/dlog_a = A), s_t the
+    state after step t (s_{-1} = 0) and g_t the adjoint of s_t: g starts
+    at ``dstate`` (0 if None), each step back adds y_t's share,
+    g_t += dy_t (x) C_t, and passes g_{t-1} = a_t * g_t on, and
+
+        dC_t   = sum_i dy_t,i s_t,i          dB_t = sum_i g_t,i dt_t,i x_t,i
+        dx_t   = dt_t sum_n g_t,n B_t,n
+        ddt_t  = sum_n g_t,n (x_t B_t,n + A_n a_t,n s_{t-1},n)
+        dlog_a = A * sum_t g_t dt_t a_t s_{t-1}
+
+    Returns (ddt, dB, dC, dx, dlog_a) in the inputs' dtypes; dlog_a is
+    [di, ds], or each batch row's share [B, di, ds] with ``rows``."""
+    a = -torch.exp(log_a.float())
+    bsz, l, di = dt.shape
+    dd, bb, cc, xx, yy = (z.float() for z in (dt, b_mat, c_mat, x, dy))
+    s = torch.zeros((bsz, di, log_a.shape[-1]), dtype=torch.float32, device=dt.device)
+    states = [s]
+    for t in range(l):
+        s = (torch.exp(dd[:, t, :, None] * a) * s
+             + (dd[:, t] * xx[:, t])[..., None] * bb[:, t, None, :])
+        states.append(s)
+    g = torch.zeros_like(s) if dstate is None else dstate.float()
+    ddt, dx = torch.empty_like(dd), torch.empty_like(xx)
+    db, dc = torch.empty_like(bb), torch.empty_like(cc)
+    da = torch.zeros_like(s)
+    for t in reversed(range(l)):
+        dt_t, b_t, c_t, x_t, dy_t = (z[:, t] for z in (dd, bb, cc, xx, yy))
+        g = g + dy_t[..., None] * c_t[:, None, :]
+        dc[:, t] = torch.einsum("bi,bis->bs", dy_t, states[t + 1])
+        db[:, t] = torch.einsum("bis,bi->bs", g, dt_t * x_t)
+        gb = torch.einsum("bis,bs->bi", g, b_t)
+        dec = torch.exp(dt_t[..., None] * a)
+        gds = g * dec * states[t]
+        dx[:, t] = gb * dt_t
+        ddt[:, t] = gb * x_t + (gds * a).sum(-1)
+        da = da + gds * dt_t[..., None]
+        g = g * dec
+    dlog_a = da * a
+    return (ddt.to(dt.dtype), db.to(b_mat.dtype), dc.to(c_mat.dtype), dx.to(x.dtype),
+            (dlog_a if rows else dlog_a.sum(0)).to(log_a.dtype))

@@ -52,7 +52,10 @@ def topk_dispatch(probs: torch.Tensor, cfg: MoEConfig) -> Tuple[torch.Tensor, to
     top_vals, top_idx = torch.topk(probs, cfg.top_k, dim=-1)            # [.., k]
     if cfg.normalize_router_weights:
         top_vals = top_vals / (top_vals.sum(-1, keepdim=True) + 1e-9)
-    onehot = F.one_hot(top_idx, cfg.num_experts).to(probs.dtype)       # [.., k, E]
+    # [.., k, E]; a comparison, not F.one_hot, whose bounds check reads the
+    # indices on the host and fails under torch.func.vmap (per-example DP-SGD)
+    experts = torch.arange(cfg.num_experts, device=top_idx.device)
+    onehot = (top_idx[..., None] == experts).to(probs.dtype)
     combine = torch.einsum("...k,...ke->...e", top_vals, onehot)
     # Switch-style load balance: E * sum_e( mean_frac_tokens_e * mean_prob_e )
     tokens_per_expert = onehot.sum(-2).mean(dim=tuple(range(onehot.ndim - 2)))

@@ -13,13 +13,17 @@
   plain backward's; ``torch.func.vmap(torch.func.grad(...))`` (per-example
   DP-SGD) runs through its ``vmap`` rules and gives autograd's per-example
   gradients; no second derivative.
-- The rule that refuses a gradient through the WKV-6 and selective-scan
-  kernels on the card (``build.refuse_backward``, asked by their CUDA
-  wrappers only), and that the CPU
-  trains through their plain versions.
+- The refusals of a gradient instance the backward kernels lack (the
+  WKV-6 scan at head dim 128, the selective scan at d_state 48, any bf16
+  gradient, attention at head dim 256): ``NotPorted`` naming the
+  backward's seam, on the card only, decided without one; the CPU trains
+  through the plain versions.  A token job on the card whose model needs
+  such an instance (gemma3-1b's head dim 256) is refused by
+  ``FederatedJob.check_ported``, before any kernel is built or batch
+  drawn; the same job on the CPU is accepted.
 - The backward's C interface: its instances (fp32, head dims 32/64/128)
   and argument list against ``csrc/flash_attention_bwd.cu``; what it has
-  no instance of raises a ``ValueError`` that names it.
+  no instance of raises ``NotPorted`` naming it.
 
 Tolerances: fp32 sums in another order than autograd's or XLA's einsums
 (and the blockwise scan's rescaling): rtol=atol=2e-5 on unit-scale
@@ -39,10 +43,11 @@ import jax.numpy as jnp  # noqa: E402
 
 from repro.models import attention as jattn  # noqa: E402
 from repro_torch import NotPorted  # noqa: E402
+from repro_torch.api import FederatedJob, TaskConfig  # noqa: E402
 from repro_torch.kernels import build, ops, ref  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
-from repro_torch.kernels.mamba_scan import mamba_scan, mamba_scan_cuda  # noqa: E402
-from repro_torch.kernels.rwkv6_scan import rwkv6_scan, rwkv6_scan_cuda  # noqa: E402
+from repro_torch.kernels import mamba_scan as ms  # noqa: E402
+from repro_torch.kernels import rwkv6_scan as rs  # noqa: E402
 
 ROOT = Path(__file__).resolve().parents[1]
 TOL = dict(rtol=2e-5, atol=2e-5)
@@ -184,53 +189,95 @@ def test_vmap_of_grad_runs_through_the_vmap_rules():
 
 
 def test_the_scans_refuse_a_gradient_on_the_card_only():
-    """``refuse_backward`` decides: a call that autograd would
+    """``build.needs_grad`` decides: a call that autograd would
     differentiate (grad mode and an input that requires grad, or a
-    ``torch.func`` transform) raises, never one without a grad.  Only
-    the CUDA wrappers ask it, so the CPU trains through the plain
-    versions."""
+    ``torch.func`` transform), never one without a grad.  A gradient
+    instance the backward kernels lack (WKV-6 at head dim 128, the
+    selective scan at d_state 48, bf16) is ``NotPorted`` naming the
+    backward's seam, decided before anything runs; only CUDA tensors are
+    refused, so the CPU trains through the plain versions at any of them."""
     x, y = torch.zeros(2, requires_grad=True), torch.zeros(2)
-    with pytest.raises(NotPorted):
-        build.refuse_backward("k", y, x)
-    build.refuse_backward("k", y, y)
+    assert build.needs_grad(y, x) and not build.needs_grad(y, y)
     with torch.no_grad():
-        build.refuse_backward("k", x, y)
+        assert not build.needs_grad(x, y)
+    seen = []
 
     def probe(t):
-        build.refuse_backward("k", t)
+        seen.append(build.needs_grad(t))
         return t.sum()
-    for transform, arg in ((torch.func.grad, y), (torch.func.vmap, torch.zeros(3, 2))):
-        with pytest.raises(NotPorted):
-            transform(probe)(arg)
-    # on the CPU the plain versions train
+    torch.func.grad(probe)(y)
+    torch.func.vmap(probe)(torch.zeros(3, 2))
+    assert seen == [True, True]
+    refused = [(rs.check_bwd_instance, torch.float32, 128, "rwkv6_scan_bwd"),
+               (rs.check_bwd_instance, torch.bfloat16, 64, "rwkv6_scan_bwd"),
+               (ms.check_bwd_instance, torch.float32, 48, "mamba_scan_bwd"),
+               (ms.check_bwd_instance, torch.bfloat16, 16, "mamba_scan_bwd"),
+               (fa.check_bwd_instance, torch.bfloat16, 64, "flash_attention_bwd"),
+               (fa.check_bwd_instance, torch.float32, 256, "flash_attention_bwd")]
+    for check, dtype, dim, seam in refused:
+        with pytest.raises(NotPorted) as err:
+            check(dtype, dim)
+        assert err.value.seam == seam and str(dim) in str(err.value)
+    for check, dims in ((rs.check_bwd_instance, (32, 64)), (ms.check_bwd_instance, (1, 16, 32)),
+                        (fa.check_bwd_instance, (32, 64, 128))):
+        for dim in dims:
+            check(torch.float32, dim)
+    # on the CPU the plain versions train, at instances the card lacks too
     rng = np.random.default_rng(2)
-    r, k, v, w = (torch.from_numpy(rng.standard_normal((1, 2, 5, 32)).astype(np.float32))
-                  .requires_grad_() for _ in range(4))
-    u = torch.zeros(2, 32)
-    out, _ = rwkv6_scan(r, k, v, torch.sigmoid(w), u)
-    assert all(g is not None for g in torch.autograd.grad(out.sum(), (r, k, v, w)))
-    dt, x = (torch.rand(1, 6, 8, requires_grad=True) for _ in range(2))
-    bm, cm = (torch.randn(1, 6, 4) for _ in range(2))
-    y, _ = mamba_scan(dt, bm, cm, x, torch.zeros(8, 4))
-    assert all(g is not None for g in torch.autograd.grad(y.sum(), (dt, x)))
+    for d, dtype in ((32, torch.float32), (128, torch.float32), (32, torch.bfloat16)):
+        r, k, v, w = (torch.from_numpy(rng.standard_normal((1, 2, 5, d)).astype(np.float32))
+                      .to(dtype).requires_grad_() for _ in range(4))
+        u = torch.zeros(2, d)
+        out, _ = rs.rwkv6_scan(r, k, v, torch.sigmoid(w), u)
+        assert all(g is not None for g in torch.autograd.grad(out.sum(), (r, k, v, w)))
+    for ds in (4, 48):
+        dt, x = (torch.rand(1, 6, 8, requires_grad=True) for _ in range(2))
+        bm, cm = (torch.randn(1, 6, ds) for _ in range(2))
+        y_, _ = ms.mamba_scan(dt, bm, cm, x, torch.zeros(8, ds))
+        assert all(g is not None for g in torch.autograd.grad(y_.sum(), (dt, x)))
 
 
-def test_refuse_backward_names_the_kernel():
-    """The CUDA wrappers refuse before anything else: an input that
-    requires grad gets ``NotPorted`` naming the missing backward kernel,
-    and one that does not gets the wrapper's own device check."""
-    t, u = torch.zeros(1, 1, 1, 32, requires_grad=True), torch.zeros(1, 32)
+def test_refuse_backward_names_the_kernel(monkeypatch):
+    """The backward wrappers refuse an instance they lack first, naming
+    their seam, before the device check; an instance they have gets the
+    device check.  C9: a token job on the card whose model needs a
+    missing instance is refused by ``check_ported`` from its config alone
+    (no card needed), and the same job on the CPU is accepted."""
+    t, u = torch.zeros(1, 1, 3, 128), torch.zeros(1, 128)
     with pytest.raises(NotPorted) as err:
-        rwkv6_scan_cuda(t, t, t, t, u)
+        rs.rwkv6_scan_bwd_cuda(t, t, t, t, u, torch.zeros(1, 1, 1, 128, 128), t,
+                               torch.zeros(1, 1, 128, 128))
     assert err.value.seam == "rwkv6_scan_bwd"
+    t, u = torch.zeros(1, 1, 3, 32), torch.zeros(1, 32)
     with pytest.raises(ValueError, match="on CUDA"):
-        rwkv6_scan_cuda(*(t.detach(),) * 4, u)
-    dt, bc = torch.zeros(1, 2, 4, requires_grad=True), torch.zeros(1, 2, 3)
+        rs.rwkv6_scan_bwd_cuda(t, t, t, t, u, torch.zeros(1, 1, 1, 32, 32), t,
+                               torch.zeros(1, 1, 32, 32))
+    dt, bc = torch.zeros(1, 2, 4), torch.zeros(1, 2, 48)
     with pytest.raises(NotPorted) as err:
-        mamba_scan_cuda(dt, bc, bc, dt, torch.zeros(4, 3))
+        ms.mamba_scan_bwd_cuda(dt, bc, bc, dt, torch.zeros(4, 48), torch.zeros(1, 1, 4, 48), dt,
+                               torch.zeros(1, 4, 48))
     assert err.value.seam == "mamba_scan_bwd"
+    bc = torch.zeros(1, 2, 3)
     with pytest.raises(ValueError, match="on CUDA"):
-        mamba_scan_cuda(dt.detach(), bc, bc, dt.detach(), torch.zeros(4, 3))
+        ms.mamba_scan_bwd_cuda(dt, bc, bc, dt, torch.zeros(4, 3), torch.zeros(1, 1, 4, 3), dt,
+                               torch.zeros(1, 4, 3))
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    gemma = TaskConfig(kind="tokens", arch="gemma3-1b", reduced=False)
+    with pytest.raises(NotPorted) as err:
+        FederatedJob(task=gemma, device="cuda").check_ported()
+    assert err.value.seam == "flash_attention_bwd" and "head dim 256" in str(err.value)
+    FederatedJob(task=gemma, device="cpu").check_ported()
+    for arch in ("smollm-135m", "qwen3-8b", "rwkv6-7b", "jamba-1.5-large-398b"):
+        FederatedJob(task=TaskConfig(kind="tokens", arch=arch, reduced=False),
+                     device="cuda").check_ported()
+    # the job runs nothing before it refuses: no task built, no kernel prepared
+    calls = []
+    monkeypatch.setattr(TaskConfig, "build", lambda self: calls.append("build"))
+    monkeypatch.setattr(build, "prepare", lambda *a: calls.append("prepare"))
+    for transport in ("stacked", "thread"):
+        with pytest.raises(NotPorted):
+            FederatedJob(task=gemma, device="cuda", transport=transport).run()
+    assert calls == []
 
 
 def _c_params(source: str, symbol: str) -> int:
@@ -269,10 +316,10 @@ def test_c_interfaces_and_instances():
         == fa.BWD_HEAD_DIMS
     lse = torch.zeros(1, 2, 4)
     q, kv = torch.zeros(1, 2, 4, 256), torch.zeros(1, 1, 4, 256)
-    with pytest.raises(ValueError, match="head dim 256"):          # gemma3-1b's
+    with pytest.raises(NotPorted, match="head dim 256"):           # gemma3-1b's
         fa.flash_attention_bwd_cuda(q, kv, kv, q, lse, q, True, None)
     q, kv = torch.zeros(1, 2, 4, 64), torch.zeros(1, 1, 4, 64)
-    with pytest.raises(ValueError, match="bfloat16 instance"):
+    with pytest.raises(NotPorted, match="bfloat16 gradient"):
         b = q.bfloat16()
         fa.flash_attention_bwd_cuda(b, kv.bfloat16(), kv.bfloat16(), b, lse, b, True, None)
     with pytest.raises(ValueError, match="on CUDA"):

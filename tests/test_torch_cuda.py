@@ -26,7 +26,9 @@ softmax over up to 1024 keys), bf16 2e-2; its backward (fp32, D <=
 launches; the scans (out or y,
 and the final state) rtol 1e-5 and atol 1e-5 of the plain version's
 largest value, since each output sums D or ds terms in another order
-(``mamba_scan`` also takes its exp as ``ex2.approx``);
+(``mamba_scan`` also takes its exp as ``ex2.approx``), and their
+backwards (fp32) within the same gate of the plain backwards, bit-equal
+across two launches;
 served logits card vs CPU rtol=atol=1e-4 (TF32 off), greedy tokens equal.
 """
 import numpy as np
@@ -398,6 +400,74 @@ def test_small_generate_on_card_matches_cpu_and_launches_the_kernels(cuda_device
     assert gpu["decode_launches"] == {}
     assert torch.equal(gpu["tokens"].cpu(), cpu["tokens"])
     torch.testing.assert_close(gpu["logits"].cpu(), cpu["logits"], rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,h,l,d,shift", [(1, 1, 1, 32, -5.0), (2, 3, 13, 32, 3.0),
+                                           (1, 5, 77, 64, -9.0), (2, 4, 32, 64, -5.0),
+                                           (1, 2, 0, 64, -5.0), (2, 64, 300, 64, -5.0)])
+def test_rwkv6_scan_backward_kernel_matches_plain_on_card(cuda_device, b, h, l, d, shift):
+    """The forward's output has a grad_fn on the card; its backward launches
+    the backward kernel once, bit-equal across two launches, and holds the
+    plain backward (u's gradient summed over the batch rows) within rtol
+    1e-5, atol 1e-5 of the largest value, with a final-state gradient; w
+    near 0 (shift 3), in between and near 1 (shift -9)."""
+    gen = torch.Generator(device=cuda_device).manual_seed(l * 3 + d + h)
+    r, k, v = (torch.randn(b, h, l, d, device=cuda_device, generator=gen).requires_grad_()
+               for _ in range(3))
+    w = torch.exp(-torch.exp(torch.randn(b, h, l, d, device=cuda_device, generator=gen)
+                             + shift)).requires_grad_()
+    u = (torch.randn(h, d, device=cuda_device, generator=gen) * 0.5).requires_grad_()
+    g = torch.randn(b, h, l, d, device=cuda_device, generator=gen)
+    gs = torch.randn(b, h, d, d, device=cuda_device, generator=gen)
+    out, state = ops.rwkv6_scan(r, k, v, w, u)
+    assert out.grad_fn is not None
+    leaves = (r, k, v, w, u)
+    before = build.LAUNCHES.get("rwkv6_scan_bwd", 0)
+    got = torch.autograd.grad((out, state), leaves, (g, gs), retain_graph=True)
+    again = torch.autograd.grad((out, state), leaves, (g, gs))
+    torch.cuda.synchronize()
+    assert build.LAUNCHES["rwkv6_scan_bwd"] == before + 2
+    assert all(torch.equal(x, y) for x, y in zip(got, again))
+    want = ref.rwkv6_scan_bwd_ref(*(t.detach() for t in leaves), g, gs)
+    for x, y in zip(got, want):
+        _close_scaled(x, y)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,l,di,ds,shift", [(1, 1, 5, 1, -3.0), (2, 13, 24, 8, -3.0),
+                                             (1, 77, 300, 16, 4.0), (2, 33, 130, 32, 4.0),
+                                             (1, 45, 77, 5, -3.0), (2, 0, 64, 16, -3.0),
+                                             (2, 512, 16384, 16, -3.0)])
+def test_mamba_scan_backward_kernel_matches_plain_on_card(cuda_device, b, l, di, ds, shift):
+    """The selective scan's backward on the card: launched once a backward,
+    bit-equal across two launches, within rtol 1e-5, atol 1e-5 of the
+    plain backward's largest value at every d_state instance, with a
+    final-state gradient and (shift 4) decays that underflow to 0."""
+    gen = torch.Generator(device=cuda_device).manual_seed(l + di + ds)
+    dt = torch.nn.functional.softplus(
+        torch.randn(b, l, di, device=cuda_device, generator=gen) + shift).requires_grad_()
+    bm, cm = (torch.randn(b, l, ds, device=cuda_device, generator=gen).requires_grad_()
+              for _ in range(2))
+    x = torch.randn(b, l, di, device=cuda_device, generator=gen).requires_grad_()
+    log_a = torch.log(torch.arange(1, ds + 1, device=cuda_device,
+                                   dtype=torch.float32)).expand(di, ds)
+    log_a = (log_a + 0.1 * torch.randn(di, ds, device=cuda_device, generator=gen)
+             ).contiguous().requires_grad_()
+    g = torch.randn(b, l, di, device=cuda_device, generator=gen)
+    gs = torch.randn(b, di, ds, device=cuda_device, generator=gen)
+    y, state = ops.mamba_scan(dt, bm, cm, x, log_a)
+    assert y.grad_fn is not None
+    leaves = (dt, bm, cm, x, log_a)
+    before = build.LAUNCHES.get("mamba_scan_bwd", 0)
+    got = torch.autograd.grad((y, state), leaves, (g, gs), retain_graph=True)
+    again = torch.autograd.grad((y, state), leaves, (g, gs))
+    torch.cuda.synchronize()
+    assert build.LAUNCHES["mamba_scan_bwd"] == before + 2
+    assert all(torch.equal(p, q) for p, q in zip(got, again))
+    want = ref.mamba_scan_bwd_ref(*(t.detach() for t in leaves), g, gs)
+    for p, q in zip(got, want):
+        _close_scaled(p, q)
 
 
 @pytest.mark.cuda
