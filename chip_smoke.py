@@ -207,11 +207,13 @@ Phases, each of which fails the run (non-zero exit) if it goes wrong:
    16-step checkpoint stage, D 32 and 64, w near 0 and near 1, a non-zero
    final-state gradient) and at 21c's shape ([2, 64, 1024, 64]), two
    launches bit-equal, the forward's output and state with checkpoints
-   bit-equal to the serving call's, then timed beside its bound (14 flops
-   a state entry a step at the fp32 rate) and the plain backward; (b) the
+   bit-equal to the serving call's, its resources printed (the cluster's
+   blocks and how many clusters the card holds at once too), then timed
+   beside its bound (bytes) and the plain backward; (b) the
    selective-scan backward (``mamba_scan_bwd``) the same way, at every
    d_state instance, with dt large enough that exp(dt A) underflows, and
-   at Jamba's [2, 512, 16384] x 16; (c) rwkv6-7b at its published width,
+   at Jamba's [2, 512, 16384] x 16, its walk and its partials' sum also
+   timed apart; (c) rwkv6-7b at its published width,
    depth cut to 2 layers, trained by 2-site FedAvg for 2 rounds through
    ``FederatedJob.run`` (2 x 1024 tokens a site step, fp32 matmuls): every
    leaf of every site step has a gradient, each scan kernel launched once
@@ -4255,15 +4257,19 @@ def _hold_scan_bwd(torch, name, fwd, bwd, bwd_ref, xs, dgrad, dstate, what) -> f
                for i, (a, w) in enumerate(zip(got, want)))
 
 
-def _bwd_resources(build, name: str, instances) -> None:
+def _bwd_resources(build, name: str, instances, extra=()) -> None:
+    """Print each instance's registers, local and shared bytes, threads and
+    blocks an SM from ``<name>_resources``, then the ``extra`` fields the
+    entry writes after them."""
     import ctypes
-    out5 = (ctypes.c_int * 5)()
+    out = (ctypes.c_int * (5 + len(extra)))()
     fn = build.entry(name, f"{name}_resources", [ctypes.c_int64, ctypes.POINTER(ctypes.c_int)])
     for inst in instances:
-        _require(fn(inst, out5) == 0, f"{name} {inst} resources")
-        regs, local, smem, threads, blocks = out5
+        _require(fn(inst, out) == 0, f"{name} {inst} resources")
+        regs, local, smem, threads, blocks = out[:5]
         print(f"{name} {inst}: {regs} registers, local {local} B, shared {smem} B, "
-              f"{threads} threads, {blocks} blocks an SM")
+              f"{threads} threads, {blocks} blocks an SM"
+              + "".join(f", {out[5 + i]} {what}" for i, what in enumerate(extra)))
 
 
 def check_rwkv6_scan_bwd(torch, build, dev) -> dict:
@@ -4274,7 +4280,8 @@ def check_rwkv6_scan_bwd(torch, build, dev) -> dict:
     its bound and the plain backward's.  Returns its kernels-line entry."""
     from repro_torch.kernels import ref
     from repro_torch.kernels import rwkv6_scan as rs
-    _bwd_resources(build, rs.BWD_NAME, rs.BWD_HEAD_DIMS)
+    _bwd_resources(build, rs.BWD_NAME, rs.BWD_HEAD_DIMS,
+                   ("blocks a cluster", "clusters the card holds at once"))
     gen = torch.Generator(device=dev).manual_seed(21)
     err = 0.0
     for case in RWKV_BWD_CASES + [RWKV_TRAIN + ("mid",)]:
@@ -4290,6 +4297,8 @@ def check_rwkv6_scan_bwd(torch, build, dev) -> dict:
     xs, dout, dstate = _rwkv_bwd_inputs(torch, dev, RWKV_TRAIN, "mid", gen)
     _, _, ckpt = rs.rwkv6_scan_cuda(*xs, with_ckpt=True)
     print("rwkv6_scan_bwd: no library time: no one PyTorch call computes the WKV-6 gradient")
+    print(f"rwkv6_scan_bwd: this design also reads the checkpoints, "
+          f"{4 * ckpt.numel() / 1e6:.1f} MB, and keeps every state on chip (no scratch)")
     # bytes: r, k, v, w, dout read, dr, dk, dv, dw written, u, dstate read and
     # du written once (the checkpoints are this design's); operations: 14 flops
     # a state entry a step (the state recomputed: k v and an FMA; the adjoint:
@@ -4319,7 +4328,7 @@ def check_mamba_scan_bwd(torch, build, dev) -> dict:
     and the plain backward's.  Returns its kernels-line entry."""
     from repro_torch.kernels import mamba_scan as ms
     from repro_torch.kernels import ref
-    _bwd_resources(build, ms.BWD_NAME, (1, 4, 8, 16, 32))
+    _bwd_resources(build, ms.BWD_NAME, (1, 4, 8, 16, 32), ("channels a block",))
     gen = torch.Generator(device=dev).manual_seed(22)
     err, under = 0.0, 0
     for case in MAMBA_BWD_CASES + [MAMBA_FULL + (-3.0,)]:
@@ -4350,8 +4359,14 @@ def check_mamba_scan_bwd(torch, build, dev) -> dict:
     sfu_ms = 1e3 * entries / 16 / (sms * mhz * 1e6)
     flops_ms = 1e3 * 19 * entries / fp32_rate
     print(f"mamba_scan_bwd: one exp an entry on the SFU {sfu_ms:.4f} ms, 19 flops an entry "
-          f"{flops_ms:.4f} ms; this design takes each exp twice (recompute, walk back)")
+          f"{flops_ms:.4f} ms; this design takes one exp an entry (the decays kept in "
+          f"registers from the recompute to the walk back)")
+    nbx = -(-di // ms.bwd_block_channels(ds))
+    print(f"mamba_scan_bwd: this design also reads the checkpoints, "
+          f"{4 * ckpt.numel() / 1e6:.1f} MB, and writes and reads {nbx} blocks' partials of "
+          f"dB and dC, {2 * 4 * nbx * b * l * ds / 1e6:.1f} MB")
     print("mamba_scan_bwd: no library time: no one PyTorch call computes the scan's gradient")
+    _time_bwd_parts(torch, build, ms, xs, ckpt, dy, dstate)
     timing = measure(
         torch, f"mamba_scan_bwd {list(MAMBA_FULL)} fp32",
         lambda: ms.mamba_scan_bwd_cuda(*xs, ckpt, dy, dstate),
@@ -4359,6 +4374,30 @@ def check_mamba_scan_bwd(torch, build, dev) -> dict:
         nbytes=4 * (5 * b * l * di + 4 * b * l * ds + 2 * di * ds + 2 * b * di * ds),
         flops=0, ops_ms=max(sfu_ms, flops_ms))
     return {"max_abs_err": err, **timing, "sfu_ms": sfu_ms}
+
+
+def _time_bwd_parts(torch, build, ms, xs, ckpt, dy, dstate) -> None:
+    """Time the selective-scan backward's two kernels apart (CUDA-graph
+    medians) through the library's walk-only and sum-only entry points;
+    these calls are not counted as launches."""
+    import ctypes
+    dt, bm, cm, x, log_a = xs
+    b, l, di = dt.shape
+    ds = log_a.shape[1]
+    nbx = -(-di // ms.bwd_block_channels(ds))
+    outs = [torch.empty_like(t) for t in (dt, bm, cm, x)] + [torch.empty(b, di, ds,
+                                                                          device=dt.device)]
+    parts = [torch.empty(nbx, b, l, ds, device=dt.device) for _ in range(2)]
+    ptrs = [t.data_ptr() for t in (*xs, ckpt, dy, dstate, *outs, *parts)]
+    ms_of = {}
+    for part in ("walk", "reduce"):
+        fn = build.entry(ms.BWD_NAME, f"mamba_scan_bwd_{part}_f32", ms._BWD_ARGS)
+
+        def call(fn=fn):
+            _require(fn(*ptrs, b, l, di, ds, build.stream()) == 0, "mamba_scan_bwd part")
+        ms_of[part] = time_ms(call)[0]
+    print(f"mamba_scan_bwd {list(MAMBA_FULL)}: the walk kernel {ms_of['walk']:.4f} ms, the "
+          f"partials' sum {ms_of['reduce']:.4f} ms (CUDA-graph medians, each alone)")
 
 
 class _CutDepth:

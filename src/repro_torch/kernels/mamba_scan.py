@@ -19,10 +19,12 @@ requires grad, or a ``torch.func`` transform), the call goes through
 :class:`MambaScan`, a ``torch.autograd.Function`` whose forward keeps
 those checkpoints and whose backward is ``csrc/mamba_scan_bwd.cu``
 (fp32, ``ds <= 32``: :func:`mamba_scan_bwd`), which walks the stages
-last to first and recomputes each one's states from its checkpoint; dB
-and dC, sums over every channel, are added from per-block partials in a
-fixed order.  The final state's gradient starts the adjoint.  Both
-Functions carry a ``vmap`` rule that folds the mapped dimension into B;
+last to first and recomputes each one's states from its checkpoint,
+keeping each entry's decay in registers for the walk back (one exp an
+entry), its inputs staged by a ``cp.async`` ring that runs backwards; dB
+and dC, sums over every channel, are added from per-block partials by a
+second kernel in a fixed order.  The final state's gradient starts the
+adjoint.  Both Functions carry a ``vmap`` rule that folds the mapped dimension into B;
 the kernel writes log_a's gradient per batch row and the Function sums
 the rows, so that per-example DP-SGD gets each example's own.  The
 reference has no backward kernel: XLA differentiates its jnp scan
@@ -46,7 +48,10 @@ NAME = "mamba_scan"
 BWD_NAME = "mamba_scan_bwd"
 MAX_STATE = 32                          # the kernels' widest template instance
 CKPT_STEPS = 16                         # kSteps in both sources: steps a checkpoint
-MIN_BLOCK_CHANNELS = 32                 # kMinChan in mamba_scan_bwd.cu: its partials' blocks
+# the backward's instances: (largest d_state, threads a channel); a block has
+# BWD_THREADS threads, or 32 a thread of a channel where that is more
+BWD_SPLITS = ((4, 1), (8, 2), (16, 4), (32, 8))
+BWD_THREADS = 128                       # kThreadsB in mamba_scan_bwd.cu
 _P, _I = ctypes.c_void_p, ctypes.c_int64
 _ARGS = [_P] * 8 + [_I] * 4 + [_P]
 _BWD_ARGS = [_P] * 15 + [_I] * 4 + [_P]
@@ -81,6 +86,13 @@ def check_bwd_instance(dtype: torch.dtype, d_state: int) -> None:
 
 def _stages(l: int) -> int:
     return -(-l // CKPT_STEPS)
+
+
+def bwd_block_channels(d_state: int) -> int:
+    """Channels a block of the backward's instance for ``d_state``: the
+    channel blocks of its partials of dB and dC."""
+    g = next(g for top, g in BWD_SPLITS if d_state <= top)
+    return max(BWD_THREADS, 32 * g) // g
 
 
 def mamba_scan_cuda(dt, b_mat, c_mat, x, log_a, with_ckpt: bool = False):
@@ -129,7 +141,7 @@ def mamba_scan_bwd_cuda(dt, b_mat, c_mat, x, log_a, ckpt, dy, dstate):
     db, dc = torch.empty_like(b_mat), torch.empty_like(c_mat)
     dlog_a = torch.zeros((bsz, di, ds), dtype=torch.float32, device=dt.device)
     if bsz * di:
-        blocks = -(-di // MIN_BLOCK_CHANNELS)
+        blocks = -(-di // bwd_block_channels(ds))
         part_b, part_c = (torch.empty((blocks, bsz, l, ds), dtype=torch.float32,
                                       device=dt.device) for _ in range(2))
         with torch.cuda.device(dt.device):

@@ -22,10 +22,14 @@ requires grad, or a ``torch.func`` transform), the call goes through
 :class:`Rwkv6Scan`, a ``torch.autograd.Function`` whose forward keeps
 those checkpoints and whose backward is ``csrc/rwkv6_scan_bwd.cu`` (fp32,
 head dims 32 and 64: :func:`rwkv6_scan_bwd`), which walks the stages
-last to first and recomputes each one's states from its checkpoint.
-The final state's gradient starts the adjoint.  Both Functions carry a
-``vmap`` rule that folds the mapped dimension into B; the kernel writes
-u's gradient per batch row and the Function sums the rows, so that
+last to first and recomputes each one's states from its checkpoint, 8
+steps at a time in registers: a (batch, head)'s rows are split over a
+thread-block cluster of D / 32 blocks, each block's share of dv sent to
+the block that owns the column through distributed shared memory, and
+no state goes to global memory.  The final state's gradient starts the
+adjoint.  Both Functions carry a ``vmap`` rule that folds the mapped
+dimension into B; the kernel writes u's gradient per batch row and the
+Function sums the rows, so that
 per-example DP-SGD (``torch.func.vmap(torch.func.grad(...))``) gets each
 example's own.  The reference has no backward kernel: XLA differentiates
 its jnp scan (``models/rwkv6.py::wkv_scan``).
@@ -52,7 +56,7 @@ CKPT_STEPS = 16                         # kSteps in both sources: steps a checkp
 _ENTRY = {torch.float32: "rwkv6_scan_f32", torch.bfloat16: "rwkv6_scan_bf16"}
 _P, _I = ctypes.c_void_p, ctypes.c_int64
 _ARGS = [_P] * 8 + [_I] * 4 + [_P]
-_BWD_ARGS = [_P] * 14 + [_I] * 4 + [_P]
+_BWD_ARGS = [_P] * 13 + [_I] * 4 + [_P]
 
 
 def _check(r, k, v, w, u) -> None:
@@ -121,18 +125,20 @@ def rwkv6_scan_bwd_cuda(r, k, v, w, u, ckpt, dout, dstate):
         raise ValueError(f"rwkv6_scan_bwd: dout {tuple(dout.shape)}, dstate "
                          f"{tuple(dstate.shape)} and ckpt {tuple(ckpt.shape)} do not fit r "
                          f"{tuple(r.shape)}")
-    dout, dstate = dout.float().contiguous(), dstate.float().contiguous()
+    # the kernel copies 16 bytes at a time: a gradient that arrives off a
+    # 16-byte boundary (a view) is copied
+    dout, dstate = (t if t.data_ptr() % 16 == 0 else t.clone()
+                    for t in (dout.float().contiguous(), dstate.float().contiguous()))
     u32 = u.float().contiguous()
     build.require_cuda("rwkv6_scan_bwd_cuda", r, k, v, w, u32, ckpt, dout, dstate)
-    build.require_aligned("rwkv6_scan_bwd_cuda", ckpt)
+    build.require_aligned("rwkv6_scan_bwd_cuda", r, k, v, w, ckpt)
     dr, dk, dv, dw = (torch.empty_like(t) for t in (r, k, v, w))
     du = torch.zeros((b, h, d), dtype=torch.float32, device=r.device)
     if b * h:
-        scratch = torch.empty((b * h, CKPT_STEPS, d, d), dtype=torch.float32, device=r.device)
         with torch.cuda.device(r.device):
             build.launch(BWD_NAME, "rwkv6_scan_bwd_f32", _BWD_ARGS,
                          *(t.data_ptr() for t in (r, k, v, w, u32, ckpt, dout, dstate,
-                                                  scratch, dr, dk, dv, dw, du)),
+                                                  dr, dk, dv, dw, du)),
                          b, h, l, d, build.stream())
     return dr, dk, dv, dw, du
 

@@ -405,7 +405,8 @@ def test_small_generate_on_card_matches_cpu_and_launches_the_kernels(cuda_device
 @pytest.mark.cuda
 @pytest.mark.parametrize("b,h,l,d,shift", [(1, 1, 1, 32, -5.0), (2, 3, 13, 32, 3.0),
                                            (1, 5, 77, 64, -9.0), (2, 4, 32, 64, -5.0),
-                                           (1, 2, 0, 64, -5.0), (2, 64, 300, 64, -5.0)])
+                                           (1, 2, 0, 64, -5.0), (2, 64, 300, 64, -5.0),
+                                           (2, 64, 1024, 64, -5.0)])
 def test_rwkv6_scan_backward_kernel_matches_plain_on_card(cuda_device, b, h, l, d, shift):
     """The forward's output has a grad_fn on the card; its backward launches
     the backward kernel once, bit-equal across two launches, and holds the

@@ -18,10 +18,11 @@
 - A CPU model of each kernel's walk, held to the plain backward: the
   forward's checkpoint every C steps (C read from the ``.cu`` sources),
   the stages last to first, each stage's states recomputed from its
-  checkpoint, the tiles' partial sums (a WKV-6 thread's 8 columns, 4
-  rows) added in the kernel's order, and the selective scan's per-block
-  partials of dB and dC (the block's channels read from its launch
-  lines) added block by block in order.
+  checkpoint (the WKV-6 kernel's in sub-stages), the sums added in the
+  kernels' orders (the WKV-6 kernel's 2 x 4 tiles, shuffle trees, warps
+  and cluster ranks; the selective scan's states a thread, slices, warps,
+  per-block partials of dB and dC, the block's channels read from its
+  dispatch, and the second kernel's runs of blocks).
 - The C interfaces (argument counts, instances) against the sources.
 
 Tolerances: every gradient within rtol 1e-5 and atol 1e-5 of its largest
@@ -245,8 +246,15 @@ def test_checkpoint_stage_and_interfaces_match_the_sources():
         assert _const(src, "kSteps") == rs.CKPT_STEPS, src
     for src in ("mamba_scan.cu", "mamba_scan_bwd.cu"):
         assert _const(src, "kSteps") == ms.CKPT_STEPS, src
-    assert _const("mamba_scan_bwd.cu", "kMinChan") == ms.MIN_BLOCK_CHANNELS
-    assert _const("rwkv6_scan_bwd.cu", "kCols") == 8
+    # the WKV-6 walk: 32 rows a block, 2 x 4 tiles, sub-stages that divide the stage
+    assert (_const("rwkv6_scan_bwd.cu", "kRows"), _const("rwkv6_scan_bwd.cu", "kCols")) == (32, 4)
+    assert rs.CKPT_STEPS % _const("rwkv6_scan_bwd.cu", "kSub") == 0
+    assert _const("mamba_scan_bwd.cu", "kThreadsB") == ms.BWD_THREADS
+    assert _const("mamba_scan_bwd.cu", "kPer") == 4
+    assert tuple(_mamba_splits()) == ms.BWD_SPLITS
+    # the partials' channel blocks: 128 threads, or 32 a thread of a channel
+    assert [ms.bwd_block_channels(ds) for ds in (1, 4, 5, 8, 9, 16, 17, 32)] \
+        == [128, 128, 64, 64, 32, 32, 32, 32]
 
     def params(source, symbol):
         m = re.search(rf'extern "C" int {symbol}\(([^)]*)\)', (CSRC / source).read_text())
@@ -255,7 +263,8 @@ def test_checkpoint_stage_and_interfaces_match_the_sources():
     assert params("rwkv6_scan.cu", "rwkv6_scan_bf16") == len(rs._ARGS)
     assert params("rwkv6_scan_bwd.cu", "rwkv6_scan_bwd_f32") == len(rs._BWD_ARGS)
     assert params("mamba_scan.cu", "mamba_scan_f32") == len(ms._ARGS)
-    assert params("mamba_scan_bwd.cu", "mamba_scan_bwd_f32") == len(ms._BWD_ARGS)
+    for part in ("", "_walk", "_reduce"):
+        assert params("mamba_scan_bwd.cu", f"mamba_scan_bwd{part}_f32") == len(ms._BWD_ARGS)
     text = (CSRC / "rwkv6_scan_bwd.cu").read_text()
     entry = text[text.index('extern "C" int rwkv6_scan_bwd_f32'):]
     assert tuple(int(d) for d in re.findall(r"case (\d+): return launch<", entry)) \
@@ -265,72 +274,123 @@ def test_checkpoint_stage_and_interfaces_match_the_sources():
 
 def _mamba_splits():
     """(largest d_state, threads a channel) of each instance, from the
-    backward's C entry."""
+    backward's dispatch."""
     text = (CSRC / "mamba_scan_bwd.cu").read_text()
-    entry = text[text.index('extern "C" int mamba_scan_bwd_f32'):]
+    entry = text[text.index("int dispatch("):]
     entry = entry[:entry.index("\n}\n")]
     splits = [(int(ds), int(g)) for ds, g in
-              re.findall(r"if \(ds <= (\d+)\)\s*return launch<(\d+), \d+>", entry)]
-    last = re.findall(r"\n  return launch<(\d+), \d+>", entry)
+              re.findall(r"if \(ds <= (\d+)\)\s*return launch<(\d+)>", entry)]
+    last = re.findall(r"\n  return launch<(\d+)>", entry)
     return splits + [(ms.MAX_STATE, int(last[0]))]
 
 
-def _rwkv_walk(r, k, v, w, u, dout, dstate, c_steps: int, cols: int):
-    """csrc/rwkv6_scan_bwd.cu's walk in fp32 torch: checkpoints every
-    ``c_steps`` from the forward, the stages last to first, each stage's
-    states recomputed, each step's sums over the tile columns (dr, dk, dw)
-    and rows (dv) taken a tile at a time and added tile by tile, the bonus
-    terms once a step, du a sum over the steps, last first."""
-    b, h, l, d = r.shape
-    s = torch.zeros(b, h, d, d)
+def _forward_ckpts(step, s, l, c_steps):
+    """The states before every ``c_steps``-th step of ``step(s, t)``."""
     ckpt = []
     for t in range(l):
         if t % c_steps == 0:
             ckpt.append(s)
-        s = w[:, :, t, :, None] * s + k[:, :, t, :, None] * v[:, :, t, None, :]
+        s = step(s, t)
+    return ckpt
+
+
+def _in_order(parts):
+    """parts[0] + parts[1] + ...: a fixed order of addition."""
+    total = parts[0]
+    for p in parts[1:]:
+        total = total + p
+    return total
+
+
+def _rwkv_walk(r, k, v, w, u, dout, dstate, c_steps: int, sub: int, rows: int):
+    """csrc/rwkv6_scan_bwd.cu's walk in fp32 torch.  Checkpoints every
+    ``c_steps`` from the forward; the stages last to first, each in
+    sub-stages of ``sub`` steps whose states are recomputed from the
+    checkpoint; the D rows split over D / ``rows`` blocks of a cluster.  A
+    thread holds a 2 x 4 tile and a warp 16 rows by 16 columns.  A row's
+    sums (dr, dk, dw): a tile's 4 columns, the warp's 4 column groups as
+    (c0 + c2) + (c1 + c3), the column warps in order.  A column's (dv): a
+    tile's 2 rows, a warp's 8 row groups as ((p0 + p4) + (p2 + p6)) + ((p1
+    + p5) + (p3 + p7)), the row warps of each block and the blocks in rank
+    order, and the bonus term with the ranks' shares of sum_i u_i r_i k_i
+    added in rank order (each share, and v . dout, a plain sum here).  du a
+    sum over the steps, last first."""
+    b, h, l, d = r.shape
+    ranks, warps = d // rows, d // 16
+
+    def step(s, t):
+        return w[:, :, t, :, None] * s + k[:, :, t, :, None] * v[:, :, t, None, :]
+
+    def row_sums(x):                    # [b, h, D, D] -> [b, h, D], over the columns
+        c = x.reshape(b, h, d, warps, 4, 4).sum(-1)     # a tile's 4 columns
+        c = (c[..., 0] + c[..., 2]) + (c[..., 1] + c[..., 3])
+        return _in_order([c[..., q] for q in range(warps)])
+
+    def col_sums(x):                    # [b, h, D, D] -> [b, h, D], over the rows
+        p = x.reshape(b, h, d // 16, 8, 2, d)
+        p = p[:, :, :, :, 0] + p[:, :, :, :, 1]        # a tile's 2 rows
+        y = p[:, :, :, :4] + p[:, :, :, 4:]
+        z = (y[:, :, :, 0] + y[:, :, :, 2]) + (y[:, :, :, 1] + y[:, :, :, 3])
+        # a block's row warps in order, then the ranks: 16-row groups in order
+        return _in_order([z[:, :, q] for q in range(d // 16)])
+
+    ckpt = _forward_ckpts(step, torch.zeros(b, h, d, d), l, c_steps)
     g = dstate.clone()
     dr, dk, dv, dw = (torch.zeros(b, h, l, d) for _ in range(4))
     du = torch.zeros(b, h, d)
     uu = u[None]
     for c in reversed(range(len(ckpt))):
         t0, nt = c * c_steps, min(c_steps, l - c * c_steps)
-        s, states = ckpt[c], []
-        for t in range(t0, t0 + nt):
-            states.append(s)
-            s = w[:, :, t, :, None] * s + k[:, :, t, :, None] * v[:, :, t, None, :]
-        for j in reversed(range(nt)):
-            t, p = t0 + j, states[j]
-            r_t, k_t, v_t, w_t, g_t = (x[:, :, t] for x in (r, k, v, w, dout))
-            parts = [((p * g_t[..., None, :]).reshape(b, h, d, d // cols, cols).sum(-1)),
-                     ((g * v_t[..., None, :]).reshape(b, h, d, d // cols, cols).sum(-1)),
-                     ((g * p).reshape(b, h, d, d // cols, cols).sum(-1))]
-            sr, sk, sw = (sum(x[..., q] for q in range(d // cols)) for x in parts)
-            rows = (g * k_t[..., :, None]).reshape(b, h, d // 4, 4, d).sum(3)
-            sv = sum(rows[:, :, q] for q in range(d // 4))
-            vd = (v_t * g_t).sum(-1, keepdim=True)
-            dr[:, :, t] = sr + uu * k_t * vd
-            dk[:, :, t] = sk + uu * r_t * vd
-            dw[:, :, t] = sw
-            dv[:, :, t] = sv + (uu * r_t * k_t).sum(-1, keepdim=True) * g_t
-            du = du + r_t * k_t * vd
-            g = w_t[..., :, None] * g + r_t[..., :, None] * g_t[..., None, :]
+        for s0 in reversed(range(0, nt, sub)):
+            s = ckpt[c]
+            for t in range(t0, t0 + s0):
+                s = step(s, t)
+            states = []
+            for t in range(t0 + s0, t0 + min(s0 + sub, nt)):
+                states.append(s)
+                s = step(s, t)
+            for j in reversed(range(len(states))):
+                t, p = t0 + s0 + j, states[j]
+                r_t, k_t, v_t, w_t, g_t = (x[:, :, t] for x in (r, k, v, w, dout))
+                vd = (v_t * g_t).sum(-1, keepdim=True)
+                ruk = (uu * r_t * k_t).reshape(b, h, ranks, rows).sum(-1)
+                dr[:, :, t] = row_sums(p * g_t[..., None, :]) + uu * k_t * vd
+                dk[:, :, t] = row_sums(g * v_t[..., None, :]) + uu * r_t * vd
+                dw[:, :, t] = row_sums(g * p)
+                dv[:, :, t] = (col_sums(g * k_t[..., :, None])
+                               + _in_order([ruk[..., q, None] for q in range(ranks)]) * g_t)
+                du = du + r_t * k_t * vd
+                g = w_t[..., :, None] * g + r_t[..., :, None] * g_t[..., None, :]
     return dr, dk, dv, dw, du
 
 
-def _mamba_walk(dt, bm, cm, x, log_a, dy, dstate, c_steps: int, chan: int):
+def _mamba_walk(dt, bm, cm, x, log_a, dy, dstate, c_steps: int, threads: int, per: int,
+                reduce_warps: int):
     """csrc/mamba_scan_bwd.cu's walk in fp32 torch: checkpoints every
-    ``c_steps``, the stages last to first with their states recomputed,
-    dB and dC summed over each block of ``chan`` channels and the blocks'
-    partials added in block order, dlog_a a sum over the steps."""
+    ``c_steps``, the stages last to first with their states recomputed.  A
+    channel's states over G threads of ``per`` each (G from the instance's
+    split), a block ``threads`` / G channels (``threads`` at least 32 G).
+    dx and ddt: each thread's ``per`` states, then the G shares in order.
+    dB and dC: a warp's 32 channels, the slice's warps of a block in order,
+    then a second kernel over the blocks' partials: ``reduce_warps`` runs of
+    consecutive blocks, each added in order, and the runs in order.
+    dlog_a a sum over the steps."""
     bsz, l, di = dt.shape
     ds = log_a.shape[1]
+    g_threads = next(g for top, g in ms.BWD_SPLITS if ds <= top)
+    chan = max(threads, 32 * g_threads) // g_threads
+    pad_n = g_threads * per - ds
     a = -torch.exp(log_a)
-    s = torch.zeros(bsz, di, ds)
-    ckpt = []
-    for t in range(l):
-        if t % c_steps == 0:
-            ckpt.append(s)
-        s = torch.exp(dt[:, t, :, None] * a) * s + (dt[:, t] * x[:, t])[..., None] * bm[:, t, None]
+
+    def step(s, t):
+        return (torch.exp(dt[:, t, :, None] * a) * s
+                + (dt[:, t] * x[:, t])[..., None] * bm[:, t, None])
+
+    def over_states(val):               # [bsz, di, ds] -> [bsz, di]: per-thread, then slices
+        val = torch.nn.functional.pad(val, (0, pad_n)).reshape(bsz, di, g_threads, per).sum(-1)
+        return _in_order([val[..., q] for q in range(g_threads)])
+
+    ckpt = _forward_ckpts(step, torch.zeros(bsz, di, ds), l, c_steps)
     nblk = -(-di // chan)
     pad = nblk * chan - di
     g = dstate.clone()
@@ -341,8 +401,7 @@ def _mamba_walk(dt, bm, cm, x, log_a, dy, dstate, c_steps: int, chan: int):
         t0, nt = c * c_steps, min(c_steps, l - c * c_steps)
         st = [ckpt[c]]
         for t in range(t0, t0 + nt):
-            st.append(torch.exp(dt[:, t, :, None] * a) * st[-1]
-                      + (dt[:, t] * x[:, t])[..., None] * bm[:, t, None])
+            st.append(step(st[-1], t))
         for j in reversed(range(nt)):
             t = t0 + j
             dt_t, x_t, dy_t = dt[:, t], x[:, t], dy[:, t]
@@ -350,31 +409,37 @@ def _mamba_walk(dt, bm, cm, x, log_a, dy, dstate, c_steps: int, chan: int):
             for part, val in ((part_c, dy_t[..., None] * st[j + 1]),
                               (part_b, g * (dt_t * x_t)[..., None])):
                 val = torch.nn.functional.pad(val, (0, 0, 0, pad))
-                part[:, :, t] = val.reshape(bsz, nblk, chan, ds).sum(2).transpose(0, 1)
-            gb = (g * bm[:, t, None]).sum(-1)
+                warps = val.reshape(bsz, nblk, chan // 32, 32, ds).sum(3)
+                part[:, :, t] = _in_order([warps[:, :, q] for q in range(chan // 32)]
+                                          ).transpose(0, 1)
+            gb = over_states(g * bm[:, t, None])
             dec = torch.exp(dt_t[..., None] * a)
             gds = g * dec * st[j]
             dx[:, t] = dt_t * gb
-            ddt[:, t] = x_t * gb + (gds * a).sum(-1)
+            ddt[:, t] = x_t * gb + over_states(gds * a)
             da = da + gds * dt_t[..., None]
             g = g * dec
-    db, dc = sum(part_b[q] for q in range(nblk)), sum(part_c[q] for q in range(nblk))
+    run = -(-nblk // reduce_warps)
+    runs = [part for part in (range(q, min(nblk, q + run)) for q in range(0, nblk, run))]
+    db, dc = (_in_order([_in_order([p[q] for q in blocks]) for blocks in runs])
+              for p in (part_b, part_c))
     return ddt, db, dc, dx, da * a
 
 
-@pytest.mark.parametrize("case", RWKV_CASES + [(1, 2, 70, 64, "one")], ids=_rid)
+@pytest.mark.parametrize("case", RWKV_CASES + [(1, 2, 70, 64, "one"), (1, 2, 45, 32, "one"),
+                                               (2, 1, 27, 64, "mid")], ids=_rid)
 def test_the_wkv6_kernels_walk_holds_the_plain_backward(case):
     *xs, dout, dstate = _rwkv_inputs(case, seed=7)
     got = _rwkv_walk(*xs, dout, dstate, _const("rwkv6_scan_bwd.cu", "kSteps"),
-                     _const("rwkv6_scan_bwd.cu", "kCols"))
+                     _const("rwkv6_scan_bwd.cu", "kSub"), _const("rwkv6_scan_bwd.cu", "kRows"))
     _close(got, ref.rwkv6_scan_bwd_ref(*xs, dout, dstate, rows=True), "walk")
 
 
-@pytest.mark.parametrize("case", MAMBA_CASES + [(2, 50, 150, 32, -3.0)], ids=_rid)
+@pytest.mark.parametrize("case", MAMBA_CASES + [(2, 50, 150, 32, -3.0), (1, 21, 300, 16, 4.0)],
+                         ids=_rid)
 def test_the_selective_scan_kernels_walk_holds_the_plain_backward(case):
     *xs, dy, dstate = _mamba_inputs(case, seed=7)
-    ds = case[3]
-    g = next(g for top, g in _mamba_splits() if ds <= top)
-    chan = _const("mamba_scan_bwd.cu", "kThreadsB") // g
-    got = _mamba_walk(*xs, dy, dstate, _const("mamba_scan_bwd.cu", "kSteps"), chan)
+    got = _mamba_walk(*xs, dy, dstate, _const("mamba_scan_bwd.cu", "kSteps"),
+                      ms.BWD_THREADS, _const("mamba_scan_bwd.cu", "kPer"),
+                      _const("mamba_scan_bwd.cu", "kReduceWarps"))
     _close(got, ref.mamba_scan_bwd_ref(*xs, dy, dstate, rows=True), "walk")
