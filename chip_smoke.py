@@ -222,14 +222,31 @@ Phases, each of which fails the run (non-zero exit) if it goes wrong:
    its first layer (Mamba + dense) at full width, one site step's gradient
    held the same way, ``mamba_scan_bwd`` launched once; (e) reduced
    rwkv6-7b and Jamba jobs card vs CPU (stacked FedAvg, per-example DP),
-   and C9: a full-width gemma3-1b token job on the card refused by
-   ``check_ported`` (``NotPorted("flash_attention_bwd")``, head dim 256)
-   before any kernel is built or launched and before any batch is drawn.
+   and C9: a full-width gemma3-1b token job (head dim 256) passes
+   ``check_ported`` on the card, and a bf16 gradient of it is refused by
+   ``ops.check_backward_instances`` (``NotPorted("flash_attention_bwd")``)
+   before any kernel is built or launched and before any batch is drawn;
+22. the eighteenth slice's path, gemma3-1b's training (``run_p22`` states
+   each check): (a) the attention backward's head-dim-256 instance (a
+   cluster of four blocks splitting D) alone against its plain version at
+   ragged shapes (Lq < Lk, windows inside and across tiles, GQA 4:1 and
+   8:2, both masks, B 1-3) and at gemma3-1b's training shape (q [2, 4,
+   1024, 256], k/v [2, 1, 1024, 256]) with its 512-key window and without,
+   two launches bit-equal, the forward's ``lse`` held to its plain version,
+   its resources printed, then timed at both shapes beside its bound, the
+   plain backward and SDPA's backward alone; (b) gemma3-1b at its
+   published width trained by 2-site FedAvg for 2 rounds through
+   ``FederatedJob.run`` (2 x 1024 tokens a site step, fp32 matmuls): every
+   leaf of every site step has a gradient, 26 forward and 26 backward
+   launches a site step, ``step_s``, ``batch_s`` and the peak printed; (c)
+   one site step's gradient held to the plain versions' on the card,
+   wq/wk/wv named; (d) a small gemma-shaped job (the reduced config at head
+   dim 256) card vs CPU.
 
-Phases 11-19 run after phase 8, before 9; phases 20 and 21 after 10.  Every
+Phases 11-19 run after phase 8, before 9; phases 20-22 after 10.  Every
 kernel's launch count is zeroed just before each of phases 3-5b, 7, each
-path of 9 and each full-width job of 11-13 and 15-21, and read just after;
-each of 11-21 prints its seconds.  The second-to-last line is a
+path of 9 and each full-width job of 11-13 and 15-22, and read just after;
+each of 11-22 prints its seconds.  The second-to-last line is a
 JSON object with one entry per kernel; the last line is ``{"ok": true,
 "device": {...}}``.  Without
 CUDA, or outside a checkout of the repository, it exits non-zero and
@@ -3883,13 +3900,18 @@ SMOLLM_ATTN = (4, 9, 3, 2048, 2048, 64)           # smollm-135m's training shape
 # the backward at ragged shapes: (batch, q heads, kv heads, Lq, Lk, D, causal,
 # window): no Lq or Lk a multiple of its 64-row tiles but one, Lq < Lk, GQA
 # groups 1 and 3 (and 2, 4), D 32, 64 and 128, windows inside and across tiles,
-# both masks, one query and one key
+# both masks, one query and one key; then D 256 (phase 22a): one query and one
+# key, Lq < Lk, GQA 4:1 and 8:2, windows inside and across tiles, both masks,
+# B 1-3
 BWD_CASES = [(1, 2, 2, 1, 1, 32, True, None), (2, 4, 2, 37, 37, 32, True, 17),
              (1, 6, 2, 45, 70, 64, True, None), (3, 4, 1, 70, 99, 64, False, None),
              (1, 9, 3, 50, 50, 64, True, None), (2, 3, 3, 100, 130, 32, True, 45),
              (2, 6, 2, 200, 200, 64, True, 64), (1, 3, 1, 33, 600, 128, True, 512),
              (2, 8, 2, 129, 129, 128, False, 17), (1, 9, 3, 300, 300, 64, False, 70),
-             (1, 3, 1, 64, 64, 32, True, None)]
+             (1, 3, 1, 64, 64, 32, True, None),
+             (1, 4, 1, 1, 1, 256, True, None), (2, 4, 1, 37, 70, 256, True, 17),
+             (3, 8, 2, 100, 130, 256, False, None), (1, 4, 1, 200, 300, 256, True, 100),
+             (2, 8, 2, 129, 129, 256, False, 45), (1, 4, 1, 64, 64, 256, True, None)]
 # The backward against its plain version, both fp32: each of dq, dk and dv is
 # a sum of up to G * Lq = 6,144 products (dk, dv at smollm's shape; dq sums
 # Lk) taken in another order (the kernel's 3xTF32 products a 64-wide stage at
@@ -3917,33 +3939,34 @@ def _close_bwd(torch, got, want, what: str) -> float:
     return float((got - want).abs().max()) if want.numel() else 0.0
 
 
-def check_flash_attention_bwd(torch, build, dev) -> dict:
-    """Phase 20a: the forward's ``lse`` against ``flash_attention_lse_ref``
-    and its output bit-equal to the serving call's (no ``lse``); the
-    backward against ``flash_attention_bwd_ref`` at ragged shapes and at
-    smollm-135m's, two launches bit-equal; the instances it has not got
-    refused; its resources; its time beside its bound, the plain backward's
-    and SDPA's backward alone; the forward at smollm's shape with and
-    without ``lse``, in turns, and with ``lse`` beside its own bound and
-    SDPA's forward.  Returns its kernels-line entry (the forward's numbers
-    at smollm's shape under ``forward``)."""
+def _bwd_attn_resources(build, dims) -> None:
+    """The backward's kernels' resources at each head dim of ``dims``: the
+    cluster's blocks and the clusters the card holds at once where D is
+    split."""
     import ctypes
-    import torch.nn.functional as F
-    from repro_torch import NotPorted
     from repro_torch.kernels import flash_attention as fa
-    from repro_torch.kernels import ref
-    out5 = (ctypes.c_int * 5)()
+    out7 = (ctypes.c_int * 7)()
     fn = build.entry(fa.BWD_NAME, "flash_attention_bwd_resources",
                      [ctypes.c_int64, ctypes.c_int64, ctypes.POINTER(ctypes.c_int)])
-    for d in fa.BWD_HEAD_DIMS:
+    for d in dims:
         for which, name in ((0, "dK/dV"), (1, "dQ")):
-            _require(fn(d, which, out5) == 0, f"flash_attention_bwd {name} D={d} resources")
-            regs, local, smem, threads, blocks = out5
+            _require(fn(d, which, out7) == 0, f"flash_attention_bwd {name} D={d} resources")
+            regs, local, smem, threads, blocks, split, clusters = out7
+            cluster = (f", clusters of {split}, {clusters} at once" if split > 1 else "")
             print(f"flash_attention_bwd {name} D={d}: {regs} registers, local {local} B, "
-                  f"shared {smem} B, {threads} threads, {blocks} blocks an SM")
-    gen = torch.Generator(device=dev).manual_seed(20)
+                  f"shared {smem} B, {threads} threads, {blocks} blocks an SM{cluster}")
+
+
+def _hold_bwd(torch, dev, gen, cases) -> tuple:
+    """The forward's ``lse`` against ``flash_attention_lse_ref`` and its
+    output bit-equal to the serving call's, then the backward against
+    ``flash_attention_bwd_ref`` within ``BWD_RTOL``, two launches bit-equal,
+    at each of ``cases``; returns the largest |err| of the backward and of
+    ``lse``."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
     err, lse_err = 0.0, 0.0
-    for case in BWD_CASES + [SMOLLM_ATTN + (True, None)]:
+    for case in cases:
         causal, window = case[6:]
         q, k, v = _flash_inputs(torch, dev, case, torch.float32, gen)
         g = torch.randn(q.shape, device=dev, generator=gen)
@@ -3963,12 +3986,34 @@ def check_flash_attention_bwd(torch, build, dev) -> dict:
         want = ref.flash_attention_bwd_ref(q, k, v, out, lse, g, causal, window)
         err = max(err, *(_close_bwd(torch, a, w, f"flash_attention_bwd {case} d{n}")
                          for n, a, w in zip("qkv", got, want)))
-    print(f"flash_attention: lse of {len(BWD_CASES) + 1} shapes within rtol=atol=1e-5 of the "
+        del q, k, v, g, out, lse, got, again, want
+    print(f"flash_attention: lse of {len(cases)} shapes within rtol=atol=1e-5 of the "
           f"plain version (max |err| {lse_err:.3e}); out bit-equal with and without lse")
-    print(f"flash_attention_bwd: {len(BWD_CASES) + 1} shapes agree with the plain version "
+    print(f"flash_attention_bwd: {len(cases)} shapes agree with the plain version "
           f"(rtol {BWD_RTOL}, atol {BWD_RTOL} of the largest value; max |err| {err:.3e}); "
           f"two launches bit-equal at each")
-    for dtype, d in ((torch.bfloat16, 64), (torch.float32, 256)):
+    return err, lse_err
+
+
+def check_flash_attention_bwd(torch, build, dev) -> dict:
+    """Phase 20a: the forward's ``lse`` against ``flash_attention_lse_ref``
+    and its output bit-equal to the serving call's (no ``lse``); the
+    backward against ``flash_attention_bwd_ref`` at ragged shapes and at
+    smollm-135m's, two launches bit-equal; the instances it has not got
+    refused; its resources; its time beside its bound, the plain backward's
+    and SDPA's backward alone; the forward at smollm's shape with and
+    without ``lse``, in turns, and with ``lse`` beside its own bound and
+    SDPA's forward.  Returns its kernels-line entry (the forward's numbers
+    at smollm's shape under ``forward``)."""
+    import torch.nn.functional as F
+    from repro_torch import NotPorted
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+    _bwd_attn_resources(build, [d for d in fa.BWD_HEAD_DIMS if d < 256])
+    gen = torch.Generator(device=dev).manual_seed(20)
+    err, _ = _hold_bwd(torch, dev, gen, [c for c in BWD_CASES if c[5] < 256]
+                       + [SMOLLM_ATTN + (True, None)])
+    for dtype, d in ((torch.bfloat16, 64), (torch.bfloat16, 256)):
         q = torch.zeros(1, 2, 8, d, device=dev, dtype=dtype)
         kv = torch.zeros(1, 1, 8, d, device=dev, dtype=dtype)
         try:
@@ -4075,8 +4120,6 @@ def run_smollm_fedavg(torch, FederatedJob, TaskConfig, build) -> dict:
     versions on the card (the Function's forward and backward swapped for
     ``flash_attention_lse_ref`` and ``flash_attention_bwd_ref``), wq/wk/wv
     named.  Returns the path's launches."""
-    from repro_torch.kernels import flash_attention as fa
-    from repro_torch.kernels import ref
     from repro_torch.tree import tree_map
     missing, undo = _flat_grad_spy()
     try:
@@ -4100,6 +4143,19 @@ def run_smollm_fedavg(torch, FederatedJob, TaskConfig, build) -> dict:
     bundle = TaskConfig(**SMOLLM_TASK).build()
     params = tree_map(lambda t: t.cuda(), bundle.init_fn(0))
     batch = {"tokens": torch.from_numpy(bundle.stacked(0, 1)["tokens"][0, 0]).cuda()}
+    _attn_kernels_vs_plain(torch, build, bundle, params, batch, SMOLLM_LAYERS, "20b")
+    return launches
+
+
+def _attn_kernels_vs_plain(torch, build, bundle, params, batch, layers: int,
+                           what: str) -> None:
+    """One site step's gradient through the attention kernels against the
+    same step with the Function's forward and backward swapped for
+    ``flash_attention_lse_ref`` and ``flash_attention_bwd_ref``, on the
+    card: the backward launched once a layer, every leaf within
+    ``GRAD_RTOL`` of its largest value, wq/wk/wv non-zero."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
     build.reset_launches()
     loss, got = _site_grads(torch, bundle, params, batch)
     kernel_launches = dict(build.LAUNCHES)
@@ -4112,23 +4168,23 @@ def run_smollm_fedavg(torch, FederatedJob, TaskConfig, build) -> dict:
         plain_launches = {k: v for k, v in build.LAUNCHES.items() if v}
     finally:
         fa._lse_cuda, fa.flash_attention_bwd_cuda = lse_cuda, bwd_cuda
-    _require(kernel_launches.get("flash_attention_bwd", 0) == SMOLLM_LAYERS
-             and not plain_launches, f"20b: launches {kernel_launches} / {plain_launches}")
+    _require(kernel_launches.get("flash_attention_bwd", 0) == layers
+             and not plain_launches, f"{what}: launches {kernel_launches} / {plain_launches}")
     worst, attn = 0.0, {}
     for (path, _), a, w in zip(_paths(params), got, want):
-        _require(a is not None and w is not None, f"20b: {path} got no gradient")
+        _require(a is not None and w is not None, f"{what}: {path} got no gradient")
         scale = float(w.abs().max())
         rel = float((a - w).abs().max()) / max(scale, 1e-30)
         worst = max(worst, rel)
-        _require(rel <= GRAD_RTOL, f"20b: {path} gradient {rel:.3e} of its largest value "
+        _require(rel <= GRAD_RTOL, f"{what}: {path} gradient {rel:.3e} of its largest value "
                                    f"from the plain versions' (bound {GRAD_RTOL})")
         if path.rsplit("/", 1)[-1] in ("wq", "wk", "wv"):
-            _require(scale > 0, f"20b: {path} has an all-zero gradient")
+            _require(scale > 0, f"{what}: {path} has an all-zero gradient")
             attn[path] = (scale, rel)
-    print(f"20b one site step: loss kernels {float(loss):.6f} plain {float(plain_loss):.6f}; "
-          f"{len(got)} leaves, worst gradient {worst:.3e} of its leaf's largest value "
-          f"(bound {GRAD_RTOL}); wq/wk/wv (largest |grad|, relative gap): {attn}")
-    return launches
+    print(f"{what} one site step: loss kernels {float(loss):.6f} plain "
+          f"{float(plain_loss):.6f}; {len(got)} leaves, worst gradient {worst:.3e} of its "
+          f"leaf's largest value (bound {GRAD_RTOL}); wq/wk/wv (largest |grad|, relative "
+          f"gap): {attn}")
 
 
 def check_small_token_jobs(torch, FederatedJob, TaskConfig, build) -> None:
@@ -4540,10 +4596,12 @@ def check_small_scan_jobs(torch, FederatedJob, TaskConfig, build) -> None:
     CPU (stacked FedAvg and per-example DP, 3 sites, 3 rounds), losses
     within ``JOB_RTOL``, the scans' backward kernels launched on the card;
     then C9: a full-width gemma3-1b token job on the card (head dim 256)
-    refused by ``check_ported`` with ``NotPorted("flash_attention_bwd")``
+    passes ``check_ported``, and a bf16 gradient of it is refused by
+    ``ops.check_backward_instances`` with ``NotPorted("flash_attention_bwd")``
     before any kernel is built or launched and before any batch is drawn."""
     from repro_torch import NotPorted
     from repro_torch.kernels import build as build_mod
+    from repro_torch.kernels import ops
     torch.backends.cuda.matmul.allow_tf32 = False
     for arch, kernel in zip(SMALL_SCAN_ARCHS, ("rwkv6_scan_bwd", "mamba_scan_bwd")):
         base = FederatedJob(task=TaskConfig(**dict(SMALL_TOKENS, arch=arch)), rounds=3)
@@ -4566,14 +4624,18 @@ def check_small_scan_jobs(torch, FederatedJob, TaskConfig, build) -> None:
     TaskConfig.build = lambda self: drawn.append(self) or build_task(self)
     build_mod.prepare = lambda *a: prepared.append(a) or prepare(*a)
     build.reset_launches()
+    gemma = FederatedJob(task=TaskConfig(**dict(SMALL_TOKENS, arch="gemma3-1b",
+                                                 reduced=False)), rounds=1)
     try:
-        FederatedJob(task=TaskConfig(**dict(SMALL_TOKENS, arch="gemma3-1b", reduced=False)),
-                     rounds=1).run()
+        gemma.check_ported()
+        print("C9: full-width gemma3-1b (head dim 256, fp32) passes check_ported on the card")
+        ops.check_backward_instances(gemma.task.model_config(), torch.bfloat16)
     except NotPorted as e:
-        _require(e.seam == "flash_attention_bwd", f"C9: NotPorted({e.seam!r})")
-        print(f"C9: full-width gemma3-1b training on the card refused up front: {e}")
+        _require(e.seam == "flash_attention_bwd" and "bfloat16" in str(e),
+                 f"C9: NotPorted({e.seam!r}): {e}")
+        print(f"C9: a bf16 gradient of gemma3-1b on the card refused up front: {e}")
     else:
-        _require(False, "C9: gemma3-1b (head dim 256) trained on the card")
+        _require(False, "C9: a bf16 gradient of gemma3-1b was not refused")
     finally:
         TaskConfig.build, build_mod.prepare = build_task, prepare
     launched = {k: v for k, v in build.LAUNCHES.items() if v}
@@ -4598,6 +4660,174 @@ def run_p21(torch, FederatedJob, TaskConfig, build) -> dict:
     _timed("21e (small rwkv6-7b and jamba jobs, card and CPU; C9)", check_small_scan_jobs,
            torch, FederatedJob, TaskConfig, build)
     return out
+
+
+# -- gemma3-1b training: the attention backward at head dim 256 (phase 22) -------
+
+GEMMA_TRAIN = (2, 4, 1, 1024, 1024, 256)          # gemma3-1b's training shape, per layer
+GEMMA_N = 999_826_048                              # gemma3-1b's parameter count
+GEMMA_LAYERS = 26
+GEMMA_TASK = dict(kind="tokens", arch="gemma3-1b", reduced=False, seq=1024, batch=2,
+                  sites=2)
+# the small job's model: gemma3's reduced config (2 layers, the first with a
+# 16-key window, the second global; 32 tokens) at head dim 256
+SMALL_GEMMA = dict(head_dim=256)
+
+
+def check_flash_attention_bwd_256(torch, build, dev) -> dict:
+    """Phase 22a: the backward's head-dim-256 instance (a cluster of four
+    blocks splitting D) and the forward's ``lse`` at D 256, held as phase 20a
+    holds the others at the D 256 cases of ``BWD_CASES`` and at gemma3-1b's
+    training shape with its 512-key window and without, two launches
+    bit-equal (phase 20a refuses bf16 at D 256); its resources; at both of
+    gemma's shapes its
+    time beside its bound, the plain backward's and SDPA's backward alone
+    (eager, with the mask as ``attn_mask``).  Returns its kernels-line
+    entry (the global layer's numbers, the window's under ``window_512``)."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+    _bwd_attn_resources(build, [256])
+    gen = torch.Generator(device=dev).manual_seed(22)
+    err, lse_err = _hold_bwd(torch, dev, gen, [c for c in BWD_CASES if c[5] == 256]
+                             + [GEMMA_TRAIN + (True, 512), GEMMA_TRAIN + (True, None)])
+    b, hq, hkv, lq, lk, d = GEMMA_TRAIN
+    tf32_rate = peaks(torch.cuda.get_device_name(0))[2]
+    out = {}
+    for window in (None, 512):
+        q, k, v = _flash_inputs(torch, dev, GEMMA_TRAIN, torch.float32, gen)
+        g = torch.randn(q.shape, device=dev, generator=gen)
+        o, lse = fa.flash_attention_cuda(q, k, v, True, window, with_lse=True)
+        mask = _attn_mask(torch, dev, lq, lk, True, window)
+        pairs = int(mask.sum()) * b * hq                 # the (query, key) pairs seen
+        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+        lib_out = F.scaled_dot_product_attention(*leaves, attn_mask=mask, enable_gqa=True)
+
+        def library():
+            return torch.autograd.grad(lib_out, leaves, g, retain_graph=True)
+        lib_err = max(float((a - w).abs().max()) for a, w in zip(
+            library(), ref.flash_attention_bwd_ref(q, k, v, o, lse, g, True, window)))
+        # row 7b's bound: five products of 2 D flops a seen pair at 3 TF32
+        # products a flop; q, k, v, out, dout, lse read, dq, dk, dv written
+        flops = 5 * 2 * d * pairs
+        timing = measure(
+            torch, f"flash_attention_bwd {list(GEMMA_TRAIN)} fp32 causal window={window}",
+            lambda: fa.flash_attention_bwd_cuda(q, k, v, o, lse, g, True, window),
+            lambda: ref.flash_attention_bwd_ref(q, k, v, o, lse, g, True, window), None,
+            nbytes=4 * (4 * q.numel() + 4 * k.numel() + lse.numel()), flops=flops,
+            tf32_products=3)
+        print(f"flash_attention_bwd D=256 window={window}: this design's floor (seven "
+              f"products at {tf32_rate / 1e12:.0f} TFLOP/s), not a bound: "
+              f"{1e3 * 3 * flops * 7 / 5 / tf32_rate:.4f} ms")
+        for _ in range(3):
+            library()
+        timing["library_ms"] = _median_ms(library, 25)
+        timing["library_max_abs_err"] = lib_err
+        print(f"flash_attention_bwd D=256 window={window}: library "
+              f"(scaled_dot_product_attention's backward alone, attn_mask, fp32, eager) "
+              f"{timing['library_ms']:.4f} ms against the kernel's eager "
+              f"{timing['eager_ms']:.4f} ms; its max |err| against the plain version "
+              f"{lib_err:.3e}")
+        out[window] = timing
+        del q, k, v, g, o, lse, leaves, lib_out
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"max_abs_err": err, "lse_max_abs_err": lse_err, **out[None],
+            "window_512": out[512]}
+
+
+def run_gemma_fedavg(torch, FederatedJob, TaskConfig, build) -> dict:
+    """Phase 22b: gemma3-1b at its published width (26 layers, d_model
+    1152, 4/1 heads of 256, d_ff 6912 GeGLU, vocab 262144 tied, a 512-key
+    window on 22 layers) trained by 2-site FedAvg for 2 sync rounds, 2 x
+    1024 tokens a site step, random weights from seed 0, fp32 matmuls:
+    every leaf of every site step has a gradient; ``flash_attention`` and
+    its backward launch 26 times a site step, ``fedagg`` as phase 3 counts
+    it; ``step_s``, ``batch_s`` and the peak printed.  Then (22c) one site
+    step's gradient at the trained global through the kernels against the
+    plain versions on the card.  Returns the path's launches."""
+    missing, undo = _flat_grad_spy()
+    try:
+        result, launches, job = _run_job(torch, FederatedJob, TaskConfig, build, GEMMA_TASK,
+                                         GEMMA_N, "22b gemma3-1b fedavg")
+    finally:
+        undo()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    _require(not missing, f"22b: {len(missing)} leaves reached flat_grad with no gradient")
+    steps = GEMMA_TASK["sites"] * ROUNDS
+    _expect_launches("22b gemma3-1b fedavg", launches,
+                     {"flash_attention": GEMMA_LAYERS * steps,
+                      "flash_attention_bwd": GEMMA_LAYERS * steps, "fedagg": ROUNDS + 1})
+    print(f"22b: every leaf of every site step had a gradient ({steps} site steps); "
+          f"step_s {[round(h['step_s'], 4) for h in result.history]}, batch_s "
+          f"{[round(h['batch_s'], 4) for h in result.history]}, wall_s "
+          f"{[round(h['wall_s'], 4) for h in result.history]}, peak {peak:.2f} GiB")
+    params = result.global_params                   # any weights will do: the trained ones
+    del result, job
+    gc.collect()
+    torch.cuda.empty_cache()
+    bundle = TaskConfig(**GEMMA_TASK).build()
+    batch = {"tokens": torch.from_numpy(bundle.stacked(0, 1)["tokens"][0, 0]).cuda()}
+    _attn_kernels_vs_plain(torch, build, bundle, params, batch, GEMMA_LAYERS, "22c")
+    del params, bundle
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+class _SmallAt:
+    """Swap ``repro_torch.configs.<module>.reduced`` for the reduced config
+    with ``changes`` while the block runs (``TaskConfig.model_config``
+    reads it), and restore it after."""
+
+    def __init__(self, module: str, **changes):
+        import importlib
+        self.mod = importlib.import_module(f"repro_torch.configs.{module}")
+        self.changes = changes
+
+    def __enter__(self):
+        self.reduced = self.mod.reduced
+        cfg = dataclasses.replace(self.reduced(), **self.changes)
+        self.mod.reduced = lambda: cfg
+        return cfg
+
+    def __exit__(self, *exc):
+        self.mod.reduced = self.reduced
+
+
+def check_small_gemma_jobs(torch, FederatedJob, TaskConfig, build) -> None:
+    """Phase 22d: the reduced gemma3 config at head dim 256 trained on the
+    card and on the CPU (stacked FedAvg, 3 sites, 3 rounds), losses within
+    ``JOB_RTOL``, the backward kernel launched on the card."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    with _SmallAt("gemma3_1b", **SMALL_GEMMA) as cfg:
+        job = FederatedJob(task=TaskConfig(**dict(SMALL_TOKENS, arch="gemma3-1b")), rounds=3)
+        build.reset_launches()
+        gpu = job.run()
+        launched = {k: v for k, v in build.LAUNCHES.items() if v}
+        cpu = job.replace(device="cpu").run()
+    print(f"small gemma3 job at head dim {cfg.resolved_head_dim} ({cfg.num_layers} layers, "
+          f"window {cfg.sliding_window}, seq {SMALL_TOKENS['seq']}): losses cuda {gpu.losses} "
+          f"cpu {cpu.losses}; launched {launched}")
+    for g, c in zip(gpu.losses, cpu.losses):
+        _require(math.isclose(g, c, rel_tol=JOB_RTOL, abs_tol=1e-6),
+                 f"small gemma3 job: cuda loss {g} != cpu loss {c}")
+    steps = SMALL_TOKENS["sites"] * 3
+    _require(launched.get("flash_attention_bwd", 0) == cfg.num_layers * steps,
+             f"small gemma3 job: flash_attention_bwd launched {launched}")
+
+
+def run_p22(torch, FederatedJob, TaskConfig, build) -> dict:
+    """Phase 22 (a the kernel alone; b, c at full width; d a small job);
+    returns the D 256 instance's kernels-line entry and 22b's launches."""
+    entry = _timed("22a (flash_attention_bwd at D 256 alone)", check_flash_attention_bwd_256,
+                   torch, build, torch.device("cuda"))
+    launches = _timed("22b-c (gemma3-1b 2-site fedavg; one site step against the plain "
+                      "versions)", run_gemma_fedavg, torch, FederatedJob, TaskConfig, build)
+    _timed("22d (a small gemma3 job at head dim 256, card and CPU)", check_small_gemma_jobs,
+           torch, FederatedJob, TaskConfig, build)
+    return {"entry": dict(entry, launches=launches.get("flash_attention_bwd", 0)),
+            "launches": launches}
 
 
 def _leaves(tree):
@@ -4695,6 +4925,9 @@ def main() -> int:
                  "jamba site step, small jobs and C9)", run_p21, *jobs, build)
     entries["rwkv6_scan_bwd"] = p21["rwkv6_scan_bwd"]
     entries["mamba_scan_bwd"] = p21["mamba_scan_bwd"]
+    p22 = _timed("22 (gemma3-1b training: the attention backward at head dim 256, gemma3-1b "
+                 "fedavg, a small job)", run_p22, *jobs, build)
+    entries["flash_attention_bwd"]["head_dim_256"] = p22["entry"]
 
     # each kernel's launches on the path that carries it: fedagg on the
     # first slice's path, the int8 fold and install on the second's, the
@@ -4708,6 +4941,7 @@ def main() -> int:
     print(f"launches on phase 19's paths: {p19}")
     print(f"launches on phase 20b's path: {p20['launches']}")
     print(f"launches on phase 21c's path: {p21['21c']}; on 21d's: {p21['21d']}")
+    print(f"launches on phase 22b's path: {p22['launches']}")
     print(smi)
     path_of = {"fedagg": main_launches, "quantize_int8": int8_launches,
                "fedagg_dequant": int8_launches, "dequant_install": int8_launches,

@@ -111,21 +111,60 @@
 //   threads; dK/dV at D 64 219 registers, 105,472 shared bytes, 1 block an
 //   SM (capped at 2 blocks it spilled and ran 8% slower); dQ at D 64 128
 //   registers, 104,960 bytes, 2 blocks an SM; at D 128 255 (24 bytes of
-//   spill) and 212 registers, about 204 KB, 1 block.
-//   flash_attention_bwd_resources reports each instance.
+//   spill) and 212 registers, about 204 KB, 1 block; at D 256 (a block of a
+//   cluster) 255 and 199 registers, 171,008 and 170,496 bytes, 1 block an
+//   SM, 30 clusters of 4 at once.  flash_attention_bwd_resources reports
+//   each instance.
+// - D 256 (gemma3-1b: 4 q heads on 1 kv head of 256) splits D over a thread
+//   block cluster of four.  The D 128 layout does not fit there: K and V of
+//   64 keys plus two stages of Q and dO take 400,384 bytes of shared memory
+//   (a block has 232,448), dk and dv 128 sums a thread, and at gemma's one
+//   kv head and a batch of 2 its dK/dV grid has 32 blocks for 132 SMs.  Each
+//   block of a cluster owns kSplitCols = 64 columns of D and stages only
+//   those of K, V, Q and dO: the D 64 kernels' tiles, products and register
+//   budget.  s and dp contract over D, so each block takes its partial over
+//   its columns in fresh accumulators (24 mma.sync in a chain, as at D 64)
+//   and the cluster adds the four partials through distributed shared
+//   memory (cluster_sum: a reduce-scatter and an all-gather, both by stores,
+//   the sums in rank order 0 to 3), so every block holds the same s and dp,
+//   bit for bit, and forms p and ds from them; then dk, dv (or dq) of its own
+//   columns.  A dK/dV cluster walks one q head of the group, not the whole
+//   group: four times the clusters, a walk a quarter as long.  Each head's
+//   share of dk and dv goes to a scratch area ([2, B, Hq, Lk, D], 16.8 MB at
+//   gemma's shape), and flash_attention_bwd_sum_kernel adds the shares in
+//   head order.  Bound at gemma3-1b's training shape (B 2, Hq 4, Hkv 1, L
+//   1024, D 256): five products of 2 D flops a seen pair, 10.75 GFLOP on a
+//   global layer (0.0651 ms at 165 TFLOP/s) and 8.06 on a layer with the
+//   512-key window (0.0488 ms); 42 MB of bytes, 0.0125 ms; bound by
+//   operations.  The exchange moves the partials by stores and not by
+//   remote loads, whose round trip across the cluster a warp would wait
+//   for each stage.  Both kernels pass a cluster barrier at entry, before
+//   the first store into a peer's shared memory: distributed shared memory
+//   may be touched only once every block of the cluster is known to run.
+//   The release in each of cluster_sum's barriers is what makes the stores
+//   visible; probe_attn_bwd_256.py prices it (a relaxed arrive, with wrong
+//   sums) and the exchange as a whole.  A chain over all of D 256 in one
+//   accumulator (96 mma.sync) met the gate in the CPU rehearsal with half
+//   the margin of the quarters.
 //
-// The tile sizes kKeys and kQueries are BWD_BLOCK_KEYS and BWD_BLOCK_QUERIES
-// in kernels/flash_attention.py, which the CPU rehearsal reads.
+// The tile sizes kKeys, kQueries and kSplitCols are BWD_BLOCK_KEYS,
+// BWD_BLOCK_QUERIES and BWD_SPLIT_COLS in kernels/flash_attention.py, which
+// the CPU rehearsal reads.
 //
 // Plain C interface, bound from Python with ctypes: pointers and the stream
 // as void*, sizes as int64; the entry returns cudaGetLastError() after its
 // launches, so a refused launch is reported.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include <algorithm>
+
 namespace {
+
+namespace cg = cooperative_groups;
 
 constexpr int kWarps = 8;                   // 4 row slices x 2 column halves
 constexpr int kThreads = 32 * kWarps;
@@ -136,29 +175,42 @@ constexpr int kHalf = 32;                   // columns a warp takes from a stage
 constexpr int kNT = kHalf / 8;              // its 8-column tiles
 static_assert(kKeys == 2 * kHalf && kQueries == 2 * kHalf, "2 column halves a stage");
 static_assert(kKeys == 4 * 16 && kQueries == 4 * 16, "4 row slices of 16 a block");
+constexpr int kSplitCols = 64;              // columns of D a block takes above D 128
 
-__host__ __device__ constexpr int row_stride(int d) { return d + 4; }
+// blocks of a cluster that share a tile, each taking its own kSplitCols
+// columns of D: one up to D 128, four at D 256
+__host__ __device__ constexpr int split_of(int d) { return d > 128 ? d / kSplitCols : 1; }
+// a shared-memory row of w columns: padded by 16 bytes
+__host__ __device__ constexpr int row_stride(int w) { return w + 4; }
 // dQ blocks an SM that its register budget is set for (dK/dV's is one, for
 // its dk and dv sums): at D 64, two took dQ from 0.725 to 0.680 ms at
 // smollm's shape, and would take dK/dV from 1.006 to 1.091 (H100 80GB HBM3,
 // 700 W)
 __host__ __device__ constexpr int dq_min_blocks(int d) { return d <= 64 ? 2 : 1; }
 
-// K, V; a stage: Q, dO, lse, delta
+// a cluster's exchange: its slots and its sums, each every warp's partial s
+// and dp, a float4 a lane an 8-column tile; none without a cluster
+__host__ __device__ constexpr size_t xchg_bytes(int d) {
+  return split_of(d) > 1 ? (size_t)2 * kWarps * 2 * kNT * 32 * 16 : 0;
+}
+
+// K, V; a stage: Q, dO, lse, delta; the exchange (all of a block's columns)
 template <int D>
 __host__ __device__ constexpr size_t dkdv_smem() {
-  return sizeof(float) * ((size_t)2 * kKeys * row_stride(D) +
-                          kStages * ((size_t)2 * kQueries * row_stride(D) + 2 * kQueries));
+  constexpr int kS = row_stride(D / split_of(D));
+  return sizeof(float) * ((size_t)2 * kKeys * kS +
+                          kStages * ((size_t)2 * kQueries * kS + 2 * kQueries)) + xchg_bytes(D);
 }
-// Q, dO, lse, delta; a stage: K, V
+// Q, dO, lse, delta; a stage: K, V; the exchange
 template <int D>
 __host__ __device__ constexpr size_t dq_smem() {
-  return sizeof(float) * ((size_t)2 * kQueries * row_stride(D) + 2 * kQueries +
-                          (size_t)kStages * 2 * kKeys * row_stride(D));
+  constexpr int kS = row_stride(D / split_of(D));
+  return sizeof(float) * ((size_t)2 * kQueries * kS + 2 * kQueries +
+                          (size_t)kStages * 2 * kKeys * kS) + xchg_bytes(D);
 }
-// bytes the halves' merge parks: 128 threads' m outputs of D / 8 float4s
-__host__ __device__ constexpr size_t park_bytes(int m, int d) {
-  return (size_t)m * (d / 8) * 128 * 16;
+// bytes the halves' merge parks: 128 threads' m outputs of w / 8 float4s
+__host__ __device__ constexpr size_t park_bytes(int m, int w) {
+  return (size_t)m * (w / 8) * 128 * 16;
 }
 
 struct Shape {
@@ -284,16 +336,16 @@ __device__ __forceinline__ void gemm_nn(float (&o)[D / 8][4], const float (&p)[k
   }
 }
 
-// rows [r0, r0 + 64) of a [len, D] matrix into a [64][D + 4] tile by cp.async,
-// zeros past len
-template <int D>
+// rows [r0, r0 + 64) of a [len, LD] matrix, their first W columns, into a
+// [64][W + 4] tile by cp.async, zeros past len
+template <int W, int LD = W>
 __device__ __forceinline__ void stage_rows(float* dst, const float* __restrict__ src, int r0,
                                            int len) {
-  constexpr int kChunks = D / 4;            // 16-byte copies a row
+  constexpr int kChunks = W / 4;            // 16-byte copies a row
   for (int i = threadIdx.x; i < 64 * kChunks; i += kThreads) {
     const int r = i / kChunks, c = (i % kChunks) * 4;
     const bool ok = r0 + r < len;
-    cp_async16(dst + r * row_stride(D) + c, src + (int64_t)(ok ? r0 + r : 0) * D + c, ok);
+    cp_async16(dst + r * row_stride(W) + c, src + (int64_t)(ok ? r0 + r : 0) * LD + c, ok);
   }
 }
 
@@ -387,83 +439,158 @@ __device__ __forceinline__ bool merge_halves(float4* smem4, float (&acc)[M][D / 
   return true;
 }
 
-// the thread's rows g and g + 8 of a slice's D columns: 8 n + 2 t and + 1
-template <int D>
+// the thread's rows g and g + 8 of a slice's W columns (of rows LD long): 8 n
+// + 2 t and + 1
+template <int W, int LD = W>
 __device__ __forceinline__ void store_rows(float* dst, int r0, int len,
-                                           const float (&acc)[D / 8][4], float mul, int g,
+                                           const float (&acc)[W / 8][4], float mul, int g,
                                            int t) {
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     const int r = r0 + g + 8 * h;
     if (r >= len) continue;
-    float* p = dst + (int64_t)r * D + 2 * t;
+    float* p = dst + (int64_t)r * LD + 2 * t;
 #pragma unroll
-    for (int n = 0; n < D / 8; ++n)
+    for (int n = 0; n < W / 8; ++n)
       *reinterpret_cast<float2*>(p + 8 * n) =
           make_float2(acc[n][2 * h] * mul, acc[n][2 * h + 1] * mul);
   }
 }
 
+// Above D 128 each block of a cluster holds the partial s and dp of its own
+// columns of D (two kNT x 4 accumulators a thread); the cluster adds them
+// by stores into each other's shared memory, never by remote loads (a
+// remote load's round trip held the first form of this exchange to half
+// of the kernels' time).  Rank o owns the elements of warps 2o and 2o + 1.
+// 1. Each thread stores its partial into its warp's owner's slot for this
+//    rank.  Cluster barrier.
+// 2. Each rank's threads add the four slots of its two warps in rank order,
+//    0 to 3, and store the sums into every rank's `sums`.  Cluster barrier.
+// 3. Each thread reads its own sums: every block holds the same s and dp.
+// A warp without work (`active(w)` false, the same in every rank) takes no
+// part.  Two barriers a stage also keep the buffers safe to reuse: a rank
+// stores into a slot again only after the barrier that follows its owner's
+// reads, and into `sums` only after the barrier that follows their readers.
+constexpr int kSlot = 2 * 2 * kNT * 32;     // float4s: two warps' a and b
+template <int SPLIT, typename Active>
+__device__ __forceinline__ void cluster_sum(float4* xbuf, float (&a)[kNT][4],
+                                            float (&b)[kNT][4], Active active) {
+  static_assert(kWarps == 2 * SPLIT, "two warps a rank");
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = (int)cluster.block_rank();
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  float4* slots = xbuf;                     // [SPLIT][kSlot]: the owner's
+  float4* sums = xbuf + SPLIT * kSlot;      // [kWarps][2][kNT][32]
+  const bool mine = active(warp);
+  if (mine) {
+    float4* to = cluster.map_shared_rank(slots, warp / 2) + rank * kSlot +
+                 (warp % 2) * 2 * kNT * 32 + lane;
+#pragma unroll
+    for (int j = 0; j < kNT; ++j) {
+      to[j * 32] = make_float4(a[j][0], a[j][1], a[j][2], a[j][3]);
+      to[(kNT + j) * 32] = make_float4(b[j][0], b[j][1], b[j][2], b[j][3]);
+    }
+  }
+  cluster.sync();
+#pragma unroll
+  for (int i = 0; i < kSlot / kThreads; ++i) {
+    const int e = threadIdx.x + i * kThreads;    // of the owned warps' elements
+    if (!active(2 * rank + e / (2 * kNT * 32))) continue;
+    float4 x = slots[e];
+#pragma unroll
+    for (int r = 1; r < SPLIT; ++r) {
+      const float4 y = slots[r * kSlot + e];
+      x.x += y.x, x.y += y.y, x.z += y.z, x.w += y.w;
+    }
+#pragma unroll
+    for (int r = 0; r < SPLIT; ++r) cluster.map_shared_rank(sums, r)[rank * kSlot + e] = x;
+  }
+  cluster.sync();
+  if (!mine) return;
+  const float4* from = sums + warp * 2 * kNT * 32 + lane;
+#pragma unroll
+  for (int j = 0; j < kNT; ++j) {
+    const float4 x = from[j * 32], y = from[(kNT + j) * 32];
+    a[j][0] = x.x, a[j][1] = x.y, a[j][2] = x.z, a[j][3] = x.w;
+    b[j][0] = y.x, b[j][1] = y.y, b[j][2] = y.z, b[j][3] = y.w;
+  }
+}
+
 // One block a (batch, kv head, key tile): dk and dv of its 64 keys, summed
-// over every query tile of every q head of the group that sees them.
+// over every query tile of every q head of the group that sees them.  Above D
+// 128 a cluster of split_of(D) blocks a (batch, q head, key tile), each on its
+// own C columns: the q head's share of dk (unscaled) and dv goes to `part`
+// ([2, B, Hq, Lk, D]), and flash_attention_bwd_sum_kernel adds the shares.
 template <int D>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_attention_bwd_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
                                 const float* __restrict__ v, const float* __restrict__ dout,
                                 const float* __restrict__ lse,
                                 const float* __restrict__ delta, float* __restrict__ dk,
-                                float* __restrict__ dv, Shape sh) {
-  constexpr int S = row_stride(D);
+                                float* __restrict__ dv, float* __restrict__ part, Shape sh) {
+  constexpr int kSplit = split_of(D), C = D / kSplit;
+  constexpr bool kPerHead = kSplit > 1;
+  constexpr int S = row_stride(C);
   constexpr int kStage = 2 * kQueries * S + 2 * kQueries;   // Q, dO, lse, delta
-  static_assert(park_bytes(2, D) <= dkdv_smem<D>(), "dk and dv park in shared memory");
+  static_assert(park_bytes(2, C) <= dkdv_smem<D>(), "dk and dv park in shared memory");
   extern __shared__ float4 smem4[];
   float* ks = reinterpret_cast<float*>(smem4);             // [kKeys][S]
   float* vs = ks + kKeys * S;
   float* ring = vs + kKeys * S;                            // [kStages][kStage]
+  float4* xbuf = reinterpret_cast<float4*>(ring + kStages * kStage);   // the exchange
 
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int slice = warp & 3, half = warp >> 2;
   const int g = lane >> 2, t = lane & 3;
+  const int tile = (int)blockIdx.x / kSplit;               // a cluster's blocks are adjacent
+  const int col0 = ((int)blockIdx.x % kSplit) * C;         // the block's columns of D
   const int ntiles = (sh.lk + kKeys - 1) / kKeys;
-  const int nbh = gridDim.x / ntiles;
-  const int k0 = ((int)blockIdx.x / nbh) * kKeys;          // the most-seen key tiles first
-  const int hk = (int)blockIdx.x % nbh % sh.hkv, b = (int)blockIdx.x % nbh / sh.hkv;
+  const int nbh = (int)gridDim.x / kSplit / ntiles;        // (batch, kv or q head) pairs
+  const int k0 = (tile / nbh) * kKeys;                     // the most-seen key tiles first
   const int group = sh.hq / sh.hkv;
+  const int heads = kPerHead ? sh.hq : sh.hkv;
+  const int b = tile % nbh / heads;
+  // the first q head the block walks, and its kv head
+  const int h0 = kPerHead ? tile % nbh % heads : tile % nbh % heads * group;
+  const int hk = h0 / group;
   const int offset = sh.lk - sh.lq;
-  const int64_t kv_off = ((int64_t)b * sh.hkv + hk) * sh.lk * D;
+  const int64_t kv_off = ((int64_t)b * sh.hkv + hk) * sh.lk * D + col0;
 
   int lo, hi;
   query_range(k0, sh, lo, hi);
   const int t_lo = lo / kQueries;
   const int nt = hi > lo ? (hi + kQueries - 1) / kQueries - t_lo : 0;
-  const int steps = group * nt;             // (q head, query tile), heads outermost
+  const int steps = (kPerHead ? 1 : group) * nt;   // (q head, query tile), heads outermost
 
   auto load_stage = [&](int s) {
-    const int h = hk * group + s / nt, q0 = (t_lo + s % nt) * kQueries;
+    const int h = h0 + s / nt, q0 = (t_lo + s % nt) * kQueries;
     const int64_t row0 = ((int64_t)b * sh.hq + h) * sh.lq;
     float* st = ring + (s % kStages) * kStage;
-    stage_rows<D>(st, q + row0 * D, q0, sh.lq);
-    stage_rows<D>(st + kQueries * S, dout + row0 * D, q0, sh.lq);
+    stage_rows<C, D>(st, q + row0 * D + col0, q0, sh.lq);
+    stage_rows<C, D>(st + kQueries * S, dout + row0 * D + col0, q0, sh.lq);
     stage_vec(st + 2 * kQueries * S, lse + row0, q0, sh.lq);
     stage_vec(st + 2 * kQueries * S + kQueries, delta + row0, q0, sh.lq);
     cp_async_commit();
   };
 
-  float acc[2][D / 8][4];                   // dk, dv
+  float acc[2][C / 8][4];                   // dk, dv
 #pragma unroll
   for (int m = 0; m < 2; ++m)
 #pragma unroll
-    for (int n = 0; n < D / 8; ++n)
+    for (int n = 0; n < C / 8; ++n)
 #pragma unroll
       for (int e = 0; e < 4; ++e) acc[m][n][e] = 0.0f;
 
   const int kw = k0 + 16 * slice;           // the warp's first key
   const int key[2] = {kw + g, kw + g + 8};
   if (steps > 0) {
-    stage_rows<D>(ks, k + kv_off, k0, sh.lk);   // K and V join the first stage's group
-    stage_rows<D>(vs, v + kv_off, k0, sh.lk);
+    stage_rows<C, D>(ks, k + kv_off, k0, sh.lk);   // K and V join the first stage's group
+    stage_rows<C, D>(vs, v + kv_off, k0, sh.lk);
     load_stage(0);
   }
+  // every rank of the cluster has started before any store into its shared
+  // memory (the first cluster_sum); the first stage's copies run under it
+  if constexpr (kSplit > 1) cg::this_cluster().sync();
   for (int s = 0; s < steps; ++s) {
     if (s + 1 < steps) {
       load_stage(s + 1);                    // its stage was freed by the last barrier
@@ -473,14 +600,21 @@ flash_attention_bwd_dkdv_kernel(const float* __restrict__ q, const float* __rest
     }
     __syncthreads();                        // stage s visible to every thread
     const int qw = (t_lo + s % nt) * kQueries + kHalf * half;   // the warp's first query
-    if (any_seen(qw, kHalf, kw, 16, sh)) {
-      const float* st = ring + (s % kStages) * kStage;
-      const float* qs = st + kHalf * half * S;
-      const float* dos = st + kQueries * S + kHalf * half * S;
-      const float* ls = st + 2 * kQueries * S + kHalf * half;
-      const float* dls = ls + kQueries;
-      float p[kNT][4], ds[kNT][4];
-      gemm_nt2<D>(p, ks + 16 * slice * S, qs, ds, vs + 16 * slice * S, dos, g, t);  // s^T, dp^T
+    // whether warp w has a pair of this stage to see (w's slice and half)
+    auto active_of = [&](int w) {
+      return any_seen(qw - kHalf * half + kHalf * (w >> 2), kHalf, k0 + 16 * (w & 3), 16, sh);
+    };
+    const bool active = active_of(warp);
+    const float* st = ring + (s % kStages) * kStage;
+    const float* qs = st + kHalf * half * S;
+    const float* dos = st + kQueries * S + kHalf * half * S;
+    const float* ls = st + 2 * kQueries * S + kHalf * half;
+    const float* dls = ls + kQueries;
+    float p[kNT][4], ds[kNT][4];
+    if (active)
+      gemm_nt2<C>(p, ks + 16 * slice * S, qs, ds, vs + 16 * slice * S, dos, g, t);  // s^T, dp^T
+    if constexpr (kSplit > 1) cluster_sum<kSplit>(xbuf, p, ds, active_of);
+    if (active) {
       const bool full = all_seen(qw, kHalf, kw, 16, sh);   // no mask inside
 #pragma unroll
       for (int j = 0; j < kNT; ++j)
@@ -494,43 +628,76 @@ flash_attention_bwd_dkdv_kernel(const float* __restrict__ q, const float* __rest
           p[j][e] = pe;
           ds[j][e] = pe * (ds[j][e] - dls[col]);
         }
-      gemm_nn<D>(acc[1], p, dos, g, t);     // dv += p^T dO
-      gemm_nn<D>(acc[0], ds, qs, g, t);     // dk += ds^T Q
+      gemm_nn<C>(acc[1], p, dos, g, t);     // dv += p^T dO
+      gemm_nn<C>(acc[0], ds, qs, g, t);     // dk += ds^T Q
     }
     __syncthreads();                        // the stage is consumed
   }
-  if (!merge_halves<D, 2>(smem4, acc)) return;
-  store_rows<D>(dk + kv_off, kw, sh.lk, acc[0], sh.scale, g, t);
-  store_rows<D>(dv + kv_off, kw, sh.lk, acc[1], 1.0f, g, t);
+  if (!merge_halves<C, 2>(smem4, acc)) return;
+  if constexpr (kPerHead) {
+    const int64_t share = ((int64_t)b * sh.hq + h0) * sh.lk * D + col0;
+    const int64_t plane = (int64_t)nbh * sh.lk * D;       // B Hq Lk D
+    store_rows<C, D>(part + share, kw, sh.lk, acc[0], 1.0f, g, t);
+    store_rows<C, D>(part + plane + share, kw, sh.lk, acc[1], 1.0f, g, t);
+  } else {
+    store_rows<C, D>(dk + kv_off, kw, sh.lk, acc[0], sh.scale, g, t);
+    store_rows<C, D>(dv + kv_off, kw, sh.lk, acc[1], 1.0f, g, t);
+  }
+}
+
+// dk and dv from the q heads' shares in `part` ([2, B, Hq, Lk, D], the
+// group's heads of a kv head adjacent): each element the sum over the group
+// in head order, dk's then scaled; n4 float4s of dk, len4 of a head's share.
+__global__ void __launch_bounds__(kThreads)
+flash_attention_bwd_sum_kernel(const float4* __restrict__ part, float4* __restrict__ dk,
+                               float4* __restrict__ dv, int64_t n4, int64_t len4, int group,
+                               float scale) {
+  for (int64_t i = (int64_t)blockIdx.x * kThreads + threadIdx.x; i < 2 * n4;
+       i += (int64_t)gridDim.x * kThreads) {
+    const bool is_v = i >= n4;
+    const int64_t j = is_v ? i - n4 : i;
+    const float4* src = part + (is_v ? n4 * group : 0) + j / len4 * group * len4 + j % len4;
+    float4 x = src[0];
+    for (int h = 1; h < group; ++h) {
+      const float4 y = src[h * len4];
+      x.x += y.x, x.y += y.y, x.z += y.z, x.w += y.w;
+    }
+    if (!is_v) x.x *= scale, x.y *= scale, x.z *= scale, x.w *= scale;
+    (is_v ? dv : dk)[j] = x;
+  }
 }
 
 // One block a (batch, q head, query tile): dq of its 64 queries, summed over
-// the key tiles they see.
+// the key tiles they see.  Above D 128 a cluster of split_of(D) blocks a tile.
 template <int D>
 __global__ void __launch_bounds__(kThreads, dq_min_blocks(D))
 flash_attention_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
                               const float* __restrict__ v, const float* __restrict__ dout,
                               const float* __restrict__ lse, const float* __restrict__ delta,
                               float* __restrict__ dq, Shape sh) {
-  constexpr int S = row_stride(D);
-  static_assert(park_bytes(1, D) <= dq_smem<D>(), "dq parks in shared memory");
+  constexpr int kSplit = split_of(D), C = D / kSplit;
+  constexpr int S = row_stride(C);
+  static_assert(park_bytes(1, C) <= dq_smem<D>(), "dq parks in shared memory");
   extern __shared__ float4 smem4[];
   float* qs = reinterpret_cast<float*>(smem4);             // [kQueries][S]
   float* dos = qs + kQueries * S;
   float* ls = dos + kQueries * S;                          // lse, delta [kQueries]
   float* ring = ls + 2 * kQueries;                         // [kStages][K, V][kKeys][S]
+  float4* xbuf = reinterpret_cast<float4*>(ring + kStages * 2 * kKeys * S);   // the exchange
 
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int slice = warp & 3, half = warp >> 2;
   const int g = lane >> 2, t = lane & 3;
+  const int tile = (int)blockIdx.x / kSplit;
+  const int col0 = ((int)blockIdx.x % kSplit) * C;
   const int ntiles = (sh.lq + kQueries - 1) / kQueries;
-  const int nbh = gridDim.x / ntiles;
-  const int q0 = (ntiles - 1 - (int)blockIdx.x / nbh) * kQueries;   // the most keys first
-  const int h = (int)blockIdx.x % nbh % sh.hq, b = (int)blockIdx.x % nbh / sh.hq;
+  const int nbh = (int)gridDim.x / kSplit / ntiles;
+  const int q0 = (ntiles - 1 - tile / nbh) * kQueries;   // the most keys first
+  const int h = tile % nbh % sh.hq, b = tile % nbh / sh.hq;
   const int hk = h / (sh.hq / sh.hkv);
   const int offset = sh.lk - sh.lq;
   const int64_t row0 = ((int64_t)b * sh.hq + h) * sh.lq;
-  const int64_t kv_off = ((int64_t)b * sh.hkv + hk) * sh.lk * D;
+  const int64_t kv_off = ((int64_t)b * sh.hkv + hk) * sh.lk * D + col0;
 
   int lo, hi;
   key_range(q0, sh, lo, hi);
@@ -540,26 +707,27 @@ flash_attention_bwd_dq_kernel(const float* __restrict__ q, const float* __restri
   auto load_stage = [&](int s) {
     const int kt = (t_lo + s) * kKeys;
     float* st = ring + (s % kStages) * 2 * kKeys * S;
-    stage_rows<D>(st, k + kv_off, kt, sh.lk);
-    stage_rows<D>(st + kKeys * S, v + kv_off, kt, sh.lk);
+    stage_rows<C, D>(st, k + kv_off, kt, sh.lk);
+    stage_rows<C, D>(st + kKeys * S, v + kv_off, kt, sh.lk);
     cp_async_commit();
   };
 
-  float acc[1][D / 8][4];
+  float acc[1][C / 8][4];
 #pragma unroll
-  for (int n = 0; n < D / 8; ++n)
+  for (int n = 0; n < C / 8; ++n)
 #pragma unroll
     for (int e = 0; e < 4; ++e) acc[0][n][e] = 0.0f;
 
   const int qw = q0 + 16 * slice;           // the warp's first query
   const int query[2] = {qw + g, qw + g + 8};
   if (nt > 0) {
-    stage_rows<D>(qs, q + row0 * D, q0, sh.lq);   // Q, dO, lse, delta join the first group
-    stage_rows<D>(dos, dout + row0 * D, q0, sh.lq);
+    stage_rows<C, D>(qs, q + row0 * D + col0, q0, sh.lq);   // Q, dO, lse, delta join the
+    stage_rows<C, D>(dos, dout + row0 * D + col0, q0, sh.lq);   // first group
     stage_vec(ls, lse + row0, q0, sh.lq);
     stage_vec(ls + kQueries, delta + row0, q0, sh.lq);
     load_stage(0);
   }
+  if constexpr (kSplit > 1) cg::this_cluster().sync();   // every rank started, as above
   for (int s = 0; s < nt; ++s) {
     if (s + 1 < nt) {
       load_stage(s + 1);
@@ -569,13 +737,19 @@ flash_attention_bwd_dq_kernel(const float* __restrict__ q, const float* __restri
     }
     __syncthreads();
     const int kw = (t_lo + s) * kKeys + kHalf * half;   // the warp's first key
-    if (any_seen(qw, 16, kw, kHalf, sh)) {
-      const float* kst = ring + (s % kStages) * 2 * kKeys * S + kHalf * half * S;
-      const float* vst = kst + kKeys * S;
+    auto active_of = [&](int w) {
+      return any_seen(q0 + 16 * (w & 3), 16, kw - kHalf * half + kHalf * (w >> 2), kHalf, sh);
+    };
+    const bool active = active_of(warp);
+    const float* kst = ring + (s % kStages) * 2 * kKeys * S + kHalf * half * S;
+    const float* vst = kst + kKeys * S;
+    float p[kNT][4], ds[kNT][4];
+    if (active)
+      gemm_nt2<C>(p, qs + 16 * slice * S, kst, ds, dos + 16 * slice * S, vst, g, t);  // s, dp
+    if constexpr (kSplit > 1) cluster_sum<kSplit>(xbuf, p, ds, active_of);
+    if (active) {
       const float l[2] = {ls[16 * slice + g] * kLog2e, ls[16 * slice + g + 8] * kLog2e};
       const float dl[2] = {ls[kQueries + 16 * slice + g], ls[kQueries + 16 * slice + g + 8]};
-      float p[kNT][4], ds[kNT][4];
-      gemm_nt2<D>(p, qs + 16 * slice * S, kst, ds, dos + 16 * slice * S, vst, g, t);  // s, dp
       const bool full = all_seen(qw, 16, kw, kHalf, sh);   // no mask inside
 #pragma unroll
       for (int j = 0; j < kNT; ++j)
@@ -588,12 +762,12 @@ flash_attention_bwd_dq_kernel(const float* __restrict__ q, const float* __restri
             pe = 0.0f;
           ds[j][e] = pe * (ds[j][e] - dl[r]);
         }
-      gemm_nn<D>(acc[0], ds, kst, g, t);    // dq += ds K
+      gemm_nn<C>(acc[0], ds, kst, g, t);    // dq += ds K
     }
     __syncthreads();
   }
-  if (!merge_halves<D, 1>(smem4, acc)) return;
-  store_rows<D>(dq + row0 * D, qw, sh.lq, acc[0], sh.scale, g, t);
+  if (!merge_halves<C, 1>(smem4, acc)) return;
+  store_rows<C, D>(dq + row0 * D + col0, qw, sh.lq, acc[0], sh.scale, g, t);
 }
 
 // Raise each instance's dynamic shared memory limit, once, so that no launch
@@ -612,12 +786,42 @@ cudaError_t prepare() {
   return err;
 }
 
-// registers, local bytes, shared bytes, threads and blocks an SM of the
-// dK/dV (which = 0) or dQ (which = 1) kernel
+// a grid of `tiles` tiles on the stream: a block a tile, or above D 128 a
+// cluster of split_of(D) blocks (its dimension in attr)
+template <int D>
+cudaLaunchConfig_t tile_config(int64_t tiles, size_t smem, cudaStream_t stream,
+                               cudaLaunchAttribute* attr) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)(tiles * split_of(D)));
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  if (split_of(D) > 1) {
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = split_of(D);
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+  }
+  return cfg;
+}
+
+template <int D, typename Kernel, typename... Args>
+cudaError_t launch_tiles(Kernel kernel, int64_t tiles, size_t smem, cudaStream_t stream,
+                         Args... args) {
+  cudaLaunchAttribute attr[1];
+  const cudaLaunchConfig_t cfg = tile_config<D>(tiles, smem, stream, attr);
+  return cudaLaunchKernelEx(&cfg, kernel, args...);
+}
+
+// registers, local bytes, shared bytes, threads, blocks an SM, blocks a
+// cluster and (above D 128) clusters the card holds at once of the dK/dV
+// (which = 0) or dQ (which = 1) kernel
 template <int D>
 int resources(int which, int* out) {
   cudaFuncAttributes a;
-  int blocks = 0;
+  int blocks = 0, clusters = 0;
   const void* fn = which ? (const void*)flash_attention_bwd_dq_kernel<D>
                          : (const void*)flash_attention_bwd_dkdv_kernel<D>;
   const size_t smem = which ? dq_smem<D>() : dkdv_smem<D>();
@@ -625,46 +829,64 @@ int resources(int which, int* out) {
   if (err == cudaSuccess) err = cudaFuncGetAttributes(&a, fn);
   if (err == cudaSuccess)
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, fn, kThreads, smem);
+  if (err == cudaSuccess && split_of(D) > 1) {
+    cudaLaunchAttribute attr[1];
+    const cudaLaunchConfig_t cfg = tile_config<D>(1024, smem, nullptr, attr);
+    err = cudaOccupancyMaxActiveClusters(&clusters, fn, &cfg);
+  }
   if (err != cudaSuccess) return (int)err;
   out[0] = a.numRegs;
   out[1] = (int)a.localSizeBytes;
   out[2] = (int)(a.sharedSizeBytes + smem);
   out[3] = kThreads;
   out[4] = blocks;
+  out[5] = split_of(D);
+  out[6] = clusters;
   return (int)cudaSuccess;
 }
 
 template <int D>
 int launch(const float* q, const float* k, const float* v, const float* out,
-           const float* lse, const float* dout, float* delta, float* dq, float* dk,
-           float* dv, int64_t b, const Shape& sh, cudaStream_t stream) {
+           const float* lse, const float* dout, float* delta, float* part, float* dq,
+           float* dk, float* dv, int64_t b, const Shape& sh, cudaStream_t stream) {
   cudaError_t err = prepare<D>();
   if (err != cudaSuccess) return (int)err;
   const int64_t rows = b * sh.hq * sh.lq;
   flash_attention_bwd_delta_kernel<<<(unsigned)((rows + 7) / 8), kThreads, 0, stream>>>(
       out, dout, delta, rows, D);
   const int64_t kt = (sh.lk + kKeys - 1) / kKeys, qt = (sh.lq + kQueries - 1) / kQueries;
-  flash_attention_bwd_dkdv_kernel<D>
-      <<<(unsigned)(kt * b * sh.hkv), kThreads, dkdv_smem<D>(), stream>>>(
-          q, k, v, dout, lse, delta, dk, dv, sh);
-  flash_attention_bwd_dq_kernel<D>
-      <<<(unsigned)(qt * b * sh.hq), kThreads, dq_smem<D>(), stream>>>(
-          q, k, v, dout, lse, delta, dq, sh);
+  constexpr bool kPerHead = split_of(D) > 1;
+  err = launch_tiles<D>(flash_attention_bwd_dkdv_kernel<D>,
+                        kt * b * (kPerHead ? sh.hq : sh.hkv), dkdv_smem<D>(), stream, q, k, v,
+                        dout, lse, (const float*)delta, dk, dv, part, sh);
+  if (kPerHead && err == cudaSuccess) {
+    const int64_t n4 = b * sh.hkv * sh.lk * D / 4;
+    const unsigned grid = (unsigned)std::min<int64_t>((2 * n4 + kThreads - 1) / kThreads, 8192);
+    flash_attention_bwd_sum_kernel<<<grid, kThreads, 0, stream>>>(
+        reinterpret_cast<const float4*>(part), reinterpret_cast<float4*>(dk),
+        reinterpret_cast<float4*>(dv), n4, (int64_t)sh.lk * D / 4, sh.hq / sh.hkv, sh.scale);
+  }
+  if (err == cudaSuccess)
+    err = launch_tiles<D>(flash_attention_bwd_dq_kernel<D>, qt * b * sh.hq, dq_smem<D>(),
+                          stream, q, k, v, dout, lse, (const float*)delta, dq, sh);
+  if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// delta is [B, Hq, Lq] scratch; window 0 means none; causal 0 or 1.
+// delta is [B, Hq, Lq] scratch; part [2, B, Hq, Lk, D] scratch above D 128 (the q
+// heads' shares of dk and dv), unread below; window 0 means none; causal 0 or 1.
 extern "C" int flash_attention_bwd_f32(const void* q, const void* k, const void* v,
                                        const void* out, const void* lse, const void* dout,
-                                       void* delta, void* dq, void* dk, void* dv, int64_t b,
+                                       void* delta, void* part, void* dq, void* dk, void* dv,
+                                       int64_t b,
                                        int64_t hq, int64_t hkv, int64_t lq, int64_t lk,
                                        int64_t d, int64_t causal, int64_t window,
                                        void* stream) {
   if (b <= 0 || hq <= 0 || lq <= 0 || lk <= 0) return (int)cudaSuccess;
   if (hkv <= 0 || hq % hkv || lq > lk || window < 0 || lk > 0x7fffffff ||
-      b * hq * ((lq + kQueries - 1) / kQueries) > 0x7fffffff)
+      b * hq * ((lq + kQueries - 1) / kQueries) * (d > 128 ? d / kSplitCols : 1) > 0x7fffffff)
     return (int)cudaErrorInvalidValue;
   const Shape sh{(int)hq, (int)hkv, (int)lq, (int)lk, (int)causal, (int)window,
                  (float)(1.0 / sqrt((double)d))};
@@ -675,25 +897,29 @@ extern "C" int flash_attention_bwd_f32(const void* q, const void* k, const void*
   const auto* fl = static_cast<const float*>(lse);
   const auto* fg = static_cast<const float*>(dout);
   auto* fd = static_cast<float*>(delta);
+  auto* fp = static_cast<float*>(part);
   auto* gq = static_cast<float*>(dq);
   auto* gk = static_cast<float*>(dk);
   auto* gv = static_cast<float*>(dv);
   const auto s = (cudaStream_t)stream;
   switch (d) {
-    case 32: return launch<32>(fq, fk, fv, fo, fl, fg, fd, gq, gk, gv, b, sh, s);
-    case 64: return launch<64>(fq, fk, fv, fo, fl, fg, fd, gq, gk, gv, b, sh, s);
-    case 128: return launch<128>(fq, fk, fv, fo, fl, fg, fd, gq, gk, gv, b, sh, s);
+    case 32: return launch<32>(fq, fk, fv, fo, fl, fg, fd, fp, gq, gk, gv, b, sh, s);
+    case 64: return launch<64>(fq, fk, fv, fo, fl, fg, fd, fp, gq, gk, gv, b, sh, s);
+    case 128: return launch<128>(fq, fk, fv, fo, fl, fg, fd, fp, gq, gk, gv, b, sh, s);
+    case 256: return launch<256>(fq, fk, fv, fo, fl, fg, fd, fp, gq, gk, gv, b, sh, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }
 
-// For reports: out[5] = registers, local bytes, shared bytes, threads, blocks an
-// SM of the dK/dV (which 0) or dQ (which 1) kernel at head dim d.
+// For reports: out[7] = registers, local bytes, shared bytes, threads, blocks an
+// SM, blocks a cluster, clusters at once (0 below D 256) of the dK/dV (which 0)
+// or dQ (which 1) kernel at head dim d.
 extern "C" int flash_attention_bwd_resources(int64_t d, int64_t which, int* out) {
   switch (d) {
     case 32: return resources<32>((int)which, out);
     case 64: return resources<64>((int)which, out);
     case 128: return resources<128>((int)which, out);
+    case 256: return resources<256>((int)which, out);
     default: return (int)cudaErrorInvalidValue;
   }
 }

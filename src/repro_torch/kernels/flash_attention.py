@@ -21,8 +21,9 @@ The gradient: where autograd needs one (grad mode on and an input that
 requires grad, or a ``torch.func`` transform), the call goes through
 :class:`FlashAttention`, a ``torch.autograd.Function`` whose forward
 keeps ``lse`` and whose backward is ``csrc/flash_attention_bwd.cu``
-(fp32, head dims 32, 64 and 128: :func:`flash_attention_bwd`; its five
-products on the tensor cores as three TF32 products, as the forward's).  Both
+(fp32, head dims 32, 64, 128 and 256: :func:`flash_attention_bwd`; its
+five products on the tensor cores as three TF32 products, as the
+forward's; at head dim 256 a cluster of four blocks splits D).  Both
 Functions carry a ``vmap`` rule that folds the mapped dimension into B,
 so ``torch.func.vmap(torch.func.grad(...))`` (per-example DP-SGD) runs
 the same kernels.  The reference has no backward kernel: XLA
@@ -47,7 +48,7 @@ from repro_torch.kernels.ref import (flash_attention_bwd_ref, flash_attention_ls
 NAME = "flash_attention"
 BWD_NAME = "flash_attention_bwd"
 HEAD_DIMS = (32, 64, 128, 256)          # the kernel's template instances
-BWD_HEAD_DIMS = (32, 64, 128)           # the backward's (fp32 only)
+BWD_HEAD_DIMS = (32, 64, 128, 256)      # the backward's (fp32 only)
 # the kernel's tiles (kBlockM and kBlockN in csrc/flash_attention.cu): packed
 # (query, head) rows a block, and keys a K/V stage, half of them a warp
 BLOCK_ROWS = 64
@@ -57,10 +58,21 @@ BLOCK_KEYS = 32
 # each warp takes 16 rows and half of a stage's columns
 BWD_BLOCK_KEYS = 64
 BWD_BLOCK_QUERIES = 64
+# above head dim 128 (kSplitCols): a cluster of D / BWD_SPLIT_COLS blocks shares
+# each tile, every block taking s and dp over its own BWD_SPLIT_COLS columns of
+# D and writing those columns of the gradients; the partials of s and dp are
+# added in fp32 in rank order
+BWD_SPLIT_COLS = 64
+
+
+def bwd_split_cols(head_dim: int) -> int:
+    """The columns of D one block of the backward takes at ``head_dim``."""
+    return BWD_SPLIT_COLS if head_dim > 128 else head_dim
+
 _ENTRY = {torch.float32: "flash_attention_f32", torch.bfloat16: "flash_attention_bf16"}
 _P, _I = ctypes.c_void_p, ctypes.c_int64
 _ARGS = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P]
-_BWD_ARGS = [_P] * 10 + [_I] * 8 + [_P]
+_BWD_ARGS = [_P] * 11 + [_I] * 8 + [_P]
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -90,7 +102,7 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def check_bwd_instance(dtype: torch.dtype, head_dim: int) -> None:
     """Raise :class:`~repro_torch.NotPorted` (seam ``flash_attention_bwd``)
     where the backward kernel has no instance for ``dtype`` and
-    ``head_dim``: it has fp32 at head dims 32, 64 and 128."""
+    ``head_dim``: it has fp32 at head dims 32, 64, 128 and 256."""
     if dtype != torch.float32 or head_dim not in BWD_HEAD_DIMS:
         from repro_torch import NotPorted
         raise NotPorted(BWD_NAME, f"a {dtype} gradient at head dim {head_dim} on the card",
@@ -128,8 +140,9 @@ def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                              out: torch.Tensor, lse: torch.Tensor, dout: torch.Tensor,
                              causal: bool = True, window: Optional[int] = None
                              ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Launch the backward (its three kernels: delta, dK/dV, dQ) on
-    PyTorch's current stream; one launch counted."""
+    """Launch the backward (its kernels: delta, dK/dV, above head dim 128
+    the sum of the q heads' shares of dk and dv, dQ) on PyTorch's current
+    stream; one launch counted."""
     _check(q, k, v, window)
     check_bwd_instance(q.dtype, q.shape[-1])
     if out.shape != q.shape or dout.shape != q.shape or lse.shape != q.shape[:3]:
@@ -149,9 +162,14 @@ def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if q.numel() == 0:
         return dq, dk.zero_(), dv.zero_()
     delta = torch.empty_like(lse)
+    # above head dim 128 each q head's share of dk and dv, added in a fixed order
+    part = (torch.empty((2, b, hq, lk, d), dtype=torch.float32, device=q.device)
+            if bwd_split_cols(d) < d else None)
     with torch.cuda.device(q.device):
         build.launch(BWD_NAME, "flash_attention_bwd_f32", _BWD_ARGS,
-                     *(t.data_ptr() for t in (q, k, v, out, lse, dout, delta, dq, dk, dv)),
+                     *(t.data_ptr() for t in (q, k, v, out, lse, dout, delta)),
+                     0 if part is None else part.data_ptr(),
+                     *(t.data_ptr() for t in (dq, dk, dv)),
                      b, hq, hkv, lq, lk, d, int(causal), 0 if window is None else int(window),
                      build.stream())
     return dq, dk, dv

@@ -55,10 +55,10 @@ KERNELS = {
 
 # the ``__global__`` functions of a kernel whose symbols are not the one
 # ``<name>_kernel``: the quantizer's vectorised and any-width kernels, the
-# backward's delta, dK/dV and dQ kernels, the selective scan's walk back
+# backward's delta, dK/dV, head-sum and dQ kernels, the selective scan's walk back
 # and its sum of the blocks' partials
 _SYMBOLS = {"quantize_int8": r"quantize_int8_(?:vec|any)",
-            "flash_attention_bwd": r"flash_attention_bwd_(?:delta|dkdv|dq)_kernel",
+            "flash_attention_bwd": r"flash_attention_bwd_(?:delta|dkdv|sum|dq)_kernel",
             "mamba_scan_bwd": r"mamba_scan_bwd_(?:reduce_)?kernel"}
 
 

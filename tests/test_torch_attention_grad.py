@@ -6,7 +6,10 @@
   ``jax.vjp`` of the reference's own attention, ``sdpa`` (with
   ``causal_mask``) and ``sdpa_blockwise`` (its online-softmax scan, in
   chunks of 8 keys), on the same inputs: causal and not, windows, GQA
-  groups 1, 2 and 3, ``Lq <= Lk``, head dims 32 and 64.
+  groups 1, 2 and 3, ``Lq <= Lk``, head dims 32 and 64; and at gemma3-1b's
+  head dim 256, 4 q heads on 1 kv head, its 512-key window and 1024
+  tokens, where the reference's attention takes ``sdpa_blockwise`` in its
+  own chunks of 512.
 - ``flash_attention_lse_ref``'s row log-sum-exp against ``logsumexp``.
 - The ``torch.autograd.Function``: on CPU tensors ``flash_attention``
   has a ``grad_fn`` wherever autograd needs one and its gradient is the
@@ -15,21 +18,23 @@
   gradients; no second derivative.
 - The refusals of a gradient instance the backward kernels lack (the
   WKV-6 scan at head dim 128, the selective scan at d_state 48, any bf16
-  gradient, attention at head dim 256): ``NotPorted`` naming the
+  gradient, gemma3-1b's attention in bf16): ``NotPorted`` naming the
   backward's seam, on the card only, decided without one; the CPU trains
-  through the plain versions.  A token job on the card whose model needs
-  such an instance (gemma3-1b's head dim 256) is refused by
-  ``FederatedJob.check_ported``, before any kernel is built or batch
-  drawn; the same job on the CPU is accepted.
-- The backward's C interface: its instances (fp32, head dims 32/64/128)
-  and argument list against ``csrc/flash_attention_bwd.cu``; what it has
-  no instance of raises ``NotPorted`` naming it.
+  through the plain versions.  Full-width gemma3-1b (head dim 256, fp32)
+  passes ``FederatedJob.check_ported`` on the card, as the other ported
+  architectures do; a token job on the card whose model needs a missing
+  instance (gemma3-1b's config at head dim 96) is refused by it, before
+  any kernel is built or batch drawn; the same job on the CPU is accepted.
+- The backward's C interface: its instances (fp32, head dims
+  32/64/128/256) and argument list against ``csrc/flash_attention_bwd.cu``;
+  what it has no instance of raises ``NotPorted`` naming it.
 
 Tolerances: fp32 sums in another order than autograd's or XLA's einsums
 (and the blockwise scan's rescaling): rtol=atol=2e-5 on unit-scale
 inputs.  The CUDA kernel is held to the plain backward on the card by
 ``chip_smoke.py`` (phase 20a).
 """
+import dataclasses
 import re
 from pathlib import Path
 
@@ -98,7 +103,9 @@ def _heads_last(x):
 # ``sdpa`` is always causal (its mask): the non-causal cases run through
 # ``sdpa_blockwise`` only
 VJP_CASES = [pytest.param(c, False, id=f"{i}-sdpa") for c, i in zip(CASES, IDS) if c[6]] + \
-    [pytest.param(c, True, id=f"{i}-sdpa_blockwise") for c, i in zip(CASES, IDS)]
+    [pytest.param(c, True, id=f"{i}-sdpa_blockwise") for c, i in zip(CASES, IDS)] + \
+    [pytest.param((1, 4, 1, 1024, 1024, 256, True, 512), True,     # gemma3-1b's layer
+                  id="b1-h4/1-q1024-k1024-d256-c-w512-sdpa_blockwise")]
 
 
 @pytest.mark.parametrize("case,blockwise", VJP_CASES)
@@ -108,9 +115,13 @@ def test_plain_backward_is_the_vjp_of_the_reference_attention(case, blockwise):
     b, hq, hkv, lq, lk, d, causal, window = case
     q, k, v, g = _inputs(case)
 
+    # from BLOCKWISE_MIN_LEN tokens the reference's own chunks, as its module
+    # takes them; below, chunks of 8 keys
+    chunk = {} if lk >= jattn.BLOCKWISE_MIN_LEN else {"chunk": 8}
+
     def attend(jq, jk, jv):
         if blockwise:
-            return jattn.sdpa_blockwise(jq, jk, jv, causal=causal, window=window, chunk=8)
+            return jattn.sdpa_blockwise(jq, jk, jv, causal=causal, window=window, **chunk)
         return jattn.sdpa(jq, jk, jv, jattn.causal_mask(lq, lk, window))
 
     _, vjp = jax.vjp(attend, *(_heads_last(x) for x in (q, k, v)))
@@ -213,13 +224,13 @@ def test_the_scans_refuse_a_gradient_on_the_card_only():
                (ms.check_bwd_instance, torch.float32, 48, "mamba_scan_bwd"),
                (ms.check_bwd_instance, torch.bfloat16, 16, "mamba_scan_bwd"),
                (fa.check_bwd_instance, torch.bfloat16, 64, "flash_attention_bwd"),
-               (fa.check_bwd_instance, torch.float32, 256, "flash_attention_bwd")]
+               (fa.check_bwd_instance, torch.bfloat16, 256, "flash_attention_bwd")]
     for check, dtype, dim, seam in refused:
         with pytest.raises(NotPorted) as err:
             check(dtype, dim)
         assert err.value.seam == seam and str(dim) in str(err.value)
     for check, dims in ((rs.check_bwd_instance, (32, 64)), (ms.check_bwd_instance, (1, 16, 32)),
-                        (fa.check_bwd_instance, (32, 64, 128))):
+                        (fa.check_bwd_instance, (32, 64, 128, 256))):
         for dim in dims:
             check(torch.float32, dim)
     # on the CPU the plain versions train, at instances the card lacks too
@@ -263,13 +274,20 @@ def test_refuse_backward_names_the_kernel(monkeypatch):
                                torch.zeros(1, 4, 3))
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
     gemma = TaskConfig(kind="tokens", arch="gemma3-1b", reduced=False)
-    with pytest.raises(NotPorted) as err:
-        FederatedJob(task=gemma, device="cuda").check_ported()
-    assert err.value.seam == "flash_attention_bwd" and "head dim 256" in str(err.value)
-    FederatedJob(task=gemma, device="cpu").check_ported()
-    for arch in ("smollm-135m", "qwen3-8b", "rwkv6-7b", "jamba-1.5-large-398b"):
+    for arch in ("gemma3-1b", "smollm-135m", "qwen3-8b", "rwkv6-7b", "jamba-1.5-large-398b"):
         FederatedJob(task=TaskConfig(kind="tokens", arch=arch, reduced=False),
                      device="cuda").check_ported()
+    # gemma3-1b's gradient in bf16 has no instance (head dim 256)
+    with pytest.raises(NotPorted) as err:
+        ops.check_backward_instances(gemma.model_config(), torch.bfloat16)
+    assert err.value.seam == "flash_attention_bwd" and "head dim 256" in str(err.value)
+    # a model whose head dim the backward lacks
+    from repro_torch.configs import gemma3_1b
+    monkeypatch.setattr(gemma3_1b, "CONFIG", dataclasses.replace(gemma3_1b.CONFIG, head_dim=96))
+    with pytest.raises(NotPorted) as err:
+        FederatedJob(task=gemma, device="cuda").check_ported()
+    assert err.value.seam == "flash_attention_bwd" and "head dim 96" in str(err.value)
+    FederatedJob(task=gemma, device="cpu").check_ported()
     # the job runs nothing before it refuses: no task built, no kernel prepared
     calls = []
     monkeypatch.setattr(TaskConfig, "build", lambda self: calls.append("build"))
@@ -315,12 +333,13 @@ def test_c_interfaces_and_instances():
     assert tuple(int(d) for d in re.findall(r"case (\d+): return launch<", entry)) \
         == fa.BWD_HEAD_DIMS
     lse = torch.zeros(1, 2, 4)
-    q, kv = torch.zeros(1, 2, 4, 256), torch.zeros(1, 1, 4, 256)
-    with pytest.raises(NotPorted, match="head dim 256"):           # gemma3-1b's
-        fa.flash_attention_bwd_cuda(q, kv, kv, q, lse, q, True, None)
-    q, kv = torch.zeros(1, 2, 4, 64), torch.zeros(1, 1, 4, 64)
-    with pytest.raises(NotPorted, match="bfloat16 gradient"):
-        b = q.bfloat16()
-        fa.flash_attention_bwd_cuda(b, kv.bfloat16(), kv.bfloat16(), b, lse, b, True, None)
-    with pytest.raises(ValueError, match="on CUDA"):
+    for d in (64, 256):                                 # 256: gemma3-1b's
+        q, kv = torch.zeros(1, 2, 4, d), torch.zeros(1, 1, 4, d)
+        with pytest.raises(NotPorted, match=f"bfloat16 gradient at head dim {d}"):
+            b = q.bfloat16()
+            fa.flash_attention_bwd_cuda(b, kv.bfloat16(), kv.bfloat16(), b, lse, b, True, None)
+        with pytest.raises(ValueError, match="on CUDA"):       # an instance: the device check
+            fa.flash_attention_bwd_cuda(q, kv, kv, q, lse, q, True, None)
+    q, kv = torch.zeros(1, 2, 4, 96), torch.zeros(1, 1, 4, 96)
+    with pytest.raises(NotPorted, match="head dim 96"):
         fa.flash_attention_bwd_cuda(q, kv, kv, q, lse, q, True, None)

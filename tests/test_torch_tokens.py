@@ -10,10 +10,12 @@ against the reference.
   heterogeneity too).
 - ``transformer.next_token_loss`` and its gradient against
   ``jax.value_and_grad`` of the reference's on reduced smollm-135m,
-  qwen3-8b, rwkv6-7b and Jamba (its MoE aux term), the weights carried
-  over by ``convert.from_reference``: the loss rtol 1e-6, every leaf's
-  gradient within ``GRAD_TOL`` of that leaf's largest value, and no leaf
-  without a gradient.  1e-5 for the attention models (2.4e-6 measured);
+  qwen3-8b, rwkv6-7b and Jamba (its MoE aux term), and on gemma3's reduced
+  config at its published head dim, 256 (2 layers: one with an 8-key
+  window, one global; 12 tokens), the weights carried over by
+  ``convert.from_reference``: the loss rtol 1e-6, every leaf's gradient
+  within ``GRAD_TOL`` of that leaf's largest value, and no leaf without a
+  gradient.  1e-5 for the attention models (2.4e-6 measured);
   rwkv6-7b's reduced config at a random init is ill-conditioned in fp32
   (its per-head group norm): the port in float64 lies 7.6e-5 (relative)
   from the reference's own fp32 gradient and the port in fp32 2.6e-4, so
@@ -33,6 +35,7 @@ against the reference.
   ``convert`` passes every token tree unchanged; ``launch/train.py --task
   tokens`` trains and prints the reference's dry-run dict.
 """
+import dataclasses
 import json
 
 import numpy as np
@@ -63,7 +66,17 @@ from repro_torch.tree import tree_leaves, tree_map  # noqa: E402
 
 TOKENS = dict(kind="tokens", arch="smollm-135m", sites=3, batch=2, seq=16)
 GRAD_TOL = {"smollm-135m": 1e-5, "qwen3-8b": 1e-5, "jamba-1.5-large-398b": 1e-5,
-            "rwkv6-7b": 1e-3}
+            "rwkv6-7b": 1e-3, "gemma3-1b@256": 1e-5}
+# configs changed from an architecture's reduced one: gemma3's at head dim 256,
+# 2 layers (``global_attn_every=2``: the first local, the second global) and a
+# window shorter than the 12 tokens
+CHANGED = {"gemma3-1b@256": ("gemma3-1b", dict(head_dim=256, num_layers=2,
+                                               global_attn_every=2, sliding_window=8))}
+
+
+def _reduced(get, name):
+    arch, changes = CHANGED.get(name, (name, {}))
+    return dataclasses.replace(get(arch).reduced(), **changes)
 TIMES = ("wall_s", "batch_s", "step_s")
 
 
@@ -119,7 +132,7 @@ def test_token_generator_matches_the_reference(kw):
 
 @pytest.mark.parametrize("arch", list(GRAD_TOL))
 def test_next_token_loss_and_gradient_match_the_reference(arch):
-    jcfg, cfg = jget_arch(arch).reduced(), get_arch(arch).reduced()
+    jcfg, cfg = _reduced(jget_arch, arch), _reduced(get_arch, arch)
     params = JT.init(jax.random.PRNGKey(0), jcfg)
     toks = np.random.default_rng(0).integers(0, jcfg.vocab_size, (2, 12)).astype(np.int32)
     (jloss, jmet), jgrad = jax.jit(jax.value_and_grad(
