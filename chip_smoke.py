@@ -182,7 +182,7 @@ Phases, each of which fails the run (non-zero exit) if it goes wrong:
    the larger of bytes and the operations: the fp32 instructions its SASS
    shows with one exp an entry, on the special-function unit or as a
    software exp2 on the fp32 lanes, whichever balances the two);
-10. the five reduced token configs served on the card and on the CPU
+10. the first five reduced token configs served on the card and on the CPU
    (the plain versions) from the same seeded weights and prompts, TF32
    off: the greedy tokens must be equal and the logits within
    rtol=atol=1e-4;
@@ -241,12 +241,32 @@ Phases, each of which fails the run (non-zero exit) if it goes wrong:
    launches a site step, ``step_s``, ``batch_s`` and the peak printed; (c)
    one site step's gradient held to the plain versions' on the card,
    wq/wk/wv named; (d) a small gemma-shaped job (the reduced config at head
-   dim 256) card vs CPU.
+   dim 256) card vs CPU;
+23. the nineteenth slice's path, the remaining token configs served
+   (``run_p23`` states each check): (a) ``flash_attention`` on MLA's
+   padded route at DeepSeek-V2's prefill shape (q/k [2, 128, 512, 192], v
+   [..., 128], padded to the D 256 instance) held to the plain unpadded
+   ``sdpa`` at scale 192^-0.5 under ``FLASH_TOL``, timed beside the true
+   work's bound and the padded work's, the plain version and SDPA, then
+   at each of (c)'s configs' per-layer prefill shapes (batch, heads, kv
+   heads, prompt length, head dim) held to the plain version; (b)
+   DeepSeek-V2 at its published width cut to 2 layers (MLA + dense FFN,
+   MLA + 160 routed and 2 shared experts), 2 x 512 prompts + 16 greedy
+   steps with each MoE form (``dense``, ``gather``, ``dispatch``),
+   ``flash_attention`` twice a prefill and never in decode, ``gather``'s
+   logits held to ``dense``'s, and on layer 1's real input the no-drop
+   ``dispatch`` held to ``moe_apply``; (c) granite-3-2b (40 layers) and
+   musicgen-medium (48) at full depth, qwen3-moe-30b-a3b and chameleon-34b
+   cut to 8 layers, through ``serve.run``, once a layer in prefill and
+   never in decode, qwen3-moe's ``gather`` held to ``dense``; (d) the
+   five reduced configs card vs CPU as phase 10; (e) a reduced deepseek
+   token job card vs CPU (MLA's padded D 32 gradient) and the full-width
+   deepseek job through ``check_ported``.
 
-Phases 11-19 run after phase 8, before 9; phases 20-22 after 10.  Every
+Phases 11-19 run after phase 8, before 9; phases 20-23 after 10.  Every
 kernel's launch count is zeroed just before each of phases 3-5b, 7, each
-path of 9 and each full-width job of 11-13 and 15-22, and read just after;
-each of 11-22 prints its seconds.  The second-to-last line is a
+path of 9 and each full-width job or served run of 11-13 and 15-23, and
+read just after; each of 11-23 prints its seconds.  The second-to-last line is a
 JSON object with one entry per kernel; the last line is ``{"ok": true,
 "device": {...}}``.  Without
 CUDA, or outside a checkout of the repository, it exits non-zero and
@@ -254,6 +274,7 @@ prints no result.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import gc
 import json
@@ -327,7 +348,9 @@ FLASH_TOL = dict(rtol=1e-5, atol=1e-5)
 SCAN_RTOL = 1e-5    # fp32 recurrences; atol 1e-5 of the plain version's largest value:
                     # each output sums D or ds terms in another order, with FMA
 SERVE_TOL = dict(rtol=1e-4, atol=1e-4)             # card vs CPU logits, TF32 off
-SMALL_ARCHS = ("gemma3-1b", "smollm-135m", "qwen3-8b", "rwkv6-7b", "jamba-1.5-large-398b")
+SMALL_ARCHS = ("gemma3-1b", "smollm-135m", "qwen3-8b", "rwkv6-7b", "jamba-1.5-large-398b",
+               "deepseek-v2-236b", "qwen3-moe-30b-a3b", "granite-3-2b", "chameleon-34b",
+               "musicgen-medium")
 
 
 def peaks(name: str):
@@ -1303,6 +1326,13 @@ def run_strategy_job(torch, FederatedJob, TaskConfig, build, task, n_params: int
         _require(torch.equal(anchor, flat), f"{what}: the anchor is not the final global")
         print(f"{what}: the anchor is the final global, bit for bit")
     return result
+
+
+def _fresh(torch) -> None:
+    """Free what the last path left and restart the peak-memory count."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
 
 
 def _timed(phase: str, fn, *args):
@@ -3835,18 +3865,14 @@ def run_serving_paths(torch, build) -> dict:
             ["--arch", arch, "--batch", str(batch), "--prompt-len", str(prompt),
              "--decode-steps", str(steps)])
         args.reduced = False            # the published config (the CLI cannot unset it)
-        gc.collect()
-        torch.cuda.empty_cache()
-        torch.cuda.reset_peak_memory_stats()
+        _fresh(torch)
         build.reset_launches()
         out = serve.run(args)
         launches[kernel] = dict(build.LAUNCHES)
         _serving_report(torch, f"{arch} {batch}x{prompt}+{steps}", out, kernel, layers)
 
     cfg = dataclasses.replace(get_arch("jamba-1.5-large-398b").CONFIG, num_layers=2)
-    gc.collect()
-    torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats()
+    _fresh(torch)
     gen = torch.Generator(device="cuda").manual_seed(0)
     params = T.init(gen, cfg, "cuda")
     n_params = sum(t.numel() for t in _leaves(params))
@@ -3865,20 +3891,22 @@ def run_serving_paths(torch, build) -> dict:
     return launches
 
 
-def check_small_serving(torch, build) -> None:
-    """The five reduced token configs served on the card and on the CPU
-    (the plain versions) from the same seeded weights and prompts; the CPU
-    side is held to the JAX reference by tests/test_torch_serve.py."""
+def check_small_serving(torch, build, archs=SMALL_ARCHS[:5]) -> None:
+    """Reduced token configs (phase 10: the first five of ``SMALL_ARCHS``,
+    phase 23d: the other five) served on the card and on the CPU (the
+    plain versions) from the same seeded weights and prompts; the CPU side
+    is held to the JAX reference by tests/test_torch_serve.py."""
     from repro_torch.configs.registry import get_arch
     from repro_torch.launch import serve
     from repro_torch.models import transformer as T
     from repro_torch.tree import tree_map
     torch.backends.cuda.matmul.allow_tf32 = False
-    for arch in SMALL_ARCHS:
+    for arch in archs:
         cfg = get_arch(arch).reduced()
         gen = torch.Generator().manual_seed(7)
         params = T.init(gen, cfg, "cpu")
-        prompts = torch.randint(0, cfg.vocab_size, (2, 20), generator=gen)
+        shape = (2, 20) if cfg.num_codebooks == 1 else (2, 20, cfg.num_codebooks)
+        prompts = torch.randint(0, cfg.vocab_size, shape, generator=gen)
         cpu = serve.generate(params, prompts, cfg, 6)
         before = dict(build.LAUNCHES)
         gpu = serve.generate(tree_map(lambda t: t.cuda(), params), prompts.cuda(), cfg, 6)
@@ -4830,6 +4858,296 @@ def run_p22(torch, FederatedJob, TaskConfig, build) -> dict:
             "launches": launches}
 
 
+# -- the remaining token configs served at full width (phase 23) ------------------
+
+MLA_ATTN = (2, 128, 512)                           # DeepSeek-V2's prefill: batch, heads, L
+DEEPSEEK_LAYERS = 2                                # depth cut from 60: dense FFN, then MoE
+DEEPSEEK_SERVE = (2, 512, 16)                      # batch, prompt, greedy steps
+# (arch, config module, depth or None for the published one, batch, prompt, steps)
+WIDE_SERVES = (("granite-3-2b", "granite_3_2b", None, 4, 1024, 32),
+               ("musicgen-medium", "musicgen_medium", None, 4, 1024, 32),
+               ("qwen3-moe-30b-a3b", "qwen3_moe_30b_a3b", 8, 2, 512, 16),
+               ("chameleon-34b", "chameleon_34b", 8, 2, 1024, 16))
+SMALL_DEEPSEEK = dict(kind="tokens", arch="deepseek-v2-236b", sites=2, batch=2, seq=32)
+
+
+def check_flash_attention_mla(torch, dev) -> dict:
+    """Phase 23a: ``flash_attention`` on MLA's padded route at DeepSeek-V2's
+    prefill shape (q/k [2, 128, 512, 192], v [..., 128], causal, padded to
+    the D 256 instance, q scaled by sqrt(256 / 192)) held to the port's
+    plain ``sdpa`` on the unpadded tensors at scale 192 ** -0.5 under
+    ``FLASH_TOL``; the kernel's time (on the padded tensors) beside two
+    bounds, the true work's (2 flops a seen pair a column of q/k 192 + v
+    128, 3 TF32 products a flop; the unpadded tensors' bytes) and the
+    padded work's, the plain version's time and SDPA's on the unpadded
+    tensors.  Returns the kernels-line entry of ``flash_attention``'s
+    ``mla`` instance (bound: the true work's)."""
+    import torch.nn.functional as F
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.kernels import build
+    from repro_torch.kernels.flash_attention import flash_attention_cuda, padded_head_dim
+    from repro_torch.models import attention as A
+    mla = get_arch("deepseek-v2-236b").CONFIG.mla
+    b, h, l = MLA_ATTN
+    dqk, dv = mla.qk_head_dim, mla.v_head_dim
+    d = padded_head_dim(max(dqk, dv))
+    gen = torch.Generator(device=dev).manual_seed(23)
+    q, k = (torch.randn(b, l, h, dqk, device=dev, generator=gen) for _ in range(2))
+    v = torch.randn(b, l, h, dv, device=dev, generator=gen)
+    build.reset_launches()
+    out = A._padded_attention(q, k, v, mla)                # the model's route
+    torch.cuda.synchronize()
+    _require(build.LAUNCHES.get("flash_attention", 0) == 1,
+             "23a: the padded route did not launch flash_attention once")
+    scale = dqk ** -0.5
+    want = A.sdpa(q, k, v, A.causal_mask(l, l, device=dev), scale=scale)
+    torch.testing.assert_close(out, want, **FLASH_TOL)
+    err = float((out - want).abs().max())
+    print(f"flash_attention mla: q/k {dqk}, v {dv} padded to D {d} at DeepSeek-V2's "
+          f"[{b}, {h}, {l}] causal agrees with the unpadded plain sdpa at scale {dqk}^-0.5 "
+          f"(rtol=atol=1e-5, max |err| {err:.3e})")
+
+    def pad(t):
+        return F.pad(t, (0, d - t.shape[-1])).transpose(1, 2).contiguous()
+    qp, kp, vp = pad(q * (d / dqk) ** 0.5), pad(k), pad(v)
+    qh, kh, vh = (t.transpose(1, 2).contiguous() for t in (q, k, v))   # [B, H, L, D]
+    lib_err = float((F.scaled_dot_product_attention(qh, kh, vh, is_causal=True, scale=scale)
+                     .transpose(1, 2) - want).abs().max())
+    mask = A.causal_mask(l, l, device=dev)
+    pairs = b * h * l * (l + 1) // 2                   # the (query, key) pairs seen
+    timing = measure(
+        torch, f"flash_attention mla [{b}, {h}, {l}] q/k {dqk} v {dv} (padded to {d}) fp32 "
+        f"causal", lambda: flash_attention_cuda(qp, kp, vp, True),
+        lambda: A.sdpa(q, k, v, mask, scale=scale),
+        lambda: F.scaled_dot_product_attention(qh, kh, vh, is_causal=True, scale=scale),
+        nbytes=4 * b * h * l * (2 * dqk + 2 * dv), flops=2 * pairs * (dqk + dv),
+        tf32_products=3)
+    tf32_rate = peaks(torch.cuda.get_device_name(0))[2]
+    mem_rate = peaks(torch.cuda.get_device_name(0))[0]
+    padded = max(1e3 * 4 * 4 * b * h * l * d / mem_rate, 1e3 * 3 * 2 * pairs * 2 * d / tf32_rate)
+    print(f"flash_attention mla: the padded work's bound {padded:.4f} ms (2 x {d} columns a "
+          f"pair, {(2 * d) / (dqk + dv):.2f}x the true work's products); SDPA's max |err| "
+          f"against the plain version {lib_err:.3e}")
+    del q, k, v, qp, kp, vp, qh, kh, vh, out, want, mask
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"max_abs_err": err, **timing, "padded_bound_ms": padded,
+            "library_max_abs_err": lib_err}
+
+
+def check_flash_attention_served(torch, dev) -> dict:
+    """Phase 23a, the shapes phase 23c serves: ``flash_attention`` at each
+    ``WIDE_SERVES`` config's per-layer prefill shape (its batch, q heads,
+    kv heads, prompt length and ``resolved_head_dim``, causal, at each of
+    its layers' windows), fp32, held to the plain version on the same
+    inputs under ``FLASH_TOL``.  Returns each config's max |err|."""
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+    gen = torch.Generator(device=dev).manual_seed(231)
+    errs = {}
+    for arch, _, _, b, lp, _ in WIDE_SERVES:
+        cfg = get_arch(arch).CONFIG
+        case = (b, cfg.num_heads, cfg.num_kv_heads, lp, lp, cfg.resolved_head_dim)
+        windows = {spec.sliding_window for spec in cfg.layer_specs() if spec.mixer == "attn"}
+        for window in sorted(windows, key=lambda w: w or 0):
+            q, k, v = _flash_inputs(torch, dev, case, torch.float32, gen)
+            out = flash_attention_cuda(q, k, v, True, window)
+            torch.cuda.synchronize()
+            want = ref.flash_attention_ref(q, k, v, True, window)
+            torch.testing.assert_close(out, want, **FLASH_TOL)
+            err = float((out - want).abs().max())
+            errs[arch] = max(errs.get(arch, 0.0), err)
+            print(f"flash_attention {list(case)} fp32 causal window={window} ({arch}'s "
+                  f"prefill layer) agrees with the plain version (rtol=atol=1e-5, max |err| "
+                  f"{err:.3e})")
+            del q, k, v, out, want
+    torch.cuda.empty_cache()
+    return errs
+
+
+def run_deepseek_serving(torch, build) -> dict:
+    """Phase 23b: DeepSeek-V2 at its published width cut to 2 layers (MLA +
+    the 12,288 dense FFN; MLA + 160 routed and 2 shared experts), random
+    fp32 weights from seed 0, served 2 x 512 prompts + 16 greedy steps
+    through ``serve.generate`` once with each MoE form: ``flash_attention``
+    2 launches a prefill, none in decode; ``gather``'s logits held to
+    ``dense``'s by ``SERVE_TOL`` with equal tokens; then, on layer 1's
+    real MoE input, ``moe_apply_dispatch`` at ``capacity_factor = E /
+    top_k`` (nothing dropped) held to ``moe_apply`` by ``SERVE_TOL``, and
+    the pairs dropped at the default 1.25 printed.  Returns the dense
+    run's launches."""
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.launch import serve
+    from repro_torch.models import attention as A
+    from repro_torch.models import moe
+    from repro_torch.models import transformer as T
+    from repro_torch.models.layers import rmsnorm_apply
+    torch.backends.cuda.matmul.allow_tf32 = False
+    full = get_arch("deepseek-v2-236b").CONFIG
+    cfg = dataclasses.replace(full, num_layers=DEEPSEEK_LAYERS)
+    _fresh(torch)
+    gen = torch.Generator(device=CARD).manual_seed(0)
+    params = T.init(gen, cfg, CARD)
+    n_params = sum(t.numel() for t in _leaves(params))
+    _require(n_params == T.count_params(cfg), "23b: the parameter count is not count_params'")
+    b, lp, steps = DEEPSEEK_SERVE
+    prompts = torch.randint(0, cfg.vocab_size, (b, lp), generator=gen, device=CARD)
+    print(f"deepseek-v2-236b: depth cut from {full.num_layers} to {cfg.num_layers} layers, "
+          f"widths as published ({[s.mixer + '+' + s.ffn for s in cfg.layer_specs()]}, "
+          f"{n_params} parameters, {4 * n_params / 1e9:.2f} GB in fp32)")
+    outs, launches = {}, None
+    for form in ("dense", "gather", "dispatch"):
+        torch.cuda.reset_peak_memory_stats()
+        build.reset_launches()
+        out = serve.generate(params, prompts, cfg, steps, moe_impl=form)
+        out["continuation"] = out["tokens"][0].tolist()
+        out["logits_finite"] = bool(torch.isfinite(out["logits"]).all())
+        _serving_report(torch, f"deepseek-v2 2 layers {b}x{lp}+{steps} moe_impl={form}", out,
+                        "flash_attention", DEEPSEEK_LAYERS)
+        outs[form] = out
+        launches = launches or dict(out["prefill_launches"])
+    gap = float((outs["gather"]["logits"] - outs["dense"]["logits"]).abs().max())
+    print(f"23b: gather against dense: max |logit gap| {gap:.3e}")
+    _require(torch.equal(outs["gather"]["tokens"], outs["dense"]["tokens"]),
+             "23b: gather's greedy tokens differ from dense's")
+    torch.testing.assert_close(outs["gather"]["logits"], outs["dense"]["logits"], **SERVE_TOL)
+
+    # layer 1's MoE input: the embedding through layer 0, then layer 1's MLA
+    with torch.no_grad():
+        x = T.embed_tokens(params, prompts, cfg)
+        x, _, _ = T._layer_apply(params["prefix_layers"][0], x, cfg, cfg.layer_spec(0), None)
+        p1 = params["prefix_layers"][1]
+        x = x + A.mla_apply(p1["mixer"], rmsnorm_apply(p1["norm1"], x, cfg.norm_eps), cfg)[0]
+        h = rmsnorm_apply(p1["norm2"], x, cfg.norm_eps)
+        m = cfg.moe
+        no_drop = m.num_experts / m.top_k
+        probs = moe.router_probs(p1["ffn"], h.reshape(1, -1, cfg.d_model), m)
+        *_, kept, cap = moe.dispatch_slots(probs, m, no_drop)
+        *_, kept_default, cap_default = moe.dispatch_slots(probs, m)
+        dense_y, dense_aux = moe.moe_apply(p1["ffn"], h, m)
+        disp_y, disp_aux = moe.moe_apply_dispatch(p1["ffn"], h, m, capacity_factor=no_drop)
+    gap = float((disp_y - dense_y).abs().max())
+    print(f"23b: moe_apply_dispatch at capacity_factor {no_drop:.4f} (capacity {cap}) on "
+          f"layer 1's input {list(h.shape)}: {int((~kept).sum())} pairs dropped, max |gap| to "
+          f"moe_apply {gap:.3e}, aux {float(disp_aux):.6f} / {float(dense_aux):.6f}; at the "
+          f"default 1.25 (capacity {cap_default}): {int((~kept_default).sum())} of "
+          f"{kept_default.numel()} (token, slot) pairs dropped")
+    _require(int((~kept).sum()) == 0, "23b: pairs dropped at capacity_factor E / top_k")
+    torch.testing.assert_close(disp_y, dense_y, **SERVE_TOL)
+    del params, outs, x, h, probs, dense_y, disp_y
+    _fresh(torch)
+    return launches
+
+
+def run_wide_serves(torch, build) -> dict:
+    """Phase 23c: granite-3-2b (40 layers) and musicgen-medium (48, 4
+    codebooks) at their published depth, 4 x 1024 prompts + 32 steps;
+    qwen3-moe-30b-a3b and chameleon-34b at their published widths cut to
+    8 layers (``_CutDepth``), 2 x 512 + 16 and 2 x 1024 + 16; each through
+    ``serve.run`` (dense), ``flash_attention`` once a layer in prefill and
+    never in decode; then qwen3-moe's ``gather`` form through
+    ``serve.generate`` on ``serve.run``'s weights and prompts (the same
+    seed), its logits held to ``dense``'s by ``SERVE_TOL``, tokens equal.
+    Returns each config's launches."""
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.launch import serve
+    from repro_torch.models import transformer as T
+    torch.backends.cuda.matmul.allow_tf32 = False
+    launches = {}
+    for arch, module, layers, b, lp, steps in WIDE_SERVES:
+        args = serve.make_parser().parse_args(
+            ["--arch", arch, "--batch", str(b), "--prompt-len", str(lp),
+             "--decode-steps", str(steps), "--device", CARD])
+        args.reduced = False            # the published config (the CLI cannot unset it)
+        cut = _CutDepth(module, layers) if layers else contextlib.nullcontext()
+        with cut:
+            cfg = get_arch(arch).CONFIG
+            print(f"{arch}: {cfg.num_layers} layers, {T.count_params(cfg)} parameters")
+            _fresh(torch)
+            build.reset_launches()
+            out = serve.run(args)
+            launches[arch] = dict(out["prefill_launches"])
+            _serving_report(torch, f"{arch} {cfg.num_layers} layers {b}x{lp}+{steps} dense", out,
+                            "flash_attention", cfg.num_layers)
+            if cfg.moe is not None:
+                _fresh(torch)
+                gen = torch.Generator(device=CARD).manual_seed(args.seed)
+                params = T.init(gen, cfg, CARD)
+                prompts = torch.randint(0, cfg.vocab_size, (b, lp), generator=gen,
+                                        device=CARD)
+                forms = {}
+                for form in ("dense", "gather"):
+                    build.reset_launches()
+                    forms[form] = serve.generate(params, prompts, cfg, steps, moe_impl=form)
+                gather = forms["gather"]
+                gather["continuation"] = gather["tokens"][0][:16].tolist()
+                gather["logits_finite"] = bool(torch.isfinite(gather["logits"]).all())
+                _serving_report(torch, f"{arch} {cfg.num_layers} layers {b}x{lp}+{steps} gather",
+                                gather, "flash_attention", cfg.num_layers)
+                gap = float((forms["gather"]["logits"] - forms["dense"]["logits"]).abs().max())
+                print(f"23c {arch}: gather against dense: max |logit gap| {gap:.3e}; dense's "
+                      f"tokens are serve.run's: "
+                      f"{forms['dense']['tokens'][0][:16].tolist() == out['continuation']}")
+                _require(torch.equal(forms["gather"]["tokens"], forms["dense"]["tokens"]),
+                         f"23c {arch}: gather's greedy tokens differ from dense's")
+                torch.testing.assert_close(forms["gather"]["logits"], forms["dense"]["logits"],
+                                           **SERVE_TOL)
+                del params, forms
+        _fresh(torch)
+    return launches
+
+
+def check_small_deepseek_job(torch, FederatedJob, TaskConfig, build) -> None:
+    """Phase 23e: a reduced deepseek-v2 token job (stacked FedAvg, 2 sites,
+    2 rounds) on the card and on the CPU, losses within ``JOB_RTOL``, MLA's
+    prefill and gradient through the padded D 32 instances; then the
+    full-width deepseek token job passes ``check_ported`` on the card from
+    its config alone (the D 256 backward instance)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    job = FederatedJob(task=TaskConfig(**SMALL_DEEPSEEK), rounds=2, device=CARD)
+    build.reset_launches()
+    gpu = job.run()
+    launched = {k: v for k, v in build.LAUNCHES.items() if v}
+    cpu = job.replace(device="cpu").run()
+    print(f"small deepseek job: losses cuda {gpu.losses} cpu {cpu.losses}; launched {launched}")
+    for g, c in zip(gpu.losses, cpu.losses):
+        _require(math.isclose(g, c, rel_tol=JOB_RTOL, abs_tol=1e-6),
+                 f"small deepseek job: cuda loss {g} != cpu loss {c}")
+    steps = SMALL_DEEPSEEK["sites"] * 2
+    for name in ("flash_attention", "flash_attention_bwd"):
+        _require(launched.get(name, 0) == 2 * steps,
+                 f"small deepseek job: {name} launched {launched.get(name, 0)} times, "
+                 f"not {2 * steps}")
+    wide = FederatedJob(task=TaskConfig(kind="tokens", arch="deepseek-v2-236b", reduced=False),
+                        device="cuda")
+    before = dict(build.LAUNCHES)
+    wide.check_ported()
+    _require(dict(build.LAUNCHES) == before, "23e: check_ported launched a kernel")
+    print("23e: the full-width deepseek-v2 token job passes check_ported on the card")
+
+
+def run_p23(torch, FederatedJob, TaskConfig, build) -> dict:
+    """Phase 23 (a the kernel at the MLA shape; b, c the five configs at
+    full width; d the reduced ones card vs CPU; e a small deepseek job);
+    returns the mla entry and each path's launches."""
+    entry = _timed("23a (flash_attention at DeepSeek-V2's MLA shape)",
+                   check_flash_attention_mla, torch, torch.device(CARD))
+    served = _timed("23a (flash_attention at the shapes of 23c's configs)",
+                    check_flash_attention_served, torch, torch.device(CARD))
+    deepseek = _timed("23b (deepseek-v2 2 layers: dense, gather, dispatch)",
+                      run_deepseek_serving, torch, build)
+    wide = _timed("23c (granite, musicgen, qwen3-moe, chameleon at full width)",
+                  run_wide_serves, torch, build)
+    _timed("23d (the reduced configs, card and CPU)", check_small_serving, torch, build,
+           SMALL_ARCHS[5:])
+    _timed("23e (a small deepseek-v2 job, card and CPU; check_ported)",
+           check_small_deepseek_job, torch, FederatedJob, TaskConfig, build)
+    return {"entry": dict(entry, launches=deepseek.get("flash_attention", 0),
+                          served_shapes_max_abs_err=served),
+            "launches": {"deepseek-v2-236b": deepseek, **wide}}
+
+
 def _leaves(tree):
     from repro_torch.tree import tree_leaves
     return tree_leaves(tree)
@@ -4928,6 +5246,10 @@ def main() -> int:
     p22 = _timed("22 (gemma3-1b training: the attention backward at head dim 256, gemma3-1b "
                  "fedavg, a small job)", run_p22, *jobs, build)
     entries["flash_attention_bwd"]["head_dim_256"] = p22["entry"]
+    p23 = _timed("23 (the remaining token configs served at full width: deepseek-v2's MLA, "
+                 "the MoE forms, granite, musicgen, qwen3-moe, chameleon)", run_p23, *jobs,
+                 build)
+    entries["flash_attention"]["mla"] = p23["entry"]
 
     # each kernel's launches on the path that carries it: fedagg on the
     # first slice's path, the int8 fold and install on the second's, the
@@ -4942,6 +5264,7 @@ def main() -> int:
     print(f"launches on phase 20b's path: {p20['launches']}")
     print(f"launches on phase 21c's path: {p21['21c']}; on 21d's: {p21['21d']}")
     print(f"launches on phase 22b's path: {p22['launches']}")
+    print(f"launches on phase 23's paths (prefill): {p23['launches']}")
     print(smi)
     path_of = {"fedagg": main_launches, "quantize_int8": int8_launches,
                "fedagg_dequant": int8_launches, "dequant_install": int8_launches,

@@ -46,10 +46,10 @@ drawn on the device (``device_data=True``: the reference's threefry
 stream) and the sharded many-site simulator (``shard_sites=True``: site
 rows in blocks over the devices, only each round's participants trained;
 the socket transports ignore ``device_data`` and refuse ``shard_sites``,
-as the reference's do).  What is not ported (an architecture the
-registry has not got, MLA, the MoE ``dispatch``/``gather`` forms, a
-gradient through the WKV-6 or selective-scan kernel on the card) raises
-:class:`repro_torch.NotPorted` naming it, and never runs something else;
+as the reference's do).  What is not ported (a task architecture
+the registry has not got, a backward kernel instance a token model
+needs on the card) raises :class:`repro_torch.NotPorted` naming it, and
+never runs something else;
 compositions the reference refuses raise its ``ValueError``, checked
 first, as the reference checks them.  Every field of the reference's
 ``FederatedJob`` and ``TaskConfig`` exists here with its default, so a

@@ -2,8 +2,12 @@
 
 Each ported ``repro_torch/configs/<id>.py`` exports ``CONFIG`` (the
 published :class:`ModelConfig`, source cited) and ``reduced()`` (a
-CPU-sized variant: 2 layers, d_model <= 128).  The reference's other
-architectures raise :class:`repro_torch.NotPorted`.
+CPU-sized variant: 2 layers, d_model <= 128): every token architecture
+of the reference.  ``sanet-openkbp`` (the paper's conv backbone, not a
+token model: its task dicts live in ``configs/sanet_openkbp.py``)
+raises :class:`repro_torch.NotPorted` here.  The reference's
+``mesh_for`` (a TPU-mesh layout) and ``precision_for`` (its serving
+dtype policy, ``configs/common.py``) are not ported.
 """
 from __future__ import annotations
 
@@ -17,7 +21,9 @@ ARCH_IDS = (
     "qwen3_moe_30b_a3b", "chameleon_34b", "gemma3_1b", "smollm_135m",
     "granite_3_2b", "musicgen_medium", "sanet_openkbp",
 )
-PORTED = ("gemma3_1b", "jamba_1p5_large_398b", "qwen3_8b", "rwkv6_7b", "smollm_135m")
+PORTED = ("chameleon_34b", "deepseek_v2_236b", "gemma3_1b", "granite_3_2b",
+          "jamba_1p5_large_398b", "musicgen_medium", "qwen3_8b", "qwen3_moe_30b_a3b",
+          "rwkv6_7b", "smollm_135m")
 
 # user-facing aliases (the assignment spelling)
 ALIASES = {

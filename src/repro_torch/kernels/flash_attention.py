@@ -8,7 +8,10 @@ is seen from position i if ``j > i - window``) with or without the
 causal mask, and returns ``[B, Hq, Lq, D]`` in q's dtype.  Softmax and
 accumulation are fp32, scale ``D ** -0.5``, as the reference's kernel.
 The attention module transposes its ``[B, L, H, D]`` projections to
-this layout around the call.
+this layout around the call.  DeepSeek-V2's MLA, whose q/k and v head
+dims differ and whose scale is the q/k head dim's, reaches it padded
+with zero columns to one of ``HEAD_DIMS``, q scaled to match
+(``models/attention._padded_attention``).
 
 One CUDA kernel, ``csrc/flash_attention.cu``, for fp32 and bf16 and
 head dims 32, 64, 128 and 256: fp32 on the tensor cores as three TF32
@@ -68,6 +71,18 @@ BWD_SPLIT_COLS = 64
 def bwd_split_cols(head_dim: int) -> int:
     """The columns of D one block of the backward takes at ``head_dim``."""
     return BWD_SPLIT_COLS if head_dim > 128 else head_dim
+
+
+def padded_head_dim(width: int) -> int:
+    """The smallest of ``HEAD_DIMS`` that holds ``width`` columns: the
+    instance a caller whose head dims differ or miss the instances (MLA's
+    q/k and v) pads its tensors to.  Raises
+    :class:`~repro_torch.NotPorted` above the widest instance."""
+    for d in HEAD_DIMS:
+        if d >= width:
+            return d
+    from repro_torch import NotPorted
+    raise NotPorted(NAME, f"head dim {width}", f"up to {HEAD_DIMS[-1]}, the widest instance")
 
 _ENTRY = {torch.float32: "flash_attention_f32", torch.bfloat16: "flash_attention_bf16"}
 _P, _I = ctypes.c_void_p, ctypes.c_int64

@@ -89,12 +89,18 @@ def check_backward_instances(cfg, dtype: torch.dtype = torch.float32) -> None:
     """Raise :class:`~repro_torch.NotPorted`, naming the backward kernel's
     seam, where training the token model ``cfg`` on the card needs a
     backward instance the port lacks: attention at the model's head dim in
-    ``dtype`` (the weights'), the WKV-6 scan at its head dim and the
-    selective scan at its ``d_state`` (both in fp32: their modules cast
-    their inputs).  Reads the config only; no card is needed."""
+    ``dtype`` (the weights'; MLA at the instance its prefill is padded to,
+    ``padded_head_dim`` of its wider head dim: ``resolved_head_dim`` is
+    its v head dim),
+    the WKV-6 scan at its head dim and the selective scan at its
+    ``d_state`` (both in fp32: their modules cast their inputs).  Reads
+    the config only; no card is needed."""
     mixers = {spec.mixer for spec in cfg.layer_specs()}
     if "attn" in mixers:
         _fa.check_bwd_instance(dtype, cfg.resolved_head_dim)
+    if "mla" in mixers:
+        width = max(cfg.mla.qk_head_dim, cfg.mla.v_head_dim)
+        _fa.check_bwd_instance(dtype, _fa.padded_head_dim(width))
     if "rwkv6" in mixers:
         _rwkv6.check_bwd_instance(torch.float32, cfg.rwkv.head_dim)
     if "mamba" in mixers:

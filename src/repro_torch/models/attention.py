@@ -1,20 +1,29 @@
-"""GQA attention (qk-norm, sliding windows), ported from ``repro/models/attention.py``.
+"""Attention mixers, ported from ``repro/models/attention.py``: GQA
+(qk-norm, sliding windows) and DeepSeek-V2's Multi-head Latent Attention.
 
-Two entry modes:
-  * :func:`gqa_apply` — the full sequence (prefill).  Both of the
-    reference's branches (its L^2 ``sdpa`` below 1024 tokens and its
-    online-softmax ``sdpa_blockwise`` from 1024) compute the same
+Two entry modes for each:
+  * :func:`gqa_apply` / :func:`mla_apply` — the full sequence (prefill).
+    Both of the reference's branches (its L^2 ``sdpa`` below 1024 tokens
+    and its online-softmax ``sdpa_blockwise`` from 1024) compute the same
     function; here both go through the flash-attention kernel
     (``kernels.flash_attention``), which takes ``[B, H, L, D]``: the
-    projections are transposed to it and back around the call.
-  * :func:`gqa_decode` — one new token against the cache, with the
-    reference's own plain math (:func:`sdpa` over the cache and a slot
-    mask): the reference runs no kernel there either.
+    projections are transposed to it and back around the call.  MLA's q/k
+    and v head dims differ (192 and 128 at full width) and its scale is
+    ``qk_head_dim ** -0.5``; the kernel takes one head dim from its
+    instances and scale ``D ** -0.5``, so :func:`_padded_attention` pads
+    q, k and v with zero columns to the smallest instance that holds
+    both, scales q by ``sqrt(D / qk_head_dim)`` and keeps v's columns of
+    the output.
+  * :func:`gqa_decode` / :func:`mla_decode` — one new token against the
+    cache, with the reference's own plain math (:func:`sdpa` over the
+    cache and a slot mask; MLA's absorbed latent-space attention): the
+    reference runs no kernel there either.
 
-The cache is a dict of ``k``/``v`` ``[B, cap, Hkv, D]`` and an ``index``
-(a 0-d int32 tensor on the cache's device, so a decode step never waits
-for the host).  Sliding-window layers keep a ring buffer of the window's
-size.  DeepSeek-V2's MLA is not ported.
+A GQA cache is a dict of ``k``/``v`` ``[B, cap, Hkv, D]`` and an
+``index`` (a 0-d int32 tensor on the cache's device, so a decode step
+never waits for the host); sliding-window layers keep a ring buffer of
+the window's size.  An MLA cache holds only the latent ``c_kv [B, cap,
+kv_lora]`` and ``k_rope [B, cap, rope]``, and its ``index``.
 """
 from __future__ import annotations
 
@@ -22,10 +31,9 @@ from typing import Optional
 
 import torch
 
-from repro_torch import NotPorted
-from repro_torch.configs.base import ModelConfig
-from repro_torch.kernels.flash_attention import flash_attention
-from repro_torch.models.layers import apply_rope, dense_init, l2norm
+from repro_torch.configs.base import MLAConfig, ModelConfig
+from repro_torch.kernels.flash_attention import flash_attention, padded_head_dim
+from repro_torch.models.layers import apply_rope, dense_init, l2norm, rmsnorm_apply
 
 NEG_INF = -1e30
 
@@ -161,8 +169,136 @@ def gqa_decode(params, x: torch.Tensor, cache, cfg: ModelConfig,
     return y, {"k": k, "v": v, "index": idx + 1}
 
 
-def mla_init(*args, **kwargs):
-    raise NotPorted("mixer", "mla", "attn, rwkv6, mamba")
+# ---------------------------------------------------------------------------
+# DeepSeek-V2 Multi-head Latent Attention (MLA)
+# ---------------------------------------------------------------------------
+#
+# Projections (names follow the DeepSeek-V2 paper):
+#   q:  x --(wq_a: d->q_lora)--> norm --(wq_b: q_lora -> H*(nope+rope))-->
+#   kv: x --(wkv_a: d->(kv_lora + rope))-->  latent c_kv [kv_lora] + k_rope
+#       c_kv --(wkv_b: kv_lora -> H*(nope + v))--> k_nope, v
+# The decode cache stores only (c_kv, k_rope): (kv_lora + rope) a position.
 
 
-mla_apply = mla_decode = init_mla_cache = mla_init
+def _padded_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      m: MLAConfig) -> torch.Tensor:
+    """Causal attention of q/k ``[B, L, H, qk_head_dim]`` and v ``[B, L, H,
+    v_head_dim]`` at scale ``qk_head_dim ** -0.5`` through the flash
+    kernel's ``padded_head_dim`` instance: zero columns add nothing to a
+    score and come out of v as zeros; q is scaled by ``sqrt(D / qk)`` so
+    the kernel's ``D ** -0.5`` gives the reference's scale."""
+    d = padded_head_dim(max(m.qk_head_dim, m.v_head_dim))
+
+    def pad(t):
+        return _heads_first(torch.nn.functional.pad(t, (0, d - t.shape[-1])))
+
+    q = q * (d / m.qk_head_dim) ** 0.5
+    out = flash_attention(pad(q), pad(k), pad(v), causal=True)
+    return out[..., : m.v_head_dim].transpose(1, 2)      # [B, L, H, v_head_dim]
+
+
+def mla_init(gen, cfg: ModelConfig, device, dtype=torch.float32):
+    m: MLAConfig = cfg.mla
+    d, h = cfg.d_model, cfg.num_heads
+    return {
+        "wq_a": dense_init(gen, d, m.q_lora_rank, device, dtype),
+        "q_norm": torch.ones((m.q_lora_rank,), device=device, dtype=dtype),
+        "wq_b": dense_init(gen, m.q_lora_rank, h * m.qk_head_dim, device, dtype),
+        "wkv_a": dense_init(gen, d, m.kv_lora_rank + m.qk_rope_head_dim, device, dtype),
+        "kv_norm": torch.ones((m.kv_lora_rank,), device=device, dtype=dtype),
+        "wkv_b": dense_init(gen, m.kv_lora_rank, h * (m.qk_nope_head_dim + m.v_head_dim),
+                            device, dtype),
+        "wo": dense_init(gen, h * m.v_head_dim, d, device, dtype),
+    }
+
+
+def _mla_q(params, x: torch.Tensor, cfg: ModelConfig, positions: torch.Tensor):
+    m: MLAConfig = cfg.mla
+    b, l, _ = x.shape
+    cq = rmsnorm_apply({"scale": params["q_norm"]}, x @ params["wq_a"], cfg.norm_eps)
+    q = (cq @ params["wq_b"]).reshape(b, l, cfg.num_heads, m.qk_head_dim)
+    q_nope, q_rope = q[..., : m.qk_nope_head_dim], q[..., m.qk_nope_head_dim:]
+    return torch.cat([q_nope, apply_rope(q_rope, positions, cfg.rope_theta)], dim=-1)
+
+
+def _mla_kv_latent(params, x: torch.Tensor, cfg: ModelConfig, positions: torch.Tensor):
+    m: MLAConfig = cfg.mla
+    kv = x @ params["wkv_a"]                                 # [B, L, kv_lora + rope]
+    c_kv = rmsnorm_apply({"scale": params["kv_norm"]}, kv[..., : m.kv_lora_rank],
+                         cfg.norm_eps)
+    k_rope = kv[..., m.kv_lora_rank:][:, :, None, :]         # [B, L, 1, rope]
+    k_rope = apply_rope(k_rope, positions, cfg.rope_theta)[:, :, 0, :]
+    return c_kv, k_rope
+
+
+def _mla_expand(params, c_kv: torch.Tensor, cfg: ModelConfig):
+    m: MLAConfig = cfg.mla
+    b, l, _ = c_kv.shape
+    kv = (c_kv @ params["wkv_b"]).reshape(b, l, cfg.num_heads,
+                                          m.qk_nope_head_dim + m.v_head_dim)
+    return kv[..., : m.qk_nope_head_dim], kv[..., m.qk_nope_head_dim:]
+
+
+def mla_apply(params, x: torch.Tensor, cfg: ModelConfig, return_cache: bool = False,
+              cache_len: Optional[int] = None):
+    """Full-sequence MLA (prefill); returns (y, the latent cache or None)."""
+    m: MLAConfig = cfg.mla
+    b, l, _ = x.shape
+    positions = torch.arange(l, device=x.device).expand(b, l)
+    q = _mla_q(params, x, cfg, positions)                    # [B, L, H, nope + rope]
+    c_kv, k_rope = _mla_kv_latent(params, x, cfg, positions)
+    k_nope, v = _mla_expand(params, c_kv, cfg)
+    k = torch.cat([k_nope, k_rope[:, :, None, :].expand(b, l, cfg.num_heads,
+                                                        m.qk_rope_head_dim)], dim=-1)
+    out = _padded_attention(q, k, v, m)
+    y = out.reshape(b, l, -1) @ params["wo"]
+    if not return_cache:
+        return y, None
+    cap = cache_len if cache_len is not None else l
+    cache = init_mla_cache(b, cap, cfg, dtype=c_kv.dtype, device=x.device)
+    cache["c_kv"][:, :l] = c_kv
+    cache["k_rope"][:, :l] = k_rope
+    cache["index"] = torch.full((), l, dtype=torch.int32, device=x.device)
+    return y, cache
+
+
+def init_mla_cache(batch: int, capacity: int, cfg: ModelConfig, dtype=torch.bfloat16,
+                   device=None):
+    m: MLAConfig = cfg.mla
+    return {
+        "c_kv": torch.zeros((batch, capacity, m.kv_lora_rank), dtype=dtype, device=device),
+        "k_rope": torch.zeros((batch, capacity, m.qk_rope_head_dim), dtype=dtype,
+                              device=device),
+        "index": torch.zeros((), dtype=torch.int32, device=device),
+    }
+
+
+def mla_decode(params, x: torch.Tensor, cache, cfg: ModelConfig):
+    """One-token MLA decode against the latent cache, in the latent space
+    (DeepSeek-V2's absorbed form): q_nope goes through the k half of wkv_b,
+    so the scores are dot products with c_kv and the cache stays
+    (kv_lora + rope) wide.  The reference's plain fp32 math."""
+    m: MLAConfig = cfg.mla
+    b = x.shape[0]
+    h = cfg.num_heads
+    idx = cache["index"]
+    positions = idx.reshape(1, 1).expand(b, 1)
+    q = _mla_q(params, x, cfg, positions)                    # [B, 1, H, nope + rope]
+    q_nope, q_rope = q[..., : m.qk_nope_head_dim], q[..., m.qk_nope_head_dim:]
+    c_new, r_new = _mla_kv_latent(params, x, cfg, positions)
+    slot = idx.long().reshape(1)
+    c_kv = cache["c_kv"].index_copy(1, slot, c_new.to(cache["c_kv"].dtype))
+    k_rope = cache["k_rope"].index_copy(1, slot, r_new.to(cache["k_rope"].dtype))
+    wkv_b = params["wkv_b"].reshape(m.kv_lora_rank, h, m.qk_nope_head_dim + m.v_head_dim)
+    w_k, w_v = wkv_b[..., : m.qk_nope_head_dim], wkv_b[..., m.qk_nope_head_dim:]
+    q_lat = torch.einsum("bqhd,chd->bqhc", q_nope.float(), w_k.float())
+    scores = torch.einsum("bqhc,bkc->bhqk", q_lat, c_kv.float())
+    scores = scores + torch.einsum("bqhd,bkd->bhqk", q_rope.float(), k_rope.float())
+    scores = scores * m.qk_head_dim ** -0.5
+    valid = torch.arange(c_kv.shape[1], device=x.device) <= idx
+    scores = torch.where(valid, scores, NEG_INF)
+    probs = torch.softmax(scores, dim=-1)
+    out_lat = torch.einsum("bhqk,bkc->bqhc", probs, c_kv.float())      # latent values
+    out = torch.einsum("bqhc,chd->bqhd", out_lat, w_v.float())
+    y = out.reshape(b, 1, -1).to(x.dtype) @ params["wo"]
+    return y, {"c_kv": c_kv, "k_rope": k_rope, "index": idx + 1}

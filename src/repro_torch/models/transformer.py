@@ -1,7 +1,7 @@
 """Decoder-only token-model stack, ported from ``repro/models/transformer.py``.
 
-* **Per-layer block dispatch**: each layer's mixer (GQA / RWKV-6 / Mamba)
-  and FFN (dense / MoE / RWKV channel mix) comes from
+* **Per-layer block dispatch**: each layer's mixer (GQA / MLA / RWKV-6 /
+  Mamba) and FFN (dense / MoE / RWKV channel mix) comes from
   ``ModelConfig.layer_spec(i)``, so Jamba (Mamba with one attention layer
   in eight, MoE on every other layer) and Gemma-3 (5:1 local:global
   windows) are plain configs.
@@ -15,15 +15,14 @@
   cross-entropy plus the MoE aux term, through :func:`forward` (whose
   attention layers differentiate through the flash-attention kernels).
 * **Serving**: :func:`prefill` returns logits of the last position and
-  per-layer caches (KV ring buffers, RWKV and Mamba states);
-  :func:`decode_step` advances one token.  Every layer's prefill mixer
-  runs one of the port's kernels (flash attention, the WKV-6 scan, the
-  selective scan); decode runs the reference's plain per-step math.
-
-MLA (DeepSeek-V2) and the MoE ``dispatch``/``gather`` formulations raise
-:class:`repro_torch.NotPorted`; ``prefill`` and ``decode_step`` keep the
-reference's default ``moe_impl="dispatch"``, so a MoE model is served
-with ``moe_impl="dense"``, as ``launch/serve.py`` does.
+  per-layer caches (KV ring buffers, MLA's latent cache, RWKV and Mamba
+  states); :func:`decode_step` advances one token.  Every layer's prefill
+  mixer runs one of the port's kernels (flash attention, MLA's padded
+  to an instance of it, the WKV-6 scan, the selective scan); decode runs
+  the reference's plain per-step math.  ``moe_impl`` picks the MoE
+  formulation (``dense``, ``gather`` or the grouped-capacity
+  ``dispatch``, the reference's default for ``prefill`` and
+  ``decode_step``).
 """
 from __future__ import annotations
 
@@ -156,7 +155,11 @@ def _layer_apply(params, x: torch.Tensor, cfg: ModelConfig, spec: LayerSpec, win
             y, new_cache = attn.gqa_apply(params["mixer"], h, cfg, window=window,
                                           return_cache=make_cache, cache_len=cache_len)
     elif spec.mixer == "mla":
-        y, new_cache = attn.mla_apply(params["mixer"], h, cfg)
+        if decode:
+            y, new_cache = attn.mla_decode(params["mixer"], h, cache, cfg)
+        else:
+            y, new_cache = attn.mla_apply(params["mixer"], h, cfg,
+                                          return_cache=make_cache, cache_len=cache_len)
     elif spec.mixer == "rwkv6":
         if decode:
             y, new_cache = rwkv_mod.rwkv6_decode(params["mixer"], h, cache["mixer"], cfg)
@@ -334,12 +337,14 @@ def _cache_for_layer(batch: int, capacity: int, cfg: ModelConfig, spec: LayerSpe
                      window: Optional[int], dtype, device):
     if spec.mixer == "attn":
         return attn.init_gqa_cache(batch, capacity, cfg, dtype, window=window, device=device)
+    if spec.mixer == "mla":
+        return attn.init_mla_cache(batch, capacity, cfg, dtype, device=device)
     if spec.mixer == "rwkv6":
         return {"mixer": rwkv_mod.init_rwkv6_cache(batch, cfg, dtype, device),
                 "cmix_last": torch.zeros((batch, cfg.d_model), dtype=dtype, device=device)}
     if spec.mixer == "mamba":
         return mamba_mod.init_mamba_cache(batch, cfg, dtype, device)
-    return attn.init_mla_cache(batch, capacity, cfg)
+    raise ValueError(spec.mixer)
 
 
 def init_caches(batch: int, capacity: int, cfg: ModelConfig, dtype=torch.bfloat16,

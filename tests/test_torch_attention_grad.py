@@ -274,7 +274,9 @@ def test_refuse_backward_names_the_kernel(monkeypatch):
                                torch.zeros(1, 4, 3))
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
     gemma = TaskConfig(kind="tokens", arch="gemma3-1b", reduced=False)
-    for arch in ("gemma3-1b", "smollm-135m", "qwen3-8b", "rwkv6-7b", "jamba-1.5-large-398b"):
+    for arch in ("gemma3-1b", "smollm-135m", "qwen3-8b", "rwkv6-7b", "jamba-1.5-large-398b",
+                 "deepseek-v2-236b", "qwen3-moe-30b-a3b", "granite-3-2b", "chameleon-34b",
+                 "musicgen-medium"):
         FederatedJob(task=TaskConfig(kind="tokens", arch=arch, reduced=False),
                      device="cuda").check_ported()
     # gemma3-1b's gradient in bf16 has no instance (head dim 256)

@@ -80,8 +80,10 @@ def test_job_runs_on_cuda_by_default_and_raises_without_it(monkeypatch):
 # a case whose seam has since been ported names another seam still
 # unported, under the id it always had (the device_data and shard_sites
 # cases keep their field; since the token task was ported, they train an
-# architecture the port has not got and name the arch seam)
-TOKENS = TaskConfig(**dict(TASK, kind="tokens", arch="deepseek-v2-236b"))
+# architecture the port has not got and name the arch seam: since every
+# token architecture was ported, sanet-openkbp, the registry's one id
+# outside the port's)
+TOKENS = TaskConfig(**dict(TASK, kind="tokens", arch="sanet-openkbp"))
 
 
 @pytest.mark.parametrize("seam,kw", [
@@ -104,7 +106,7 @@ TOKENS = TaskConfig(**dict(TASK, kind="tokens", arch="deepseek-v2-236b"))
     pytest.param("arch", dict(topology="pods:2", device_data=True, task=TOKENS),
                  id="topology-kw9"),
     pytest.param("arch", dict(shard_sites=True, task=TOKENS), id="shard_sites-kw10"),
-    pytest.param("arch", dict(task=TaskConfig(kind="tokens", arch="deepseek-v2-236b")),
+    pytest.param("arch", dict(task=TaskConfig(kind="tokens", arch="sanet-openkbp")),
                  id="task-kw11"),
     pytest.param("arch", dict(compression="fp8", strategy="gcml", transport="tcp",
                               device_data=True, task=TOKENS), id="strategy-kw12"),

@@ -5,9 +5,12 @@ smollm: 3 q heads on 1 kv head; qwen3: qk-norm and an untied head;
 rwkv6; jamba: Mamba, attention and MoE; jamba again with a prompt of 2,
 shorter than the conv window, which is then zero-padded on the left;
 smollm with a vocabulary that is not a multiple of 128, so that padded
-logit rows are masked; and the reference's reduced musicgen, whose two
-codebooks, sinusoidal positions and plain GELU FFN take the other
-branches of the embedding, the unembedding and the MLP)
+logit rows are masked; the reference's reduced musicgen at its published
+4 codebooks, whose codebooks, sinusoidal positions and plain GELU FFN
+take the other branches of the embedding, the unembedding and the MLP;
+and the five reduced configs ported in the nineteenth slice: deepseek-v2
+(MLA, its latent cache and absorbed decode; a dense first layer, then
+shared and routed experts), qwen3-moe, granite, chameleon and musicgen)
 the reference's parameters from ``T.init(PRNGKey(seed), cfg)`` are
 carried into the port by ``convert.from_reference``, and the same numpy
 prompts go through both:
@@ -52,7 +55,12 @@ BATCH, STEPS = 2, 4
 PROMPT = {"gemma3-1b": 20,             # > window 16: the ring buffer wraps
           "jamba-short": 2}            # < d_conv - 1: a zero-padded conv window
 ARCHS = ["gemma3-1b", "smollm-135m", "qwen3-8b", "rwkv6-7b", "jamba-1.5-large-398b",
-         "jamba-short", "smollm-padvocab", "musicgen-codebooks"]
+         "jamba-short", "smollm-padvocab", "musicgen-codebooks", "deepseek-v2-236b",
+         "qwen3-moe-30b-a3b", "granite-3-2b", "chameleon-34b", "musicgen-medium"]
+PORTED = ["gemma3-1b", "smollm-135m", "qwen3-8b", "rwkv6-7b", "jamba-1.5-large-398b",
+          "deepseek-v2-236b", "qwen3-moe-30b-a3b", "granite-3-2b", "chameleon-34b",
+          "musicgen-medium"]
+NEW = PORTED[5:]                       # the archs of the nineteenth slice
 
 
 def _configs(arch):
@@ -61,8 +69,8 @@ def _configs(arch):
         j, t = (dataclasses.replace(m.reduced(), vocab_size=250)
                 for m in (jax_get_arch("smollm-135m"), get_arch("smollm-135m")))
         return j, t
-    if arch == "musicgen-codebooks":     # not a ported arch; the model code runs it
-        j = jax_get_arch("musicgen-medium").reduced()
+    if arch == "musicgen-codebooks":     # the reduced musicgen at the published 4 codebooks
+        j = dataclasses.replace(jax_get_arch("musicgen-medium").reduced(), num_codebooks=4)
         return j, PortModelConfig(**dataclasses.asdict(j))
     if arch == "jamba-short":
         arch = "jamba-1.5-large-398b"
@@ -183,7 +191,8 @@ def test_init_caches_match_reference_layout(arch):
         assert str(g.dtype) == f"torch.{w.dtype}", (g.dtype, w.dtype)
 
 
-@pytest.mark.parametrize("arch", ["gemma3-1b", "rwkv6-7b", "jamba-1.5-large-398b"])
+@pytest.mark.parametrize("arch", ["gemma3-1b", "rwkv6-7b", "jamba-1.5-large-398b",
+                                  "deepseek-v2-236b"])
 def test_convert_carries_a_token_tree_across_unchanged(arch):
     """from_reference -> to_reference is the identity on a token model's
     tree: same nesting, every leaf's shape and values (SA-Net's 5-D conv
@@ -198,8 +207,7 @@ def test_convert_carries_a_token_tree_across_unchanged(arch):
         np.testing.assert_array_equal(g, w)
 
 
-@pytest.mark.parametrize("arch", ["gemma3-1b", "smollm-135m", "qwen3-8b", "rwkv6-7b",
-                                  "jamba-1.5-large-398b"])
+@pytest.mark.parametrize("arch", PORTED)
 def test_count_params_matches_reference(arch):
     for which in ("reduced", "CONFIG"):
         jcfg = getattr(jax_get_arch(arch), which)
@@ -211,8 +219,16 @@ def test_count_params_matches_reference(arch):
         assert T.count_params(tcfg, active_only=True) == JT.count_params(jcfg, active_only=True)
 
 
+@pytest.mark.parametrize("arch", NEW)
+def test_configs_equal_the_reference(arch):
+    """The published config and the reduced one, field for field."""
+    for which in (lambda m: m.CONFIG, lambda m: m.reduced()):
+        assert dataclasses.asdict(which(get_arch(arch))) == \
+            dataclasses.asdict(which(jax_get_arch(arch)))
+
+
 def test_plan_groups_matches_reference():
-    for arch in ["gemma3-1b", "smollm-135m", "qwen3-8b", "rwkv6-7b", "jamba-1.5-large-398b"]:
+    for arch in PORTED:
         for cfg_t, cfg_j in ((get_arch(arch).CONFIG, jax_get_arch(arch).CONFIG),
                              (get_arch(arch).reduced(), jax_get_arch(arch).reduced())):
             pt, gt = T.plan_groups(cfg_t)
@@ -256,18 +272,36 @@ def test_serve_defaults_to_cuda_and_raises_without_it():
 
 
 def test_unported_archs_and_seams_raise_a_typed_error():
-    for arch in ("deepseek-v2-236b", "granite-3-2b", "musicgen-medium", "sanet-openkbp"):
-        with pytest.raises(NotPorted) as err:
-            get_arch(arch)
-        assert err.value.seam == "arch"
+    """sanet-openkbp, not a token model, is the one registry id outside
+    the port's; the reference's default ``moe_impl`` ("dispatch") and an
+    MLA mixer, refused here until the nineteenth slice, now run and match
+    the reference: reduced Jamba's prefill with the default, logits and
+    caches, and qwen3's reduced config with DeepSeek-V2's reduced MLA, its
+    parameter tree and forward logits."""
+    with pytest.raises(NotPorted) as err:
+        get_arch("sanet-openkbp")
+    assert err.value.seam == "arch"
     with pytest.raises(KeyError):
         get_arch("no-such-model")
     cfg, params, ref = _port("jamba-1.5-large-398b")
-    with pytest.raises(NotPorted) as err:          # the reference's default moe_impl
-        T.prefill(params, torch.from_numpy(ref["prompts"]).long(), cfg, cache_capacity=16)
-    assert err.value.seam == "moe_impl"
-    mla = dataclasses.replace(get_arch("qwen3-8b").reduced(),
-                              mla=jax_get_arch("deepseek-v2-236b").reduced().mla)
-    with pytest.raises(NotPorted) as err:
-        T.init(torch.Generator().manual_seed(0), mla, "cpu")
-    assert err.value.seam == "mixer"
+    jcfg, _ = _configs("jamba-1.5-large-398b")
+    cap = ref["prompts"].shape[1] + STEPS
+    want = jax.jit(lambda p, t: JT.prefill(p, t, jcfg, cache_capacity=cap))(
+        ref["params"], ref["prompts"])
+    got = T.prefill(params, torch.from_numpy(ref["prompts"]).long(), cfg, cache_capacity=cap)
+    np.testing.assert_allclose(got[0].numpy(), np.asarray(want[0]), **TOL)
+    _assert_tree_close(got[1], jax.tree.map(np.asarray, want[1]), "dispatch caches")
+    mla = jax_get_arch("deepseek-v2-236b").reduced().mla
+    jcfg = dataclasses.replace(jax_get_arch("qwen3-8b").reduced(), mla=mla)
+    cfg = dataclasses.replace(get_arch("qwen3-8b").reduced(), mla=get_arch(
+        "deepseek-v2-236b").reduced().mla)
+    jparams = jax.tree.map(np.asarray, JT.init(jax.random.PRNGKey(0), jcfg))
+    mine = T.init(torch.Generator().manual_seed(0), cfg, "cpu")
+    assert jax.tree.structure(jax.tree.map(lambda t: 0, mine)) == \
+        jax.tree.structure(jax.tree.map(lambda t: 0, jparams))
+    assert [tuple(t.shape) for t in jax.tree.leaves(mine)] == \
+        [t.shape for t in jax.tree.leaves(jparams)]
+    prompts = ref["prompts"] % cfg.vocab_size
+    want = jax.jit(lambda p, t: JT.forward(p, t, jcfg)[0])(jparams, prompts)
+    got, _ = T.forward(convert.from_reference(jparams), torch.from_numpy(prompts).long(), cfg)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)

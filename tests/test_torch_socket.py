@@ -596,9 +596,10 @@ def test_individual_and_robust_socket_jobs_run():
 # been ported names another one still unported, under the id it always
 # had: the device_data cases keep the field, which the socket transports
 # ignore, and, since the token task was ported, train an architecture the
-# port has not got and name the arch seam); the refused compositions raise
-# the reference's ValueError on both packages
-TOKENS = TaskConfig(**dict(TINY, kind="tokens", arch="deepseek-v2-236b"))
+# port has not got and name the arch seam: since every token architecture
+# was ported, sanet-openkbp, the registry's one id outside the port's); the
+# refused compositions raise the reference's ValueError on both packages
+TOKENS = TaskConfig(**dict(TINY, kind="tokens", arch="sanet-openkbp"))
 UNPORTED = [
     pytest.param("arch", dict(scheduler="buffered", dp_clip=1.0, device_data=True, task=TOKENS),
                  id="scheduler-kw0"),

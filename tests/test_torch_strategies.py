@@ -185,8 +185,10 @@ def test_refused_strategy_compositions_raise_the_reference_value_error(kw, frag)
 # a case whose seam has since been ported names another seam still
 # unported, under the id it always had (the device_data and shard_sites
 # cases keep their field; since the token task was ported, they train an
-# architecture the port has not got and name the arch seam)
-TOKENS = TaskConfig(**dict(SEG, kind="tokens", arch="deepseek-v2-236b"))
+# architecture the port has not got and name the arch seam: since every
+# token architecture was ported, sanet-openkbp, the registry's one id
+# outside the port's)
+TOKENS = TaskConfig(**dict(SEG, kind="tokens", arch="sanet-openkbp"))
 
 
 @pytest.mark.parametrize("kw,seam", [

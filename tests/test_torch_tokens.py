@@ -237,7 +237,7 @@ def test_token_resume_is_bit_equal(tmp_path):
 
 def test_unported_archs_and_the_job_surface():
     with pytest.raises(NotPorted) as err:
-        BASE.replace(task=TaskConfig(kind="tokens", arch="deepseek-v2-236b")).run()
+        BASE.replace(task=TaskConfig(kind="tokens", arch="sanet-openkbp")).run()
     assert err.value.seam == "arch"
     full = TaskConfig(kind="tokens", reduced=False, seq=2048)
     assert full.model_config() == get_arch("smollm-135m").CONFIG
