@@ -223,9 +223,11 @@ Phases, each of which fails the run (non-zero exit) if it goes wrong:
    held the same way, ``mamba_scan_bwd`` launched once; (e) reduced
    rwkv6-7b and Jamba jobs card vs CPU (stacked FedAvg, per-example DP),
    and C9: a full-width gemma3-1b token job (head dim 256) passes
-   ``check_ported`` on the card, and a bf16 gradient of it is refused by
-   ``ops.check_backward_instances`` (``NotPorted("flash_attention_bwd")``)
-   before any kernel is built or launched and before any batch is drawn;
+   ``check_ported`` on the card, its bf16 gradient passes
+   ``ops.check_backward_instances`` (since the twentieth slice), and its
+   config at head dim 96 is refused by it
+   (``NotPorted("flash_attention_bwd")``) before any kernel is built or
+   launched and before any batch is drawn;
 22. the eighteenth slice's path, gemma3-1b's training (``run_p22`` states
    each check): (a) the attention backward's head-dim-256 instance (a
    cluster of four blocks splitting D) alone against its plain version at
@@ -261,12 +263,31 @@ Phases, each of which fails the run (non-zero exit) if it goes wrong:
    never in decode, qwen3-moe's ``gather`` held to ``dense``; (d) the
    five reduced configs card vs CPU as phase 10; (e) a reduced deepseek
    token job card vs CPU (MLA's padded D 32 gradient) and the full-width
-   deepseek job through ``check_ported``.
+   deepseek job through ``check_ported``;
+24. the twentieth slice's path, the reference's precision policy through
+   ``repro_torch.launch.steps`` (``run_p24`` states each check): (a) the
+   attention backward's bf16 instance alone against its plain version on
+   the same bf16 inputs at ragged shapes and at smollm-135m's, gemma3-1b's
+   (global and its 512-key window) and DeepSeek-V2's MLA padded to D 256,
+   within one bf16 ulp of the largest value, two launches bit-equal, timed
+   beside its bound (bf16 bytes, the bf16 tensor-core rate), the plain
+   backward, the fp32 instance and SDPA's bf16 backward, and row 7's bf16
+   forward at gemma3-1b's prefill shape and smollm's beside SDPA in bf16;
+   (b) every token architecture served in bf16 at its published width
+   (``SERVE_CUTS``' depths): prefill_32k, decode_32k and long_500k where
+   ``is_skipped`` allows, prefill seconds, decode tok/s and the peak, the
+   logits held to the fp32 serve of the same bf16-valued weights; (c)
+   every token architecture trained at its published width in its own
+   policy (``mixed``; ``bf16_train`` for DeepSeek-V2 and Jamba) with
+   microbatches and remat at train_4k's 4096 tokens (``TRAIN_CUTS``'
+   depths, sites and microbatches), losses and parameters finite, the bf16
+   backward launched once an attention layer a microbatch, ``step_s`` and
+   the peak; (d) a reduced mixed round card vs CPU.
 
-Phases 11-19 run after phase 8, before 9; phases 20-23 after 10.  Every
+Phases 11-19 run after phase 8, before 9; phases 20-24 after 10.  Every
 kernel's launch count is zeroed just before each of phases 3-5b, 7, each
-path of 9 and each full-width job or served run of 11-13 and 15-23, and
-read just after; each of 11-23 prints its seconds.  The second-to-last line is a
+path of 9 and each full-width job or served run of 11-13 and 15-24, and
+read just after; each of 11-24 prints its seconds.  The second-to-last line is a
 JSON object with one entry per kernel; the last line is ``{"ok": true,
 "device": {...}}``.  Without
 CUDA, or outside a checkout of the repository, it exits non-zero and
@@ -3967,10 +3988,10 @@ def _close_bwd(torch, got, want, what: str) -> float:
     return float((got - want).abs().max()) if want.numel() else 0.0
 
 
-def _bwd_attn_resources(build, dims) -> None:
-    """The backward's kernels' resources at each head dim of ``dims``: the
-    cluster's blocks and the clusters the card holds at once where D is
-    split."""
+def _bwd_attn_resources(build, dims, bf16: bool = False) -> None:
+    """The backward's kernels' resources at each head dim of ``dims`` (of
+    its bf16 instance with ``bf16``): the cluster's blocks and the clusters
+    the card holds at once where D is split."""
     import ctypes
     from repro_torch.kernels import flash_attention as fa
     out7 = (ctypes.c_int * 7)()
@@ -3978,7 +3999,9 @@ def _bwd_attn_resources(build, dims) -> None:
                      [ctypes.c_int64, ctypes.c_int64, ctypes.POINTER(ctypes.c_int)])
     for d in dims:
         for which, name in ((0, "dK/dV"), (1, "dQ")):
-            _require(fn(d, which, out7) == 0, f"flash_attention_bwd {name} D={d} resources")
+            name += " bf16" if bf16 else ""
+            _require(fn(d, which + 2 * bf16, out7) == 0,
+                     f"flash_attention_bwd {name} D={d} resources")
             regs, local, smem, threads, blocks, split, clusters = out7
             cluster = (f", clusters of {split}, {clusters} at once" if split > 1 else "")
             print(f"flash_attention_bwd {name} D={d}: {regs} registers, local {local} B, "
@@ -4041,7 +4064,7 @@ def check_flash_attention_bwd(torch, build, dev) -> dict:
     gen = torch.Generator(device=dev).manual_seed(20)
     err, _ = _hold_bwd(torch, dev, gen, [c for c in BWD_CASES if c[5] < 256]
                        + [SMOLLM_ATTN + (True, None)])
-    for dtype, d in ((torch.bfloat16, 64), (torch.bfloat16, 256)):
+    for dtype, d in ((torch.float32, 96), (torch.bfloat16, 96)):
         q = torch.zeros(1, 2, 8, d, device=dev, dtype=dtype)
         kv = torch.zeros(1, 1, 8, d, device=dev, dtype=dtype)
         try:
@@ -4117,13 +4140,13 @@ def _flat_grad_spy():
     """Wrap ``RavelLayout.flat_grad`` to record each call's leaves that got
     no gradient; returns (the list of those, a function that undoes it)."""
     from repro_torch.core import agg_engine
-    orig = agg_engine.RavelLayout.__dict__["flat_grad"]
+    orig = agg_engine.RavelLayout.flat_grad
     missing = []
 
-    def spy(leaves, grads):
+    def spy(self, leaves, grads):
         missing.extend(i for i, g in enumerate(grads) if g is None)
-        return orig.__func__(leaves, grads)
-    agg_engine.RavelLayout.flat_grad = staticmethod(spy)
+        return orig(self, leaves, grads)
+    agg_engine.RavelLayout.flat_grad = spy
     return missing, lambda: setattr(agg_engine.RavelLayout, "flat_grad", orig)
 
 
@@ -4624,9 +4647,10 @@ def check_small_scan_jobs(torch, FederatedJob, TaskConfig, build) -> None:
     CPU (stacked FedAvg and per-example DP, 3 sites, 3 rounds), losses
     within ``JOB_RTOL``, the scans' backward kernels launched on the card;
     then C9: a full-width gemma3-1b token job on the card (head dim 256)
-    passes ``check_ported``, and a bf16 gradient of it is refused by
-    ``ops.check_backward_instances`` with ``NotPorted("flash_attention_bwd")``
-    before any kernel is built or launched and before any batch is drawn."""
+    passes ``check_ported`` and its bf16 gradient passes
+    ``ops.check_backward_instances``; its config at head dim 96 is refused
+    by it with ``NotPorted("flash_attention_bwd")``, before any kernel is
+    built or launched and before any batch is drawn."""
     from repro_torch import NotPorted
     from repro_torch.kernels import build as build_mod
     from repro_torch.kernels import ops
@@ -4657,13 +4681,16 @@ def check_small_scan_jobs(torch, FederatedJob, TaskConfig, build) -> None:
     try:
         gemma.check_ported()
         print("C9: full-width gemma3-1b (head dim 256, fp32) passes check_ported on the card")
-        ops.check_backward_instances(gemma.task.model_config(), torch.bfloat16)
+        cfg = gemma.task.model_config()
+        ops.check_backward_instances(cfg, torch.bfloat16)
+        print("C9: and its bf16 gradient (the mixed policy's) passes check_backward_instances")
+        ops.check_backward_instances(dataclasses.replace(cfg, head_dim=96), torch.bfloat16)
     except NotPorted as e:
-        _require(e.seam == "flash_attention_bwd" and "bfloat16" in str(e),
+        _require(e.seam == "flash_attention_bwd" and "head dim 96" in str(e),
                  f"C9: NotPorted({e.seam!r}): {e}")
-        print(f"C9: a bf16 gradient of gemma3-1b on the card refused up front: {e}")
+        print(f"C9: gemma3-1b's config at head dim 96 on the card refused up front: {e}")
     else:
-        _require(False, "C9: a bf16 gradient of gemma3-1b was not refused")
+        _require(False, "C9: gemma3-1b's config at head dim 96 was not refused")
     finally:
         TaskConfig.build, build_mod.prepare = build_task, prepare
     launched = {k: v for k, v in build.LAUNCHES.items() if v}
@@ -4707,7 +4734,7 @@ def check_flash_attention_bwd_256(torch, build, dev) -> dict:
     blocks splitting D) and the forward's ``lse`` at D 256, held as phase 20a
     holds the others at the D 256 cases of ``BWD_CASES`` and at gemma3-1b's
     training shape with its 512-key window and without, two launches
-    bit-equal (phase 20a refuses bf16 at D 256); its resources; at both of
+    bit-equal (the bf16 instance: phase 24a); its resources; at both of
     gemma's shapes its
     time beside its bound, the plain backward's and SDPA's backward alone
     (eager, with the mask as ``attn_mask``).  Returns its kernels-line
@@ -4874,7 +4901,7 @@ SMALL_DEEPSEEK = dict(kind="tokens", arch="deepseek-v2-236b", sites=2, batch=2, 
 def check_flash_attention_mla(torch, dev) -> dict:
     """Phase 23a: ``flash_attention`` on MLA's padded route at DeepSeek-V2's
     prefill shape (q/k [2, 128, 512, 192], v [..., 128], causal, padded to
-    the D 256 instance, q scaled by sqrt(256 / 192)) held to the port's
+    the D 256 instance, at the kernel's scale 192 ** -0.5) held to the port's
     plain ``sdpa`` on the unpadded tensors at scale 192 ** -0.5 under
     ``FLASH_TOL``; the kernel's time (on the padded tensors) beside two
     bounds, the true work's (2 flops a seen pair a column of q/k 192 + v
@@ -4909,7 +4936,7 @@ def check_flash_attention_mla(torch, dev) -> dict:
 
     def pad(t):
         return F.pad(t, (0, d - t.shape[-1])).transpose(1, 2).contiguous()
-    qp, kp, vp = pad(q * (d / dqk) ** 0.5), pad(k), pad(v)
+    qp, kp, vp = pad(q), pad(k), pad(v)
     qh, kh, vh = (t.transpose(1, 2).contiguous() for t in (q, k, v))   # [B, H, L, D]
     lib_err = float((F.scaled_dot_product_attention(qh, kh, vh, is_causal=True, scale=scale)
                      .transpose(1, 2) - want).abs().max())
@@ -4917,7 +4944,7 @@ def check_flash_attention_mla(torch, dev) -> dict:
     pairs = b * h * l * (l + 1) // 2                   # the (query, key) pairs seen
     timing = measure(
         torch, f"flash_attention mla [{b}, {h}, {l}] q/k {dqk} v {dv} (padded to {d}) fp32 "
-        f"causal", lambda: flash_attention_cuda(qp, kp, vp, True),
+        f"causal", lambda: flash_attention_cuda(qp, kp, vp, True, scale=scale),
         lambda: A.sdpa(q, k, v, mask, scale=scale),
         lambda: F.scaled_dot_product_attention(qh, kh, vh, is_causal=True, scale=scale),
         nbytes=4 * b * h * l * (2 * dqk + 2 * dv), flops=2 * pairs * (dqk + dv),
@@ -5148,6 +5175,521 @@ def run_p23(torch, FederatedJob, TaskConfig, build) -> dict:
             "launches": {"deepseek-v2-236b": deepseek, **wide}}
 
 
+# -- the precision policy and the step builders (phase 24) -----------------------
+
+# published dense bf16 tensor-core peaks (NVIDIA data sheets), by the name
+BF16_PEAKS = {"H100 80GB HBM3": 989e12, "H100 PCIe": 756e12, "H100 NVL": 835e12,
+              "H200": 989e12}
+# 24a: (what, (batch, q heads, kv heads, Lq, Lk, D), window, MLA's true q/k and v
+# head dims or None): row 7b's shape (smollm-135m), gemma3-1b's training shape
+# global and with its window, DeepSeek-V2's MLA (q/k 192, v 128) padded to D 256
+MLA_TRAIN = (2, 128, 128, 512, 512, 256)
+BF16_BWD_SHAPES = (("smollm-135m", SMOLLM_ATTN, None, None),
+                   ("gemma3-1b", GEMMA_TRAIN, None, None),
+                   ("gemma3-1b window 512", GEMMA_TRAIN, 512, None),
+                   ("deepseek-v2 mla", MLA_TRAIN, None, (192, 128)))
+# the bf16 backward against its plain version on the same bf16 inputs, out and
+# lse: the same fp32 arithmetic in another order, then one bf16 rounding of
+# each gradient: within one bf16 ulp of the largest value (2^-7 of it, of 1
+# at least: see _top_ulps)
+BF16_BWD_ULPS = 1.0
+# 24b: (arch, config module, depth or None for the published one); the
+# prefill is 1 x 32768 tokens, the decode 1 sequence against a 32768-slot
+# cache (4 greedy steps after a prefill of DECODE_PROMPT), long_500k 1
+# sequence against a 524288-slot cache at its last 4 slots (zero contents:
+# its prefill alone would take minutes); the fp32 comparison 2 x 256 tokens
+# + 2 steps
+SERVE_CUTS = (("smollm-135m", "smollm_135m", None), ("gemma3-1b", "gemma3_1b", None),
+              ("qwen3-8b", "qwen3_8b", None), ("rwkv6-7b", "rwkv6_7b", None),
+              ("granite-3-2b", "granite_3_2b", None), ("musicgen-medium", "musicgen_medium", None),
+              ("qwen3-moe-30b-a3b", "qwen3_moe_30b_a3b", 8), ("chameleon-34b", "chameleon_34b", 8),
+              ("deepseek-v2-236b", "deepseek_v2_236b", 2),
+              ("jamba-1.5-large-398b", "jamba_1p5_large_398b", 2))
+SERVE_BATCH, DECODE_STEPS, CHECK_PROMPT = 1, 4, 256
+# decode_32k's prefill: 30720 tokens, a multiple of the MoE dispatch's
+# 2048-token groups (a ragged count is one group of all the tokens, whose
+# [G, S, E, C] one-hots take 20 GB at qwen3-moe's width), then the greedy
+# steps from slot 30720 of the 32768
+DECODE_PROMPT = 30720
+# bf16 logits against the fp32 serve of the same bf16-valued weights: max
+# |difference| over the largest |fp32 logit|, per step.  rwkv6-7b's
+# recurrence and per-head group norm amplify bf16 rounding with depth in the
+# reference too (its own bf16 against fp32 on the reduced config at 64
+# tokens: 0.011 of the largest logit at 2 layers, 0.037 at 8; the
+# attention models stay near 0.01; a CPU run of the JAX package), so its
+# comparison takes the first COMPARE_LAYERS of the same weights
+BF16_LOGIT_RTOL = 2.0 ** -4
+COMPARE_LAYERS = {"rwkv6-7b": 2}
+# top-k routing over 128 or 160 experts (qwen3-moe, DeepSeek-V2): a token
+# whose router scores near-tie picks another expert in bf16 than in fp32, a
+# whole expert's output apart (the reference's own bf16 against fp32 on the
+# reduced configs, 4 experts: 0.027 of the largest logit at 2 layers, 0.039
+# at 8, against 0.01 for the dense models; a CPU run of the JAX package; on
+# the card, ``gather`` at full width: 0.148 and 0.161, Jamba's 16 experts
+# 0.013).  Their gate is 2^-2; the greedy tokens' check is the same
+MANY_EXPERTS, MOE_LOGIT_RTOL = 64, 2.0 ** -2
+# 24c: (arch, config module, depth or None, sites, microbatch): train_4k's
+# 4096 tokens a sequence, 2 microbatches a site step, 1 round (smollm 2)
+TRAIN_CUTS = (("smollm-135m", "smollm_135m", None, 2, 8),
+              ("gemma3-1b", "gemma3_1b", None, 2, 2),
+              ("rwkv6-7b", "rwkv6_7b", 2, 2, 4),
+              ("jamba-1.5-large-398b", "jamba_1p5_large_398b", 1, 1, 2),
+              ("qwen3-8b", "qwen3_8b", 2, 1, 2),
+              ("deepseek-v2-236b", "deepseek_v2_236b", 1, 1, 4),
+              ("qwen3-moe-30b-a3b", "qwen3_moe_30b_a3b", 1, 1, 2),
+              ("granite-3-2b", "granite_3_2b", 20, 1, 4),
+              ("chameleon-34b", "chameleon_34b", 1, 1, 4),
+              ("musicgen-medium", "musicgen_medium", None, 2, 8))
+
+
+def _bf16_rate(torch) -> float:
+    name = torch.cuda.get_device_name(0)
+    for key, val in BF16_PEAKS.items():
+        if key in name:
+            return val
+    raise SystemExit(f"chip_smoke: no published bf16 peak for {name!r}")
+
+
+def _top_ulps(torch, got, want) -> float:
+    """max |got - want| in bf16 ulps (2^-7) of the largest |want|, or of 1
+    where that is smaller (unit-scale inputs: one query against one key
+    gives dq = dk = 0 in exact arithmetic and rounding noise in each)."""
+    top = max(float(want.float().abs().max()), 1.0) if want.numel() else 1.0
+    return float((got.float() - want.float()).abs().max()) / (2.0 ** -7 * top) \
+        if want.numel() else 0.0
+
+
+def _bf16_bwd_inputs(torch, dev, shape, heads, gen):
+    """bf16 q, k, v and dout of ``shape``; with MLA's true head dims
+    ``heads`` (q/k, v), drawn at those widths and padded with zero columns
+    to D, as the model's route pads them."""
+    b, hq, hkv, lq, lk, d = shape
+    if heads is None:
+        q, k, v = _flash_inputs(torch, dev, shape, torch.bfloat16, gen)
+    else:
+        dqk, dv = heads
+        pad = lambda t: torch.nn.functional.pad(t, (0, d - t.shape[-1]))
+        q = pad(torch.randn(b, hq, lq, dqk, device=dev, generator=gen))
+        k = pad(torch.randn(b, hkv, lk, dqk, device=dev, generator=gen))
+        v = pad(torch.randn(b, hkv, lk, dv, device=dev, generator=gen))
+        q, k, v = (t.bfloat16().contiguous() for t in (q, k, v))
+    g = torch.randn(q.shape, device=dev, generator=gen).bfloat16()
+    return q, k, v, g
+
+
+def check_flash_attention_bwd_bf16(torch, build, dev) -> dict:
+    """Phase 24a: the backward's bf16 instance against its plain version on
+    the same bf16 inputs, output and lse at the ragged ``BWD_CASES`` and at
+    ``BF16_BWD_SHAPES``, within ``BF16_BWD_ULPS`` bf16 ulps of the largest
+    value, two launches bit-equal; its resources; at each shape its time
+    beside its bound (the bf16 tensors' bytes, the five products of 2 D
+    flops a seen pair (MLA: at its true head dims) at the bf16 tensor-core
+    rate), the plain backward's, the fp32 instance's on the same values and
+    SDPA's bf16 backward alone (eager); then row 7's bf16 forward at
+    gemma3-1b's prefill shape and smollm-135m's beside its bound and SDPA's
+    bf16 forward.  Returns the kernels-line entry (smollm's shape; the
+    others under ``shapes``, the forward under ``forward_bf16``)."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+    _bwd_attn_resources(build, fa.BWD_HEAD_DIMS, bf16=True)
+    gen = torch.Generator(device=dev).manual_seed(24)
+    worst = 0.0
+    for case in BWD_CASES:
+        causal, window = case[6:]
+        q, k, v = _flash_inputs(torch, dev, case, torch.bfloat16, gen)
+        g = torch.randn(q.shape, device=dev, generator=gen).bfloat16()
+        out, lse = fa.flash_attention_cuda(q, k, v, causal, window, with_lse=True)
+        got = fa.flash_attention_bwd_cuda(q, k, v, out, lse, g, causal, window)
+        again = fa.flash_attention_bwd_cuda(q, k, v, out, lse, g, causal, window)
+        torch.cuda.synchronize()
+        _require(all(a.dtype == torch.bfloat16 and torch.equal(a, b) for a, b in zip(got, again)),
+                 f"flash_attention_bwd bf16 {case}: two launches differ")
+        want = ref.flash_attention_bwd_ref(q, k, v, out, lse, g, causal, window)
+        for n, a, w in zip("qkv", got, want):
+            u = _top_ulps(torch, a, w)
+            _require(u <= BF16_BWD_ULPS, f"flash_attention_bwd bf16 {case} d{n}: {u:.3f} ulps")
+            worst = max(worst, u)
+    print(f"flash_attention_bwd bf16: {len(BWD_CASES)} ragged shapes agree with the plain "
+          f"version within {BF16_BWD_ULPS} bf16 ulp of the largest value (max {worst:.3f}); "
+          f"two launches bit-equal at each")
+    mem_rate = peaks(torch.cuda.get_device_name(0))[0]
+    bf16_rate = _bf16_rate(torch)
+    shapes = {}
+    for what, shape, window, heads in BF16_BWD_SHAPES:
+        b, hq, hkv, lq, lk, d = shape
+        q, k, v, g = _bf16_bwd_inputs(torch, dev, shape, heads, gen)
+        sc = None if heads is None else heads[0] ** -0.5   # MLA's: its q/k head dim's
+        out, lse = fa.flash_attention_cuda(q, k, v, True, window, with_lse=True, scale=sc)
+        got = fa.flash_attention_bwd_cuda(q, k, v, out, lse, g, True, window, sc)
+        want = ref.flash_attention_bwd_ref(q, k, v, out, lse, g, True, window, sc)
+        ulps = max(_top_ulps(torch, a, w) for a, w in zip(got, want))
+        _require(ulps <= BF16_BWD_ULPS, f"flash_attention_bwd bf16 {what}: {ulps:.3f} ulps")
+        mask = _attn_mask(torch, dev, lq, lk, True, window)
+        pairs = int(mask.sum()) * b * hq
+        dqk, dv = heads or (d, d)
+        # the true work: s and dq, dk over q/k's columns, dp and dv over v's
+        flops = 2 * pairs * (3 * dqk + 2 * dv)
+        nbytes = 2 * (b * hq * lq * (2 * dqk + 2 * dv) + b * hkv * lk * 2 * (dqk + dv)) \
+            + 4 * b * hq * lq
+        ops_ms = 1e3 * flops / bf16_rate
+        # SDPA's bf16 backward on the unpadded tensors (eager: it runs on its
+        # forward's stream, outside a capture)
+        if heads is None:
+            leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+            kw = dict(attn_mask=mask) if window else dict(is_causal=True)
+            lib_out = F.scaled_dot_product_attention(*leaves, enable_gqa=True, **kw)
+            lib_g = g
+        else:
+            leaves = [q[..., :dqk].clone().requires_grad_(), k[..., :dqk].clone()
+                      .requires_grad_(), v[..., :dv].clone().requires_grad_()]
+            lib_out = F.scaled_dot_product_attention(*leaves, is_causal=True, scale=sc)
+            lib_g = g[..., :dv].contiguous()
+
+        def library():
+            return torch.autograd.grad(lib_out, leaves, lib_g, retain_graph=True)
+        q32, k32, v32, o32, g32 = (t.float() for t in (q, k, v, out, g))
+        timing = measure(
+            torch, f"flash_attention_bwd {what} {list(shape)} bf16 causal window={window}",
+            lambda: fa.flash_attention_bwd_cuda(q, k, v, out, lse, g, True, window, sc),
+            lambda: ref.flash_attention_bwd_ref(q, k, v, out, lse, g, True, window, sc), None,
+            nbytes=nbytes, flops=flops, ops_ms=ops_ms)
+        fp32_ms = time_ms(lambda: fa.flash_attention_bwd_cuda(q32, k32, v32, o32, lse, g32, True,
+                                                              window, sc))[0]
+        for _ in range(3):
+            library()
+        timing["library_ms"] = _median_ms(library, 25)
+        timing.update(max_abs_err=max(float((a.float() - w.float()).abs().max())
+                                      for a, w in zip(got, want)),
+                      max_err_bf16_ulps=ulps, fp32_instance_ms=fp32_ms,
+                      bound_ops_ms_3xtf32=1e3 * 3 * flops / peaks(
+                          torch.cuda.get_device_name(0))[2],
+                      bound_bytes_ms=1e3 * nbytes / mem_rate)
+        print(f"flash_attention_bwd {what} bf16: {ulps:.3f} bf16 ulps of the largest value; "
+              f"{timing['ms']:.4f} ms (fp32 instance on the same values {fp32_ms:.4f} ms), "
+              f"bound {timing['bound_ms']:.4f} ms ({timing['bound_by']}: {flops / 1e9:.2f} "
+              f"GFLOP at {bf16_rate / 1e12:.0f} TFLOP/s bf16; 3xTF32 "
+              f"{timing['bound_ops_ms_3xtf32']:.4f} ms), SDPA's bf16 backward alone (eager) "
+              f"{timing['library_ms']:.4f} ms against the kernel's eager "
+              f"{timing['eager_ms']:.4f} ms")
+        shapes[what] = timing
+        del q, k, v, g, out, lse, got, want, leaves, lib_out, q32, k32, v32, o32, g32
+        gc.collect()
+        torch.cuda.empty_cache()
+    forward = {}
+    for what, shape in (("gemma3-1b prefill", GEMMA_ATTN), ("smollm-135m", SMOLLM_ATTN)):
+        b, hq, hkv, lq, lk, d = shape
+        q, k, v = _flash_inputs(torch, dev, shape, torch.bfloat16, gen)
+        pairs = int(_attn_mask(torch, dev, lq, lk, True, None).sum()) * b * hq
+        forward[what] = measure(
+            torch, f"flash_attention {what} {list(shape)} bf16 causal",
+            lambda: fa.flash_attention_cuda(q, k, v, True, None),
+            lambda: ref.flash_attention_ref(q, k, v, True, None),
+            lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True, enable_gqa=True),
+            nbytes=2 * (2 * q.numel() + 2 * k.numel()), flops=2 * 2 * d * pairs,
+            ops_ms=1e3 * 2 * 2 * d * pairs / bf16_rate)
+        err = float((fa.flash_attention_cuda(q, k, v, True, None).float()
+                     - ref.flash_attention_ref(q, k, v, True, None).float()).abs().max())
+        forward[what]["max_abs_err"] = err
+        del q, k, v
+    torch.cuda.empty_cache()
+    return {**shapes["smollm-135m"], "shapes": {k: v for k, v in shapes.items()
+                                                if k != "smollm-135m"},
+            "forward_bf16": forward}
+
+
+def _set_index(tree, n: int) -> None:
+    """Every cache ``index`` of ``tree`` to ``n`` (in place)."""
+    if isinstance(tree, dict):
+        for key, val in tree.items():
+            if key == "index":
+                val.fill_(n)
+            else:
+                _set_index(val, n)
+    elif isinstance(tree, (list, tuple)):
+        for val in tree:
+            _set_index(val, n)
+
+
+def _greedy(torch, step_fn, params, tokens, caches, steps: int):
+    """``steps`` greedy decode steps from ``tokens``: (the last logits,
+    the seconds of the steps, the caches)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        logits, caches = step_fn(params, tokens, caches)
+        tokens = torch.argmax(logits[:, -1:], dim=-1).to(torch.int32)
+    torch.cuda.synchronize()
+    return logits, time.perf_counter() - t0, caches
+
+
+def _to_fp32_in_place(tree) -> None:
+    """Replace every leaf of a dict/list tree by its fp32 copy, one leaf at
+    a time, so that the bf16 and fp32 copies never sit on the card whole."""
+    for key in (range(len(tree)) if isinstance(tree, list) else list(tree)):
+        val = tree[key]
+        if isinstance(val, (dict, list)):
+            _to_fp32_in_place(val)
+        else:
+            tree[key] = val.float()
+
+
+def _bf16_vs_fp32(torch, cfg, params, gen):
+    """Prefill 2 x ``CHECK_PROMPT`` tokens and 2 greedy steps with the bf16
+    weights, then with the same values in fp32 (``params`` converted in
+    place, leaf by leaf): the largest per-step max |difference| over the
+    largest |fp32 logit|, and whether the greedy tokens agree wherever the
+    fp32 margin exceeds twice the difference.  The MoE runs its ``gather``
+    form: ``dispatch``'s capacity drops cascade from one flipped (token,
+    expert) pair to the slots of the tokens after it."""
+    from repro_torch.models import transformer as T
+    shape = (2, CHECK_PROMPT) + ((cfg.num_codebooks,) if cfg.num_codebooks > 1 else ())
+    prompts = torch.randint(0, cfg.vocab_size, shape, generator=gen, device=CARD)
+
+    def run(p, toks=None):
+        with torch.no_grad():
+            logits, caches = T.prefill(p, prompts, cfg, cache_capacity=CHECK_PROMPT + 2,
+                                       moe_impl="gather")
+            out, chosen = [logits], []
+            for i in range(2):
+                t = (torch.argmax(logits[:, -1:], dim=-1).to(torch.int32) if toks is None
+                     else toks[i])
+                chosen.append(t)
+                logits, caches = T.decode_step(p, t, caches, cfg, moe_impl="gather")
+                out.append(logits)
+        return out, chosen
+
+    l16, toks = run(params)
+    _to_fp32_in_place(params)
+    l32, _ = run(params, toks)
+    rel, agree = 0.0, True
+    for a, b in zip(l16, l32):
+        a, b = a[..., :cfg.vocab_size], b[..., :cfg.vocab_size]     # not the -1e30 padding
+        dev_ = float((a - b).abs().max())
+        rel = max(rel, dev_ / float(b.abs().max()))
+        top2 = torch.topk(b[:, -1], 2, dim=-1).values
+        clear = (top2[..., 0] - top2[..., 1]) > 2 * dev_
+        agree &= bool((a[:, -1].argmax(-1) == b[:, -1].argmax(-1))[clear].all())
+    return rel, agree
+
+
+def run_bf16_serving(torch, build) -> dict:
+    """Phase 24b: every token architecture at its published width in its
+    serving policy (bf16 weights from seed 0, a bf16 cache), through
+    ``steps.build_serve``, with ``SERVE_CUTS``' depths: prefill_32k (1 x
+    32768 tokens: prefill seconds, finite logits, each attention layer
+    launching ``flash_attention`` once), decode_32k (4 greedy steps in a
+    32768-slot cache after a prefill of ``DECODE_PROMPT``: tok/s, no kernel
+    launched) and long_500k where ``is_skipped`` allows it; the peak; then
+    the bf16 logits held to the fp32 serve of the same bf16-valued weights
+    (``BF16_LOGIT_RTOL``), greedy tokens equal where the margin is clear.
+    Returns each config's numbers and the prefills' launches."""
+    from repro_torch.configs.base import INPUT_SHAPES
+    from repro_torch.configs.registry import get_arch, is_skipped
+    from repro_torch.launch import steps
+    from repro_torch.models import transformer as T
+    from repro_torch.tree import tree_map
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    out, launches = {}, {}
+    for arch, module, layers in SERVE_CUTS:
+        cut = _CutDepth(module, layers) if layers else contextlib.nullcontext()
+        with cut:
+            cfg = get_arch(arch).CONFIG
+            _fresh(torch)
+            pre = steps.build_serve(arch, "prefill_32k", cfg=cfg)
+            seq = INPUT_SHAPES["prefill_32k"].seq_len
+            params, tokens = pre.make_inputs(seed=0, batch=SERVE_BATCH)
+            print(f"24b {arch}: {cfg.num_layers} layers, bf16, prefill {SERVE_BATCH} x {seq} "
+                  f"(cut from {pre.abstract_inputs[1].shape[0]}), decode {SERVE_BATCH} "
+                  f"(cut from {INPUT_SHAPES['decode_32k'].global_batch}), "
+                  f"{pre.precision}")
+            build.reset_launches()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with torch.no_grad():
+                logits, caches = pre.step_fn(params, tokens)
+            torch.cuda.synchronize()
+            prefill_s = time.perf_counter() - t0
+            launched = {k: v for k, v in build.LAUNCHES.items() if v}
+            _require(bool(torch.isfinite(logits).all()), f"24b {arch}: non-finite prefill logits")
+            mixers = [s.mixer for s in cfg.layer_specs()]
+            expect = {"flash_attention": mixers.count("attn") + mixers.count("mla"),
+                      "rwkv6_scan": mixers.count("rwkv6"), "mamba_scan": mixers.count("mamba")}
+            _expect_launches(f"24b {arch} prefill", launched, {k: v for k, v in expect.items()
+                                                               if v})
+            launches[arch] = launched
+            del logits, caches
+            rec = {"layers": cfg.num_layers, "prefill_s": prefill_s,
+                   "prefill_tok_s": SERVE_BATCH * seq / prefill_s}
+            for shape_name in ("decode_32k", "long_500k"):
+                if is_skipped(module, shape_name):
+                    continue
+                dec = steps.build_serve(arch, shape_name, cfg=cfg)
+                cap = INPUT_SHAPES[shape_name].seq_len
+                toks = tokens[:, :1]
+                with torch.no_grad():
+                    if shape_name == "decode_32k":
+                        _, _, caches = dec.make_inputs(seed=1, batch=SERVE_BATCH,
+                                                       prompt_len=DECODE_PROMPT)
+                    else:
+                        caches = T.init_caches(SERVE_BATCH, cap, cfg, dtype=torch.bfloat16,
+                                               device=CARD)
+                        _set_index(caches, cap - DECODE_STEPS)
+                    build.reset_launches()
+                    logits, secs, caches = _greedy(torch, dec.step_fn, params, toks, caches,
+                                                   DECODE_STEPS)
+                _require(bool(torch.isfinite(logits).all()),
+                         f"24b {arch} {shape_name}: non-finite logits")
+                _require(not any(build.LAUNCHES.get(k, 0) for k in TOKEN_KERNELS),
+                         f"24b {arch} {shape_name}: decode launched a kernel")
+                rec[shape_name] = {"tok_s": SERVE_BATCH * DECODE_STEPS / secs,
+                                   "step_s": secs / DECODE_STEPS}
+                del caches, logits
+            rec["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+            gc.collect()
+            torch.cuda.empty_cache()
+            ccfg, cparams = cfg, params
+            if arch in COMPARE_LAYERS:        # a periodic group of one layer: its first n
+                n = COMPARE_LAYERS[arch]
+                ccfg = dataclasses.replace(cfg, num_layers=n)
+                _require(T.plan_groups(cfg)[0] == () and T.plan_groups(cfg)[1].period == 1,
+                         f"24b {arch}: not one periodic group of one layer")
+                cparams = {**params, "scan_layers": [
+                    {k: tree_map(lambda t: t[:n], v) for k, v in p.items()}
+                    for p in params["scan_layers"]]}
+            rel, agree = _bf16_vs_fp32(torch, ccfg, cparams,
+                                       torch.Generator(device=CARD).manual_seed(2))
+            del cparams
+            gate = (MOE_LOGIT_RTOL if cfg.moe is not None and cfg.moe.num_experts >= MANY_EXPERTS
+                    else BF16_LOGIT_RTOL)
+            _require(rel <= gate, f"24b {arch}: bf16 logits {rel:.3e} of the fp32 serve's "
+                                  f"largest, gate {gate}")
+            _require(agree, f"24b {arch}: greedy tokens differ where the margin is clear")
+            rec["bf16_vs_fp32_rel"] = rel
+            print(f"24b {arch}: prefill {rec['prefill_s']:.3f} s "
+                  f"({rec['prefill_tok_s']:.0f} tok/s), decode "
+                  f"{ {k: round(v['tok_s'], 2) for k, v in rec.items() if isinstance(v, dict)} } "
+                  f"tok/s, peak {rec['peak_gib']:.2f} GiB; bf16 logits within "
+                  f"{rel:.3e} of the fp32 serve's largest (gate {gate:.4f}; "
+                  f"{ccfg.num_layers} layers); greedy tokens agree where the margin is clear")
+            out[arch] = rec
+            del params, tokens
+            _fresh(torch)
+    return {"serve": out, "launches": launches}
+
+
+def run_bf16_training(torch, build) -> dict:
+    """Phase 24c: every token architecture at its published width trained
+    in its own policy (``precision_for(train_4k)``: ``mixed``, or
+    ``bf16_train`` for DeepSeek-V2 and Jamba) through ``steps.build_train``
+    (AdamW 1e-4, remat, clip 1.0, MoE ``dispatch``), with ``TRAIN_CUTS``'
+    depth, sites and microbatch: sequences of 4096 tokens, 2 microbatches a
+    site step, 1 round (smollm-135m 2), random weights from seed 0; the
+    losses and every parameter finite, the attention backward's bf16
+    instance launched once a layer a microbatch a site; ``step_s`` and the
+    peak.  Returns each config's numbers and the launches."""
+    from repro_torch.configs.base import INPUT_SHAPES, MeshConfig
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.launch import steps
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    out, launches = {}, {}
+    seq = INPUT_SHAPES["train_4k"].seq_len
+    for arch, module, layers, sites, micro in TRAIN_CUTS:
+        cut = _CutDepth(module, layers) if layers else contextlib.nullcontext()
+        with cut:
+            cfg = get_arch(arch).CONFIG
+            _fresh(torch)
+            art = steps.build_train(arch, cfg=cfg, override_mesh=MeshConfig(sites_per_pod=sites),
+                                    microbatch=micro)
+            state, batches, ri = art.make_inputs(seed=0, per_site_batch=2 * micro)
+            full = get_arch(arch).mesh_for(INPUT_SHAPES["train_4k"]).total_sites
+            print(f"24c {arch}: {cfg.num_layers} layers, {art.precision}, {sites} sites (cut "
+                  f"from {full}), {2 * micro} x {seq} tokens a site (cut from "
+                  f"{INPUT_SHAPES['train_4k'].global_batch // full}), microbatch {micro} "
+                  f"(table: {steps.TRAIN_MICROBATCH[cfg.name]}), params "
+                  f"{state['params'].dtype} [{state['params'].shape[0]}, "
+                  f"{state['params'].shape[1]}], moments {state['opt']['mu'].dtype}")
+            rounds = 2 if arch == "smollm-135m" else 1
+            attn = sum(s.mixer in ("attn", "mla") for s in cfg.layer_specs())
+            build.reset_launches()
+            step_s = []
+            for _ in range(rounds):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                state, metrics = art.step_fn(state, batches, ri)
+                torch.cuda.synchronize()
+                step_s.append(time.perf_counter() - t0)
+                _require(math.isfinite(float(metrics["loss"])),
+                         f"24c {arch}: loss {float(metrics['loss'])}")
+            launched = {k: v for k, v in build.LAUNCHES.items() if v}
+            want = attn * 2 * sites * rounds
+            _require(launched.get("flash_attention_bwd", 0) == want,
+                     f"24c {arch}: flash_attention_bwd launched {launched}, not {want}")
+            _require(bool(torch.isfinite(state["params"]).all()),
+                     f"24c {arch}: non-finite parameters")
+            peak = torch.cuda.max_memory_allocated() / 2**30
+            print(f"24c {arch}: loss {float(metrics['loss']):.4f}, step_s "
+                  f"{[round(s, 3) for s in step_s]}, peak {peak:.2f} GiB; launched {launched}")
+            out[arch] = {"layers": cfg.num_layers, "sites": sites, "microbatch": micro,
+                         "step_s": step_s, "peak_gib": peak, "loss": float(metrics["loss"]),
+                         "tokens_per_step": sites * 2 * micro * seq}
+            launches[arch] = launched
+            del state, batches, art
+            _fresh(torch)
+    return {"train": out, "launches": launches}
+
+
+def check_small_mixed_job(torch, build) -> None:
+    """Phase 24d: a reduced smollm-135m round in the ``mixed`` policy (2
+    sites, 2 microbatches of 2 x 32 tokens) through ``steps.build_train``
+    on the card and on the CPU from the same bf16 weights and tokens: the
+    losses within rtol 2^-6 (bf16 products rounded in other orders), every
+    parameter within one bf16 ulp of the largest (2^-7 of it)."""
+    from repro_torch.configs.base import MeshConfig
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.launch import steps
+    from repro_torch.models import transformer as T
+    from repro_torch.tree import tree_map
+    cfg = get_arch("smollm-135m").reduced()
+    params = T.init(torch.Generator().manual_seed(0), cfg, "cpu", dtype=torch.bfloat16)
+    tokens = torch.randint(0, cfg.vocab_size, (2, 1, 4, 32),
+                           generator=torch.Generator().manual_seed(1), dtype=torch.int32)
+    got = {}
+    for dev in (CARD, "cpu"):
+        art = steps.build_train("smollm-135m", cfg=cfg, override_mesh=MeshConfig(sites_per_pod=2),
+                                microbatch=2, device=dev)
+        state, _, ri = art.make_inputs(params=tree_map(lambda t: t.to(dev), params))
+        build.reset_launches()
+        state, metrics = art.step_fn(state, {"tokens": tokens.to(dev)}, ri)
+        if dev == CARD:
+            _require(build.LAUNCHES.get("flash_attention_bwd", 0) == cfg.num_layers * 4,
+                     f"24d: flash_attention_bwd launched {build.LAUNCHES.get('flash_attention_bwd')}")
+        got[dev] = (float(metrics["loss"]), state["params"].float().cpu())
+    (lc, pc), (lh, ph) = got[CARD], got["cpu"]
+    perr = float((pc - ph).abs().max()) / (2.0 ** -7 * float(ph.abs().max()))
+    print(f"24d: a reduced mixed round card vs CPU: loss {lc:.6f} / {lh:.6f}, parameters "
+          f"within {perr:.3f} bf16 ulps of the largest")
+    _require(math.isclose(lc, lh, rel_tol=2.0 ** -6), f"24d: loss {lc} != {lh}")
+    _require(perr <= 1.0, f"24d: parameters {perr:.3f} ulps apart")
+
+
+def run_p24(torch, build) -> dict:
+    """Phase 24 (a the bf16 backward alone; b bf16 serving; c mixed and
+    bf16_train training; d a small mixed round card vs CPU); returns the
+    bf16 instance's kernels-line entry and each path's launches."""
+    entry = _timed("24a (flash_attention_bwd bf16 alone; the bf16 forward timed)",
+                   check_flash_attention_bwd_bf16, torch, build, torch.device(CARD))
+    serve = _timed("24b (every token architecture served in bf16 at published width)",
+                   run_bf16_serving, torch, build)
+    train = _timed("24c (every token architecture trained in its policy, microbatches, remat)",
+                   run_bf16_training, torch, build)
+    _timed("24d (a small mixed round, card and CPU)", check_small_mixed_job, torch, build)
+    bwd = sum(v.get("flash_attention_bwd", 0) for v in train["launches"].values())
+    return {"entry": dict(entry, launches=bwd), "serve": serve, "train": train}
+
+
 def _leaves(tree):
     from repro_torch.tree import tree_leaves
     return tree_leaves(tree)
@@ -5250,6 +5792,9 @@ def main() -> int:
                  "the MoE forms, granite, musicgen, qwen3-moe, chameleon)", run_p23, *jobs,
                  build)
     entries["flash_attention"]["mla"] = p23["entry"]
+    p24 = _timed("24 (the precision policy and the step builders: the attention backward's "
+                 "bf16 instance, bf16 serving, mixed and bf16_train training)", run_p24,
+                 torch, build)
 
     # each kernel's launches on the path that carries it: fedagg on the
     # first slice's path, the int8 fold and install on the second's, the
@@ -5265,6 +5810,8 @@ def main() -> int:
     print(f"launches on phase 21c's path: {p21['21c']}; on 21d's: {p21['21d']}")
     print(f"launches on phase 22b's path: {p22['launches']}")
     print(f"launches on phase 23's paths (prefill): {p23['launches']}")
+    print(f"launches on phase 24b's paths (prefill): {p24['serve']['launches']}")
+    print(f"launches on phase 24c's paths: {p24['train']['launches']}")
     print(smi)
     path_of = {"fedagg": main_launches, "quantize_int8": int8_launches,
                "fedagg_dequant": int8_launches, "dequant_install": int8_launches,
@@ -5276,6 +5823,10 @@ def main() -> int:
         kernels.append({"name": name, "route": route, "source": source,
                         "replaces": replaces, "launches": path_of[name].get(name, 0),
                         **entries[name]})
+    # the backward's bf16 instance, its launches on phase 24c's training path
+    route, source, replaces = ops.KERNELS["flash_attention_bwd"]
+    kernels.append({"name": "flash_attention_bwd_bf16", "route": route, "source": source,
+                    "replaces": replaces, **p24["entry"]})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -96,10 +96,12 @@ def main() -> int:
         print(f"{name}: " + "; ".join(line.strip() for line in log.splitlines()
                                      if "registers" in line or "spill" in line))
         fn = ctypes.CDLL(str(lib)).flash_attention_bwd_f32
-        fn.argtypes = [ctypes.c_void_p] * (nargs - 9) + [ctypes.c_int64] * 8 + [ctypes.c_void_p]
+        fn.argtypes = fa._BWD_ARGS if nargs == len(fa._BWD_ARGS) else \
+            [ctypes.c_void_p] * (nargs - 9) + [ctypes.c_int64] * 8 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
         fns[name] = fn
-    with_part = nargs - 9 == 11                 # the q heads' shares of dk and dv
+    with_part = nargs >= 20                     # the q heads' shares of dk and dv
+    scale = [0.0] if nargs == len(fa._BWD_ARGS) else []    # 0: the kernel's D^-0.5
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(28)
@@ -115,7 +117,8 @@ def main() -> int:
 
         def call(name):
             ptrs = [t.data_ptr() for t in (q, k, v, out, lse, g, delta, *part, *grads)]
-            err = fns[name](*ptrs, b, hq, hkv, lq, lk, d, 1, window or 0, build.stream())
+            err = fns[name](*ptrs, b, hq, hkv, lq, lk, d, 1, window or 0, *scale,
+                            build.stream())
             if err:
                 raise RuntimeError(f"{name}: launch failed, CUDA error {err}")
 

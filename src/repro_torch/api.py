@@ -126,8 +126,8 @@ class TaskConfig:
         an architecture the port has not got raises ``NotPorted("arch")``."""
         from repro_torch.models.sanet import SANetConfig
         if self.kind == "tokens":
-            from repro_torch.configs.registry import get_arch
-            arch = get_arch(self.arch)
+            from repro_torch.configs.registry import get_token_arch
+            arch = get_token_arch(self.arch)
             return arch.reduced() if self.reduced else arch.CONFIG
         if self.kind == "dose":
             return SANetConfig(in_channels=2 + self.num_oars, out_channels=1,

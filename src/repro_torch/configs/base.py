@@ -1,10 +1,14 @@
 """Configuration dataclasses, ported from ``repro/configs/base.py``.
 
 The parts the port's paths read: :class:`FederationConfig` (the paper's
-FL hyper-parameters) and its Eq. 1 case weights, and the token models'
+FL hyper-parameters) and its Eq. 1 case weights, the token models'
 :class:`ModelConfig` with its sub-configs (MoE, MLA, RWKV-6, Mamba) and
-per-layer :class:`LayerSpec`.  The mesh, job and precision configs of
-the reference are TPU-mesh settings and are not ported.
+per-layer :class:`LayerSpec`, the reference's four workload shapes
+(:class:`InputShape`, ``INPUT_SHAPES``) and its dtype policy
+(:class:`PrecisionConfig`).  :class:`MeshConfig` is kept as data: on one
+card only its site count is read (``launch/steps.py`` stacks every site
+on the device), and ``validate_for_pod`` is never called.  The
+reference's ``JobConfig`` is not ported.
 
 All configs are frozen dataclasses, as in the reference.
 """
@@ -217,3 +221,91 @@ class ModelConfig:
         if i == 0 and self.first_layer_dense_ff is not None:
             return self.first_layer_dense_ff
         return self.d_ff
+
+
+# ---------------------------------------------------------------------------
+# Mesh / workload / precision configs
+# ---------------------------------------------------------------------------
+
+
+@dataclass(frozen=True)
+class MeshConfig:
+    """How FL sites map onto the reference's pod mesh (``sites_per_pod *
+    fsdp * model_parallel == 256`` chips a pod).  The port reads only
+    :attr:`total_sites`: on one card every site is a row of one stacked
+    buffer."""
+
+    sites_per_pod: int = 16
+    fsdp: int = 1
+    model_parallel: int = 16
+    multi_pod: bool = False
+    data_axis_size: int = 16
+    num_pods: int = 2
+
+    @classmethod
+    def for_sites(cls, sites: int, chip_budget: int = 16) -> "MeshConfig":
+        """Nominal FL mesh for ``sites`` sites over a ``chip_budget``-chip
+        data axis: leftover chips become in-site fsdp when the budget
+        divides evenly, else each site runs unsharded (fsdp=1)."""
+        fsdp = chip_budget // sites if sites and chip_budget % sites == 0 else 1
+        return cls(sites_per_pod=sites, fsdp=fsdp, data_axis_size=sites * fsdp)
+
+    def validate_for_pod(self, chips_per_pod: int = 256) -> None:
+        """The reference's check of a pod layout (kept as data; one card
+        builds no mesh)."""
+        got = self.sites_per_pod * self.fsdp * self.model_parallel
+        if got != chips_per_pod:
+            raise ValueError(f"sites({self.sites_per_pod}) * fsdp({self.fsdp}) * "
+                             f"model({self.model_parallel}) = {got} != chips/pod "
+                             f"({chips_per_pod})")
+
+    @property
+    def total_sites(self) -> int:
+        return self.sites_per_pod * (self.num_pods if self.multi_pod else 1)
+
+    @property
+    def total_devices(self) -> int:
+        per_pod = self.data_axis_size * self.model_parallel
+        return per_pod * (self.num_pods if self.multi_pod else 1)
+
+
+@dataclass(frozen=True)
+class InputShape:
+    """One of the four assigned workload shapes."""
+
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str                          # train | prefill | decode
+
+    @property
+    def is_decode(self) -> bool:
+        return self.kind == "decode"
+
+
+TRAIN_4K = InputShape("train_4k", 4096, 256, "train")
+PREFILL_32K = InputShape("prefill_32k", 32768, 32, "prefill")
+DECODE_32K = InputShape("decode_32k", 32768, 128, "decode")
+LONG_500K = InputShape("long_500k", 524288, 1, "decode")
+
+INPUT_SHAPES = {s.name: s for s in (TRAIN_4K, PREFILL_32K, DECODE_32K, LONG_500K)}
+
+
+@dataclass(frozen=True)
+class PrecisionConfig:
+    """Dtype policy (names of torch dtypes).  ``mixed``: bf16 parameters
+    and compute, fp32 optimizer state; ``bf16_train``: the optimizer
+    state in bf16 too (the two largest architectures)."""
+
+    param_dtype: str = "float32"
+    compute_dtype: str = "float32"
+    opt_state_dtype: str = "float32"
+    logits_fp32: bool = True
+
+    @staticmethod
+    def bf16_train() -> "PrecisionConfig":
+        return PrecisionConfig("bfloat16", "bfloat16", "bfloat16")
+
+    @staticmethod
+    def mixed() -> "PrecisionConfig":
+        return PrecisionConfig("bfloat16", "bfloat16", "float32")

@@ -5,7 +5,8 @@ text + VQ image tokens: early fusion), qk-norm.  As in the reference,
 the VQ-VAE image tokenizer is not modelled: image patches are token ids
 of the joint vocabulary, which is all the decoder sees.
 """
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import ModelConfig, PrecisionConfig
+from repro_torch.configs.common import simple_mesh_for, simple_precision_for
 
 CONFIG = ModelConfig(
     name="chameleon-34b",
@@ -21,6 +22,9 @@ CONFIG = ModelConfig(
     source="arXiv:2405.09818",
 )
 
+
+mesh_for = simple_mesh_for(sites_per_pod=4, fsdp=4)
+precision_for = simple_precision_for(PrecisionConfig.mixed())
 
 def reduced() -> ModelConfig:
     return ModelConfig(

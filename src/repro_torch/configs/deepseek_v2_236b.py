@@ -4,7 +4,8 @@
 routed experts top-6, expert hidden 1536, first layer dense FFN (12288),
 vocab 102400.
 """
-from repro_torch.configs.base import MLAConfig, ModelConfig, MoEConfig
+from repro_torch.configs.base import MLAConfig, MoEConfig, ModelConfig, PrecisionConfig
+from repro_torch.configs.common import simple_mesh_for, simple_precision_for
 
 CONFIG = ModelConfig(
     name="deepseek-v2-236b",
@@ -25,6 +26,9 @@ CONFIG = ModelConfig(
     source="arXiv:2405.04434",
 )
 
+
+mesh_for = simple_mesh_for(sites_per_pod=1, fsdp=16)
+precision_for = simple_precision_for(PrecisionConfig.bf16_train())
 
 def reduced() -> ModelConfig:
     """2-layer smoke: MLA + dense FFN, then MLA + shared/routed MoE."""

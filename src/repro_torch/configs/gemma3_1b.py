@@ -5,7 +5,8 @@ vocab 262144, 5:1 local:global attention (sliding window 512, every 6th
 layer global), qk-norm.  Local layers keep a ring-buffer KV cache of the
 window's size.
 """
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import ModelConfig, PrecisionConfig
+from repro_torch.configs.common import simple_mesh_for, simple_precision_for
 
 CONFIG = ModelConfig(
     name="gemma3-1b",
@@ -26,6 +27,9 @@ CONFIG = ModelConfig(
     source="hf:google/gemma-3-1b-pt",
 )
 
+
+mesh_for = simple_mesh_for(sites_per_pod=16, fsdp=1)
+precision_for = simple_precision_for(PrecisionConfig.mixed())
 
 def reduced() -> ModelConfig:
     return ModelConfig(

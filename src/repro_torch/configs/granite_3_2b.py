@@ -3,7 +3,8 @@
 40L, d_model 2048, GQA 32 heads / 8 KV, SwiGLU d_ff 8192, vocab 49155
 (padded to 49280 logit rows, the padding masked).
 """
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import ModelConfig, PrecisionConfig
+from repro_torch.configs.common import simple_mesh_for, simple_precision_for
 
 CONFIG = ModelConfig(
     name="granite-3-2b",
@@ -18,6 +19,9 @@ CONFIG = ModelConfig(
     source="hf:ibm-granite/granite-3.0-2b-base",
 )
 
+
+mesh_for = simple_mesh_for(sites_per_pod=16, fsdp=1)
+precision_for = simple_precision_for(PrecisionConfig.mixed())
 
 def reduced() -> ModelConfig:
     return ModelConfig(

@@ -5,7 +5,8 @@ interleave (one attention layer per 8-layer period), GQA 64 heads / 8 KV,
 MoE 16 experts top-2 on every other layer, FFN/expert hidden 24576,
 vocab 65536.
 """
-from repro_torch.configs.base import MambaConfig, ModelConfig, MoEConfig
+from repro_torch.configs.base import MambaConfig, MoEConfig, ModelConfig, PrecisionConfig
+from repro_torch.configs.common import simple_mesh_for, simple_precision_for
 
 CONFIG = ModelConfig(
     name="jamba-1.5-large-398b",
@@ -28,6 +29,9 @@ CONFIG = ModelConfig(
     source="arXiv:2403.19887",
 )
 
+
+mesh_for = simple_mesh_for(sites_per_pod=1, fsdp=16)
+precision_for = simple_precision_for(PrecisionConfig.bf16_train())
 
 def reduced() -> ModelConfig:
     """2-layer smoke: one Mamba+dense layer, one attention+MoE layer."""

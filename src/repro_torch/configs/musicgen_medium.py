@@ -6,7 +6,8 @@ output head per codebook), sinusoidal positions.  As in the reference,
 the EnCodec audio codec is not modelled: the decoder takes the [B, L, 4]
 token streams.
 """
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import ModelConfig, PrecisionConfig
+from repro_torch.configs.common import simple_mesh_for, simple_precision_for
 
 CONFIG = ModelConfig(
     name="musicgen-medium",
@@ -24,6 +25,9 @@ CONFIG = ModelConfig(
     source="arXiv:2306.05284",
 )
 
+
+mesh_for = simple_mesh_for(sites_per_pod=16, fsdp=1)
+precision_for = simple_precision_for(PrecisionConfig.mixed())
 
 def reduced() -> ModelConfig:
     return ModelConfig(

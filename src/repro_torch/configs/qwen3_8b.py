@@ -3,7 +3,8 @@
 36L, d_model 4096, GQA 32 heads / 8 KV (head_dim 128), qk-norm,
 SwiGLU d_ff 12288, vocab 151936.
 """
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import ModelConfig, PrecisionConfig
+from repro_torch.configs.common import simple_mesh_for, simple_precision_for
 
 CONFIG = ModelConfig(
     name="qwen3-8b",
@@ -21,6 +22,9 @@ CONFIG = ModelConfig(
     source="hf:Qwen/Qwen3-8B",
 )
 
+
+mesh_for = simple_mesh_for(sites_per_pod=16, fsdp=1)
+precision_for = simple_precision_for(PrecisionConfig.mixed())
 
 def reduced() -> ModelConfig:
     return ModelConfig(

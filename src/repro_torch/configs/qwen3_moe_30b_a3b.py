@@ -3,7 +3,8 @@
 48L, d_model 2048, GQA 32 heads / 4 KV (head_dim 128), qk-norm,
 MoE 128 experts top-8 with expert hidden 768, vocab 151936.
 """
-from repro_torch.configs.base import ModelConfig, MoEConfig
+from repro_torch.configs.base import MoEConfig, ModelConfig, PrecisionConfig
+from repro_torch.configs.common import simple_mesh_for, simple_precision_for
 
 CONFIG = ModelConfig(
     name="qwen3-moe-30b-a3b",
@@ -22,6 +23,9 @@ CONFIG = ModelConfig(
     source="hf:Qwen/Qwen3-30B-A3B",
 )
 
+
+mesh_for = simple_mesh_for(sites_per_pod=8, fsdp=2)
+precision_for = simple_precision_for(PrecisionConfig.mixed())
 
 def reduced() -> ModelConfig:
     return ModelConfig(

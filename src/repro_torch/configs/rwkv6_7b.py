@@ -3,7 +3,8 @@
 32L, d_model 4096 (attention-free: data-dependent-decay linear recurrence),
 channel-mix hidden 14336, vocab 65536.
 """
-from repro_torch.configs.base import ModelConfig, Rwkv6Config
+from repro_torch.configs.base import ModelConfig, PrecisionConfig, Rwkv6Config
+from repro_torch.configs.common import simple_mesh_for, simple_precision_for
 
 CONFIG = ModelConfig(
     name="rwkv6-7b",
@@ -21,6 +22,9 @@ CONFIG = ModelConfig(
     source="arXiv:2404.05892",
 )
 
+
+mesh_for = simple_mesh_for(sites_per_pod=16, fsdp=1)
+precision_for = simple_precision_for(PrecisionConfig.mixed())
 
 def reduced() -> ModelConfig:
     return ModelConfig(

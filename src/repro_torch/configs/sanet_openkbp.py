@@ -5,8 +5,24 @@ PTV + 9 OAR masks (11 channels), output = 3-D dose on 128^3 volumes
 (Babier et al. 2021).  ``SANET_SEG``: BraTS 2021 (4 MRI modalities, 4
 classes).  ``SANET_OAR``: PanSeg (one T1 MRI channel, pancreas against
 background).
+
+``CONFIG`` records the volumetric task in the registry's
+:class:`ModelConfig` form, as the reference's module does (SA-Net is not
+a token model: no token path reads it); ``mesh_for`` and
+``precision_for`` are the reference's (16 sites, fp32).
 """
+from repro_torch.configs.base import MeshConfig, ModelConfig, PrecisionConfig
 from repro_torch.models.sanet import SANetConfig
+
+CONFIG = ModelConfig(
+    name="sanet-openkbp",
+    arch_type="conv3d",
+    num_layers=4,                # encoder levels
+    d_model=24,                  # base filters
+    num_heads=1, num_kv_heads=1,
+    d_ff=0, vocab_size=0,
+    source="OpenKBP (Babier et al. 2021), SA-Net (Yuan 2021)",
+)
 
 SANET = SANetConfig(in_channels=11, out_channels=1, base_filters=24,
                     num_levels=4, task="dose")
@@ -47,3 +63,11 @@ def reduced() -> SANetConfig:
 def reduced_seg() -> SANetConfig:
     return SANetConfig(in_channels=2, out_channels=3, base_filters=8,
                        num_levels=2, task="segmentation")
+
+
+def mesh_for(shape, multi_pod: bool = False) -> MeshConfig:
+    return MeshConfig(sites_per_pod=16, fsdp=1, multi_pod=multi_pod)
+
+
+def precision_for(shape) -> PrecisionConfig:
+    return PrecisionConfig()

@@ -3,7 +3,8 @@
 30L, d_model 576, GQA 9 heads / 3 KV, SwiGLU d_ff 1536, vocab 49152.
 Llama-architecture small model.
 """
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import ModelConfig, PrecisionConfig
+from repro_torch.configs.common import simple_mesh_for, simple_precision_for
 
 CONFIG = ModelConfig(
     name="smollm-135m",
@@ -18,6 +19,9 @@ CONFIG = ModelConfig(
     source="hf:HuggingFaceTB/SmolLM-135M",
 )
 
+
+mesh_for = simple_mesh_for(sites_per_pod=16, fsdp=1)
+precision_for = simple_precision_for(PrecisionConfig.mixed())
 
 def reduced() -> ModelConfig:
     return ModelConfig(

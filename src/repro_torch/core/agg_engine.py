@@ -195,7 +195,14 @@ def per_site_nbytes(params_stacked) -> int:
 
 @dataclasses.dataclass(frozen=True)
 class RavelLayout:
-    """How a site-stacked tree maps into one contiguous [S, N] buffer."""
+    """How a site-stacked tree maps into one contiguous [S, N] buffer.
+
+    The buffer's dtype (:attr:`buffer_dtype`) is the leaves' one dtype
+    where they share one (fp32, or bf16 for a tree of the ``mixed``
+    policy's parameters), else fp32: a tree of bf16 leaves beside a few
+    fp32 ones (the MoE router, Mamba's ``log_a``) keeps every value in
+    an fp32 buffer, the bf16 leaves' values rounded to bf16 wherever the
+    reference rounds them (:meth:`round_`)."""
     treedef: Any                           # the tree's structure (any leaves)
     shapes: Tuple[Tuple[int, ...], ...]    # per-leaf shapes WITHOUT the site axis
     dtypes: Tuple[torch.dtype, ...]
@@ -206,6 +213,33 @@ class RavelLayout:
     def sizes(self) -> Tuple[int, ...]:
         return tuple(int(np.prod(sh, dtype=np.int64)) for sh in self.shapes)
 
+    @functools.cached_property
+    def buffer_dtype(self) -> torch.dtype:
+        return self.dtypes[0] if len(set(self.dtypes)) == 1 else torch.float32
+
+    @functools.cached_property
+    def narrow_runs(self) -> Tuple[Tuple[int, int, torch.dtype], ...]:
+        """``(start, end, dtype)`` of the runs of adjacent leaves narrower
+        than the buffer (none where the leaves share one dtype)."""
+        runs = []
+        for ofs, size, dt in zip(self.offsets, self.sizes, self.dtypes):
+            if dt == self.buffer_dtype:
+                continue
+            if runs and runs[-1][1] == ofs and runs[-1][2] == dt:
+                runs[-1] = (runs[-1][0], ofs + size, dt)
+            else:
+                runs.append((ofs, ofs + size, dt))
+        return tuple(runs)
+
+    def round_(self, flat: torch.Tensor) -> torch.Tensor:
+        """Round the narrower leaves' values of ``flat`` ([N] or [S, N]) to
+        their own dtype, in place, as the reference's cast to each leaf's
+        dtype rounds them."""
+        for start, end, dt in self.narrow_runs:
+            seg = flat[..., start:end]
+            seg.copy_(seg.to(dt))
+        return flat
+
     def views(self, flat_row: torch.Tensor):
         """Per-leaf views (no copy) of one [N] row, in flatten order."""
         return [t.view(sh) for t, sh in zip(torch.split(flat_row[: self.n], self.sizes),
@@ -214,16 +248,17 @@ class RavelLayout:
     def trainable(self, flat_row: torch.Tensor):
         """``(tree, leaves)``: one [N] row as a parameter tree whose leaves
         are detached views that require grad (differentiate a loss of the
-        tree with respect to ``leaves``)."""
-        leaves = [v.detach().requires_grad_() for v in self.views(flat_row)]
+        tree with respect to ``leaves``); a leaf narrower than the buffer
+        is a copy in its own dtype."""
+        leaves = [v.detach().to(dt).requires_grad_()
+                  for v, dt in zip(self.views(flat_row), self.dtypes)]
         return tree_unflatten(self.treedef, leaves), leaves
 
-    @staticmethod
-    def flat_grad(leaves, grads) -> torch.Tensor:
-        """The gradients of ``leaves`` as one [N] row (zeros where a leaf
-        got none)."""
+    def flat_grad(self, leaves, grads) -> torch.Tensor:
+        """The gradients of ``leaves`` as one [N] row in the buffer's dtype
+        (zeros where a leaf got none)."""
         return torch.cat([(torch.zeros_like(p) if g is None else g).reshape(-1)
-                          for p, g in zip(leaves, grads)])
+                          .to(self.buffer_dtype) for p, g in zip(leaves, grads)])
 
 
 def tree_layout(tree) -> RavelLayout:
@@ -339,11 +374,12 @@ class AggregationEngine:
         return layout
 
     def flatten(self, params_stacked) -> Tuple[torch.Tensor, RavelLayout]:
-        """Ravel a site-stacked tree into one [S, N] fp32 buffer."""
+        """Ravel a site-stacked tree into one [S, N] buffer of the layout's
+        ``buffer_dtype`` (fp32 for every tree but one of bf16 leaves)."""
         layout = self.layout_of(params_stacked)
         leaves = tree_leaves(params_stacked)
         s = leaves[0].shape[0]
-        flat = torch.cat([x.reshape(s, -1).float() for x in leaves], dim=1)
+        flat = torch.cat([x.reshape(s, -1).to(layout.buffer_dtype) for x in leaves], dim=1)
         return flat, layout
 
     def unflatten(self, flat_global: torch.Tensor, layout: RavelLayout):
@@ -568,6 +604,11 @@ class StreamingAccumulator:
                 self._acc.add_(x)
             self._weight_total += float(weight)
             self.count += 1
+
+    @property
+    def nbytes(self) -> int:
+        """Resident accumulator bytes (the O(N) mid-round state)."""
+        return self._acc.numel() * self._acc.element_size() if self._acc is not None else 0
 
     @property
     def weight_total(self) -> float:

@@ -28,13 +28,23 @@ replaces ``grad_clip`` in every site step: clipping and Gaussian noise
 keyed by ``(seed, fl_state["round"], dp_site_base + site, step)``, so the
 stream replays across engines, transports and a resume.
 
+Gradient accumulation (``FLContext.microbatch``): a site batch larger
+than the microbatch is split into ``bsz // microbatch`` parts; each
+part's gradient, cast to ``accum_dtype``, is added into a zero
+accumulator of that dtype, which is divided by their count; the loss is
+the parts' mean and the metrics are the last part's.  DP-SGD and a
+microbatch together raise the reference's ``ValueError``.
+
 The reference vmaps the site axis.  The port runs the sites one after
 another, which is the same math with one site's activations at a time
 (a full-width SA-Net step at 128^3 holds several GB of them).  Every
-site's weights are a row of one ``[S, N]`` fp32 buffer, and so are
-AdamW's moments: a site step differentiates with respect to per-leaf
-views of its row, clips and updates the flat row, and the aggregation
-kernel then reads the buffer itself.
+site's weights are a row of one ``[S, N]`` buffer (fp32, or bf16 for
+the ``mixed`` and ``bf16_train`` policies' bf16 trees; a tree of bf16
+and fp32 leaves rides an fp32 buffer whose bf16 leaves are rounded where
+the reference rounds them: ``RavelLayout.round_``), and so are the
+optimizer's moments (in its ``state_dtype``): a site step differentiates
+with respect to per-leaf views of its row, clips and updates the flat
+row, and the aggregation kernel then reads the buffer itself.
 """
 from __future__ import annotations
 
@@ -43,6 +53,7 @@ from typing import Any, Callable, Dict, Optional
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import FederationConfig
 from repro_torch.core.adversary import AdversaryPlan
@@ -57,6 +68,7 @@ from repro_torch.core.strategies import gcml as _g  # noqa: F401
 from repro_torch.core.strategies import individual as _i  # noqa: F401
 from repro_torch.optim import Optimizer, apply_updates, clip_by_global_norm
 from repro_torch.privacy.dp import dp_gradients, round_key, site_step_key
+from repro_torch.tree import tree_leaves
 
 
 @dataclasses.dataclass
@@ -80,6 +92,8 @@ class FLContext:
     # its own id), so every transport draws the same noise
     privacy: Optional[Any] = None
     dp_site_base: int = 0
+    microbatch: Optional[int] = None           # per-site microbatch for grad accumulation
+    accum_dtype: torch.dtype = torch.float32   # grad-accumulator dtype (bf16 for bf16_train)
 
     def scalar_loss_fn(self, params, batch):
         return self.loss_fn(params, batch)[0]
@@ -92,10 +106,11 @@ def init_fl_state(ctx: FLContext, params) -> Dict:
     """Round-0 federated state: ``params`` (one unstacked tree) on every
     site (the paper's same-init FedAvg), as rows of an [S, N] buffer."""
     s = ctx.fed.num_sites
+    dtypes = {x.dtype for x in tree_leaves(params)}
+    if not dtypes <= {torch.float32, torch.bfloat16}:
+        raise TypeError("the round loop trains fp32 or bf16 parameters; got "
+                        f"{sorted(str(d) for d in dtypes)}")
     flat, layout = get_engine().flatten(broadcast_to_sites(params, s))
-    if any(dt != torch.float32 for dt in layout.dtypes):
-        raise TypeError("the round loop trains fp32 parameters; got "
-                        f"{sorted({str(d) for d in layout.dtypes})}")
     flat = flat.to(ctx.device).contiguous()
     opt = ctx.optimizer.init(flat)
     opt["step"] = torch.zeros((s,), dtype=torch.int32, device=ctx.device)
@@ -142,7 +157,33 @@ def make_round_inputs_traced(ctx: FLContext, key: torch.Tensor,
     return {"active": active, "partner": partner, "is_receiver": is_recv}
 
 
-def build_fl_round(ctx: FLContext):
+# elements a slice of the optimizer's update: its fp32 temporaries are a
+# slice's, not the row's (a row of a full-width model is billions)
+UPDATE_SLICE = 1 << 26
+
+
+def _update_in_slices(optimizer: Optimizer, g: torch.Tensor, opt: Dict,
+                      row: torch.Tensor):
+    """``optimizer.update`` and ``apply_updates`` on the flat row, one slice
+    at a time, into a new row and new state: the same values as the whole
+    row's, since every operation of the update is elementwise."""
+    new_row = torch.empty_like(row)
+    rows = {k for k, v in opt.items() if v.dim()}          # the moments, not the step
+    new = {k: torch.empty_like(opt[k]) for k in rows}
+    for lo in range(0, row.numel(), UPDATE_SLICE):
+        sl = slice(lo, lo + UPDATE_SLICE)
+        u, state = optimizer.update(g[sl], {k: v[sl] if k in rows else v
+                                            for k, v in opt.items()}, row[sl])
+        new_row[sl] = apply_updates(row[sl], u)
+        for k, v in state.items():
+            if k in rows:
+                new[k][sl] = v
+            else:
+                new[k] = v
+    return new_row, new
+
+
+def build_fl_round(ctx: FLContext, remat_local: bool = False):
     """Returns ``fl_round(fl_state, batches, round_inputs) -> (fl_state, metrics)``.
 
     ``batches`` leaves are [S, local_steps, per-site batch...] tensors on
@@ -150,30 +191,63 @@ def build_fl_round(ctx: FLContext):
     and ``val_batch`` with [S, per-site batch...] leaves.
     ``metrics["loss"]`` is each site's loss at its last local step, [S];
     a strategy's own metrics (GCML's DCML losses) join it.
+    ``remat_local`` recomputes each site step's forward in its backward
+    (``torch.utils.checkpoint``) rather than keeping its activations, where
+    the reference checkpoints its site step: the values do not change.
     """
     strategy = strat_base.get_strategy(ctx.fed.strategy)
     dp = ctx.privacy
+    if dp is not None and ctx.microbatch:
+        raise ValueError("DP-SGD composes its own per-example/per-site "
+                         "clipping; microbatch gradient accumulation is "
+                         "not supported alongside it")
+
+    def lf(params, b, strat_ref):
+        loss, metrics = ctx.loss_fn(params, b)
+        return loss + strategy.local_loss_extra(params, strat_ref, ctx), metrics
+
+    def grad_of(row, layout, batch, strat_ref):
+        """(the flat gradient in the layout's dtypes, loss, metrics)"""
+        params, leaves = layout.trainable(row)
+        if remat_local:
+            loss, metrics = checkpoint(lf, params, batch, strat_ref, use_reentrant=False)
+        else:
+            loss, metrics = lf(params, batch, strat_ref)
+        g = layout.flat_grad(leaves, torch.autograd.grad(loss, leaves, allow_unused=True))
+        return g, loss.detach(), metrics
 
     def site_train_step(row, opt, batch, layout, strat_ref, noise_key=None):
-        def lf(params, b):
-            loss, metrics = ctx.loss_fn(params, b)
-            return loss + strategy.local_loss_extra(params, strat_ref, ctx), metrics
-
         if dp is not None:
             # DP clipping replaces grad_clip: the clip norm is the
             # mechanism's sensitivity
-            g, loss, metrics, gnorm = dp_gradients(lf, row, layout, batch, noise_key, dp)
+            g, loss, metrics, gnorm = dp_gradients(lambda p, b: lf(p, b, strat_ref), row,
+                                                   layout, batch, noise_key, dp)
         else:
-            params, leaves = layout.trainable(row)
-            loss, metrics = lf(params, batch)
-            g = layout.flat_grad(leaves, torch.autograd.grad(loss, leaves, allow_unused=True))
-            loss = loss.detach()
+            bsz = next(iter(batch.values())).shape[0]
+            if ctx.microbatch and ctx.microbatch < bsz:
+                # the parts' gradients added in accum_dtype, then averaged
+                n = bsz // ctx.microbatch
+                g = torch.zeros((layout.n,), dtype=ctx.accum_dtype, device=row.device)
+                loss = torch.zeros((), device=row.device)
+                for i in range(n):
+                    mb = {k: v[i * ctx.microbatch:(i + 1) * ctx.microbatch]
+                          for k, v in batch.items()}
+                    gi, li, metrics = grad_of(row, layout, mb, strat_ref)
+                    g += gi.to(ctx.accum_dtype)
+                    loss = loss + li
+                g, loss = g / n, loss / n
+                narrow = None           # the accumulator's one dtype
+            else:
+                g, loss, metrics = grad_of(row, layout, batch, strat_ref)
+                narrow = layout          # the leaves' own dtypes
             if ctx.grad_clip:
                 g, gnorm = clip_by_global_norm(g, ctx.grad_clip)
+                if narrow is not None:
+                    narrow.round_(g)
             else:
                 gnorm = torch.zeros((), device=row.device)
-        updates, opt = ctx.optimizer.update(g, opt, row)
-        return apply_updates(row, updates), opt, {"loss": loss, "grad_norm": gnorm, **metrics}
+        row, opt = _update_in_slices(ctx.optimizer, g, opt, row)
+        return layout.round_(row), opt, {"loss": loss, "grad_norm": gnorm, **metrics}
 
     def local_phase(fl_state, batches, active):
         flat, layout, opt = fl_state["params"], fl_state["layout"], fl_state["opt"]
@@ -181,11 +255,12 @@ def build_fl_round(ctx: FLContext):
         rkey = None if dp is None else round_key(dp, fl_state["round"])
         losses = []
         for s in range(flat.shape[0]):
-            # a fresh buffer: cuDNN picks its algorithms by the weights'
-            # alignment, and row s of [S, N] sits off 16 bytes when N is odd;
-            # a site's step must not depend on its row (nor on its transport)
-            row = flat[s].clone()
-            site_opt = {"step": opt["step"][s], "mu": opt["mu"][s], "nu": opt["nu"][s]}
+            # cuDNN picks its algorithms by the weights' alignment, and row s
+            # of [S, N] sits off 16 bytes when N is odd: such a row steps from
+            # a fresh buffer, so that a site's step does not depend on its row
+            # (nor on its transport).  The step writes a new row.
+            row = flat[s] if flat[s].data_ptr() % 16 == 0 else flat[s].clone()
+            site_opt = {k: v[s] for k, v in opt.items()}
             for k in range(next(iter(batches.values())).shape[1]):
                 batch = {name: b[s, k] for name, b in batches.items()}
                 key = None if rkey is None else site_step_key(rkey, ctx.dp_site_base + s, k)
@@ -195,9 +270,8 @@ def build_fl_round(ctx: FLContext):
             if shutdown and not active[s]:
                 continue        # workstation off: the site's state is untouched
             flat[s].copy_(row)
-            opt["mu"][s].copy_(site_opt["mu"])
-            opt["nu"][s].copy_(site_opt["nu"])
-            opt["step"][s] = site_opt["step"]
+            for name, v in site_opt.items():
+                opt[name][s] = v
         return fl_state, {"loss": torch.stack(losses)}
 
     # the malicious set is a pure function of (plan.seed, num_sites)

@@ -12,4 +12,6 @@ class FedAvg(Strategy):
     def post_exchange(self, fl_state, round_inputs, ctx):
         params, _global_row = get_engine().aggregate_round(
             fl_state["params"], round_inputs, ctx)
+        # the global model in each leaf's dtype, as the reference unravels it
+        fl_state["layout"].round_(params)
         return {**fl_state, "params": params}

@@ -13,8 +13,9 @@
 // h / (Hq / Hkv).  The queries are the last Lq positions: query row r sits at
 // key position r + Lk - Lq.  A key at position j is seen from position i if
 // j <= i (when causal) and j > i - window (when window > 0).  Scores are
-// q.k * D^-0.5, softmax and accumulation in fp32, and the row sum l is
-// clamped at 1e-30 before the division.
+// q.k * scale (D^-0.5 unless the caller passes another: MLA's padded route
+// passes its q/k head dim's), softmax and accumulation in fp32, and the row
+// sum l is clamped at 1e-30 before the division.
 //
 // Bound: at gemma3-1b's global layer (B 4, Hq 4, Hkv 1, L 1024, D 256, fp32)
 // the kernel must read q, k, v and write out, 42 MB, about 12.5 us at an H100
@@ -505,58 +506,62 @@ int resources(int* out) {
 template <int D, typename T>
 int launch(const void* q, const void* k, const void* v, void* out, void* lse, int64_t b,
            int64_t hq, int64_t hkv, int64_t lq, int64_t lk, int64_t causal,
-           int64_t window, void* stream) {
+           int64_t window, double scale, void* stream) {
   constexpr size_t smem = smem_bytes<D, T>();
   auto kernel = flash_attention_kernel<D, T>;
   const cudaError_t err = prepare<D, T>();
   if (err != cudaSuccess) return (int)err;
   const int64_t rows = lq * (hq / hkv);
   const dim3 grid((unsigned)((rows + kBlockM - 1) / kBlockM * hkv * b));
-  const float scale = (float)(1.0 / sqrt((double)D));
   kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<T*>(out), static_cast<float*>(lse), (int)hq, (int)hkv, (int)lq,
-      (int)lk, (int)causal, (int)window, scale);
+      (int)lk, (int)causal, (int)window, (float)(scale > 0.0 ? scale : 1.0 / sqrt((double)D)));
   return (int)cudaGetLastError();
 }
 
 template <typename T>
 int dispatch(const void* q, const void* k, const void* v, void* out, void* lse, int64_t b,
              int64_t hq, int64_t hkv, int64_t lq, int64_t lk, int64_t d,
-             int64_t causal, int64_t window, void* stream) {
+             int64_t causal, int64_t window, double scale, void* stream) {
   if (b <= 0 || hq <= 0 || lq <= 0) return (int)cudaSuccess;
   if (hkv <= 0 || hq % hkv || lq > lk || window < 0 || b > 65535 || hkv > 65535 ||
       lq * hq > 0x7fffffff || lk > 0x7fffffff || (lq * hq / kBlockM + 1) * b > 0x7fffffff)
     return (int)cudaErrorInvalidValue;
   switch (d) {
     case 32:
-      return launch<32, T>(q, k, v, out, lse, b, hq, hkv, lq, lk, causal, window, stream);
+      return launch<32, T>(q, k, v, out, lse, b, hq, hkv, lq, lk, causal, window, scale,
+                            stream);
     case 64:
-      return launch<64, T>(q, k, v, out, lse, b, hq, hkv, lq, lk, causal, window, stream);
+      return launch<64, T>(q, k, v, out, lse, b, hq, hkv, lq, lk, causal, window, scale,
+                            stream);
     case 128:
-      return launch<128, T>(q, k, v, out, lse, b, hq, hkv, lq, lk, causal, window, stream);
+      return launch<128, T>(q, k, v, out, lse, b, hq, hkv, lq, lk, causal, window, scale,
+                            stream);
     case 256:
-      return launch<256, T>(q, k, v, out, lse, b, hq, hkv, lq, lk, causal, window, stream);
+      return launch<256, T>(q, k, v, out, lse, b, hq, hkv, lq, lk, causal, window, scale,
+                            stream);
     default: return (int)cudaErrorInvalidValue;
   }
 }
 
 }  // namespace
 
-// window 0 means none; causal 0 or 1; lse may be null.
+// window 0 means none; causal 0 or 1; lse may be null; scale <= 0 means D^-0.5.
 extern "C" int flash_attention_f32(const void* q, const void* k, const void* v,
                                    void* out, void* lse, int64_t b, int64_t hq, int64_t hkv,
                                    int64_t lq, int64_t lk, int64_t d, int64_t causal,
-                                   int64_t window, void* stream) {
-  return dispatch<float>(q, k, v, out, lse, b, hq, hkv, lq, lk, d, causal, window, stream);
+                                   int64_t window, double scale, void* stream) {
+  return dispatch<float>(q, k, v, out, lse, b, hq, hkv, lq, lk, d, causal, window, scale,
+                         stream);
 }
 
 extern "C" int flash_attention_bf16(const void* q, const void* k, const void* v,
                                     void* out, void* lse, int64_t b, int64_t hq, int64_t hkv,
                                     int64_t lq, int64_t lk, int64_t d, int64_t causal,
-                                    int64_t window, void* stream) {
+                                    int64_t window, double scale, void* stream) {
   return dispatch<__nv_bfloat16>(q, k, v, out, lse, b, hq, hkv, lq, lk, d, causal, window,
-                                 stream);
+                                 scale, stream);
 }
 
 // For reports: out[5] = registers, local bytes, shared bytes, threads, blocks an SM.

@@ -9,12 +9,13 @@
 // gradient (kernels/flash_attention.py wraps both in a torch.autograd.Function).
 //
 // q, out, dout, dq [B, Hq, Lq, D]; k, v, dk, dv [B, Hkv, Lk, D]; lse and delta
-// [B, Hq, Lq]; fp32, contiguous, 16-byte aligned.  q head h reads kv head
+// [B, Hq, Lq], fp32; the eight others fp32 (flash_attention_bwd_f32) or bf16
+// (flash_attention_bwd_bf16); contiguous, 16-byte aligned.  q head h reads kv head
 // h / (Hq / Hkv).  The masks, positions and scale are the forward's: query
 // row r sits at key position r + Lk - Lq, a key at position j is seen from
 // position i if j <= i (causal) and j > i - window (window > 0), s = q.k *
-// D^-0.5, and lse is the forward's m + log(l) in those units, so p = exp(s -
-// lse).  Then
+// scale (D^-0.5 unless the caller passes the forward's other scale), and lse
+// is the forward's m + log(l) in those units, so p = exp(s - lse).  Then
 //   delta_i = sum_d dout_id out_id,   dp = dout v^T,   ds = p (dp - delta),
 //   dv = p^T dout,   dk = scale ds^T q,   dq = scale ds k.
 //
@@ -147,6 +148,20 @@
 //   accumulator (96 mma.sync) met the gate in the CPU rehearsal with half
 //   the margin of the quarters.
 //
+// - bf16 (the mixed and bf16_train policies' models): the same kernels,
+//   tiles and 3xTF32 products, at every head dim, on the bf16 values read as
+//   fp32.  Each bf16 tile is converted as it is staged: 16-byte loads of 8
+//   values, converted to fp32 and stored into the fp32 tile the fp32
+//   instance's cp.async would have filled (a cp.async copies raw bytes, and a
+//   bf16 row is half the bytes the ring's fp32 rows index), so the loads of
+//   the next stage no longer overlap this stage's products; lse, delta, the
+//   D 256 cluster's exchange of s and dp, the heads' shares in `part` and
+//   every sum stay fp32.  delta is taken from the bf16 out the forward
+//   wrote, as the fp32 instance takes it from its out.  dq, dk and dv are
+//   rounded to bf16 as they are written: the fp32 gradient cast to bf16,
+//   which is what differentiating the reference's attention gives its bf16
+//   inputs (it computes in fp32 and casts its output to q's dtype).
+//
 // The tile sizes kKeys, kQueries and kSplitCols are BWD_BLOCK_KEYS,
 // BWD_BLOCK_QUERIES and BWD_SPLIT_COLS in kernels/flash_attention.py, which
 // the CPU rehearsal reads.
@@ -156,11 +171,13 @@
 // launches, so a refused launch is reported.
 
 #include <cooperative_groups.h>
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
 #include <algorithm>
+#include <type_traits>
 
 namespace {
 
@@ -228,6 +245,30 @@ __device__ __forceinline__ void cp_async4(void* dst, const void* src, bool fill)
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s), "l"(src),
                "r"(fill ? 4 : 0));
 }
+using bf16 = __nv_bfloat16;
+
+__device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(bf16 x) { return __bfloat162float(x); }
+
+// two adjacent outputs, fp32 or rounded to bf16 (to nearest)
+__device__ __forceinline__ void store2(float* p, float x, float y) {
+  *reinterpret_cast<float2*>(p) = make_float2(x, y);
+}
+__device__ __forceinline__ void store2(bf16* p, float x, float y) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(x, y);
+}
+// four adjacent outputs
+__device__ __forceinline__ void store4(float* p, float4 x) {
+  *reinterpret_cast<float4*>(p) = x;
+}
+__device__ __forceinline__ void store4(bf16* p, float4 x) {
+  const __nv_bfloat162 a = __floats2bfloat162_rn(x.x, x.y), b = __floats2bfloat162_rn(x.z, x.w);
+  uint2 u;
+  u.x = *reinterpret_cast<const uint32_t*>(&a);
+  u.y = *reinterpret_cast<const uint32_t*>(&b);
+  *reinterpret_cast<uint2*>(p) = u;
+}
+
 __device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
@@ -337,15 +378,36 @@ __device__ __forceinline__ void gemm_nn(float (&o)[D / 8][4], const float (&p)[k
 }
 
 // rows [r0, r0 + 64) of a [len, LD] matrix, their first W columns, into a
-// [64][W + 4] tile by cp.async, zeros past len
-template <int W, int LD = W>
-__device__ __forceinline__ void stage_rows(float* dst, const float* __restrict__ src, int r0,
+// [64][W + 4] fp32 tile, zeros past len: fp32 rows by cp.async, bf16 rows by
+// 16-byte loads of 8 values converted to fp32 on the way (done when the
+// function returns)
+template <int W, int LD = W, typename T>
+__device__ __forceinline__ void stage_rows(float* dst, const T* __restrict__ src, int r0,
                                            int len) {
-  constexpr int kChunks = W / 4;            // 16-byte copies a row
-  for (int i = threadIdx.x; i < 64 * kChunks; i += kThreads) {
-    const int r = i / kChunks, c = (i % kChunks) * 4;
-    const bool ok = r0 + r < len;
-    cp_async16(dst + r * row_stride(W) + c, src + (int64_t)(ok ? r0 + r : 0) * LD + c, ok);
+  if constexpr (std::is_same<T, float>::value) {
+    constexpr int kChunks = W / 4;          // 16-byte copies a row
+    for (int i = threadIdx.x; i < 64 * kChunks; i += kThreads) {
+      const int r = i / kChunks, c = (i % kChunks) * 4;
+      const bool ok = r0 + r < len;
+      cp_async16(dst + r * row_stride(W) + c, src + (int64_t)(ok ? r0 + r : 0) * LD + c, ok);
+    }
+  } else {
+    constexpr int kChunks = W / 8;          // 16-byte loads a row
+    for (int i = threadIdx.x; i < 64 * kChunks; i += kThreads) {
+      const int r = i / kChunks, c = (i % kChunks) * 8;
+      float4 lo = make_float4(0.0f, 0.0f, 0.0f, 0.0f), hi = lo;
+      if (r0 + r < len) {
+        const uint4 raw = *reinterpret_cast<const uint4*>(src + (int64_t)(r0 + r) * LD + c);
+        const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
+        const float2 a = __bfloat1622float2(h[0]), b = __bfloat1622float2(h[1]);
+        const float2 e = __bfloat1622float2(h[2]), f = __bfloat1622float2(h[3]);
+        lo = make_float4(a.x, a.y, b.x, b.y);
+        hi = make_float4(e.x, e.y, f.x, f.y);
+      }
+      float* p = dst + r * row_stride(W) + c;
+      *reinterpret_cast<float4*>(p) = lo;
+      *reinterpret_cast<float4*>(p + 4) = hi;
+    }
   }
 }
 
@@ -393,17 +455,18 @@ __device__ __forceinline__ void key_range(int q0, const Shape& sh, int& lo, int&
 }
 
 // delta[r] = sum_d dout[r][d] out[r][d]: one warp a row, 8 rows a block
+template <typename T>
 __global__ void __launch_bounds__(kThreads)
-flash_attention_bwd_delta_kernel(const float* __restrict__ out,
-                                 const float* __restrict__ dout, float* __restrict__ delta,
+flash_attention_bwd_delta_kernel(const T* __restrict__ out,
+                                 const T* __restrict__ dout, float* __restrict__ delta,
                                  int64_t rows, int d) {
   const int64_t row = (int64_t)blockIdx.x * (kThreads / 32) + threadIdx.x / 32;
   const int lane = threadIdx.x & 31;
   if (row >= rows) return;
-  const float* o = out + row * d;
-  const float* g = dout + row * d;
+  const T* o = out + row * d;
+  const T* g = dout + row * d;
   float s = 0.0f;
-  for (int i = lane; i < d; i += 32) s = fmaf(o[i], g[i], s);
+  for (int i = lane; i < d; i += 32) s = fmaf(to_f32(o[i]), to_f32(g[i]), s);
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) s += __shfl_xor_sync(0xffffffffu, s, off);
   if (lane == 0) delta[row] = s;
@@ -441,19 +504,17 @@ __device__ __forceinline__ bool merge_halves(float4* smem4, float (&acc)[M][D / 
 
 // the thread's rows g and g + 8 of a slice's W columns (of rows LD long): 8 n
 // + 2 t and + 1
-template <int W, int LD = W>
-__device__ __forceinline__ void store_rows(float* dst, int r0, int len,
+template <int W, int LD = W, typename T>
+__device__ __forceinline__ void store_rows(T* dst, int r0, int len,
                                            const float (&acc)[W / 8][4], float mul, int g,
                                            int t) {
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     const int r = r0 + g + 8 * h;
     if (r >= len) continue;
-    float* p = dst + (int64_t)r * LD + 2 * t;
+    T* p = dst + (int64_t)r * LD + 2 * t;
 #pragma unroll
-    for (int n = 0; n < W / 8; ++n)
-      *reinterpret_cast<float2*>(p + 8 * n) =
-          make_float2(acc[n][2 * h] * mul, acc[n][2 * h + 1] * mul);
+    for (int n = 0; n < W / 8; ++n) store2(p + 8 * n, acc[n][2 * h] * mul, acc[n][2 * h + 1] * mul);
   }
 }
 
@@ -521,13 +582,13 @@ __device__ __forceinline__ void cluster_sum(float4* xbuf, float (&a)[kNT][4],
 // 128 a cluster of split_of(D) blocks a (batch, q head, key tile), each on its
 // own C columns: the q head's share of dk (unscaled) and dv goes to `part`
 // ([2, B, Hq, Lk, D]), and flash_attention_bwd_sum_kernel adds the shares.
-template <int D>
+template <int D, typename T>
 __global__ void __launch_bounds__(kThreads, 1)
-flash_attention_bwd_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                                const float* __restrict__ v, const float* __restrict__ dout,
+flash_attention_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                                const T* __restrict__ v, const T* __restrict__ dout,
                                 const float* __restrict__ lse,
-                                const float* __restrict__ delta, float* __restrict__ dk,
-                                float* __restrict__ dv, float* __restrict__ part, Shape sh) {
+                                const float* __restrict__ delta, T* __restrict__ dk,
+                                T* __restrict__ dv, float* __restrict__ part, Shape sh) {
   constexpr int kSplit = split_of(D), C = D / kSplit;
   constexpr bool kPerHead = kSplit > 1;
   constexpr int S = row_stride(C);
@@ -648,9 +709,10 @@ flash_attention_bwd_dkdv_kernel(const float* __restrict__ q, const float* __rest
 // dk and dv from the q heads' shares in `part` ([2, B, Hq, Lk, D], the
 // group's heads of a kv head adjacent): each element the sum over the group
 // in head order, dk's then scaled; n4 float4s of dk, len4 of a head's share.
+template <typename T>
 __global__ void __launch_bounds__(kThreads)
-flash_attention_bwd_sum_kernel(const float4* __restrict__ part, float4* __restrict__ dk,
-                               float4* __restrict__ dv, int64_t n4, int64_t len4, int group,
+flash_attention_bwd_sum_kernel(const float4* __restrict__ part, T* __restrict__ dk,
+                               T* __restrict__ dv, int64_t n4, int64_t len4, int group,
                                float scale) {
   for (int64_t i = (int64_t)blockIdx.x * kThreads + threadIdx.x; i < 2 * n4;
        i += (int64_t)gridDim.x * kThreads) {
@@ -663,18 +725,18 @@ flash_attention_bwd_sum_kernel(const float4* __restrict__ part, float4* __restri
       x.x += y.x, x.y += y.y, x.z += y.z, x.w += y.w;
     }
     if (!is_v) x.x *= scale, x.y *= scale, x.z *= scale, x.w *= scale;
-    (is_v ? dv : dk)[j] = x;
+    store4((is_v ? dv : dk) + 4 * j, x);
   }
 }
 
 // One block a (batch, q head, query tile): dq of its 64 queries, summed over
 // the key tiles they see.  Above D 128 a cluster of split_of(D) blocks a tile.
-template <int D>
+template <int D, typename T>
 __global__ void __launch_bounds__(kThreads, dq_min_blocks(D))
-flash_attention_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                              const float* __restrict__ v, const float* __restrict__ dout,
+flash_attention_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                              const T* __restrict__ v, const T* __restrict__ dout,
                               const float* __restrict__ lse, const float* __restrict__ delta,
-                              float* __restrict__ dq, Shape sh) {
+                              T* __restrict__ dq, Shape sh) {
   constexpr int kSplit = split_of(D), C = D / kSplit;
   constexpr int S = row_stride(C);
   static_assert(park_bytes(1, C) <= dq_smem<D>(), "dq parks in shared memory");
@@ -772,14 +834,14 @@ flash_attention_bwd_dq_kernel(const float* __restrict__ q, const float* __restri
 
 // Raise each instance's dynamic shared memory limit, once, so that no launch
 // inside a CUDA-graph capture sets it.
-template <int D>
+template <int D, typename T>
 cudaError_t prepare() {
   static const cudaError_t err = [] {
-    cudaError_t e = cudaFuncSetAttribute(flash_attention_bwd_dkdv_kernel<D>,
+    cudaError_t e = cudaFuncSetAttribute(flash_attention_bwd_dkdv_kernel<D, T>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)dkdv_smem<D>());
     if (e == cudaSuccess)
-      e = cudaFuncSetAttribute(flash_attention_bwd_dq_kernel<D>,
+      e = cudaFuncSetAttribute(flash_attention_bwd_dq_kernel<D, T>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize, (int)dq_smem<D>());
     return e;
   }();
@@ -817,15 +879,16 @@ cudaError_t launch_tiles(Kernel kernel, int64_t tiles, size_t smem, cudaStream_t
 
 // registers, local bytes, shared bytes, threads, blocks an SM, blocks a
 // cluster and (above D 128) clusters the card holds at once of the dK/dV
-// (which = 0) or dQ (which = 1) kernel
-template <int D>
+// (which % 2 = 0) or dQ (which % 2 = 1) kernel, of the fp32 (which < 2) or
+// bf16 (which >= 2) instance
+template <int D, typename T>
 int resources(int which, int* out) {
   cudaFuncAttributes a;
   int blocks = 0, clusters = 0;
-  const void* fn = which ? (const void*)flash_attention_bwd_dq_kernel<D>
-                         : (const void*)flash_attention_bwd_dkdv_kernel<D>;
+  const void* fn = which ? (const void*)flash_attention_bwd_dq_kernel<D, T>
+                         : (const void*)flash_attention_bwd_dkdv_kernel<D, T>;
   const size_t smem = which ? dq_smem<D>() : dkdv_smem<D>();
-  cudaError_t err = prepare<D>();
+  cudaError_t err = prepare<D, T>();
   if (err == cudaSuccess) err = cudaFuncGetAttributes(&a, fn);
   if (err == cudaSuccess)
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, fn, kThreads, smem);
@@ -845,81 +908,110 @@ int resources(int which, int* out) {
   return (int)cudaSuccess;
 }
 
-template <int D>
-int launch(const float* q, const float* k, const float* v, const float* out,
-           const float* lse, const float* dout, float* delta, float* part, float* dq,
-           float* dk, float* dv, int64_t b, const Shape& sh, cudaStream_t stream) {
-  cudaError_t err = prepare<D>();
+template <int D, typename T>
+int launch(const T* q, const T* k, const T* v, const T* out, const float* lse, const T* dout,
+           float* delta, float* part, T* dq, T* dk, T* dv, int64_t b, const Shape& sh,
+           cudaStream_t stream) {
+  cudaError_t err = prepare<D, T>();
   if (err != cudaSuccess) return (int)err;
   const int64_t rows = b * sh.hq * sh.lq;
-  flash_attention_bwd_delta_kernel<<<(unsigned)((rows + 7) / 8), kThreads, 0, stream>>>(
+  flash_attention_bwd_delta_kernel<T><<<(unsigned)((rows + 7) / 8), kThreads, 0, stream>>>(
       out, dout, delta, rows, D);
   const int64_t kt = (sh.lk + kKeys - 1) / kKeys, qt = (sh.lq + kQueries - 1) / kQueries;
   constexpr bool kPerHead = split_of(D) > 1;
-  err = launch_tiles<D>(flash_attention_bwd_dkdv_kernel<D>,
+  err = launch_tiles<D>(flash_attention_bwd_dkdv_kernel<D, T>,
                         kt * b * (kPerHead ? sh.hq : sh.hkv), dkdv_smem<D>(), stream, q, k, v,
                         dout, lse, (const float*)delta, dk, dv, part, sh);
   if (kPerHead && err == cudaSuccess) {
     const int64_t n4 = b * sh.hkv * sh.lk * D / 4;
     const unsigned grid = (unsigned)std::min<int64_t>((2 * n4 + kThreads - 1) / kThreads, 8192);
-    flash_attention_bwd_sum_kernel<<<grid, kThreads, 0, stream>>>(
-        reinterpret_cast<const float4*>(part), reinterpret_cast<float4*>(dk),
-        reinterpret_cast<float4*>(dv), n4, (int64_t)sh.lk * D / 4, sh.hq / sh.hkv, sh.scale);
+    flash_attention_bwd_sum_kernel<T><<<grid, kThreads, 0, stream>>>(
+        reinterpret_cast<const float4*>(part), dk, dv, n4, (int64_t)sh.lk * D / 4,
+        sh.hq / sh.hkv, sh.scale);
   }
   if (err == cudaSuccess)
-    err = launch_tiles<D>(flash_attention_bwd_dq_kernel<D>, qt * b * sh.hq, dq_smem<D>(),
+    err = launch_tiles<D>(flash_attention_bwd_dq_kernel<D, T>, qt * b * sh.hq, dq_smem<D>(),
                           stream, q, k, v, dout, lse, (const float*)delta, dq, sh);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
 
+template <typename T>
+int entry(const void* q, const void* k, const void* v, const void* out, const void* lse,
+          const void* dout, void* delta, void* part, void* dq, void* dk, void* dv, int64_t b,
+          int64_t hq, int64_t hkv, int64_t lq, int64_t lk, int64_t d, int64_t causal,
+          int64_t window, double scale, void* stream) {
+  if (b <= 0 || hq <= 0 || lq <= 0 || lk <= 0) return (int)cudaSuccess;
+  if (hkv <= 0 || hq % hkv || lq > lk || window < 0 || lk > 0x7fffffff ||
+      b * hq * ((lq + kQueries - 1) / kQueries) * (d > 128 ? d / kSplitCols : 1) > 0x7fffffff)
+    return (int)cudaErrorInvalidValue;
+  const Shape sh{(int)hq, (int)hkv, (int)lq, (int)lk, (int)causal, (int)window,
+                 (float)(scale > 0.0 ? scale : 1.0 / sqrt((double)d))};
+  const auto* tq = static_cast<const T*>(q);
+  const auto* tk = static_cast<const T*>(k);
+  const auto* tv = static_cast<const T*>(v);
+  const auto* to = static_cast<const T*>(out);
+  const auto* fl = static_cast<const float*>(lse);
+  const auto* tg = static_cast<const T*>(dout);
+  auto* fd = static_cast<float*>(delta);
+  auto* fp = static_cast<float*>(part);
+  auto* gq = static_cast<T*>(dq);
+  auto* gk = static_cast<T*>(dk);
+  auto* gv = static_cast<T*>(dv);
+  const auto s = (cudaStream_t)stream;
+  switch (d) {
+    case 32: return launch<32, T>(tq, tk, tv, to, fl, tg, fd, fp, gq, gk, gv, b, sh, s);
+    case 64: return launch<64, T>(tq, tk, tv, to, fl, tg, fd, fp, gq, gk, gv, b, sh, s);
+    case 128: return launch<128, T>(tq, tk, tv, to, fl, tg, fd, fp, gq, gk, gv, b, sh, s);
+    case 256: return launch<256, T>(tq, tk, tv, to, fl, tg, fd, fp, gq, gk, gv, b, sh, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+template <typename T>
+int resources_of(int64_t d, int which, int* out) {
+  switch (d) {
+    case 32: return resources<32, T>(which, out);
+    case 64: return resources<64, T>(which, out);
+    case 128: return resources<128, T>(which, out);
+    case 256: return resources<256, T>(which, out);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
 }  // namespace
 
-// delta is [B, Hq, Lq] scratch; part [2, B, Hq, Lk, D] scratch above D 128 (the q
-// heads' shares of dk and dv), unread below; window 0 means none; causal 0 or 1.
+// delta is [B, Hq, Lq] scratch; part [2, B, Hq, Lk, D] fp32 scratch above D 128 (the
+// q heads' shares of dk and dv), unread below; window 0 means none; causal 0 or 1;
+// scale <= 0 means D^-0.5 (the forward's).
 extern "C" int flash_attention_bwd_f32(const void* q, const void* k, const void* v,
                                        const void* out, const void* lse, const void* dout,
                                        void* delta, void* part, void* dq, void* dk, void* dv,
                                        int64_t b,
                                        int64_t hq, int64_t hkv, int64_t lq, int64_t lk,
                                        int64_t d, int64_t causal, int64_t window,
-                                       void* stream) {
-  if (b <= 0 || hq <= 0 || lq <= 0 || lk <= 0) return (int)cudaSuccess;
-  if (hkv <= 0 || hq % hkv || lq > lk || window < 0 || lk > 0x7fffffff ||
-      b * hq * ((lq + kQueries - 1) / kQueries) * (d > 128 ? d / kSplitCols : 1) > 0x7fffffff)
-    return (int)cudaErrorInvalidValue;
-  const Shape sh{(int)hq, (int)hkv, (int)lq, (int)lk, (int)causal, (int)window,
-                 (float)(1.0 / sqrt((double)d))};
-  const auto* fq = static_cast<const float*>(q);
-  const auto* fk = static_cast<const float*>(k);
-  const auto* fv = static_cast<const float*>(v);
-  const auto* fo = static_cast<const float*>(out);
-  const auto* fl = static_cast<const float*>(lse);
-  const auto* fg = static_cast<const float*>(dout);
-  auto* fd = static_cast<float*>(delta);
-  auto* fp = static_cast<float*>(part);
-  auto* gq = static_cast<float*>(dq);
-  auto* gk = static_cast<float*>(dk);
-  auto* gv = static_cast<float*>(dv);
-  const auto s = (cudaStream_t)stream;
-  switch (d) {
-    case 32: return launch<32>(fq, fk, fv, fo, fl, fg, fd, fp, gq, gk, gv, b, sh, s);
-    case 64: return launch<64>(fq, fk, fv, fo, fl, fg, fd, fp, gq, gk, gv, b, sh, s);
-    case 128: return launch<128>(fq, fk, fv, fo, fl, fg, fd, fp, gq, gk, gv, b, sh, s);
-    case 256: return launch<256>(fq, fk, fv, fo, fl, fg, fd, fp, gq, gk, gv, b, sh, s);
-    default: return (int)cudaErrorInvalidValue;
-  }
+                                       double scale, void* stream) {
+  return entry<float>(q, k, v, out, lse, dout, delta, part, dq, dk, dv, b, hq, hkv, lq, lk, d,
+                      causal, window, scale, stream);
+}
+
+// The same with q, k, v, out, dout, dq, dk, dv in bf16 (lse, delta, part fp32).
+extern "C" int flash_attention_bwd_bf16(const void* q, const void* k, const void* v,
+                                        const void* out, const void* lse, const void* dout,
+                                        void* delta, void* part, void* dq, void* dk, void* dv,
+                                        int64_t b,
+                                        int64_t hq, int64_t hkv, int64_t lq, int64_t lk,
+                                        int64_t d, int64_t causal, int64_t window,
+                                        double scale, void* stream) {
+  return entry<bf16>(q, k, v, out, lse, dout, delta, part, dq, dk, dv, b, hq, hkv, lq, lk, d,
+                     causal, window, scale, stream);
 }
 
 // For reports: out[7] = registers, local bytes, shared bytes, threads, blocks an
 // SM, blocks a cluster, clusters at once (0 below D 256) of the dK/dV (which 0)
-// or dQ (which 1) kernel at head dim d.
+// or dQ (which 1) kernel at head dim d, fp32; which 2 and 3 the bf16 instance's.
 extern "C" int flash_attention_bwd_resources(int64_t d, int64_t which, int* out) {
-  switch (d) {
-    case 32: return resources<32>((int)which, out);
-    case 64: return resources<64>((int)which, out);
-    case 128: return resources<128>((int)which, out);
-    case 256: return resources<256>((int)which, out);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  if (which < 0 || which > 3) return (int)cudaErrorInvalidValue;
+  return which < 2 ? resources_of<float>(d, (int)which, out)
+                   : resources_of<bf16>(d, (int)which - 2, out);
 }

@@ -1,16 +1,17 @@
 """Causal GQA flash attention and its gradient: the Hopper kernels' wrappers.
 
-``flash_attention(q, k, v, causal=True, window=None)`` takes the
-reference kernel's layout, q ``[B, Hq, Lq, D]`` and k/v ``[B, Hkv, Lk,
+``flash_attention(q, k, v, causal=True, window=None, scale=None)`` takes
+the reference kernel's layout, q ``[B, Hq, Lq, D]`` and k/v ``[B, Hkv, Lk,
 D]``, with ``Lq <= Lk`` (the queries are the last Lq positions), any
 GQA group ``Hq / Hkv``, an optional sliding window (a key at position j
 is seen from position i if ``j > i - window``) with or without the
 causal mask, and returns ``[B, Hq, Lq, D]`` in q's dtype.  Softmax and
-accumulation are fp32, scale ``D ** -0.5``, as the reference's kernel.
+accumulation are fp32, the scores scaled by ``scale`` (``D ** -0.5`` by
+default, the reference kernel's) in fp32.
 The attention module transposes its ``[B, L, H, D]`` projections to
 this layout around the call.  DeepSeek-V2's MLA, whose q/k and v head
 dims differ and whose scale is the q/k head dim's, reaches it padded
-with zero columns to one of ``HEAD_DIMS``, q scaled to match
+with zero columns to one of ``HEAD_DIMS``, passing its own scale
 (``models/attention._padded_attention``).
 
 One CUDA kernel, ``csrc/flash_attention.cu``, for fp32 and bf16 and
@@ -24,9 +25,11 @@ The gradient: where autograd needs one (grad mode on and an input that
 requires grad, or a ``torch.func`` transform), the call goes through
 :class:`FlashAttention`, a ``torch.autograd.Function`` whose forward
 keeps ``lse`` and whose backward is ``csrc/flash_attention_bwd.cu``
-(fp32, head dims 32, 64, 128 and 256: :func:`flash_attention_bwd`; its
-five products on the tensor cores as three TF32 products, as the
-forward's; at head dim 256 a cluster of four blocks splits D).  Both
+(fp32 and bf16, head dims 32, 64, 128 and 256: :func:`flash_attention_bwd`;
+its five products on the tensor cores as three TF32 products, as the
+fp32 forward's, bf16 tiles converted to fp32 as they are staged and the
+gradients rounded to bf16 as they are written; at head dim 256 a cluster
+of four blocks splits D).  Both
 Functions carry a ``vmap`` rule that folds the mapped dimension into B,
 so ``torch.func.vmap(torch.func.grad(...))`` (per-example DP-SGD) runs
 the same kernels.  The reference has no backward kernel: XLA
@@ -51,7 +54,7 @@ from repro_torch.kernels.ref import (flash_attention_bwd_ref, flash_attention_ls
 NAME = "flash_attention"
 BWD_NAME = "flash_attention_bwd"
 HEAD_DIMS = (32, 64, 128, 256)          # the kernel's template instances
-BWD_HEAD_DIMS = (32, 64, 128, 256)      # the backward's (fp32 only)
+BWD_HEAD_DIMS = (32, 64, 128, 256)      # the backward's, fp32 and bf16
 # the kernel's tiles (kBlockM and kBlockN in csrc/flash_attention.cu): packed
 # (query, head) rows a block, and keys a K/V stage, half of them a warp
 BLOCK_ROWS = 64
@@ -85,9 +88,16 @@ def padded_head_dim(width: int) -> int:
     raise NotPorted(NAME, f"head dim {width}", f"up to {HEAD_DIMS[-1]}, the widest instance")
 
 _ENTRY = {torch.float32: "flash_attention_f32", torch.bfloat16: "flash_attention_bf16"}
-_P, _I = ctypes.c_void_p, ctypes.c_int64
-_ARGS = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P]
-_BWD_ARGS = [_P] * 11 + [_I] * 8 + [_P]
+_BWD_ENTRY = {torch.float32: "flash_attention_bwd_f32",
+              torch.bfloat16: "flash_attention_bwd_bf16"}
+_P, _I, _D = ctypes.c_void_p, ctypes.c_int64, ctypes.c_double
+_ARGS = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _D, _P]
+_BWD_ARGS = [_P] * 11 + [_I] * 8 + [_D, _P]
+
+
+def _scale_arg(scale: Optional[float]) -> float:
+    """The kernels' scale argument: 0 asks for D ** -0.5."""
+    return 0.0 if scale is None else float(scale)
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -117,16 +127,16 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def check_bwd_instance(dtype: torch.dtype, head_dim: int) -> None:
     """Raise :class:`~repro_torch.NotPorted` (seam ``flash_attention_bwd``)
     where the backward kernel has no instance for ``dtype`` and
-    ``head_dim``: it has fp32 at head dims 32, 64, 128 and 256."""
-    if dtype != torch.float32 or head_dim not in BWD_HEAD_DIMS:
+    ``head_dim``: it has fp32 and bf16 at head dims 32, 64, 128 and 256."""
+    if dtype not in _BWD_ENTRY or head_dim not in BWD_HEAD_DIMS:
         from repro_torch import NotPorted
         raise NotPorted(BWD_NAME, f"a {dtype} gradient at head dim {head_dim} on the card",
-                        f"float32 at head dims {BWD_HEAD_DIMS}")
+                        f"float32 and bfloat16 at head dims {BWD_HEAD_DIMS}")
 
 
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          causal: bool = True, window: Optional[int] = None,
-                         with_lse: bool = False):
+                         with_lse: bool = False, scale: Optional[float] = None):
     """Launch the CUDA kernel on PyTorch's current stream: ``out``, or
     ``(out, lse)`` with ``with_lse``."""
     _check(q, k, v, window)
@@ -143,21 +153,28 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             build.launch(NAME, _ENTRY[q.dtype], _ARGS, q.data_ptr(), k.data_ptr(),
                          v.data_ptr(), out.data_ptr(), 0 if lse is None else lse.data_ptr(),
                          b, hq, hkv, lq, lk, d, int(causal),
-                         0 if window is None else int(window), build.stream())
+                         0 if window is None else int(window), _scale_arg(scale),
+                         build.stream())
     return (out, lse) if with_lse else out
 
 
-def _lse_cuda(q, k, v, causal, window):
-    return flash_attention_cuda(q, k, v, causal, window, with_lse=True)
+def _out_cuda(q, k, v, causal, window, scale):
+    return flash_attention_cuda(q, k, v, causal, window, scale=scale)
+
+
+def _lse_cuda(q, k, v, causal, window, scale):
+    return flash_attention_cuda(q, k, v, causal, window, with_lse=True, scale=scale)
 
 
 def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                              out: torch.Tensor, lse: torch.Tensor, dout: torch.Tensor,
-                             causal: bool = True, window: Optional[int] = None
+                             causal: bool = True, window: Optional[int] = None,
+                             scale: Optional[float] = None
                              ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Launch the backward (its kernels: delta, dK/dV, above head dim 128
     the sum of the q heads' shares of dk and dv, dQ) on PyTorch's current
-    stream; one launch counted."""
+    stream; one launch counted.  fp32 or bf16 tensors (``lse`` fp32); the
+    gradients in q's dtype."""
     _check(q, k, v, window)
     check_bwd_instance(q.dtype, q.shape[-1])
     if out.shape != q.shape or dout.shape != q.shape or lse.shape != q.shape[:3]:
@@ -181,23 +198,24 @@ def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     part = (torch.empty((2, b, hq, lk, d), dtype=torch.float32, device=q.device)
             if bwd_split_cols(d) < d else None)
     with torch.cuda.device(q.device):
-        build.launch(BWD_NAME, "flash_attention_bwd_f32", _BWD_ARGS,
+        build.launch(BWD_NAME, _BWD_ENTRY[q.dtype], _BWD_ARGS,
                      *(t.data_ptr() for t in (q, k, v, out, lse, dout, delta)),
                      0 if part is None else part.data_ptr(),
                      *(t.data_ptr() for t in (dq, dk, dv)),
                      b, hq, hkv, lq, lk, d, int(causal), 0 if window is None else int(window),
-                     build.stream())
+                     _scale_arg(scale), build.stream())
     return dq, dk, dv
 
 
 def flash_attention_bwd(q, k, v, out, lse, dout, causal: bool = True,
-                        window: Optional[int] = None):
+                        window: Optional[int] = None, scale: Optional[float] = None):
     """(dq, dk, dv) of :func:`flash_attention` from its inputs, its output,
     its ``lse`` and the output's gradient: the plain version on CPU, the
     kernel on CUDA."""
     _check(q, k, v, window)
     return build.dispatch(BWD_NAME, q.device, flash_attention_bwd_ref,
-                          flash_attention_bwd_cuda, q, k, v, out, lse, dout, causal, window)
+                          flash_attention_bwd_cuda, q, k, v, out, lse, dout, causal, window,
+                          scale)
 
 
 class FlashAttentionBackward(torch.autograd.Function):
@@ -206,8 +224,8 @@ class FlashAttentionBackward(torch.autograd.Function):
     It has no derivative of its own."""
 
     @staticmethod
-    def forward(q, k, v, out, lse, dout, causal, window):
-        return flash_attention_bwd(q, k, v, out, lse, dout, causal, window)
+    def forward(q, k, v, out, lse, dout, causal, window, scale):
+        return flash_attention_bwd(q, k, v, out, lse, dout, causal, window, scale)
 
     @staticmethod
     def setup_context(ctx, inputs, output):
@@ -218,9 +236,9 @@ class FlashAttentionBackward(torch.autograd.Function):
         raise NotImplementedError("flash_attention: no second derivative")
 
     @staticmethod
-    def vmap(info, in_dims, q, k, v, out, lse, dout, causal, window):
+    def vmap(info, in_dims, q, k, v, out, lse, dout, causal, window, scale):
         folded = build.fold(info, in_dims[:6], (q, k, v, out, lse, dout))
-        grads = FlashAttentionBackward.apply(*folded, causal, window)
+        grads = FlashAttentionBackward.apply(*folded, causal, window, scale)
         return tuple(build.unfold(info, g) for g in grads), (0, 0, 0)
 
 
@@ -229,41 +247,43 @@ class FlashAttention(torch.autograd.Function):
     from the backward kernel (``lse`` is not differentiable)."""
 
     @staticmethod
-    def forward(q, k, v, causal, window):
+    def forward(q, k, v, causal, window, scale):
         return build.dispatch(NAME, q.device, flash_attention_lse_ref, _lse_cuda,
-                              q, k, v, causal, window)
+                              q, k, v, causal, window, scale)
 
     @staticmethod
     def setup_context(ctx, inputs, output):
-        q, k, v, causal, window = inputs
+        q, k, v, causal, window, scale = inputs
         out, lse = output
         ctx.mark_non_differentiable(lse)
         ctx.save_for_backward(q, k, v, out, lse)
-        ctx.causal, ctx.window = causal, window
+        ctx.causal, ctx.window, ctx.scale = causal, window, scale
 
     @staticmethod
     def backward(ctx, dout, _dlse):
         q, k, v, out, lse = ctx.saved_tensors
         dq, dk, dv = FlashAttentionBackward.apply(q, k, v, out, lse, dout, ctx.causal,
-                                                  ctx.window)
-        return dq, dk, dv, None, None
+                                                  ctx.window, ctx.scale)
+        return dq, dk, dv, None, None, None
 
     @staticmethod
-    def vmap(info, in_dims, q, k, v, causal, window):
+    def vmap(info, in_dims, q, k, v, causal, window, scale):
         out, lse = FlashAttention.apply(*build.fold(info, in_dims[:3], (q, k, v)), causal,
-                                        window)
+                                        window, scale)
         return (build.unfold(info, out), build.unfold(info, lse)), (0, 0)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    causal: bool = True, window: Optional[int] = None) -> torch.Tensor:
+                    causal: bool = True, window: Optional[int] = None,
+                    scale: Optional[float] = None) -> torch.Tensor:
     """[B, Hq, Lq, D] x [B, Hkv, Lk, D]^2 -> [B, Hq, Lq, D]: the plain
     version on CPU, the kernel on CUDA; differentiable through
-    :class:`FlashAttention` wherever autograd or a transform needs it."""
+    :class:`FlashAttention` wherever autograd or a transform needs it.
+    ``scale`` multiplies the scores (default ``D ** -0.5``)."""
     _check(q, k, v, window)
     if build.needs_grad(q, k, v):
         if q.device.type == "cuda":
             check_bwd_instance(q.dtype, q.shape[-1])  # before the forward runs
-        return FlashAttention.apply(q, k, v, causal, window)[0]
-    return build.dispatch(NAME, q.device, flash_attention_ref, flash_attention_cuda,
-                          q, k, v, causal, window)
+        return FlashAttention.apply(q, k, v, causal, window, scale)[0]
+    return build.dispatch(NAME, q.device, flash_attention_ref, _out_cuda,
+                          q, k, v, causal, window, scale)

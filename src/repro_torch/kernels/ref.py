@@ -158,9 +158,9 @@ def _seen(lq: int, lk: int, causal: bool, window: Optional[int], device) -> torc
     return ok
 
 
-def _scores(q, k, causal, window):
-    """(masked fp32 scores [B, Hq, Lq, Lk], the mask, k's heads repeated
-    over the GQA group as a function)."""
+def _scores(q, k, causal, window, scale=None):
+    """(masked fp32 scores [B, Hq, Lq, Lk] at ``scale``, default D ** -0.5,
+    the mask, k's heads repeated over the GQA group as a function)."""
     b, hq, lq, d = q.shape
     hkv, lk = k.shape[1], k.shape[2]
     group = hq // hkv
@@ -168,30 +168,33 @@ def _scores(q, k, causal, window):
     def per_q_head(t):
         return t.repeat_interleave(group, dim=1).float()
 
-    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), per_q_head(k)) * (d ** -0.5)
+    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), per_q_head(k)) * \
+        (d ** -0.5 if scale is None else scale)
     ok = _seen(lq, lk, causal, window, q.device)
     return torch.where(ok, s, torch.full_like(s, NEG_INF)), ok, per_q_head
 
 
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                        causal: bool = True, window: Optional[int] = None) -> torch.Tensor:
+                        causal: bool = True, window: Optional[int] = None,
+                        scale: Optional[float] = None) -> torch.Tensor:
     """q [B, Hq, Lq, D]; k/v [B, Hkv, Lk, D] -> [B, Hq, Lq, D] in q's dtype.
 
     GQA (q head h reads kv head ``h // (Hq / Hkv)``), fp32 softmax, scale
-    ``D ** -0.5``.  The queries are the last Lq positions; a key at
+    ``D ** -0.5`` unless ``scale`` is given.  The queries are the last Lq positions; a key at
     position j is seen by the query at position i if ``j <= i`` (causal)
     and ``j > i - window`` (a sliding window); other scores are -1e30."""
-    s, _, per_q_head = _scores(q, k, causal, window)
+    s, _, per_q_head = _scores(q, k, causal, window, scale)
     p = torch.softmax(s, dim=-1)
     return torch.einsum("bhqk,bhkd->bhqd", p, per_q_head(v)).to(q.dtype)
 
 
 def flash_attention_lse_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                            causal: bool = True, window: Optional[int] = None
+                            causal: bool = True, window: Optional[int] = None,
+                            scale: Optional[float] = None
                             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """:func:`flash_attention_ref` and each row's log-sum-exp of the masked,
     scaled scores (fp32 [B, Hq, Lq]): what the backward reads."""
-    s, _, per_q_head = _scores(q, k, causal, window)
+    s, _, per_q_head = _scores(q, k, causal, window, scale)
     lse = torch.logsumexp(s, dim=-1)
     p = torch.exp(s - lse[..., None])
     return torch.einsum("bhqk,bhkd->bhqd", p, per_q_head(v)).to(q.dtype), lse
@@ -199,7 +202,8 @@ def flash_attention_lse_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def flash_attention_bwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                             out: torch.Tensor, lse: torch.Tensor, dout: torch.Tensor,
-                            causal: bool = True, window: Optional[int] = None
+                            causal: bool = True, window: Optional[int] = None,
+                            scale: Optional[float] = None
                             ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The gradient of :func:`flash_attention_ref`, written out: with
     ``p = exp(s - lse)`` (0 where the masks hide a key), ``delta =
@@ -208,15 +212,18 @@ def flash_attention_bwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         dv = p^T dout,   dq = scale ds k,   dk = scale ds^T q,
 
     dk and dv summed over the q heads of each GQA group.  Returns (dq, dk,
-    dv) in the dtypes of q, k, v."""
+    dv) in the dtypes of q, k, v.  The plain version of both instances of
+    the backward kernel: bf16 inputs are read as fp32, delta is taken from
+    the bf16 ``out`` as given, and the fp32 gradients are rounded to bf16
+    at the end."""
     b, hq, lq, d = q.shape
     hkv, lk = k.shape[1], k.shape[2]
-    s, ok, per_q_head = _scores(q, k, causal, window)
+    s, ok, per_q_head = _scores(q, k, causal, window, scale)
     p = torch.where(ok, torch.exp(s - lse.float()[..., None]), torch.zeros_like(s))
     g = dout.float()
     delta = torch.sum(g * out.float(), dim=-1)
     ds = p * (torch.einsum("bhqd,bhkd->bhqk", g, per_q_head(v)) - delta[..., None])
-    scale = d ** -0.5
+    scale = d ** -0.5 if scale is None else scale
     dq = torch.einsum("bhqk,bhkd->bhqd", ds, per_q_head(k)) * scale
     dk = torch.einsum("bhqk,bhqd->bhkd", ds, q.float()) * scale
     dv = torch.einsum("bhqk,bhqd->bhkd", p, g)

@@ -28,7 +28,7 @@ from collections import defaultdict
 
 import torch
 
-from repro_torch.configs.registry import get_arch
+from repro_torch.configs.registry import get_token_arch
 from repro_torch.kernels.ops import KERNELS, symbol_pattern
 from repro_torch.launch import serve
 from repro_torch.models import transformer as T
@@ -68,7 +68,7 @@ def main(argv=None) -> int:
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip())
     torch.backends.cuda.matmul.allow_tf32 = False
-    cfg = get_arch(args.arch).CONFIG
+    cfg = get_token_arch(args.arch).CONFIG
     if args.layers is not None:
         cfg = dataclasses.replace(cfg, num_layers=args.layers)
     gen = torch.Generator(device="cuda").manual_seed(args.seed)

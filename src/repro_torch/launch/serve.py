@@ -20,7 +20,7 @@ from typing import Dict
 
 import torch
 
-from repro_torch.configs.registry import get_arch
+from repro_torch.configs.registry import get_token_arch
 from repro_torch.kernels import build
 from repro_torch.models import transformer as T
 
@@ -91,7 +91,7 @@ def run(args) -> dict:
     the reference's keys (``prefill_s``, ``decode_s``, ``tok_per_s``), the
     first 16 continuation ids of prompt 0, whether every logit was finite,
     and each phase's kernel launches."""
-    arch = get_arch(args.arch)
+    arch = get_token_arch(args.arch)
     cfg = arch.reduced() if args.reduced else arch.CONFIG
     device = resolve_device(args.device)
     gen = torch.Generator(device=device).manual_seed(args.seed)

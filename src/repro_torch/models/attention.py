@@ -10,10 +10,9 @@ Two entry modes for each:
     projections are transposed to it and back around the call.  MLA's q/k
     and v head dims differ (192 and 128 at full width) and its scale is
     ``qk_head_dim ** -0.5``; the kernel takes one head dim from its
-    instances and scale ``D ** -0.5``, so :func:`_padded_attention` pads
-    q, k and v with zero columns to the smallest instance that holds
-    both, scales q by ``sqrt(D / qk_head_dim)`` and keeps v's columns of
-    the output.
+    instances, so :func:`_padded_attention` pads q, k and v with zero
+    columns to the smallest instance that holds both, passes the scale
+    and keeps v's columns of the output.
   * :func:`gqa_decode` / :func:`mla_decode` — one new token against the
     cache, with the reference's own plain math (:func:`sdpa` over the
     cache and a slot mask; MLA's absorbed latent-space attention): the
@@ -185,15 +184,14 @@ def _padded_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """Causal attention of q/k ``[B, L, H, qk_head_dim]`` and v ``[B, L, H,
     v_head_dim]`` at scale ``qk_head_dim ** -0.5`` through the flash
     kernel's ``padded_head_dim`` instance: zero columns add nothing to a
-    score and come out of v as zeros; q is scaled by ``sqrt(D / qk)`` so
-    the kernel's ``D ** -0.5`` gives the reference's scale."""
+    score and come out of v as zeros; the scale is the kernel's argument,
+    applied to the fp32 scores, so a bf16 q is not rounded again."""
     d = padded_head_dim(max(m.qk_head_dim, m.v_head_dim))
 
     def pad(t):
         return _heads_first(torch.nn.functional.pad(t, (0, d - t.shape[-1])))
 
-    q = q * (d / m.qk_head_dim) ** 0.5
-    out = flash_attention(pad(q), pad(k), pad(v), causal=True)
+    out = flash_attention(pad(q), pad(k), pad(v), causal=True, scale=m.qk_head_dim ** -0.5)
     return out[..., : m.v_head_dim].transpose(1, 2)      # [B, L, H, v_head_dim]
 
 

@@ -13,7 +13,13 @@
   stacked leaves, so a reference tree converts leaf by leaf.
 * **Training**: :func:`next_token_loss`, the reference's mean next-token
   cross-entropy plus the MoE aux term, through :func:`forward` (whose
-  attention layers differentiate through the flash-attention kernels).
+  attention layers differentiate through the flash-attention kernels);
+  ``remat=True`` checkpoints each repeat of the periodic group, where the
+  reference checkpoints its scan body.
+* **Precision**: parameters in bf16 (the ``mixed`` and ``bf16_train``
+  policies, and bf16 serving) keep the reference's fp32 islands: RMSNorm
+  statistics, rope, attention's softmax (cast back to q's dtype), MLA's
+  absorbed decode, the scans' state, the MoE router and the logits.
 * **Serving**: :func:`prefill` returns logits of the last position and
   per-layer caches (KV ring buffers, MLA's latent cache, RWKV and Mamba
   states); :func:`decode_step` advances one token.  Every layer's prefill
@@ -30,6 +36,7 @@ import dataclasses
 from typing import Any, Dict, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import LayerSpec, ModelConfig
 from repro_torch.models import attention as attn
@@ -282,8 +289,34 @@ def unembed(params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     return _mask_pad(logits, cfg)
 
 
-def forward(params, tokens: torch.Tensor, cfg: ModelConfig, moe_impl: str = "dense"):
-    """Full-sequence forward pass. Returns (logits, aux loss)."""
+def _group_forward(params, x: torch.Tensor, aux: torch.Tensor, cfg: ModelConfig,
+                   group: ScanGroup, remat: bool, moe_impl: str):
+    """The periodic group's repeats in order (training / eval, no caches).
+    With ``remat`` each repeat's ``period`` layers run under a checkpoint,
+    as the reference checkpoints its scan body: their activations are
+    recomputed in the backward instead of kept."""
+
+    def body(h, a, layer_params):
+        for j, spec in enumerate(group.specs):
+            h, _, aj = _layer_apply(layer_params[j], h, cfg, spec, spec.sliding_window,
+                                    moe_impl=moe_impl)
+            a = a + aj
+        return h, a
+
+    for r in range(group.n_repeats):
+        layer_params = [_repeat(p, r) for p in params["scan_layers"]]
+        if remat:
+            x, aux = checkpoint(body, x, aux, layer_params, use_reentrant=False)
+        else:
+            x, aux = body(x, aux, layer_params)
+    return x, aux
+
+
+def forward(params, tokens: torch.Tensor, cfg: ModelConfig, remat: bool = False,
+            moe_impl: str = "dense"):
+    """Full-sequence forward pass. Returns (logits, aux loss).  ``remat``
+    checkpoints each repeat of the periodic layer group (the values do
+    not change)."""
     prefix, group = plan_groups(cfg)
     x = embed_tokens(params, tokens, cfg)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -293,11 +326,7 @@ def forward(params, tokens: torch.Tensor, cfg: ModelConfig, moe_impl: str = "den
                                spec.sliding_window, moe_impl=moe_impl)
         aux = aux + a
     if group is not None:
-        for r in range(group.n_repeats):
-            for j, spec in enumerate(group.specs):
-                x, _, a = _layer_apply(_repeat(params["scan_layers"][j], r), x, cfg, spec,
-                                       spec.sliding_window, moe_impl=moe_impl)
-                aux = aux + a
+        x, aux = _group_forward(params, x, aux, cfg, group, remat, moe_impl)
     x = rmsnorm_apply(params["final_norm"], x, cfg.norm_eps)
     return unembed(params, x, cfg), aux
 
@@ -318,13 +347,14 @@ def token_loss_of(logits: torch.Tensor, aux: torch.Tensor, tokens: torch.Tensor,
     return loss + coef * aux, {"ce": loss, "aux": aux}
 
 
-def next_token_loss(params, batch, cfg: ModelConfig, moe_impl: str = "dense",
-                    aux_coef: Optional[float] = None):
+def next_token_loss(params, batch, cfg: ModelConfig, remat: bool = False,
+                    moe_impl: str = "dense", aux_coef: Optional[float] = None):
     """Mean next-token cross-entropy (+ the MoE load-balance aux term, at
     ``aux_coef`` or the config's ``router_aux_coef``): ``(loss, {"ce",
-    "aux"})``.  With codebooks the mean runs over every codebook too."""
+    "aux"})``.  With codebooks the mean runs over every codebook too.
+    ``remat`` as in :func:`forward`."""
     tokens = batch["tokens"]
-    logits, aux = forward(params, tokens, cfg, moe_impl=moe_impl)
+    logits, aux = forward(params, tokens, cfg, remat=remat, moe_impl=moe_impl)
     return token_loss_of(logits, aux, tokens, cfg, aux_coef)
 
 

@@ -33,35 +33,70 @@ def apply_updates(params, updates):
     return tree_map(lambda p, u: (p.float() + u.float()).to(p.dtype), params, updates)
 
 
-def adamw(lr: float, b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
-          weight_decay: float = 0.0) -> Optimizer:
-    """AdamW with bias correction and fp32 moments; decay applies to every
-    leaf.
+def _lr_fn(lr) -> Callable:
+    return lr if callable(lr) else (lambda _: lr)
 
-    The step count is cast to fp32 for the bias corrections, and the
-    update is ``-lr * (m_hat / (sqrt(v_hat) + eps) + wd * p)``, as in the
-    reference."""
+
+def _zeros_like(p, dtype) -> torch.Tensor:
+    return torch.zeros(p.shape, dtype=dtype, device=p.device)
+
+
+def sgd(lr, momentum: float = 0.0, state_dtype=torch.float32) -> Optimizer:
+    """SGD with optional (heavy-ball) momentum kept in ``state_dtype``;
+    ``lr`` a float or a schedule ``lr(step)`` of the step count (an int32
+    tensor, 1 at the first update)."""
+    lr_fn = _lr_fn(lr)
+
+    def init(params):
+        state = {"step": torch.zeros((), dtype=torch.int32,
+                                     device=tree_leaves(params)[0].device)}
+        if momentum:
+            state["mom"] = tree_map(lambda p: _zeros_like(p, state_dtype), params)
+        return state
+
+    def update(grads, state, params=None):
+        step = state["step"] + 1
+        lr_t = lr_fn(step)
+        if momentum:
+            mom = tree_map(lambda m, g: (momentum * m.float() + g.float()).to(state_dtype),
+                           state["mom"], grads)
+            return tree_map(lambda m: -lr_t * m.float(), mom), {"step": step, "mom": mom}
+        return tree_map(lambda g: -lr_t * g.float(), grads), {"step": step}
+
+    return Optimizer(init, update)
+
+
+def adamw(lr, b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
+          weight_decay: float = 0.0, state_dtype=torch.float32) -> Optimizer:
+    """AdamW with bias correction; decay applies to every leaf.
+
+    ``lr`` is a float or a schedule ``lr(step)`` of the step count (an
+    int32 tensor, 1 at the first update).  The moments are stored in
+    ``state_dtype`` and updated in fp32, then cast back.  The step count
+    is cast to fp32 for the bias corrections, and the update is ``-lr *
+    (m_hat / (sqrt(v_hat) + eps) + wd * p)``, as in the reference."""
+    lr_fn = _lr_fn(lr)
 
     def init(params):
         leaves = tree_leaves(params)
-        zeros = lambda p: torch.zeros(p.shape, dtype=torch.float32, device=p.device)
         return {"step": torch.zeros((), dtype=torch.int32, device=leaves[0].device),
-                "mu": tree_map(zeros, params),
-                "nu": tree_map(zeros, params)}
+                "mu": tree_map(lambda p: _zeros_like(p, state_dtype), params),
+                "nu": tree_map(lambda p: _zeros_like(p, state_dtype), params)}
 
     def update(grads, state, params):
         step = state["step"] + 1
+        lr_t = lr_fn(step)
         c1 = 1.0 - b1 ** step.float()
         c2 = 1.0 - b2 ** step.float()
 
         def upd(g, m, v, p):
             g32 = g.float()
-            m32 = b1 * m + (1 - b1) * g32
-            v32 = b2 * v + (1 - b2) * torch.square(g32)
+            m32 = b1 * m.float() + (1 - b1) * g32
+            v32 = b2 * v.float() + (1 - b2) * torch.square(g32)
             mhat = m32 / c1
             vhat = v32 / c2
-            u = -(lr * (mhat / (torch.sqrt(vhat) + eps) + weight_decay * p.float()))
-            return u, m32, v32
+            u = -(lr_t * (mhat / (torch.sqrt(vhat) + eps) + weight_decay * p.float()))
+            return u, m32.to(state_dtype), v32.to(state_dtype)
 
         out = [upd(g, m, v, p) for g, m, v, p in zip(
             tree_leaves(grads), tree_leaves(state["mu"]),

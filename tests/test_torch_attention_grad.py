@@ -17,16 +17,16 @@
   DP-SGD) runs through its ``vmap`` rules and gives autograd's per-example
   gradients; no second derivative.
 - The refusals of a gradient instance the backward kernels lack (the
-  WKV-6 scan at head dim 128, the selective scan at d_state 48, any bf16
-  gradient, gemma3-1b's attention in bf16): ``NotPorted`` naming the
+  WKV-6 scan at head dim 128, the selective scan at d_state 48, the scans
+  in bf16, attention at head dim 96): ``NotPorted`` naming the
   backward's seam, on the card only, decided without one; the CPU trains
   through the plain versions.  Full-width gemma3-1b (head dim 256, fp32)
   passes ``FederatedJob.check_ported`` on the card, as the other ported
   architectures do; a token job on the card whose model needs a missing
   instance (gemma3-1b's config at head dim 96) is refused by it, before
   any kernel is built or batch drawn; the same job on the CPU is accepted.
-- The backward's C interface: its instances (fp32, head dims
-  32/64/128/256) and argument list against ``csrc/flash_attention_bwd.cu``;
+- The backward's C interface: its instances (fp32 and bf16, head dims
+  32/64/128/256) and argument lists against ``csrc/flash_attention_bwd.cu``;
   what it has no instance of raises ``NotPorted`` naming it.
 
 Tolerances: fp32 sums in another order than autograd's or XLA's einsums
@@ -204,7 +204,8 @@ def test_the_scans_refuse_a_gradient_on_the_card_only():
     differentiate (grad mode and an input that requires grad, or a
     ``torch.func`` transform), never one without a grad.  A gradient
     instance the backward kernels lack (WKV-6 at head dim 128, the
-    selective scan at d_state 48, bf16) is ``NotPorted`` naming the
+    selective scan at d_state 48, the scans in bf16, attention at head dim
+    96 or in fp16; attention in bf16 has its instances) is ``NotPorted`` naming the
     backward's seam, decided before anything runs; only CUDA tensors are
     refused, so the CPU trains through the plain versions at any of them."""
     x, y = torch.zeros(2, requires_grad=True), torch.zeros(2)
@@ -223,8 +224,8 @@ def test_the_scans_refuse_a_gradient_on_the_card_only():
                (rs.check_bwd_instance, torch.bfloat16, 64, "rwkv6_scan_bwd"),
                (ms.check_bwd_instance, torch.float32, 48, "mamba_scan_bwd"),
                (ms.check_bwd_instance, torch.bfloat16, 16, "mamba_scan_bwd"),
-               (fa.check_bwd_instance, torch.bfloat16, 64, "flash_attention_bwd"),
-               (fa.check_bwd_instance, torch.bfloat16, 256, "flash_attention_bwd")]
+               (fa.check_bwd_instance, torch.bfloat16, 96, "flash_attention_bwd"),
+               (fa.check_bwd_instance, torch.float16, 64, "flash_attention_bwd")]
     for check, dtype, dim, seam in refused:
         with pytest.raises(NotPorted) as err:
             check(dtype, dim)
@@ -233,6 +234,8 @@ def test_the_scans_refuse_a_gradient_on_the_card_only():
                         (fa.check_bwd_instance, (32, 64, 128, 256))):
         for dim in dims:
             check(torch.float32, dim)
+    for dim in (32, 64, 128, 256):                  # the attention backward's bf16 instance
+        fa.check_bwd_instance(torch.bfloat16, dim)
     # on the CPU the plain versions train, at instances the card lacks too
     rng = np.random.default_rng(2)
     for d, dtype in ((32, torch.float32), (128, torch.float32), (32, torch.bfloat16)):
@@ -279,10 +282,9 @@ def test_refuse_backward_names_the_kernel(monkeypatch):
                  "musicgen-medium"):
         FederatedJob(task=TaskConfig(kind="tokens", arch=arch, reduced=False),
                      device="cuda").check_ported()
-    # gemma3-1b's gradient in bf16 has no instance (head dim 256)
-    with pytest.raises(NotPorted) as err:
-        ops.check_backward_instances(gemma.model_config(), torch.bfloat16)
-    assert err.value.seam == "flash_attention_bwd" and "head dim 256" in str(err.value)
+    # gemma3-1b's gradient in bf16 (the mixed policy's) has its instance at
+    # head dim 256, as every ported architecture's has
+    ops.check_backward_instances(gemma.model_config(), torch.bfloat16)
     # a model whose head dim the backward lacks
     from repro_torch.configs import gemma3_1b
     monkeypatch.setattr(gemma3_1b, "CONFIG", dataclasses.replace(gemma3_1b.CONFIG, head_dim=96))
@@ -330,18 +332,18 @@ def test_c_interfaces_and_instances():
     assert _c_params("flash_attention.cu", "flash_attention_f32") == len(fa._ARGS)
     assert _c_params("flash_attention.cu", "flash_attention_bf16") == len(fa._ARGS)
     assert _c_params("flash_attention_bwd.cu", "flash_attention_bwd_f32") == len(fa._BWD_ARGS)
+    assert _c_params("flash_attention_bwd.cu", "flash_attention_bwd_bf16") == len(fa._BWD_ARGS)
     text = (ROOT / "src" / "repro_torch" / "csrc" / "flash_attention_bwd.cu").read_text()
-    entry = text[text.index('extern "C" int flash_attention_bwd_f32'):]
+    entry = text[text.index("int entry("):]          # both entries' dispatch by head dim
     assert tuple(int(d) for d in re.findall(r"case (\d+): return launch<", entry)) \
         == fa.BWD_HEAD_DIMS
     lse = torch.zeros(1, 2, 4)
     for d in (64, 256):                                 # 256: gemma3-1b's
         q, kv = torch.zeros(1, 2, 4, d), torch.zeros(1, 1, 4, d)
-        with pytest.raises(NotPorted, match=f"bfloat16 gradient at head dim {d}"):
-            b = q.bfloat16()
-            fa.flash_attention_bwd_cuda(b, kv.bfloat16(), kv.bfloat16(), b, lse, b, True, None)
-        with pytest.raises(ValueError, match="on CUDA"):       # an instance: the device check
-            fa.flash_attention_bwd_cuda(q, kv, kv, q, lse, q, True, None)
+        for dt in (torch.float32, torch.bfloat16):     # an instance: the device check
+            b, c = q.to(dt), kv.to(dt)
+            with pytest.raises(ValueError, match="on CUDA"):
+                fa.flash_attention_bwd_cuda(b, c, c, b, lse, b, True, None)
     q, kv = torch.zeros(1, 2, 4, 96), torch.zeros(1, 1, 4, 96)
     with pytest.raises(NotPorted, match="head dim 96"):
         fa.flash_attention_bwd_cuda(q, kv, kv, q, lse, q, True, None)

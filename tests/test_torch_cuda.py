@@ -23,7 +23,9 @@ products as three TF32 products on the tensor cores, against one fp32
 softmax over up to 1024 keys), bf16 2e-2; its backward (fp32, D <=
 128) rtol 1e-5 and atol 1e-5 of the plain backward's largest value
 (sums of up to G * Lq products in another order), bit-equal across two
-launches; the scans (out or y,
+launches, its bf16 instance within 2^-7 of the plain backward's largest
+value (at least 1) on the same bf16 inputs (one bf16 rounding of each
+gradient); the scans (out or y,
 and the final state) rtol 1e-5 and atol 1e-5 of the plain version's
 largest value, since each output sums D or ds terms in another order
 (``mamba_scan`` also takes its exp as ``ex2.approx``), and their
@@ -326,6 +328,37 @@ def test_flash_attention_backward_kernel_matches_plain_on_card(cuda_device, case
                                        lse, g, causal, window)
     for a, w in zip(got, want):
         _close_scaled(a, w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", FLASH_SHAPES, ids=lambda c: "-".join(map(str, c)))
+def test_flash_attention_bf16_backward_kernel_matches_plain_on_card(cuda_device, case):
+    """The backward's bf16 instance: launched once a gradient, bit-equal
+    across two launches, and within one bf16 ulp of the largest value
+    (2^-7 of it, or of 1 where that is smaller) of the plain backward on
+    the same bf16 inputs, output and lse (the same fp32 arithmetic in
+    another order, then one rounding)."""
+    b, hq, hkv, lq, lk, d, causal, window = case
+    gen = torch.Generator(device=cuda_device).manual_seed(lq * 3 + lk)
+    q = torch.randn(b, hq, lq, d, device=cuda_device, generator=gen).bfloat16().requires_grad_()
+    k, v = (torch.randn(b, hkv, lk, d, device=cuda_device, generator=gen).bfloat16()
+            .requires_grad_() for _ in range(2))
+    g = torch.randn(b, hq, lq, d, device=cuda_device, generator=gen).bfloat16()
+    out = ops.flash_attention(q, k, v, causal=causal, window=window)
+    before = build.LAUNCHES.get("flash_attention_bwd", 0)
+    got = torch.autograd.grad(out, (q, k, v), g, retain_graph=True)
+    again = torch.autograd.grad(out, (q, k, v), g)
+    torch.cuda.synchronize()
+    assert build.LAUNCHES["flash_attention_bwd"] == before + 2
+    assert all(a.dtype == torch.bfloat16 and torch.equal(a, b) for a, b in zip(got, again))
+    lse = ref.flash_attention_lse_ref(q.detach(), k.detach(), v.detach(), causal, window)[1]
+    want = ref.flash_attention_bwd_ref(q.detach(), k.detach(), v.detach(), out.detach(), lse,
+                                       g, causal, window)
+    for a, w in zip(got, want):
+        # unit-scale inputs: one query against one key gives dq = dk = 0 in
+        # exact arithmetic and rounding noise in each, hence the floor of 1
+        top = max(float(w.float().abs().max()), 1.0)
+        assert float((a.float() - w.float()).abs().max()) <= 2.0 ** -7 * top
 
 
 @pytest.mark.cuda

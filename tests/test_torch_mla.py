@@ -9,7 +9,7 @@ through both:
   (its online-softmax ``sdpa_blockwise``), output and every cache leaf;
 - 3 ``mla_decode`` steps after a prefill, the absorbed latent-space form;
 - the padded route to the flash kernel (q/k 24 and v 16 padded to the
-  kernel's D 32 instance, q scaled by ``sqrt(32 / 24)``) against the
+  kernel's D 32 instance at the kernel's scale argument ``24 ** -0.5``) against the
   port's unpadded ``sdpa`` at scale ``24 ** -0.5``, forward and gradient,
   and at the full width's (192, 128) -> 256;
 - the MLA backward instance ``check_backward_instances`` asks for, and a
@@ -157,8 +157,9 @@ def test_the_padded_width_and_its_backward_instance(monkeypatch):
     full = get_arch("deepseek-v2-236b").CONFIG
     assert full.resolved_head_dim == 128          # the v head dim, as the reference's
     ops.check_backward_instances(full)            # asks for the fp32 D 256 instance
+    ops.check_backward_instances(full, torch.bfloat16)     # and the bf16 one (bf16_train)
     with pytest.raises(NotPorted) as err:
-        ops.check_backward_instances(full, torch.bfloat16)
+        ops.check_backward_instances(full, torch.float16)
     assert err.value.seam == "flash_attention_bwd" and "head dim 256" in str(err.value)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
     FederatedJob(task=TaskConfig(kind="tokens", arch="deepseek-v2-236b", reduced=False),

@@ -44,7 +44,7 @@ from repro.models import moe as jmoe  # noqa: E402
 from repro.models import transformer as JT  # noqa: E402
 from repro_torch import NotPorted, convert  # noqa: E402
 from repro_torch.configs.base import ModelConfig as PortModelConfig  # noqa: E402
-from repro_torch.configs.registry import get_arch  # noqa: E402
+from repro_torch.configs.registry import get_arch, get_token_arch  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
 from repro_torch.models import moe  # noqa: E402
@@ -272,15 +272,25 @@ def test_serve_defaults_to_cuda_and_raises_without_it():
 
 
 def test_unported_archs_and_seams_raise_a_typed_error():
-    """sanet-openkbp, not a token model, is the one registry id outside
-    the port's; the reference's default ``moe_impl`` ("dispatch") and an
-    MLA mixer, refused here until the nineteenth slice, now run and match
-    the reference: reduced Jamba's prefill with the default, logits and
-    caches, and qwen3's reduced config with DeepSeek-V2's reduced MLA, its
-    parameter tree and forward logits."""
+    """sanet-openkbp loads through ``get_arch`` as the reference's registry
+    loads it (its module, with the reference's ``precision_for`` and
+    ``mesh_for``), but it is not a token model: the token lookup refuses
+    it (seam ``arch``), and a head dim past the attention kernel's widest
+    instance is a seam that stays unported; the reference's default
+    ``moe_impl`` ("dispatch") and an MLA mixer, refused here until the
+    nineteenth slice, now run and match the reference: reduced Jamba's
+    prefill with the default, logits and caches, and qwen3's reduced
+    config with DeepSeek-V2's reduced MLA, its parameter tree and forward
+    logits."""
+    from repro_torch.kernels.flash_attention import padded_head_dim
+    sanet = get_arch("sanet-openkbp")
+    assert sanet.CONFIG.name == "sanet-openkbp" == jax_get_arch("sanet-openkbp").CONFIG.name
     with pytest.raises(NotPorted) as err:
-        get_arch("sanet-openkbp")
+        get_token_arch("sanet-openkbp")
     assert err.value.seam == "arch"
+    with pytest.raises(NotPorted) as err:
+        padded_head_dim(320)
+    assert err.value.seam == "flash_attention"
     with pytest.raises(KeyError):
         get_arch("no-such-model")
     cfg, params, ref = _port("jamba-1.5-large-398b")
