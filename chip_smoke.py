@@ -266,13 +266,19 @@ Phases, each of which fails the run (non-zero exit) if it goes wrong:
    deepseek job through ``check_ported``;
 24. the twentieth slice's path, the reference's precision policy through
    ``repro_torch.launch.steps`` (``run_p24`` states each check): (a) the
-   attention backward's bf16 instance alone against its plain version on
-   the same bf16 inputs at ragged shapes and at smollm-135m's, gemma3-1b's
-   (global and its 512-key window) and DeepSeek-V2's MLA padded to D 256,
-   within one bf16 ulp of the largest value, two launches bit-equal, timed
-   beside its bound (bf16 bytes, the bf16 tensor-core rate), the plain
-   backward, the fp32 instance and SDPA's bf16 backward, and row 7's bf16
-   forward at gemma3-1b's prefill shape and smollm's beside SDPA in bf16;
+   bf16 attention kernels on ``wgmma`` (``flash_attention_bf16``,
+   ``flash_attention_bwd_bf16``): their resources and the HGMMA
+   instructions of each ``__global__``, the forward's lse within 1e-5 of
+   its plain version and its out bit-equal to the serving call's, the
+   backward alone against its plain version on the same bf16 inputs at
+   ragged shapes and at
+   smollm-135m's, gemma3-1b's (global and its 512-key window) and
+   DeepSeek-V2's MLA at its own (192, 128), unpadded, within one bf16 ulp of
+   the largest value, two launches bit-equal, timed beside its bound (bf16
+   bytes, the bf16 tensor-core rate), the plain backward, the fp32 instance,
+   SDPA's bf16 backward (the 3xTF32 design's recorded time printed beside),
+   and the forward at gemma3-1b's, smollm's and MLA's prefill shapes within
+   2e-2 of its plain version, beside SDPA in bf16 (and the recorded time);
    (b) every token architecture served in bf16 at its published width
    (``SERVE_CUTS``' depths): prefill_32k, decode_32k and long_500k where
    ``is_skipped`` allows, prefill seconds, decode tok/s and the peak, the
@@ -282,7 +288,9 @@ Phases, each of which fails the run (non-zero exit) if it goes wrong:
    microbatches and remat at train_4k's 4096 tokens (``TRAIN_CUTS``'
    depths, sites and microbatches), losses and parameters finite, the bf16
    backward launched once an attention layer a microbatch, ``step_s`` and
-   the peak; (d) a reduced mixed round card vs CPU.
+   the peak; (d) a reduced mixed round card vs CPU.  The second-to-last
+   line's ``flash_attention_bf16`` and ``flash_attention_bwd_bf16`` count
+   their launches on (b)'s prefills and (c)'s steps.
 
 Phases 11-19 run after phase 8, before 9; phases 20-24 after 10.  Every
 kernel's launch count is zeroed just before each of phases 3-5b, 7, each
@@ -330,7 +338,7 @@ RAGGED = [(s, rows, c) for s in (1, 3, 4) for rows in (1, 7, 6_797)
 TRIM_SITES = (1, 2, 3, 4, 5, 8, 17, 33, 64)
 TRIM_WIDTHS = (1, 127, 128, 65_537)
 INT8_KERNELS = ("quantize_int8", "dequantize_int8", "fedagg_dequant", "dequant_install")
-TOKEN_KERNELS = ("flash_attention", "rwkv6_scan", "mamba_scan")
+TOKEN_KERNELS = ("flash_attention", "flash_attention_bf16", "rwkv6_scan", "mamba_scan")
 # flash attention: (batch, q heads, kv heads, Lq, Lk, D, causal, window), ragged
 # (no Lq a multiple of any tile), GQA groups 1, 2, 3, 4 and 8, windows
 # None/17/45/512, both masks; Lq <= 16 against Lk >= 600 (the group's packed
@@ -3682,7 +3690,8 @@ def check_flash_attention(torch, dev) -> dict:
 def kernel_resources(build) -> None:
     """Registers, local memory, shared memory and blocks an SM of every
     instance of the five redesigned kernels, as ``cudaFuncGetAttributes`` and
-    the occupancy calculator give them (each source's ``*_resources``)."""
+    the occupancy calculator give them (each source's ``*_resources``; the
+    bf16 attention kernels' in phase 24a)."""
     import ctypes
     from repro_torch.kernels import flash_attention, rwkv6_scan
     out = (ctypes.c_int * 5)()
@@ -3692,13 +3701,15 @@ def kernel_resources(build) -> None:
         regs, local, smem, threads, blocks = out
         print(f"{what}: {regs} registers, local {local} B, shared {smem} B, "
               f"{threads} threads, {blocks} blocks an SM")
-    for mod in (flash_attention, rwkv6_scan):
-        fn = build.entry(mod.NAME, f"{mod.NAME}_resources",
-                         [ctypes.c_int64, ctypes.c_int64, ctypes.POINTER(ctypes.c_int)])
-        for d in mod.HEAD_DIMS:
-            for bf16 in (0, 1):
-                report(f"{mod.NAME} D={d} {'bf16' if bf16 else 'fp32'}", fn(d, bf16, out))
     one = [ctypes.c_int64, ctypes.POINTER(ctypes.c_int)]
+    fn = build.entry(flash_attention.NAME, "flash_attention_resources", one)
+    for d in flash_attention.HEAD_DIMS:
+        report(f"flash_attention D={d} fp32", fn(d, out))
+    fn = build.entry(rwkv6_scan.NAME, "rwkv6_scan_resources",
+                     [ctypes.c_int64, ctypes.c_int64, ctypes.POINTER(ctypes.c_int)])
+    for d in rwkv6_scan.HEAD_DIMS:
+        for bf16 in (0, 1):
+            report(f"rwkv6_scan D={d} {'bf16' if bf16 else 'fp32'}", fn(d, bf16, out))
     fn = build.entry("mamba_scan", "mamba_scan_resources", one)
     for ds in (4, 8, 16, 32):          # the instance of each threads-a-channel split
         report(f"mamba_scan d_state<={ds}", fn(ds, out))
@@ -3833,21 +3844,32 @@ def _smi(field: str) -> str:
                           text=True, check=True).stdout.strip()
 
 
+def _sass_ops(build, name: str) -> dict:
+    """The opcodes of each ``__global__`` function (by its mangled name) in
+    the built library of kernel ``name``, from ``cuobjdump -sass``."""
+    import re
+    cuobjdump = Path(build.nvcc()).parent / "cuobjdump"
+    sass = subprocess.run([str(cuobjdump), "-sass", str(build.library_path(name))],
+                          capture_output=True, text=True, check=True).stdout
+    out = {}
+    for func in re.split(r"\n\s*Function : ", sass)[1:]:
+        head, _, body = func.partition("\n")
+        out[head.strip()] = re.findall(r"^\s+/\*[0-9a-f]+\*/\s+(?:@!?U?P\w+\s+)?([A-Z0-9_.]+)",
+                                       body, re.M)
+    return out
+
+
 def _mamba_sass_counts(build, ds: int):
     """(fp32 instructions per MUFU.EX2, MUFU.EX2 count) in the SASS of the
     mamba_scan instance that takes ``ds`` (its template arguments: threads a
     channel, states a thread), from ``cuobjdump -sass`` on the built library.
     The step loop is unrolled, with one ex2 an entry; the few ex2 of the
     prologue's A count in with them."""
-    import re
     threads, per = {4: (2, 2), 8: (2, 4), 16: (2, 8), 32: (4, 8)}[ds]
-    cuobjdump = Path(build.nvcc()).parent / "cuobjdump"
-    sass = subprocess.run([str(cuobjdump), "-sass", str(build.library_path("mamba_scan"))],
-                          capture_output=True, text=True, check=True).stdout
     tag = f"mamba_scan_kernelILi{threads}ELi{per}E"
-    funcs = [f for f in re.split(r"\n\s*Function : ", sass)[1:] if tag in f.split("\n", 1)[0]]
+    funcs = [ops for f, ops in _sass_ops(build, "mamba_scan").items() if tag in f]
     _require(len(funcs) == 1, f"mamba_scan: {len(funcs)} SASS functions named {tag}")
-    ops = re.findall(r"^\s+/\*[0-9a-f]+\*/\s+(?:@!?U?P\w+\s+)?([A-Z0-9_.]+)", funcs[0], re.M)
+    ops = funcs[0]
     ex2 = sum(o.startswith("MUFU.EX2") for o in ops)
     fp32 = sum(o.split(".")[0] in ("FFMA", "FMUL", "FADD") for o in ops)
     _require(ex2 > 0, "mamba_scan: no MUFU.EX2 in its SASS")
@@ -3988,10 +4010,10 @@ def _close_bwd(torch, got, want, what: str) -> float:
     return float((got - want).abs().max()) if want.numel() else 0.0
 
 
-def _bwd_attn_resources(build, dims, bf16: bool = False) -> None:
-    """The backward's kernels' resources at each head dim of ``dims`` (of
-    its bf16 instance with ``bf16``): the cluster's blocks and the clusters
-    the card holds at once where D is split."""
+def _bwd_attn_resources(build, dims) -> None:
+    """The fp32 backward's kernels' resources at each head dim of ``dims``:
+    the cluster's blocks and the clusters the card holds at once where D is
+    split."""
     import ctypes
     from repro_torch.kernels import flash_attention as fa
     out7 = (ctypes.c_int * 7)()
@@ -3999,9 +4021,7 @@ def _bwd_attn_resources(build, dims, bf16: bool = False) -> None:
                      [ctypes.c_int64, ctypes.c_int64, ctypes.POINTER(ctypes.c_int)])
     for d in dims:
         for which, name in ((0, "dK/dV"), (1, "dQ")):
-            name += " bf16" if bf16 else ""
-            _require(fn(d, which + 2 * bf16, out7) == 0,
-                     f"flash_attention_bwd {name} D={d} resources")
+            _require(fn(d, which, out7) == 0, f"flash_attention_bwd {name} D={d} resources")
             regs, local, smem, threads, blocks, split, clusters = out7
             cluster = (f", clusters of {split}, {clusters} at once" if split > 1 else "")
             print(f"flash_attention_bwd {name} D={d}: {regs} registers, local {local} B, "
@@ -4734,7 +4754,7 @@ def check_flash_attention_bwd_256(torch, build, dev) -> dict:
     blocks splitting D) and the forward's ``lse`` at D 256, held as phase 20a
     holds the others at the D 256 cases of ``BWD_CASES`` and at gemma3-1b's
     training shape with its 512-key window and without, two launches
-    bit-equal (the bf16 instance: phase 24a); its resources; at both of
+    bit-equal (bf16: phase 24a); its resources; at both of
     gemma's shapes its
     time beside its bound, the plain backward's and SDPA's backward alone
     (eager, with the mask as ``attn_mask``).  Returns its kernels-line
@@ -5182,12 +5202,26 @@ BF16_PEAKS = {"H100 80GB HBM3": 989e12, "H100 PCIe": 756e12, "H100 NVL": 835e12,
               "H200": 989e12}
 # 24a: (what, (batch, q heads, kv heads, Lq, Lk, D), window, MLA's true q/k and v
 # head dims or None): row 7b's shape (smollm-135m), gemma3-1b's training shape
-# global and with its window, DeepSeek-V2's MLA (q/k 192, v 128) padded to D 256
+# global and with its window, DeepSeek-V2's MLA at q/k 192, v 128 (the bf16
+# kernels' own instance, unpadded; D is the width the fp32 instance pads to)
 MLA_TRAIN = (2, 128, 128, 512, 512, 256)
 BF16_BWD_SHAPES = (("smollm-135m", SMOLLM_ATTN, None, None),
                    ("gemma3-1b", GEMMA_TRAIN, None, None),
                    ("gemma3-1b window 512", GEMMA_TRAIN, 512, None),
                    ("deepseek-v2 mla", MLA_TRAIN, None, (192, 128)))
+# the forward's shapes in 24a: gemma3-1b's and smollm-135m's prefill, and
+# DeepSeek-V2's MLA prefill ([2, 128, 512], q/k 192, v 128) unpadded
+BF16_FWD_SHAPES = (("gemma3-1b prefill", GEMMA_ATTN, None),
+                   ("smollm-135m", SMOLLM_ATTN, None),
+                   ("deepseek-v2 mla", (MLA_ATTN[0], MLA_ATTN[1], MLA_ATTN[1], MLA_ATTN[2],
+                                        MLA_ATTN[2], 256), (192, 128)))
+# the times of bf16 attention in its earlier design (the fp32 kernels' 3xTF32
+# products on mma.sync over tiles converted as staged; NVIDIA H100
+# 80GB HBM3, 700 W; PERF.md rows 7 and 7b), printed beside this run's and kept
+# out of the kernels line, which carries only what this run measured
+TF32_DESIGN_BWD_MS = {"smollm-135m": 1.6191, "gemma3-1b": 0.6863, "gemma3-1b window 512": 0.5491,
+                      "deepseek-v2 mla": 6.6223}
+TF32_DESIGN_FWD_MS = {"gemma3-1b prefill": 0.0982, "smollm-135m": 0.2221}
 # the bf16 backward against its plain version on the same bf16 inputs, out and
 # lse: the same fp32 arithmetic in another order, then one bf16 rounding of
 # each gradient: within one bf16 ulp of the largest value (2^-7 of it, of 1
@@ -5230,6 +5264,9 @@ COMPARE_LAYERS = {"rwkv6-7b": 2}
 MANY_EXPERTS, MOE_LOGIT_RTOL = 64, 2.0 ** -2
 # 24c: (arch, config module, depth or None, sites, microbatch): train_4k's
 # 4096 tokens a sequence, 2 microbatches a site step, 1 round (smollm 2)
+# step_s of the two configs whose steps that design's backward held most
+# (PERF.md section 5)
+TF32_DESIGN_STEP_S = {"smollm-135m": 3.45, "musicgen-medium": 13.3}
 TRAIN_CUTS = (("smollm-135m", "smollm_135m", None, 2, 8),
               ("gemma3-1b", "gemma3_1b", None, 2, 2),
               ("rwkv6-7b", "rwkv6_7b", 2, 2, 4),
@@ -5259,47 +5296,95 @@ def _top_ulps(torch, got, want) -> float:
         if want.numel() else 0.0
 
 
-def _bf16_bwd_inputs(torch, dev, shape, heads, gen):
-    """bf16 q, k, v and dout of ``shape``; with MLA's true head dims
-    ``heads`` (q/k, v), drawn at those widths and padded with zero columns
-    to D, as the model's route pads them."""
+def _bf16_inputs(torch, dev, shape, heads, gen):
+    """bf16 q, k and v of ``shape``; with MLA's true head dims ``heads``
+    (q/k, v), drawn at those widths, unpadded, as the model's bf16 route
+    passes them."""
     b, hq, hkv, lq, lk, d = shape
     if heads is None:
-        q, k, v = _flash_inputs(torch, dev, shape, torch.bfloat16, gen)
-    else:
-        dqk, dv = heads
-        pad = lambda t: torch.nn.functional.pad(t, (0, d - t.shape[-1]))
-        q = pad(torch.randn(b, hq, lq, dqk, device=dev, generator=gen))
-        k = pad(torch.randn(b, hkv, lk, dqk, device=dev, generator=gen))
-        v = pad(torch.randn(b, hkv, lk, dv, device=dev, generator=gen))
-        q, k, v = (t.bfloat16().contiguous() for t in (q, k, v))
-    g = torch.randn(q.shape, device=dev, generator=gen).bfloat16()
-    return q, k, v, g
+        return _flash_inputs(torch, dev, shape, torch.bfloat16, gen)
+    dqk, dv = heads
+    return (torch.randn(b, hq, lq, dqk, device=dev, generator=gen).bfloat16(),
+            torch.randn(b, hkv, lk, dqk, device=dev, generator=gen).bfloat16(),
+            torch.randn(b, hkv, lk, dv, device=dev, generator=gen).bfloat16())
+
+
+def _bf16_attn_resources(build) -> None:
+    """Phase 24a: the bf16 attention kernels' resources at each instance
+    (registers, local and shared bytes, blocks an SM: their ``*_resources``
+    entries) and the HGMMA (``wgmma``) instructions in the SASS of each of
+    their ``__global__`` functions; fails where a product kernel has
+    none."""
+    import ctypes
+    import re
+    from repro_torch.kernels import flash_attention as fa
+    out = (ctypes.c_int * 7)()
+    fwd = build.entry(fa.BF16_NAME, "flash_attention_bf16_resources",
+                      [ctypes.c_int64, ctypes.c_int64, ctypes.POINTER(ctypes.c_int)])
+    bwd = build.entry(fa.BF16_BWD_NAME, "flash_attention_bwd_bf16_resources",
+                      [ctypes.c_int64] * 3 + [ctypes.POINTER(ctypes.c_int)])
+    for dqk, dv in fa.BF16_INSTANCES:
+        for what, call in ((f"flash_attention_bf16 ({dqk}, {dv})", lambda: fwd(dqk, dv, out)),
+                           (f"flash_attention_bwd_bf16 dK/dV ({dqk}, {dv})",
+                            lambda: bwd(dqk, dv, 0, out)),
+                           (f"flash_attention_bwd_bf16 dQ ({dqk}, {dv})",
+                            lambda: bwd(dqk, dv, 1, out))):
+            err = call()
+            _require(err == 0, f"{what} resources: CUDA error {err}")
+            print(f"{what}: {out[0]} registers, local {out[1]} B, shared {out[2]} B, "
+                  f"{out[3]} threads, {out[4]} blocks an SM")
+    for name in (fa.BF16_NAME, fa.BF16_BWD_NAME):
+        for func, ops in sorted(_sass_ops(build, name).items()):
+            n = sum(o.startswith("HGMMA") for o in ops)
+            print(f"{name}: {n} HGMMA in {func}")
+            if re.search(r"_(?:bf16|dkdv|dq)_kernel", func):
+                _require(n > 0, f"{name}: no HGMMA in {func}")
 
 
 def check_flash_attention_bwd_bf16(torch, build, dev) -> dict:
-    """Phase 24a: the backward's bf16 instance against its plain version on
-    the same bf16 inputs, output and lse at the ragged ``BWD_CASES`` and at
-    ``BF16_BWD_SHAPES``, within ``BF16_BWD_ULPS`` bf16 ulps of the largest
-    value, two launches bit-equal; its resources; at each shape its time
-    beside its bound (the bf16 tensors' bytes, the five products of 2 D
-    flops a seen pair (MLA: at its true head dims) at the bf16 tensor-core
-    rate), the plain backward's, the fp32 instance's on the same values and
-    SDPA's bf16 backward alone (eager); then row 7's bf16 forward at
-    gemma3-1b's prefill shape and smollm-135m's beside its bound and SDPA's
-    bf16 forward.  Returns the kernels-line entry (smollm's shape; the
-    others under ``shapes``, the forward under ``forward_bf16``)."""
+    """Phase 24a: the bf16 kernels (``flash_attention_bf16.cu``,
+    ``flash_attention_bwd_bf16.cu``, on ``wgmma``): their resources and
+    HGMMA counts; the forward's lse against ``flash_attention_lse_ref``
+    within ``FLASH_TOL`` and its output bit-equal to the serving call's, and
+    the backward against its plain version on the same bf16 inputs, output
+    and lse, at the ragged ``BWD_CASES`` and at
+    ``BF16_BWD_SHAPES`` (MLA at its own q/k 192 and v 128, unpadded), within
+    ``BF16_BWD_ULPS`` bf16 ulps of the largest value, two launches
+    bit-equal; at each shape its time beside its bound (the bf16 tensors'
+    bytes, the five products of 2 D flops a seen pair at the true head dims
+    at the bf16 tensor-core rate), the plain backward's, the fp32
+    instance's on the same values (MLA padded to 256, the fp32 route),
+    SDPA's bf16 backward alone (eager), and the 3xTF32 design's recorded time
+    printed beside; then the bf16 forward at ``BF16_FWD_SHAPES`` within
+    ``BF16_TOL`` of its plain version, beside its bound and SDPA's bf16
+    forward (the recorded time printed beside).  Returns the
+    kernels-line entries of ``flash_attention_bwd_bf16`` and
+    ``flash_attention_bf16`` (smollm's shape; the others under
+    ``shapes``)."""
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ref
-    _bwd_attn_resources(build, fa.BWD_HEAD_DIMS, bf16=True)
+    _bf16_attn_resources(build)
     gen = torch.Generator(device=dev).manual_seed(24)
-    worst = 0.0
+    worst, lse_err = 0.0, 0.0
+
+    def hold_lse(q, k, v, causal, window, sc, what):
+        """The forward's out and lse: lse within ``FLASH_TOL`` of
+        ``flash_attention_lse_ref``, out bit-equal to the serving call's."""
+        out, lse = fa.flash_attention_cuda(q, k, v, causal, window, with_lse=True, scale=sc)
+        plain_out = fa.flash_attention_cuda(q, k, v, causal, window, scale=sc)
+        want_lse = ref.flash_attention_lse_ref(q, k, v, causal, window, sc)[1]
+        torch.cuda.synchronize()
+        _require(torch.equal(out, plain_out), f"flash_attention bf16 {what}: out with lse differs")
+        torch.testing.assert_close(lse, want_lse, **FLASH_TOL)
+        return out, lse, float((lse - want_lse).abs().max())
+
     for case in BWD_CASES:
         causal, window = case[6:]
         q, k, v = _flash_inputs(torch, dev, case, torch.bfloat16, gen)
         g = torch.randn(q.shape, device=dev, generator=gen).bfloat16()
-        out, lse = fa.flash_attention_cuda(q, k, v, causal, window, with_lse=True)
+        out, lse, e = hold_lse(q, k, v, causal, window, None, case)
+        lse_err = max(lse_err, e)
         got = fa.flash_attention_bwd_cuda(q, k, v, out, lse, g, causal, window)
         again = fa.flash_attention_bwd_cuda(q, k, v, out, lse, g, causal, window)
         torch.cuda.synchronize()
@@ -5318,10 +5403,16 @@ def check_flash_attention_bwd_bf16(torch, build, dev) -> dict:
     shapes = {}
     for what, shape, window, heads in BF16_BWD_SHAPES:
         b, hq, hkv, lq, lk, d = shape
-        q, k, v, g = _bf16_bwd_inputs(torch, dev, shape, heads, gen)
+        q, k, v = _bf16_inputs(torch, dev, shape, heads, gen)
         sc = None if heads is None else heads[0] ** -0.5   # MLA's: its q/k head dim's
-        out, lse = fa.flash_attention_cuda(q, k, v, True, window, with_lse=True, scale=sc)
+        out, lse, e = hold_lse(q, k, v, True, window, sc, what)
+        lse_err = max(lse_err, e)
+        g = torch.randn(out.shape, device=dev, generator=gen).bfloat16()
         got = fa.flash_attention_bwd_cuda(q, k, v, out, lse, g, True, window, sc)
+        again = fa.flash_attention_bwd_cuda(q, k, v, out, lse, g, True, window, sc)
+        torch.cuda.synchronize()
+        _require(all(torch.equal(a, b) for a, b in zip(got, again)),
+                 f"flash_attention_bwd bf16 {what}: two launches differ")
         want = ref.flash_attention_bwd_ref(q, k, v, out, lse, g, True, window, sc)
         ulps = max(_top_ulps(torch, a, w) for a, w in zip(got, want))
         _require(ulps <= BF16_BWD_ULPS, f"flash_attention_bwd bf16 {what}: {ulps:.3f} ulps")
@@ -5333,28 +5424,26 @@ def check_flash_attention_bwd_bf16(torch, build, dev) -> dict:
         nbytes = 2 * (b * hq * lq * (2 * dqk + 2 * dv) + b * hkv * lk * 2 * (dqk + dv)) \
             + 4 * b * hq * lq
         ops_ms = 1e3 * flops / bf16_rate
-        # SDPA's bf16 backward on the unpadded tensors (eager: it runs on its
-        # forward's stream, outside a capture)
-        if heads is None:
-            leaves = [t.clone().requires_grad_() for t in (q, k, v)]
-            kw = dict(attn_mask=mask) if window else dict(is_causal=True)
-            lib_out = F.scaled_dot_product_attention(*leaves, enable_gqa=True, **kw)
-            lib_g = g
-        else:
-            leaves = [q[..., :dqk].clone().requires_grad_(), k[..., :dqk].clone()
-                      .requires_grad_(), v[..., :dv].clone().requires_grad_()]
-            lib_out = F.scaled_dot_product_attention(*leaves, is_causal=True, scale=sc)
-            lib_g = g[..., :dv].contiguous()
+        # SDPA's bf16 backward (eager: it runs on its forward's stream, outside
+        # a capture)
+        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+        kw = dict(attn_mask=mask) if window else dict(is_causal=True)
+        lib_out = F.scaled_dot_product_attention(*leaves, enable_gqa=True, scale=sc, **kw)
 
         def library():
-            return torch.autograd.grad(lib_out, leaves, lib_g, retain_graph=True)
-        q32, k32, v32, o32, g32 = (t.float() for t in (q, k, v, out, g))
+            return torch.autograd.grad(lib_out, leaves, g, retain_graph=True)
+        # the fp32 instance on the same values, through the fp32 route (MLA
+        # padded to D with zero columns)
+        pad = (lambda t: t) if heads is None else (lambda t: F.pad(t, (0, d - t.shape[-1])))
+        q32, k32, v32, g32 = (pad(t.float()).contiguous() for t in (q, k, v, g))
+        o32, l32 = fa.flash_attention_cuda(q32, k32, v32, True, window, with_lse=True, scale=sc)
         timing = measure(
-            torch, f"flash_attention_bwd {what} {list(shape)} bf16 causal window={window}",
+            torch, f"flash_attention_bwd {what} {list(shape[:5]) + [dqk, dv]} bf16 causal "
+                   f"window={window}",
             lambda: fa.flash_attention_bwd_cuda(q, k, v, out, lse, g, True, window, sc),
             lambda: ref.flash_attention_bwd_ref(q, k, v, out, lse, g, True, window, sc), None,
             nbytes=nbytes, flops=flops, ops_ms=ops_ms)
-        fp32_ms = time_ms(lambda: fa.flash_attention_bwd_cuda(q32, k32, v32, o32, lse, g32, True,
+        fp32_ms = time_ms(lambda: fa.flash_attention_bwd_cuda(q32, k32, v32, o32, l32, g32, True,
                                                               window, sc))[0]
         for _ in range(3):
             library()
@@ -5362,40 +5451,53 @@ def check_flash_attention_bwd_bf16(torch, build, dev) -> dict:
         timing.update(max_abs_err=max(float((a.float() - w.float()).abs().max())
                                       for a, w in zip(got, want)),
                       max_err_bf16_ulps=ulps, fp32_instance_ms=fp32_ms,
-                      bound_ops_ms_3xtf32=1e3 * 3 * flops / peaks(
-                          torch.cuda.get_device_name(0))[2],
-                      bound_bytes_ms=1e3 * nbytes / mem_rate)
+                      lse_max_abs_err=e, bound_bytes_ms=1e3 * nbytes / mem_rate)
         print(f"flash_attention_bwd {what} bf16: {ulps:.3f} bf16 ulps of the largest value; "
-              f"{timing['ms']:.4f} ms (fp32 instance on the same values {fp32_ms:.4f} ms), "
-              f"bound {timing['bound_ms']:.4f} ms ({timing['bound_by']}: {flops / 1e9:.2f} "
-              f"GFLOP at {bf16_rate / 1e12:.0f} TFLOP/s bf16; 3xTF32 "
-              f"{timing['bound_ops_ms_3xtf32']:.4f} ms), SDPA's bf16 backward alone (eager) "
-              f"{timing['library_ms']:.4f} ms against the kernel's eager "
+              f"{timing['ms']:.4f} ms (the 3xTF32 design: {TF32_DESIGN_BWD_MS[what]:.4f} ms; "
+              f"the fp32 instance on "
+              f"the same values {fp32_ms:.4f} ms), bound {timing['bound_ms']:.4f} ms "
+              f"({timing['bound_by']}: {flops / 1e9:.2f} GFLOP at {bf16_rate / 1e12:.0f} TFLOP/s "
+              f"bf16), {flops / timing['ms'] / 1e9:.1f} TFLOP/s; SDPA's bf16 backward alone "
+              f"(eager) {timing['library_ms']:.4f} ms against the kernel's eager "
               f"{timing['eager_ms']:.4f} ms")
         shapes[what] = timing
-        del q, k, v, g, out, lse, got, want, leaves, lib_out, q32, k32, v32, o32, g32
+        del q, k, v, g, out, lse, got, again, want, leaves, lib_out, q32, k32, v32, o32, l32, g32
         gc.collect()
         torch.cuda.empty_cache()
+    print(f"flash_attention bf16: lse of {len(BWD_CASES) + len(BF16_BWD_SHAPES)} shapes within "
+          f"rtol=atol=1e-5 of the plain version (max |err| {lse_err:.3e}); out bit-equal with "
+          f"and without lse")
     forward = {}
-    for what, shape in (("gemma3-1b prefill", GEMMA_ATTN), ("smollm-135m", SMOLLM_ATTN)):
+    for what, shape, heads in BF16_FWD_SHAPES:
         b, hq, hkv, lq, lk, d = shape
-        q, k, v = _flash_inputs(torch, dev, shape, torch.bfloat16, gen)
+        q, k, v = _bf16_inputs(torch, dev, shape, heads, gen)
+        dqk, dv = heads or (d, d)
+        sc = None if heads is None else dqk ** -0.5
         pairs = int(_attn_mask(torch, dev, lq, lk, True, None).sum()) * b * hq
+        got = fa.flash_attention_cuda(q, k, v, True, None, scale=sc)
+        torch.cuda.synchronize()
+        want = ref.flash_attention_ref(q, k, v, True, None, sc)
+        torch.testing.assert_close(got.float(), want.float(), **BF16_TOL)
+        flops = 2 * pairs * (dqk + dv)
         forward[what] = measure(
-            torch, f"flash_attention {what} {list(shape)} bf16 causal",
-            lambda: fa.flash_attention_cuda(q, k, v, True, None),
-            lambda: ref.flash_attention_ref(q, k, v, True, None),
-            lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True, enable_gqa=True),
-            nbytes=2 * (2 * q.numel() + 2 * k.numel()), flops=2 * 2 * d * pairs,
-            ops_ms=1e3 * 2 * 2 * d * pairs / bf16_rate)
-        err = float((fa.flash_attention_cuda(q, k, v, True, None).float()
-                     - ref.flash_attention_ref(q, k, v, True, None).float()).abs().max())
-        forward[what]["max_abs_err"] = err
-        del q, k, v
+            torch, f"flash_attention {what} {list(shape[:5]) + [dqk, dv]} bf16 causal",
+            lambda: fa.flash_attention_cuda(q, k, v, True, None, scale=sc),
+            lambda: ref.flash_attention_ref(q, k, v, True, None, sc),
+            lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True, enable_gqa=True,
+                                                   scale=sc),
+            nbytes=2 * (b * hq * lq * (dqk + dv) + b * hkv * lk * (dqk + dv)), flops=flops,
+            ops_ms=1e3 * flops / bf16_rate)
+        forward[what]["max_abs_err"] = float((got.float() - want.float()).abs().max())
+        print(f"flash_attention {what} bf16: {forward[what]['ms']:.4f} ms (the 3xTF32 design: "
+              f"{TF32_DESIGN_FWD_MS.get(what, 'padded to 256, not timed')}), "
+              f"{flops / forward[what]['ms'] / 1e9:.1f} TFLOP/s; SDPA's bf16 forward "
+              f"{forward[what]['library_ms']:.4f} ms; max |err| {forward[what]['max_abs_err']:.3e} "
+              f"(gate rtol=atol=2e-2)")
+        del q, k, v, got, want
     torch.cuda.empty_cache()
-    return {**shapes["smollm-135m"], "shapes": {k: v for k, v in shapes.items()
-                                                if k != "smollm-135m"},
-            "forward_bf16": forward}
+    rest = lambda d: {k: v for k, v in d.items() if k != "smollm-135m"}
+    return {"bwd": {**shapes["smollm-135m"], "shapes": rest(shapes)},
+            "fwd": {**forward["smollm-135m"], "shapes": rest(forward)}}
 
 
 def _set_index(tree, n: int) -> None:
@@ -5478,7 +5580,7 @@ def run_bf16_serving(torch, build) -> dict:
     serving policy (bf16 weights from seed 0, a bf16 cache), through
     ``steps.build_serve``, with ``SERVE_CUTS``' depths: prefill_32k (1 x
     32768 tokens: prefill seconds, finite logits, each attention layer
-    launching ``flash_attention`` once), decode_32k (4 greedy steps in a
+    launching ``flash_attention_bf16`` once), decode_32k (4 greedy steps in a
     32768-slot cache after a prefill of ``DECODE_PROMPT``: tok/s, no kernel
     launched) and long_500k where ``is_skipped`` allows it; the peak; then
     the bf16 logits held to the fp32 serve of the same bf16-valued weights
@@ -5514,7 +5616,7 @@ def run_bf16_serving(torch, build) -> dict:
             launched = {k: v for k, v in build.LAUNCHES.items() if v}
             _require(bool(torch.isfinite(logits).all()), f"24b {arch}: non-finite prefill logits")
             mixers = [s.mixer for s in cfg.layer_specs()]
-            expect = {"flash_attention": mixers.count("attn") + mixers.count("mla"),
+            expect = {"flash_attention_bf16": mixers.count("attn") + mixers.count("mla"),
                       "rwkv6_scan": mixers.count("rwkv6"), "mamba_scan": mixers.count("mamba")}
             _expect_launches(f"24b {arch} prefill", launched, {k: v for k, v in expect.items()
                                                                if v})
@@ -5586,9 +5688,11 @@ def run_bf16_training(torch, build) -> dict:
     (AdamW 1e-4, remat, clip 1.0, MoE ``dispatch``), with ``TRAIN_CUTS``'
     depth, sites and microbatch: sequences of 4096 tokens, 2 microbatches a
     site step, 1 round (smollm-135m 2), random weights from seed 0; the
-    losses and every parameter finite, the attention backward's bf16
-    instance launched once a layer a microbatch a site; ``step_s`` and the
-    peak.  Returns each config's numbers and the launches."""
+    losses and every parameter finite, the bf16 attention backward
+    (``flash_attention_bwd_bf16``) launched once a layer a microbatch a
+    site; ``step_s`` (the 3xTF32 design's beside smollm-135m's and
+    musicgen-medium's)
+    and the peak.  Returns each config's numbers and the launches."""
     from repro_torch.configs.base import INPUT_SHAPES, MeshConfig
     from repro_torch.configs.registry import get_arch
     from repro_torch.launch import steps
@@ -5625,13 +5729,16 @@ def run_bf16_training(torch, build) -> dict:
                          f"24c {arch}: loss {float(metrics['loss'])}")
             launched = {k: v for k, v in build.LAUNCHES.items() if v}
             want = attn * 2 * sites * rounds
-            _require(launched.get("flash_attention_bwd", 0) == want,
-                     f"24c {arch}: flash_attention_bwd launched {launched}, not {want}")
+            _require(launched.get("flash_attention_bwd_bf16", 0) == want,
+                     f"24c {arch}: flash_attention_bwd_bf16 launched {launched}, not {want}")
             _require(bool(torch.isfinite(state["params"]).all()),
                      f"24c {arch}: non-finite parameters")
             peak = torch.cuda.max_memory_allocated() / 2**30
+            was = (f" (the 3xTF32 design: about {TF32_DESIGN_STEP_S[arch]} s)"
+                   if arch in TF32_DESIGN_STEP_S else "")
             print(f"24c {arch}: loss {float(metrics['loss']):.4f}, step_s "
-                  f"{[round(s, 3) for s in step_s]}, peak {peak:.2f} GiB; launched {launched}")
+                  f"{[round(s, 3) for s in step_s]}{was}, peak {peak:.2f} GiB; launched "
+                  f"{launched}")
             out[arch] = {"layers": cfg.num_layers, "sites": sites, "microbatch": micro,
                          "step_s": step_s, "peak_gib": peak, "loss": float(metrics["loss"]),
                          "tokens_per_step": sites * 2 * micro * seq}
@@ -5664,8 +5771,9 @@ def check_small_mixed_job(torch, build) -> None:
         build.reset_launches()
         state, metrics = art.step_fn(state, {"tokens": tokens.to(dev)}, ri)
         if dev == CARD:
-            _require(build.LAUNCHES.get("flash_attention_bwd", 0) == cfg.num_layers * 4,
-                     f"24d: flash_attention_bwd launched {build.LAUNCHES.get('flash_attention_bwd')}")
+            _require(build.LAUNCHES.get("flash_attention_bwd_bf16", 0) == cfg.num_layers * 4,
+                     f"24d: flash_attention_bwd_bf16 launched "
+                     f"{build.LAUNCHES.get('flash_attention_bwd_bf16')}")
         got[dev] = (float(metrics["loss"]), state["params"].float().cpu())
     (lc, pc), (lh, ph) = got[CARD], got["cpu"]
     perr = float((pc - ph).abs().max()) / (2.0 ** -7 * float(ph.abs().max()))
@@ -5676,18 +5784,17 @@ def check_small_mixed_job(torch, build) -> None:
 
 
 def run_p24(torch, build) -> dict:
-    """Phase 24 (a the bf16 backward alone; b bf16 serving; c mixed and
+    """Phase 24 (a the bf16 kernels alone; b bf16 serving; c mixed and
     bf16_train training; d a small mixed round card vs CPU); returns the
-    bf16 instance's kernels-line entry and each path's launches."""
-    entry = _timed("24a (flash_attention_bwd bf16 alone; the bf16 forward timed)",
+    bf16 kernels' kernels-line entries and each path's launches."""
+    entry = _timed("24a (the bf16 attention kernels alone, forward and backward)",
                    check_flash_attention_bwd_bf16, torch, build, torch.device(CARD))
     serve = _timed("24b (every token architecture served in bf16 at published width)",
                    run_bf16_serving, torch, build)
     train = _timed("24c (every token architecture trained in its policy, microbatches, remat)",
                    run_bf16_training, torch, build)
     _timed("24d (a small mixed round, card and CPU)", check_small_mixed_job, torch, build)
-    bwd = sum(v.get("flash_attention_bwd", 0) for v in train["launches"].values())
-    return {"entry": dict(entry, launches=bwd), "serve": serve, "train": train}
+    return {"entry": entry, "serve": serve, "train": train}
 
 
 def _leaves(tree):
@@ -5792,9 +5899,8 @@ def main() -> int:
                  "the MoE forms, granite, musicgen, qwen3-moe, chameleon)", run_p23, *jobs,
                  build)
     entries["flash_attention"]["mla"] = p23["entry"]
-    p24 = _timed("24 (the precision policy and the step builders: the attention backward's "
-                 "bf16 instance, bf16 serving, mixed and bf16_train training)", run_p24,
-                 torch, build)
+    p24 = _timed("24 (the precision policy and the step builders: the bf16 attention kernels, "
+                 "bf16 serving, mixed and bf16_train training)", run_p24, torch, build)
 
     # each kernel's launches on the path that carries it: fedagg on the
     # first slice's path, the int8 fold and install on the second's, the
@@ -5813,20 +5919,23 @@ def main() -> int:
     print(f"launches on phase 24b's paths (prefill): {p24['serve']['launches']}")
     print(f"launches on phase 24c's paths: {p24['train']['launches']}")
     print(smi)
+    # the bf16 kernels' launches on phase 24's paths: the forward on 24b's
+    # prefills, the backward on 24c's training steps
+    bf16_paths = {name: {name: sum(v.get(name, 0) for v in paths.values())}
+                  for name, paths in (("flash_attention_bf16", p24["serve"]["launches"]),
+                                      ("flash_attention_bwd_bf16", p24["train"]["launches"]))}
+    entries["flash_attention_bf16"] = p24["entry"]["fwd"]
+    entries["flash_attention_bwd_bf16"] = p24["entry"]["bwd"]
     path_of = {"fedagg": main_launches, "quantize_int8": int8_launches,
                "fedagg_dequant": int8_launches, "dequant_install": int8_launches,
                "dequantize_int8": socket_launches, "trimmed_mean": robust_launches,
                **serving_launches, "flash_attention_bwd": p20["launches"],
-               "rwkv6_scan_bwd": p21["21c"], "mamba_scan_bwd": p21["21d"]}
+               "rwkv6_scan_bwd": p21["21c"], "mamba_scan_bwd": p21["21d"], **bf16_paths}
     kernels = []
     for name, (route, source, replaces) in ops.KERNELS.items():
         kernels.append({"name": name, "route": route, "source": source,
                         "replaces": replaces, "launches": path_of[name].get(name, 0),
                         **entries[name]})
-    # the backward's bf16 instance, its launches on phase 24c's training path
-    route, source, replaces = ops.KERNELS["flash_attention_bwd"]
-    kernels.append({"name": "flash_attention_bwd_bf16", "route": route, "source": source,
-                    "replaces": replaces, **p24["entry"]})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

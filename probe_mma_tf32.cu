@@ -10,9 +10,18 @@
 // hi*hi: the tensor cores' rate when each product brings its share of the
 // split's arithmetic, as the attention kernels' inner loops do.  One word a
 // thread is written at the end, so the chains are not dead code.
+//
+// wgmma_bf16_rate: the bf16 rate of wgmma.mma_async.m64nNk16 (N 64, 128 or
+// 256), fp32 accumulators, its operands in shared memory in the layout the
+// bf16 attention kernels use (src/repro_torch/csrc/wgmma_bf16.cuh): A and B
+// both from shared memory (ss) or A from registers (rs), 1 to 3 warpgroups a
+// block, one block an SM.  A round issues 16 products into one accumulator
+// (the 16-deep steps of a 256-deep product), commits them and waits.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "wgmma_bf16.cuh"
 
 namespace {
 
@@ -75,7 +84,71 @@ int launch(int ilp, int64_t blocks, int threads, int64_t iters, float* out,
   return (int)cudaGetLastError();
 }
 
+template <int N, bool RS>
+__global__ void wgmma_bf16_rate_kernel(float* out, int64_t iters) {
+  using T = wgbf16::Tile<64>;
+  using TB = wgbf16::Tile<256>;                      // B read MN-major: [64 x 256]
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = wgbf16::smem_u32(smem_raw);
+  const uint32_t sa = (raw + 1023) & ~1023u;          // A [64 x 64]; B [256 x 64] or [64 x 256]
+  const uint32_t sb = sa + T::bytes<64>();
+  uint8_t* base = smem_raw + (sa - raw);
+  for (int i = threadIdx.x; i < (T::bytes<64>() + T::bytes<256>()) / 4; i += blockDim.x)
+    reinterpret_cast<uint32_t*>(base)[i] = 0x3c003c00u * (i & 1);   // small bf16 values
+  wgbf16::fence_proxy_async();
+  __syncthreads();
+  float d[N / 2];
+#pragma unroll
+  for (int i = 0; i < N / 2; ++i) d[i] = 0.0f;
+  uint32_t a[4] = {0x3c003c00u, 0u, 0x3c003c00u, 0u};
+  for (int64_t it = 0; it < iters; ++it) {
+    wgbf16::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 16; ++kk) {
+      const uint64_t db = T::kdesc(sb + T::kmajor<256>(0, kk % 4));
+      if constexpr (RS)
+        wgbf16::wgmma_rs<N>(d, a, TB::mndesc<64>(sb + TB::mnmajor<64>(kk % 4, 0)), 1);
+      else
+        wgbf16::wgmma_ss<N>(d, T::kdesc(sa + T::kmajor<64>(0, kk % 4)), db, 1);
+    }
+    wgbf16::wgmma_commit();
+    wgbf16::wgmma_wait<0>();
+    wgbf16::fence_regs(d);
+  }
+  float s = 0.0f;
+#pragma unroll
+  for (int i = 0; i < N / 2; ++i) s += d[i];
+  out[(int64_t)blockIdx.x * blockDim.x + threadIdx.x] = s;
+}
+
+template <int N, bool RS>
+int launch_wgmma(int64_t blocks, int threads, int64_t iters, float* out, cudaStream_t stream) {
+  constexpr int smem = wgbf16::Tile<64>::bytes<64>() + wgbf16::Tile<64>::bytes<256>() + 1024;
+  cudaError_t err = cudaFuncSetAttribute(wgmma_bf16_rate_kernel<N, RS>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  wgmma_bf16_rate_kernel<N, RS><<<(unsigned)blocks, threads, smem, stream>>>(out, iters);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
+
+// out holds blocks * warpgroups * 128 floats; wgmma instructions run: blocks *
+// warpgroups * iters * 16, each 2 * 64 * n * 16 flops
+extern "C" int wgmma_bf16_rate(int64_t n, int64_t rs, int64_t blocks, int64_t warpgroups,
+                               int64_t iters, void* out, void* stream) {
+  auto* o = static_cast<float*>(out);
+  const auto s = (cudaStream_t)stream;
+  const int threads = 128 * (int)warpgroups;
+  switch (n * 2 + (rs ? 1 : 0)) {
+    case 128: return launch_wgmma<64, false>(blocks, threads, iters, o, s);
+    case 129: return launch_wgmma<64, true>(blocks, threads, iters, o, s);
+    case 256: return launch_wgmma<128, false>(blocks, threads, iters, o, s);
+    case 257: return launch_wgmma<128, true>(blocks, threads, iters, o, s);
+    case 513: return launch_wgmma<256, true>(blocks, threads, iters, o, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
 
 // out holds blocks * threads floats; mma.sync instructions run: blocks *
 // threads / 32 * iters * ilp, times 3 with split

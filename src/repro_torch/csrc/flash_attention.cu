@@ -5,8 +5,9 @@
 // the kv blocks innermost and the fp32 accumulators carried in VMEM scratch
 // across them; it asserted that Lq and Lk divide the block sizes).
 //
-// q [B, Hq, Lq, D], k and v [B, Hkv, Lk, D], out [B, Hq, Lq, D], one dtype
-// (fp32 or bf16), contiguous and 16-byte aligned; lse, where not null, [B, Hq,
+// q [B, Hq, Lq, D], k and v [B, Hkv, Lk, D], out [B, Hq, Lq, D], fp32
+// (bf16 has its own design, flash_attention_bf16.cu), contiguous and 16-byte
+// aligned; lse, where not null, [B, Hq,
 // Lq] fp32, each row's log-sum-exp m + log(l) in the units of the scaled
 // scores, which the backward (flash_attention_bwd.cu) reads; serving passes
 // null and the kernel writes nothing more.  q head h reads kv head
@@ -39,11 +40,7 @@
 //   only, so the split would need hi and lo copies of Q, K and V^T in shared
 //   memory, more than the 227 KB a block has at D = 256 in fp32; mma.sync
 //   takes its fragments from registers, where the split costs no shared
-//   memory.  wgmma is for bf16 weights, in a later step.
-// - bf16 runs mma.sync.m16n8k16 with bf16 operands and fp32 accumulators,
-//   no split.  P is rounded to bf16 before P V (the row sum l is taken from
-//   the fp32 P), and the scale is applied to the fp32 scores, not to the
-//   bf16 q, so that q is rounded once only.  fp32 scales q as it stages it.
+//   memory.  q is scaled as it is staged.
 // - GQA heads packed.  A block owns kBlockM = 64 packed rows of one (batch,
 //   kv head): packed row R is q head hk * G + R % G at query R / G, for the
 //   group G = Hq / Hkv (gemma3-1b: 16 queries x 4 heads).  Each K/V tile is
@@ -83,7 +80,6 @@
 // are passed as void*, sizes as int64.  Each entry point returns
 // cudaGetLastError() after the launch, so a refused launch is reported.
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -99,15 +95,14 @@ constexpr int kHalfN = kBlockN / 2;         // keys a warp takes from a stage
 constexpr int kNT = kHalfN / 8;             // its 8-key score tiles
 constexpr float kNegInf = -1e30f;
 
-template <typename T>
-__host__ __device__ constexpr int row_stride(int d) { return d + 16 / (int)sizeof(T); }
+__host__ __device__ constexpr int row_stride(int d) { return d + 4; }
 
-template <int D, typename T>
+template <int D>
 constexpr size_t smem_bytes() {
-  return sizeof(T) * (size_t)row_stride<T>(D) * (kBlockM + 2 * kStages * kBlockN);
+  return sizeof(float) * (size_t)row_stride(D) * (kBlockM + 2 * kStages * kBlockN);
 }
 // the merge of the key halves parks 4 slices x (D / 8 + 1) x 32 float4s there
-static_assert(4 * (32 / 8 + 1) * 32 * 16 <= smem_bytes<32, __nv_bfloat16>(), "park");
+static_assert(4 * (32 / 8 + 1) * 32 * 16 <= smem_bytes<32>(), "park");
 
 __device__ __forceinline__ void cp_async16(void* dst, const void* src, bool fill) {
   const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
@@ -137,44 +132,23 @@ __device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4],
       : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         const uint32_t (&b)[2]) {
-  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, "
-      "{%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&h);
-}
-
-// 16 bytes of q into shared memory: fp32 scaled, bf16 as it is
+// 16 bytes of q into shared memory, scaled
 __device__ __forceinline__ void stage_q(float* dst, const float* src, bool ok, float scale) {
   float4 x = ok ? *reinterpret_cast<const float4*>(src) : make_float4(0.f, 0.f, 0.f, 0.f);
   x.x *= scale; x.y *= scale; x.z *= scale; x.w *= scale;
   *reinterpret_cast<float4*>(dst) = x;
 }
-__device__ __forceinline__ void stage_q(__nv_bfloat16* dst, const __nv_bfloat16* src,
-                                        bool ok, float) {
-  *reinterpret_cast<uint4*>(dst) =
-      ok ? *reinterpret_cast<const uint4*>(src) : make_uint4(0u, 0u, 0u, 0u);
-}
 
 __device__ __forceinline__ void store2(float* p, float a, float b) {
   *reinterpret_cast<float2*>(p) = make_float2(a, b);
 }
-__device__ __forceinline__ void store2(__nv_bfloat16* p, float a, float b) {
-  *reinterpret_cast<uint32_t*>(p) = pack_bf16(a, b);
-}
 
-// s = q k^T for the warp's 16 rows (qw) and the stage's kBlockN keys (ks).
-// fp32: three TF32 products, q already scaled.
+// s = q k^T for the warp's 16 rows (qw) and the stage's kBlockN keys (ks):
+// three TF32 products, q already scaled.
 template <int D>
 __device__ __forceinline__ void scores(const float* qw, const float* ks, float (&s)[kNT][4],
-                                       int g, int t, float) {
-  constexpr int S = row_stride<float>(D);
+                                       int g, int t) {
+  constexpr int S = row_stride(D);
 #pragma unroll
   for (int j = 0; j < kNT; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.0f;
   float c1[kNT][4], c2[kNT][4];             // the two small products apart
@@ -211,39 +185,13 @@ __device__ __forceinline__ void scores(const float* qw, const float* ks, float (
     for (int e = 0; e < 4; ++e) s[j][e] += c1[j][e] + c2[j][e];
 }
 
-// bf16: one bf16 product, fp32 accumulators, then the scale
-template <int D>
-__device__ __forceinline__ void scores(const __nv_bfloat16* qw, const __nv_bfloat16* ks,
-                                       float (&s)[kNT][4], int g, int t, float scale) {
-  constexpr int SW = row_stride<__nv_bfloat16>(D) / 2;   // in 32-bit words
-  const uint32_t* q32 = reinterpret_cast<const uint32_t*>(qw);
-  const uint32_t* k32 = reinterpret_cast<const uint32_t*>(ks);
-#pragma unroll
-  for (int j = 0; j < kNT; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.0f;
-#pragma unroll 4
-  for (int kk = 0; kk < D / 16; ++kk) {
-    const uint32_t* qa = q32 + g * SW + 8 * kk + t;
-    const uint32_t a[4] = {qa[0], qa[8 * SW], qa[4], qa[8 * SW + 4]};
-#pragma unroll
-    for (int j = 0; j < kNT; ++j) {
-      const uint32_t* kb = k32 + (8 * j + g) * SW + 8 * kk + t;
-      const uint32_t b[2] = {kb[0], kb[4]};
-      mma_bf16(s[j], a, b);
-    }
-  }
-#pragma unroll
-  for (int j = 0; j < kNT; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) s[j][e] *= scale;
-}
-
-// o += p v over the stage's keys.  fp32: three TF32 products; the k index
+// o += p v over the stage's keys: three TF32 products; the k index
 // t of an 8-key tile is key 2t and t + 4 is key 2t + 1, so the score
 // accumulators are the A fragment as they stand.
 template <int D>
 __device__ __forceinline__ void accumulate(float (&o)[D / 8][4], const float (&p)[kNT][4],
                                            const float* vs, int g, int t) {
-  constexpr int S = row_stride<float>(D);
+  constexpr int S = row_stride(D);
   uint32_t ph[kNT][4], pl[kNT][4];
 #pragma unroll
   for (int j = 0; j < kNT; ++j) {
@@ -267,45 +215,19 @@ __device__ __forceinline__ void accumulate(float (&o)[D / 8][4], const float (&p
   }
 }
 
-// bf16: p rounded to bf16, 16 keys (two score tiles) a product
 template <int D>
-__device__ __forceinline__ void accumulate(float (&o)[D / 8][4], const float (&p)[kNT][4],
-                                           const __nv_bfloat16* vs, int g, int t) {
-  constexpr int S = row_stride<__nv_bfloat16>(D);
-  const uint16_t* v16 = reinterpret_cast<const uint16_t*>(vs);
-  uint32_t a[kNT / 2][4];
-#pragma unroll
-  for (int c = 0; c < kNT / 2; ++c) {
-    a[c][0] = pack_bf16(p[2 * c][0], p[2 * c][1]);
-    a[c][1] = pack_bf16(p[2 * c][2], p[2 * c][3]);
-    a[c][2] = pack_bf16(p[2 * c + 1][0], p[2 * c + 1][1]);
-    a[c][3] = pack_bf16(p[2 * c + 1][2], p[2 * c + 1][3]);
-  }
-#pragma unroll
-  for (int c = 0; c < kNT / 2; ++c) {
-#pragma unroll
-    for (int n = 0; n < D / 8; ++n) {
-      const uint16_t* vb = v16 + (16 * c + 2 * t) * S + 8 * n + g;
-      const uint32_t b[2] = {vb[0] | (uint32_t)vb[S] << 16,
-                             vb[8 * S] | (uint32_t)vb[9 * S] << 16};
-      mma_bf16(o[n], a[c], b);
-    }
-  }
-}
-
-template <int D, typename T>
 __global__ void __launch_bounds__(kThreads)
-flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                       const T* __restrict__ v, T* __restrict__ out,
+flash_attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                       const float* __restrict__ v, float* __restrict__ out,
                        float* __restrict__ lse, int hq,
                        int hkv, int lq, int lk, int causal, int window,
                        float scale) {
-  constexpr int S = row_stride<T>(D);
-  constexpr int kVec = 16 / (int)sizeof(T);           // elements a 16-byte copy
+  constexpr int S = row_stride(D);
+  constexpr int kVec = 4;                             // elements a 16-byte copy
   constexpr int kChunks = D / kVec;                   // 16-byte copies a row
   extern __shared__ float4 smem4[];
-  T* qs = reinterpret_cast<T*>(smem4);                // [kBlockM][S]
-  T* kvs = qs + kBlockM * S;                          // [kStages][K, V][kBlockN][S]
+  float* qs = reinterpret_cast<float*>(smem4);        // [kBlockM][S]
+  float* kvs = qs + kBlockM * S;                      // [kStages][K, V][kBlockN][S]
 
   const int tid = threadIdx.x, lane = tid & 31;
   const int slice = (tid >> 5) & 3, half = tid >> 7;   // the warp's rows and keys
@@ -347,8 +269,8 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   auto load_tile = [&](int it) {
     const int t0 = kbeg + it * kBlockN;
-    T* ks = kvs + (it % kStages) * 2 * kBlockN * S;
-    T* vs = ks + kBlockN * S;
+    float* ks = kvs + (it % kStages) * 2 * kBlockN * S;
+    float* vs = ks + kBlockN * S;
     for (int i = tid; i < kBlockN * kChunks; i += kThreads) {
       const int j = i / kChunks, c = (i % kChunks) * kVec;
       const bool ok = t0 + j < kend;
@@ -377,9 +299,9 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const bool live = warp_live && t0 < kend && (!causal || t0 <= wpos_hi) &&
                       (window <= 0 || t0 + kHalfN - 1 > wpos_lo - window);
     if (live) {
-      const T* ks = kvs + (it % kStages) * 2 * kBlockN * S + kHalfN * half * S;
+      const float* ks = kvs + (it % kStages) * 2 * kBlockN * S + kHalfN * half * S;
       float s[kNT][4];
-      scores<D>(qs + 16 * slice * S, ks, s, g, t, scale);
+      scores<D>(qs + 16 * slice * S, ks, s, g, t);
 
       float mx[2] = {-INFINITY, -INFINITY};
 #pragma unroll
@@ -450,7 +372,7 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     a2[h] = expf(m2[h] - m_new[h]);
     denom[h] = fmaxf(l[h] * a[h] + l2[h] * a2[h], 1e-30f);
   }
-  T* dst[2];
+  float* dst[2];
   bool ok[2];
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
@@ -473,54 +395,53 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
 // Raise the instance's dynamic shared memory limit, once, so that no launch
 // inside a CUDA-graph capture sets it.
-template <int D, typename T>
+template <int D>
 cudaError_t prepare() {
-  constexpr size_t smem = smem_bytes<D, T>();
+  constexpr size_t smem = smem_bytes<D>();
   if (smem <= 48 * 1024) return cudaSuccess;
   static const cudaError_t err = cudaFuncSetAttribute(
-      flash_attention_kernel<D, T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      flash_attention_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   return err;
 }
 
 // One instance's registers and local bytes a thread, shared bytes a block
 // (static and dynamic), threads a block and blocks an SM.
-template <int D, typename T>
+template <int D>
 int resources(int* out) {
   constexpr int threads = kThreads;
   cudaFuncAttributes a;
   int blocks = 0;
-  cudaError_t err = prepare<D, T>();
-  if (err == cudaSuccess) err = cudaFuncGetAttributes(&a, flash_attention_kernel<D, T>);
+  cudaError_t err = prepare<D>();
+  if (err == cudaSuccess) err = cudaFuncGetAttributes(&a, flash_attention_kernel<D>);
   if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, flash_attention_kernel<D, T>, threads,
-                                                        smem_bytes<D, T>());
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, flash_attention_kernel<D>, threads,
+                                                        smem_bytes<D>());
   if (err != cudaSuccess) return (int)err;
   out[0] = a.numRegs;
   out[1] = (int)a.localSizeBytes;
-  out[2] = (int)(a.sharedSizeBytes + smem_bytes<D, T>());
+  out[2] = (int)(a.sharedSizeBytes + smem_bytes<D>());
   out[3] = threads;
   out[4] = blocks;
   return (int)cudaSuccess;
 }
 
-template <int D, typename T>
+template <int D>
 int launch(const void* q, const void* k, const void* v, void* out, void* lse, int64_t b,
            int64_t hq, int64_t hkv, int64_t lq, int64_t lk, int64_t causal,
            int64_t window, double scale, void* stream) {
-  constexpr size_t smem = smem_bytes<D, T>();
-  auto kernel = flash_attention_kernel<D, T>;
-  const cudaError_t err = prepare<D, T>();
+  constexpr size_t smem = smem_bytes<D>();
+  auto kernel = flash_attention_kernel<D>;
+  const cudaError_t err = prepare<D>();
   if (err != cudaSuccess) return (int)err;
   const int64_t rows = lq * (hq / hkv);
   const dim3 grid((unsigned)((rows + kBlockM - 1) / kBlockM * hkv * b));
   kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(out), static_cast<float*>(lse), (int)hq, (int)hkv, (int)lq,
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(out), static_cast<float*>(lse), (int)hq, (int)hkv, (int)lq,
       (int)lk, (int)causal, (int)window, (float)(scale > 0.0 ? scale : 1.0 / sqrt((double)D)));
   return (int)cudaGetLastError();
 }
 
-template <typename T>
 int dispatch(const void* q, const void* k, const void* v, void* out, void* lse, int64_t b,
              int64_t hq, int64_t hkv, int64_t lq, int64_t lk, int64_t d,
              int64_t causal, int64_t window, double scale, void* stream) {
@@ -530,16 +451,16 @@ int dispatch(const void* q, const void* k, const void* v, void* out, void* lse, 
     return (int)cudaErrorInvalidValue;
   switch (d) {
     case 32:
-      return launch<32, T>(q, k, v, out, lse, b, hq, hkv, lq, lk, causal, window, scale,
+      return launch<32>(q, k, v, out, lse, b, hq, hkv, lq, lk, causal, window, scale,
                             stream);
     case 64:
-      return launch<64, T>(q, k, v, out, lse, b, hq, hkv, lq, lk, causal, window, scale,
+      return launch<64>(q, k, v, out, lse, b, hq, hkv, lq, lk, causal, window, scale,
                             stream);
     case 128:
-      return launch<128, T>(q, k, v, out, lse, b, hq, hkv, lq, lk, causal, window, scale,
+      return launch<128>(q, k, v, out, lse, b, hq, hkv, lq, lk, causal, window, scale,
                             stream);
     case 256:
-      return launch<256, T>(q, k, v, out, lse, b, hq, hkv, lq, lk, causal, window, scale,
+      return launch<256>(q, k, v, out, lse, b, hq, hkv, lq, lk, causal, window, scale,
                             stream);
     default: return (int)cudaErrorInvalidValue;
   }
@@ -552,25 +473,16 @@ extern "C" int flash_attention_f32(const void* q, const void* k, const void* v,
                                    void* out, void* lse, int64_t b, int64_t hq, int64_t hkv,
                                    int64_t lq, int64_t lk, int64_t d, int64_t causal,
                                    int64_t window, double scale, void* stream) {
-  return dispatch<float>(q, k, v, out, lse, b, hq, hkv, lq, lk, d, causal, window, scale,
-                         stream);
-}
-
-extern "C" int flash_attention_bf16(const void* q, const void* k, const void* v,
-                                    void* out, void* lse, int64_t b, int64_t hq, int64_t hkv,
-                                    int64_t lq, int64_t lk, int64_t d, int64_t causal,
-                                    int64_t window, double scale, void* stream) {
-  return dispatch<__nv_bfloat16>(q, k, v, out, lse, b, hq, hkv, lq, lk, d, causal, window,
-                                 scale, stream);
+  return dispatch(q, k, v, out, lse, b, hq, hkv, lq, lk, d, causal, window, scale, stream);
 }
 
 // For reports: out[5] = registers, local bytes, shared bytes, threads, blocks an SM.
-extern "C" int flash_attention_resources(int64_t d, int64_t bf16, int* out) {
+extern "C" int flash_attention_resources(int64_t d, int* out) {
   switch (d) {
-    case 32: return bf16 ? resources<32, __nv_bfloat16>(out) : resources<32, float>(out);
-    case 64: return bf16 ? resources<64, __nv_bfloat16>(out) : resources<64, float>(out);
-    case 128: return bf16 ? resources<128, __nv_bfloat16>(out) : resources<128, float>(out);
-    case 256: return bf16 ? resources<256, __nv_bfloat16>(out) : resources<256, float>(out);
+    case 32: return resources<32>(out);
+    case 64: return resources<64>(out);
+    case 128: return resources<128>(out);
+    case 256: return resources<256>(out);
     default: return (int)cudaErrorInvalidValue;
   }
 }

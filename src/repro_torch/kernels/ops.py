@@ -41,6 +41,12 @@ KERNELS = {
     # differentiates its jnp attention, models/attention.py:155-166)
     "flash_attention_bwd": ("cuda", "src/repro_torch/csrc/flash_attention_bwd.cu",
                             "src/repro/models/attention.py:155"),
+    # row 7 and its gradient in bf16, on Hopper's warpgroup products: one
+    # design a dtype, so the bf16 instances are kernels of their own
+    "flash_attention_bf16": ("cuda", "src/repro_torch/csrc/flash_attention_bf16.cu",
+                             "src/repro/kernels/flash_attention.py:79"),
+    "flash_attention_bwd_bf16": ("cuda", "src/repro_torch/csrc/flash_attention_bwd_bf16.cu",
+                                 "src/repro/models/attention.py:155"),
     "rwkv6_scan": ("cuda", "src/repro_torch/csrc/rwkv6_scan.cu",
                    "src/repro/kernels/rwkv6_scan.py:51"),
     "mamba_scan": ("cuda", "src/repro_torch/csrc/mamba_scan.cu",
@@ -55,10 +61,11 @@ KERNELS = {
 
 # the ``__global__`` functions of a kernel whose symbols are not the one
 # ``<name>_kernel``: the quantizer's vectorised and any-width kernels, the
-# backward's delta, dK/dV, head-sum and dQ kernels, the selective scan's walk back
+# attention backwards' delta, dK/dV, head-sum and dQ kernels, the selective scan's walk back
 # and its sum of the blocks' partials
 _SYMBOLS = {"quantize_int8": r"quantize_int8_(?:vec|any)",
             "flash_attention_bwd": r"flash_attention_bwd_(?:delta|dkdv|sum|dq)_kernel",
+            "flash_attention_bwd_bf16": r"flash_attention_bwd_bf16_(?:delta|dkdv|sum|dq)_kernel",
             "mamba_scan_bwd": r"mamba_scan_bwd_(?:reduce_)?kernel"}
 
 
@@ -75,8 +82,9 @@ FL_KERNELS = ("fedagg", "quantize_int8", "dequantize_int8", "fedagg_dequant",
 
 
 # the token models' kernels and their gradients
-TOKEN_KERNELS = ("flash_attention", "flash_attention_bwd", "rwkv6_scan", "rwkv6_scan_bwd",
-                 "mamba_scan", "mamba_scan_bwd")
+TOKEN_KERNELS = ("flash_attention", "flash_attention_bwd", "flash_attention_bf16",
+                 "flash_attention_bwd_bf16", "rwkv6_scan", "rwkv6_scan_bwd", "mamba_scan",
+                 "mamba_scan_bwd")
 
 
 def job_kernels(kind: str) -> tuple:
@@ -89,7 +97,8 @@ def check_backward_instances(cfg, dtype: torch.dtype = torch.float32) -> None:
     """Raise :class:`~repro_torch.NotPorted`, naming the backward kernel's
     seam, where training the token model ``cfg`` on the card needs a
     backward instance the port lacks: attention at the model's head dim in
-    ``dtype`` (the weights'; MLA at the instance its prefill is padded to,
+    ``dtype`` (the weights'; MLA at its own q/k and v head dims where the
+    dtype has that instance, else at the one its prefill is padded to,
     ``padded_head_dim`` of its wider head dim: ``resolved_head_dim`` is
     its v head dim),
     the WKV-6 scan at its head dim and the selective scan at its
@@ -99,8 +108,11 @@ def check_backward_instances(cfg, dtype: torch.dtype = torch.float32) -> None:
     if "attn" in mixers:
         _fa.check_bwd_instance(dtype, cfg.resolved_head_dim)
     if "mla" in mixers:
-        width = max(cfg.mla.qk_head_dim, cfg.mla.v_head_dim)
-        _fa.check_bwd_instance(dtype, _fa.padded_head_dim(width))
+        dqk, dv = cfg.mla.qk_head_dim, cfg.mla.v_head_dim
+        if _fa.native_instance(dtype, dqk, dv):
+            _fa.check_bwd_instance(dtype, dqk, dv)
+        else:
+            _fa.check_bwd_instance(dtype, _fa.padded_head_dim(max(dqk, dv)))
     if "rwkv6" in mixers:
         _rwkv6.check_bwd_instance(torch.float32, cfg.rwkv.head_dim)
     if "mamba" in mixers:

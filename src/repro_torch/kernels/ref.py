@@ -228,8 +228,8 @@ def flash_attention_bwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     dk = torch.einsum("bhqk,bhqd->bhkd", ds, q.float()) * scale
     dv = torch.einsum("bhqk,bhqd->bhkd", p, g)
     group = hq // hkv
-    dk = dk.reshape(b, hkv, group, lk, d).sum(2)
-    dv = dv.reshape(b, hkv, group, lk, d).sum(2)
+    dk = dk.reshape(b, hkv, group, lk, k.shape[3]).sum(2)
+    dv = dv.reshape(b, hkv, group, lk, v.shape[3]).sum(2)
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 

@@ -35,8 +35,9 @@ from repro_torch.kernels.ops import KERNELS, symbol_pattern
 
 TOKEN_TASK = dict(kind="tokens", arch="smollm-135m", reduced=False, seq=2048, batch=4, sites=4)
 GROUPS = [  # (group, regex over the kernel name), first match wins
-    ("attention_bwd", symbol_pattern("flash_attention_bwd")),
-    ("attention", symbol_pattern("flash_attention")),
+    ("attention_bwd", f"{symbol_pattern('flash_attention_bwd')}|"
+                      f"{symbol_pattern('flash_attention_bwd_bf16')}"),
+    ("attention", f"{symbol_pattern('flash_attention')}|{symbol_pattern('flash_attention_bf16')}"),
     ("int8_codec", r"quantize_int8|fedagg_dequant|dequant_install"),
     ("robust", r"trimmed_mean"),
     ("fedagg", r"fedagg"),

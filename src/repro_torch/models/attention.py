@@ -31,7 +31,8 @@ from typing import Optional
 import torch
 
 from repro_torch.configs.base import MLAConfig, ModelConfig
-from repro_torch.kernels.flash_attention import flash_attention, padded_head_dim
+from repro_torch.kernels.flash_attention import (flash_attention, native_instance,
+                                                 padded_head_dim)
 from repro_torch.models.layers import apply_rope, dense_init, l2norm, rmsnorm_apply
 
 NEG_INF = -1e30
@@ -183,9 +184,15 @@ def _padded_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                       m: MLAConfig) -> torch.Tensor:
     """Causal attention of q/k ``[B, L, H, qk_head_dim]`` and v ``[B, L, H,
     v_head_dim]`` at scale ``qk_head_dim ** -0.5`` through the flash
-    kernel's ``padded_head_dim`` instance: zero columns add nothing to a
-    score and come out of v as zeros; the scale is the kernel's argument,
-    applied to the fp32 scores, so a bf16 q is not rounded again."""
+    kernels: unpadded where the dtype has an instance at these head dims
+    (bf16 at DeepSeek-V2's (192, 128)), else through the
+    ``padded_head_dim`` instance: zero columns add nothing to a score and
+    come out of v as zeros.  The scale is the kernel's argument, applied to
+    the fp32 scores, so a bf16 q is not rounded again."""
+    if native_instance(q.dtype, m.qk_head_dim, m.v_head_dim):
+        out = flash_attention(_heads_first(q), _heads_first(k), _heads_first(v), causal=True,
+                              scale=m.qk_head_dim ** -0.5)
+        return out.transpose(1, 2)                       # [B, L, H, v_head_dim]
     d = padded_head_dim(max(m.qk_head_dim, m.v_head_dim))
 
     def pad(t):

@@ -25,9 +25,11 @@
   architectures do; a token job on the card whose model needs a missing
   instance (gemma3-1b's config at head dim 96) is refused by it, before
   any kernel is built or batch drawn; the same job on the CPU is accepted.
-- The backward's C interface: its instances (fp32 and bf16, head dims
-  32/64/128/256) and argument lists against ``csrc/flash_attention_bwd.cu``;
-  what it has no instance of raises ``NotPorted`` naming it.
+- The kernels' C interfaces: their instances (fp32 at head dims
+  32/64/128/256 in ``csrc/flash_attention{,_bwd}.cu``, bf16 at
+  ``BF16_INSTANCES``, MLA's (192, 128) among them, in
+  ``csrc/flash_attention{,_bwd}_bf16.cu``) and argument lists; what they
+  have no instance of raises ``NotPorted`` naming the backward.
 
 Tolerances: fp32 sums in another order than autograd's or XLA's einsums
 (and the blockwise scan's rescaling): rtol=atol=2e-5 on unit-scale
@@ -234,8 +236,8 @@ def test_the_scans_refuse_a_gradient_on_the_card_only():
                         (fa.check_bwd_instance, (32, 64, 128, 256))):
         for dim in dims:
             check(torch.float32, dim)
-    for dim in (32, 64, 128, 256):                  # the attention backward's bf16 instance
-        fa.check_bwd_instance(torch.bfloat16, dim)
+    for dim, vdim in fa.BF16_INSTANCES:             # the bf16 attention backward's instances
+        fa.check_bwd_instance(torch.bfloat16, dim, vdim)
     # on the CPU the plain versions train, at instances the card lacks too
     rng = np.random.default_rng(2)
     for d, dtype in ((32, torch.float32), (128, torch.float32), (32, torch.bfloat16)):
@@ -329,14 +331,24 @@ def test_symbol_patterns_match_the_sources():
 def test_c_interfaces_and_instances():
     assert ops.KERNELS["flash_attention_bwd"][1] == "src/repro_torch/csrc/flash_attention_bwd.cu"
     assert (ROOT / ops.KERNELS["flash_attention_bwd"][1]).is_file()
+    assert ops.KERNELS["flash_attention_bwd_bf16"][1] == \
+        "src/repro_torch/csrc/flash_attention_bwd_bf16.cu"
     assert _c_params("flash_attention.cu", "flash_attention_f32") == len(fa._ARGS)
-    assert _c_params("flash_attention.cu", "flash_attention_bf16") == len(fa._ARGS)
+    assert _c_params("flash_attention_bf16.cu", "flash_attention_bf16") == len(fa._BF16_ARGS)
     assert _c_params("flash_attention_bwd.cu", "flash_attention_bwd_f32") == len(fa._BWD_ARGS)
-    assert _c_params("flash_attention_bwd.cu", "flash_attention_bwd_bf16") == len(fa._BWD_ARGS)
-    text = (ROOT / "src" / "repro_torch" / "csrc" / "flash_attention_bwd.cu").read_text()
-    entry = text[text.index("int entry("):]          # both entries' dispatch by head dim
+    assert _c_params("flash_attention_bwd_bf16.cu", "flash_attention_bwd_bf16") \
+        == len(fa._BF16_BWD_ARGS)
+    csrc = ROOT / "src" / "repro_torch" / "csrc"
+    text = (csrc / "flash_attention_bwd.cu").read_text()
+    entry = text[text.index("int entry("):]          # the fp32 entry's dispatch by head dim
     assert tuple(int(d) for d in re.findall(r"case (\d+): return launch<", entry)) \
         == fa.BWD_HEAD_DIMS
+    assert "bf16" not in (csrc / "flash_attention.cu").read_text().split("#include")[1]
+    for source, macro in (("flash_attention_bf16.cu", "FA_BF16"),
+                          ("flash_attention_bwd_bf16.cu", "FA_BWD_BF16")):
+        text = (csrc / source).read_text()            # the bf16 entries' (q/k, v) instances
+        assert tuple((int(a), int(b)) for a, b in re.findall(
+            rf"^  {macro}\((\d+), (\d+)\)$", text, re.M)) == fa.BF16_INSTANCES
     lse = torch.zeros(1, 2, 4)
     for d in (64, 256):                                 # 256: gemma3-1b's
         q, kv = torch.zeros(1, 2, 4, d), torch.zeros(1, 1, 4, d)
@@ -347,3 +359,11 @@ def test_c_interfaces_and_instances():
     q, kv = torch.zeros(1, 2, 4, 96), torch.zeros(1, 1, 4, 96)
     with pytest.raises(NotPorted, match="head dim 96"):
         fa.flash_attention_bwd_cuda(q, kv, kv, q, lse, q, True, None)
+    # MLA's (192, 128): an instance in bf16 only (fp32 pads to 256)
+    q, k, v = torch.zeros(1, 2, 4, 192), torch.zeros(1, 1, 4, 192), torch.zeros(1, 1, 4, 128)
+    o = torch.zeros(1, 2, 4, 128)
+    with pytest.raises(ValueError, match="on CUDA"):
+        fa.flash_attention_bwd_cuda(*(t.bfloat16() for t in (q, k, v, o)), lse, o.bfloat16(),
+                                    True, None)
+    with pytest.raises(NotPorted, match=r"head dim 192 \(v 128\)"):
+        fa.flash_attention_bwd_cuda(q, k, v, o, lse, o, True, None)

@@ -23,7 +23,7 @@ products as three TF32 products on the tensor cores, against one fp32
 softmax over up to 1024 keys), bf16 2e-2; its backward (fp32, D <=
 128) rtol 1e-5 and atol 1e-5 of the plain backward's largest value
 (sums of up to G * Lq products in another order), bit-equal across two
-launches, its bf16 instance within 2^-7 of the plain backward's largest
+launches, its bf16 kernel (``flash_attention_bwd_bf16``) within 2^-7 of the plain backward's largest
 value (at least 1) on the same bf16 inputs (one bf16 rounding of each
 gradient); the scans (out or y,
 and the final state) rtol 1e-5 and atol 1e-5 of the plain version's
@@ -289,10 +289,11 @@ def test_flash_attention_kernel_matches_plain_on_card(cuda_device, case, dtype):
     q = torch.randn(b, hq, lq, d, device=cuda_device, generator=gen).to(dtype)
     k, v = (torch.randn(b, hkv, lk, d, device=cuda_device, generator=gen).to(dtype)
             for _ in range(2))
-    before = build.LAUNCHES.get("flash_attention", 0)
+    name = "flash_attention_bf16" if dtype == torch.bfloat16 else "flash_attention"
+    before = build.LAUNCHES.get(name, 0)
     out = ops.flash_attention(q, k, v, causal=causal, window=window)
     torch.cuda.synchronize()
-    assert build.LAUNCHES["flash_attention"] == before + 1
+    assert build.LAUNCHES[name] == before + 1
     assert out.dtype == dtype and out.shape == q.shape
     want = ref.flash_attention_ref(q, k, v, causal, window)
     torch.testing.assert_close(out.float(), want.float(), **FLASH_TOL[dtype])
@@ -333,7 +334,7 @@ def test_flash_attention_backward_kernel_matches_plain_on_card(cuda_device, case
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", FLASH_SHAPES, ids=lambda c: "-".join(map(str, c)))
 def test_flash_attention_bf16_backward_kernel_matches_plain_on_card(cuda_device, case):
-    """The backward's bf16 instance: launched once a gradient, bit-equal
+    """The bf16 backward kernel: launched once a gradient, bit-equal
     across two launches, and within one bf16 ulp of the largest value
     (2^-7 of it, or of 1 where that is smaller) of the plain backward on
     the same bf16 inputs, output and lse (the same fp32 arithmetic in
@@ -345,11 +346,11 @@ def test_flash_attention_bf16_backward_kernel_matches_plain_on_card(cuda_device,
             .requires_grad_() for _ in range(2))
     g = torch.randn(b, hq, lq, d, device=cuda_device, generator=gen).bfloat16()
     out = ops.flash_attention(q, k, v, causal=causal, window=window)
-    before = build.LAUNCHES.get("flash_attention_bwd", 0)
+    before = build.LAUNCHES.get("flash_attention_bwd_bf16", 0)
     got = torch.autograd.grad(out, (q, k, v), g, retain_graph=True)
     again = torch.autograd.grad(out, (q, k, v), g)
     torch.cuda.synchronize()
-    assert build.LAUNCHES["flash_attention_bwd"] == before + 2
+    assert build.LAUNCHES["flash_attention_bwd_bf16"] == before + 2
     assert all(a.dtype == torch.bfloat16 and torch.equal(a, b) for a, b in zip(got, again))
     lse = ref.flash_attention_lse_ref(q.detach(), k.detach(), v.detach(), causal, window)[1]
     want = ref.flash_attention_bwd_ref(q.detach(), k.detach(), v.detach(), out.detach(), lse,

@@ -12,6 +12,11 @@ through both:
   kernel's D 32 instance at the kernel's scale argument ``24 ** -0.5``) against the
   port's unpadded ``sdpa`` at scale ``24 ** -0.5``, forward and gradient,
   and at the full width's (192, 128) -> 256;
+- in bf16 the route sends MLA's own (192, 128) head dims to the bf16
+  kernels' instance unpadded: the plain versions there against the padded
+  route's in fp32 on the same bf16-valued inputs (1e-6 relative), and a
+  bf16 attention step (output and vjp) against ``jax.vjp`` of the
+  reference's bf16 ``sdpa``;
 - the MLA backward instance ``check_backward_instances`` asks for, and a
   full-width deepseek token job accepted on the card from its config;
 - one reduced deepseek FedAvg token job (2 sites, 2 rounds, seq 16)
@@ -30,6 +35,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 jax = pytest.importorskip("jax")
+jnp = jax.numpy
 
 from _torch_jax_helpers import hold_job_to_jax  # noqa: E402
 
@@ -41,7 +47,8 @@ from repro_torch import NotPorted, convert  # noqa: E402
 from repro_torch.api import FederatedJob, TaskConfig  # noqa: E402
 from repro_torch.configs.base import MLAConfig  # noqa: E402
 from repro_torch.configs.registry import get_arch  # noqa: E402
-from repro_torch.kernels import ops  # noqa: E402
+from repro_torch.kernels import flash_attention as fa  # noqa: E402
+from repro_torch.kernels import ops, ref  # noqa: E402
 from repro_torch.kernels.flash_attention import padded_head_dim  # noqa: E402
 from repro_torch.models import attention as A  # noqa: E402
 
@@ -145,6 +152,78 @@ def test_the_padded_route_is_the_unpadded_attention(mla, heads, length):
         torch.testing.assert_close(a, w, **ROUTE_TOL, msg=f"d{name}")
 
 
+def test_the_unpadded_plain_versions_are_the_padded_route():
+    """The plain versions at MLA's own head dims (q/k 192, v 128: the bf16
+    kernels' instance) against the padded route's (the D 256 instance) on
+    the same bf16-valued inputs, in fp32 (the arithmetic both round from):
+    output, lse and the three gradients within 1e-6 relative."""
+    gen = torch.Generator().manual_seed(31)
+    b, h, l, scale = 1, 2, 40, 192 ** -0.5
+
+    def draw(d):
+        return torch.randn(b, h, l, d, generator=gen).bfloat16().float()
+    q, k, v, g = draw(192), draw(192), draw(128), draw(128)
+
+    def pad(t):
+        return torch.nn.functional.pad(t, (0, 256 - t.shape[-1]))
+
+    def close(got, want, what):
+        torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-6 * float(want.abs().max()),
+                                   msg=lambda m: f"{what}: {m}")
+    out, lse = ref.flash_attention_lse_ref(q, k, v, True, None, scale)
+    pout, plse = ref.flash_attention_lse_ref(pad(q), pad(k), pad(v), True, None, scale)
+    close(out, pout[..., :128], "out")
+    close(lse, plse, "lse")
+    got = ref.flash_attention_bwd_ref(q, k, v, out, lse, g, True, None, scale)
+    want = ref.flash_attention_bwd_ref(pad(q), pad(k), pad(v), pout, plse, pad(g), True, None,
+                                       scale)
+    for name, a, w, n in zip(("dq", "dk", "dv"), got, want, (192, 192, 128)):
+        assert a.shape[-1] == n
+        close(a, w[..., :n], name)
+
+
+def test_a_bf16_mla_step_takes_the_unpadded_route_and_matches_jax(monkeypatch):
+    """bf16 q, k, v at DeepSeek-V2's head dims through ``_padded_attention``
+    take the bf16 kernels' own instance, unpadded (on the CPU its plain
+    version), and the output and its vjp (dq, dk, dv) match ``jax.vjp``
+    of the reference's bf16 ``sdpa`` at scale 192^-0.5 under the gate
+    tests/test_torch_precision.py holds the plain bf16 attention to: the
+    output within two bf16 units (2^-7) of each value, each gradient within
+    two of its largest value (delta is taken from the bf16 output, as the
+    kernel takes it, where the reference's is exact in fp32)."""
+    mla = get_arch("deepseek-v2-236b").CONFIG.mla
+    assert fa.native_instance(torch.bfloat16, mla.qk_head_dim, mla.v_head_dim)
+    assert not fa.native_instance(torch.float32, mla.qk_head_dim, mla.v_head_dim)
+    rng = np.random.default_rng(31)
+    b, l, h = 1, 24, 2
+    qn, kn = (rng.standard_normal((b, l, h, mla.qk_head_dim)).astype(np.float32)
+              for _ in range(2))
+    vn, gn = (rng.standard_normal((b, l, h, mla.v_head_dim)).astype(np.float32)
+              for _ in range(2))
+    scale = mla.qk_head_dim ** -0.5
+    jq, jk, jv, jg = (jnp.asarray(x, dtype=jnp.bfloat16) for x in (qn, kn, vn, gn))
+
+    def fwd_bwd(q, k, v, g):                    # one compile, not one a primitive
+        out, pull = jax.vjp(lambda *a: JA.sdpa(*a, JA.causal_mask(l, l), scale=scale), q, k, v)
+        return (out, *pull(g))
+    want = jax.jit(fwd_bwd)(jq, jk, jv, jg)
+    q, k, v = (torch.from_numpy(x).bfloat16().requires_grad_() for x in (qn, kn, vn))
+    calls, real = [], A.flash_attention
+    monkeypatch.setattr(A, "flash_attention", lambda *a, **kw: calls.append(
+        tuple(t.shape for t in a)) or real(*a, **kw))
+    out = A._padded_attention(q, k, v, mla)
+    assert calls == [((b, h, l, 192), (b, h, l, 192), (b, h, l, 128))]     # unpadded
+    got = (out, *torch.autograd.grad(out, (q, k, v), torch.from_numpy(gn).bfloat16()))
+    for name, a, w in zip(("out", "dq", "dk", "dv"), got, want):
+        assert a.dtype == torch.bfloat16 and str(w.dtype) == "bfloat16", name
+        w = np.asarray(w.astype(jnp.float32))
+        a = a.detach().float().numpy()
+        if name == "out":
+            np.testing.assert_allclose(a, w, rtol=2.0 ** -7, atol=0)
+        else:
+            assert np.abs(a - w).max() <= 2.0 ** -7 * np.abs(w).max(), name
+
+
 def test_the_padded_width_and_its_backward_instance(monkeypatch):
     for cfg, d in ((get_arch("deepseek-v2-236b").CONFIG, 256),
                    (get_arch("deepseek-v2-236b").reduced(), 32)):
@@ -157,7 +236,7 @@ def test_the_padded_width_and_its_backward_instance(monkeypatch):
     full = get_arch("deepseek-v2-236b").CONFIG
     assert full.resolved_head_dim == 128          # the v head dim, as the reference's
     ops.check_backward_instances(full)            # asks for the fp32 D 256 instance
-    ops.check_backward_instances(full, torch.bfloat16)     # and the bf16 one (bf16_train)
+    ops.check_backward_instances(full, torch.bfloat16)     # and the bf16 (192, 128) one
     with pytest.raises(NotPorted) as err:
         ops.check_backward_instances(full, torch.float16)
     assert err.value.seam == "flash_attention_bwd" and "head dim 256" in str(err.value)
